@@ -1,0 +1,123 @@
+"""Direct "SAME" convolution, rank 2 or 3, with a bias + ReLU epilogue:
+kernels K4 and K6 (`csrc/conv.cu`).
+
+Replaces the Pallas 3D conv kernels (mvsnet_tpu/ops/pallas/conv3d.py,
+`_rowconv3d_fwd_impl` at conv3d.py:974: `_make_kernel`, `_make_kernel_dpack`,
+`_make_kernel_packed`, `_make_kernel_s2`, `_make_kernel_s2_split`) and the
+Pallas 2D conv kernels (mvsnet_tpu/ops/pallas/conv2d.py, `_rowconv2d_fwd_impl`
+at conv2d.py:871, :825, :774, and `_rowconv2d_s2_fwd_impl` at :578). It also
+serves the shapes the JAX package leaves to XLA: every conv of the path runs
+here. A 3x3x3 conv with 8 to 32 channels is bound by bytes on the H100's
+tensor cores; this first kernel runs on the CUDA cores, where operations
+bound it, with float32 sums in registers, 16-byte input reads and the
+weights staged in shared memory as float32 (see the source's comment).
+
+`conv` runs the kernel on CUDA tensors and `conv_plain` on CPU tensors; it
+never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+import torch.nn.functional as F
+
+from mvsnet_tpu_torch.ops.kernels import _lib
+
+# Launches of the CUDA kernel in this process.
+launches = 0
+
+_I = ctypes.c_int
+_P = ctypes.c_void_p
+_ARGTYPES = [_I, _I, _I, _I, _I, _P, _P, _P, _P] + [_I] * 16 + [_P]
+# (KD, KH, KW) extents the kernel is built for.
+_EXTENTS = {(3, 3, 3), (1, 3, 3), (1, 5, 5)}
+
+
+def same_pads(n: int, k: int, s: int):
+    """TF/XLA "SAME": output ceil(n/s), low pad total // 2, high the rest."""
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return total // 2, total - total // 2, out
+
+
+def out_channel_tile(cout: int) -> int:
+    """Output channels per thread: the largest of 8, 4, 2, 1 dividing Cout."""
+    return next(c for c in (8, 4, 2, 1) if cout % c == 0)
+
+
+def _check_args(x, kernel, bias, stride):
+    rank = x.ndim - 2
+    if rank not in (2, 3) or kernel.ndim != rank + 2:
+        raise ValueError(f"conv takes NHWC/NDHWC input with an HWIO/DHWIO "
+                         f"kernel, got {tuple(x.shape)} and {tuple(kernel.shape)}")
+    if kernel.shape[-2] != x.shape[-1]:
+        raise ValueError(f"kernel input channels {kernel.shape[-2]} != "
+                         f"input channels {x.shape[-1]}")
+    if bias is not None and tuple(bias.shape) != (kernel.shape[-1],):
+        raise ValueError(f"bias {tuple(bias.shape)} does not match "
+                         f"{kernel.shape[-1]} output channels")
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    return rank
+
+
+def conv_plain(x, kernel, bias=None, stride: int = 1, relu: bool = False):
+    """Plain PyTorch version: asymmetric SAME pads, then `F.conv{2,3}d`
+    with padding 0, in float32 on x's values and the kernel cast to x's
+    dtype; + bias, ReLU, cast to x's dtype."""
+    rank = _check_args(x, kernel, bias, stride)
+    ks = kernel.shape[:rank]
+    pads = [same_pads(n, k, stride)[:2] for n, k in zip(x.shape[1:-1], ks)]
+    flat_pads = [p for lo_hi in reversed(pads) for p in lo_hi]
+    xf = F.pad(x.to(torch.float32).movedim(-1, 1), flat_pads)
+    w = kernel.to(x.dtype).to(torch.float32).permute(rank + 1, rank, *range(rank))
+    y = (F.conv3d if rank == 3 else F.conv2d)(xf, w, stride=stride)
+    if bias is not None:
+        y = y + bias.to(torch.float32).reshape(1, -1, *([1] * rank))
+    if relu:
+        y = torch.relu(y)
+    return y.movedim(1, -1).to(x.dtype).contiguous()
+
+
+def conv(x, kernel, bias=None, stride: int = 1, relu: bool = False):
+    """SAME conv of x (B, [D,] H, W, Cin) with kernel ([KD,] KH, KW, Cin,
+    Cout), float32 sums; out = act(sum + bias) in x's dtype. The kernel is
+    cast to x's dtype; bias is float32 or None."""
+    global launches
+    if x.device.type == "cpu":
+        return conv_plain(x, kernel, bias, stride, relu)
+    rank = _check_args(x, kernel, bias, stride)
+    x = x.contiguous()
+    w = kernel.to(x.dtype).contiguous()
+    b = None if bias is None else bias.to(torch.float32).contiguous()
+    _lib.require_cuda(x, w, *([] if b is None else [b]))
+    if rank == 2:
+        x5 = x[:, None]
+        kd, kh, kw = (1, *w.shape[:2])
+        sd = 1
+    else:
+        x5 = x
+        kd, kh, kw = w.shape[:3]
+        sd = stride
+    if (kd, kh, kw) not in _EXTENTS:
+        raise ValueError(f"the conv kernel is built for extents {sorted(_EXTENTS)}, "
+                         f"got {(kd, kh, kw)}")
+    B, Di, Hi, Wi, Cin = x5.shape
+    Cout = w.shape[-1]
+    pd, _, Do = same_pads(Di, kd, sd)
+    ph, _, Ho = same_pads(Hi, kh, stride)
+    pw, _, Wo = same_pads(Wi, kw, stride)
+    if 4 * math.prod((kd, kh, kw, Cin)) * out_channel_tile(Cout) > 227 * 1024:
+        raise ValueError(f"weights of {Cin} input channels exceed the shared memory")
+    out = torch.empty((B, Do, Ho, Wo, Cout), dtype=x.dtype, device=x.device)
+    fn = _lib.launcher("conv", _ARGTYPES)
+    err = fn(_lib.dtype_code(x), kd, kh, kw, out_channel_tile(Cout), _lib.ptr(x5),
+             _lib.ptr(w), None if b is None else _lib.ptr(b), _lib.ptr(out),
+             B, Di, Hi, Wi, Cin, Do, Ho, Wo, Cout, sd, stride, stride, pd, ph, pw,
+             int(relu), _lib.stream_of(x))
+    _lib.check("conv", err)
+    launches += 1
+    return out[:, 0] if rank == 2 else out

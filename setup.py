@@ -6,7 +6,10 @@ setup(
     name="mvsnet_tpu",
     version="0.1.0",
     description="TPU-native multi-view stereo framework (MVSNet / R-MVSNet)",
-    packages=find_packages(include=["mvsnet_tpu", "mvsnet_tpu.*"]),
+    packages=find_packages(include=["mvsnet_tpu", "mvsnet_tpu.*",
+                                    "mvsnet_tpu_torch", "mvsnet_tpu_torch.*"]),
+    # the PyTorch/CUDA port builds its kernels from these sources at first use
+    package_data={"mvsnet_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
