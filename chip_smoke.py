@@ -9,19 +9,32 @@ Phases, each of which fails the script (non-zero exit, no result line):
   2. builds the CUDA kernels from `mvsnet_tpu_torch/csrc` with nvcc (sm_90a)
      and prints each kernel's registers, stack and spills;
   3. holds every kernel against its plain PyTorch version on the card at
-     the main path's shapes, in float32 and bfloat16, then times kernel,
+     the main paths' shapes, in float32 and bfloat16, then times kernel,
      plain version and the one PyTorch library call for the same function
      (CUDA events, after a warm-up) beside the least time the card could
      take (bytes at 3.35 TB/s, operations at 989 TFLOP/s bf16 or 67 TFLOP/s
-     float32, whichever is larger);
-  4. the main path: `Predictor` at 1152x864, D=192, 3 views, "normal",
+     float32, whichever is larger): the forward kernels at the inference
+     point, the backward kernels (warp, transposed warp, weight gradient,
+     the 5x5 transposed conv) at the training point;
+  4. inference: `Predictor` at 1152x864, D=192, 3 views, "normal",
      bfloat16, seeded weights, answers 3 requests; launch counts per
      request are asserted (cost volume 1, conv 36, deconv 7), then one more
-     request is timed stage by stage;
-  5. end to end at 320x256, D=32, "normal", float32: the card's kernel path
-     against the CPU's plain path with the same weights and inputs.
-The last lines are the kernels' JSON record, the card's name and power
-limit, and {"ok": true, "device": {...}}.
+     request is timed stage by stage and one is profiled;
+  5. inference end to end at 320x256, D=32, "normal", float32: the card's
+     kernel path against the CPU's plain path with the same weights and
+     inputs;
+  6. training: `make_train_step` at 640x480, D=192, 3 views, "normal",
+     bfloat16 with float32 parameters, RMSprop, power + gradient loss,
+     seeded weights and a synthetic scene, takes 3 steps; launch counts per
+     step are asserted against counts derived from the model, losses and
+     gradients must be finite; then one step is timed stage by stage
+     (forward, backward, optimizer) and one is profiled;
+  7. one float32 train step at 128x128, D=16, "normal", norms perturbed
+     from the identity: the card's kernels against the CPU's plain path
+     (loss, every gradient, the batch-norm running statistics).
+The last lines are the kernels' JSON record (launches from the training
+run of phase 6), the card's name and power limit, and {"ok": true,
+"device": {...}}.
 """
 
 import json
@@ -42,7 +55,22 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # order through ~45 layers and a softmax over 32 planes
 E2E_DEPTH_ATOL = 0.05          # depth units; the plane interval is 15
 E2E_PROB_ATOL = 1e-3
-EXPECTED_LAUNCHES = {"cost_volume": 1, "conv": 36, "deconv": 7}
+EXPECTED_LAUNCHES = {"cost_volume": 1, "conv": 36, "deconv": 7, "warp": 0,
+                     "warp_transpose": 0, "wgrad": 0}
+# one float32 train step at 128x128, D=16, card kernels vs the CPU's plain
+# path. The forward is well conditioned: loss and batch-norm statistics to
+# 1e-4. The gradients are not: with every kernel swapped for its plain
+# version, the same PyTorch step on the card and on the CPU differs by
+# 6.2e-3 in the norm of all gradients and by 2.5e-2 of the worst leaf's
+# largest entry (on the CPU alone, float64 convs or a 1e-7 jiggle of the
+# homographies move them by up to 3e-3), while two runs on the card agree
+# to 2e-6. So gradients are held to 2e-2 in the global norm and to 1e-1
+# of each leaf's largest entry; a wrong kernel moves the leaves it feeds
+# by order 1.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_GLOBAL_TOL = 2e-2   # ||g_card - g_cpu|| / ||g_cpu|| over all leaves
+TRAIN_GRAD_TOL = 1e-1          # of each gradient leaf's largest entry
+TRAIN_STATS_TOL = 1e-4         # of max(1, each statistic's largest entry)
 
 
 def smi_line() -> str:
@@ -128,6 +156,88 @@ def valid_taps(n, k, s, lo, out):
     return sum(sum(1 for t in range(k) if 0 <= o * s - lo + t < n) for o in range(out))
 
 
+def train_scene(H, W, D, seed):
+    """A synthetic training batch as bench.py:186-198 makes it: seeded
+    images and cams (`scene`) and a ground-truth depth map, uniform over
+    the first 191 planes, at the cost-volume resolution."""
+    images, cams = scene(1, 3, H, W, D, seed)
+    rng = np.random.default_rng(seed + 100)
+    start, interval = float(cams[0, 0, 1, 3, 0]), float(cams[0, 0, 1, 3, 1])
+    gt = rng.uniform(start, start + 190 * interval, (1, H // 4, W // 4, 1)).astype(np.float32)
+    return images, cams, gt, gt
+
+
+def expected_train_launches(model, cfg, h, w):
+    """Kernel launches of one train step (B = 1), derived from the model:
+    every conv and transposed conv runs forward once and has one weight
+    gradient; every conv but the two on the images (2dconv1_0 and 2dconv0_1
+    take the images, which need no gradient) has an input gradient, on the
+    conv kernel at stride 1 and on the transposed-conv kernel at stride 2;
+    every transposed conv's input gradient is a stride-2 conv; the cost
+    volume runs K1 forward, and K2 and K3 once per source view and depth
+    chunk backward."""
+    from mvsnet_tpu_torch.models.layers import Conv, Deconv
+    from mvsnet_tpu_torch.ops.cost_volume import ACC_LIMIT_BYTES
+
+    fn = model.feature_net._modules
+    image_convs = {fn["2dconv1_0"].conv, fn["2dconv0_1"].conv}
+    convs = [m for m in model.modules() if isinstance(m, Conv)]
+    deconvs = [m for m in model.modules() if isinstance(m, Deconv)]
+    dx_s1 = sum(1 for c in convs if c.stride == 1 and c not in image_convs)
+    dx_s2 = sum(1 for c in convs if c.stride == 2 and c not in image_convs)
+    V, C = cfg.view_num, cfg.feature_channels
+    chunks = max(1, -(-(V * cfg.max_d * h * w * C * 4) // ACC_LIMIT_BYTES))
+    return {"cost_volume": 1, "conv": len(convs) + dx_s1 + len(deconvs),
+            "deconv": len(deconvs) + dx_s2, "warp": (V - 1) * chunks,
+            "warp_transpose": (V - 1) * chunks, "wgrad": len(convs) + len(deconvs)}
+
+
+def perturb_norms(model, seed):
+    """Non-identity norm parameters and running statistics, as a trained
+    model has them. With the identity init, some gradient leaves are sums
+    of terms that nearly cancel: in the float32 step of phase 7, computing
+    only the convs in float64 moves them by up to 4 % of their largest
+    entry, against under 1e-4 with these norms (CPU runs of the plain
+    path)."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+            if name.endswith(("scale", "var")):
+                t.copy_(0.5 + torch.rand(t.shape, generator=g))
+            elif name.endswith((".gn.bias", ".bn.bias", "mean")):
+                t.copy_(0.2 * torch.randn(t.shape, generator=g))
+
+
+def profile_device(fn):
+    """Wall ms, device-busy ms and the top kernels of one call of fn under
+    torch.profiler; busy is None when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device kernels and copies; a user annotation (the optimizer's
+    # "Optimizer.step#..." range) spans kernels already counted
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.device_time_total for e in dev_events) / 1e3
+    top = sorted(dev_events, key=lambda e: -e.device_time_total)[:14]
+    return wall_ms, (busy_ms if busy_ms > 0 else None), top
+
+
+def print_profile(what, wall_ms, busy_ms, top):
+    if busy_ms is None:
+        print(f"  profiled {what}: the profiler saw no device time (not measured)")
+        return
+    print(f"  profiled {what}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
+          f"idle share {1 - busy_ms / wall_ms:.3f}; top device time:")
+    for e in top:
+        print(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -138,10 +248,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch import train_lib
+    from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.models import MVSNet
     from mvsnet_tpu_torch.ops import kernels
     from mvsnet_tpu_torch.ops.geometry import homographies_for_views
-    from mvsnet_tpu_torch.ops.kernels import _lib, conv, deconv, sweep
+    from mvsnet_tpu_torch.ops.kernels import _lib, conv, deconv, sweep, warp, wgrad
     from mvsnet_tpu_torch.predict import Predictor, depth_params_from_cams
 
     # ---- 2. build
@@ -151,17 +263,24 @@ def main() -> int:
           f"(nvcc {' '.join(_lib.NVCC_FLAGS)})")
     summarize_build(_lib)
 
-    # ---- 3. kernels against their plain versions at the main path's shapes
+    # ---- 3. kernels against their plain versions at the main paths' shapes
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
+    def homs_of(cams, D):
+        ds, di, _, _ = depth_params_from_cams(cams)
+        return homographies_for_views(torch.from_numpy(cams).to(dev), D,
+                                      torch.from_numpy(ds).to(dev),
+                                      torch.from_numpy(di).to(dev))[:, 0].contiguous()
+
     images, cams = scene(1, 3, 864, 1152, 192, seed=0)
     ds, di, _, _ = depth_params_from_cams(cams)
-    homs = homographies_for_views(torch.from_numpy(cams).to(dev), 192,
-                                  torch.from_numpy(ds).to(dev),
-                                  torch.from_numpy(di).to(dev))[:, 0].contiguous()
+    homs = homs_of(cams, 192)
+    # the training point: 640x480 images, features 160x120, D=192
+    t_batch = train_scene(480, 640, 192, seed=2)
+    t_homs = homs_of(t_batch[1], 192)
     cases = []     # one dict per kernel and shape
 
     def add_cost():
@@ -170,7 +289,7 @@ def main() -> int:
         n_out = 192 * 216 * 288 * 32
         ops = n_out * (12 * 2 + 4) + 192 * 216 * 288 * 2 * 25
         cases.append(dict(
-            name="cost_volume", mod=sweep, kernel=sweep.cost_volume,
+            name="cost_volume", counter="cost_volume", kernel=sweep.cost_volume,
             plain=sweep.cost_volume_plain, library=None, make=make,
             bytes=lambda it: (3 * 216 * 288 * 32 + n_out) * it + homs.numel() * 4,
             ops=ops, source="mvsnet_tpu_torch/csrc/cost_volume.cu",
@@ -208,7 +327,7 @@ def main() -> int:
             return xin, w, None if b is None else b.to(x.dtype)
 
         cases.append(dict(
-            name=f"conv:{layer}", mod=conv,
+            name=f"conv:{layer}", counter="conv",
             kernel=lambda x, w, b: conv.conv(x, w, b, stride, epilogue),
             plain=lambda x, w, b: conv.conv_plain(x, w, b, stride, epilogue),
             library=library, library_inputs=library_inputs, make=make,
@@ -216,40 +335,109 @@ def main() -> int:
             ops=2 * cin * cout * int(taps) * shape[0],
             source="mvsnet_tpu_torch/csrc/conv.cu", replaces=replaces))
 
-    def add_deconv(layer, shape, cout, epilogue, replaces):
+    def add_deconv(layer, shape, cout, epilogue, replaces, k=3, out_spatial=None):
+        """flax's k3 s2 transposed conv, or (k=5, out_spatial) the adjoint
+        of a 5x5 stride-2 SAME conv of that output size."""
         cin = shape[-1]
         rank = len(shape) - 2
+        outs = out_spatial or tuple(2 * n for n in shape[1:-1])
+        los = [conv.same_pads(m, k, 2)[0] for m in outs] if out_spatial else [0] * rank
 
         def make(dtype):
             x = randn(shape, dtype)
-            w = randn((3,) * rank + (cin, cout), dtype, (9 * cin) ** -0.5)
+            w = randn((k,) * rank + (cin, cout), dtype, (k * k * cin) ** -0.5)
             b = randn((cout,), torch.float32) if epilogue else None
             return x, w, b
 
-        n_out = shape[0] * 2 ** rank * int(np.prod(shape[1:-1])) * cout
-        taps = int(np.prod([3 * n - 1 for n in shape[1:-1]]))
+        n_out = shape[0] * int(np.prod(outs)) * cout
+        taps = int(np.prod([sum(1 for o in range(m) for t in range(k)
+                                if (o + lo - t) % 2 == 0 and 0 <= (o + lo - t) // 2 < n)
+                            for n, m, lo in zip(shape[1:-1], outs, los)]))
 
         def library(x, w, b):
             wt = w.flip(list(range(rank))).permute(rank, rank + 1, *range(rank))
             y = (F.conv_transpose3d if rank == 3 else F.conv_transpose2d)(
                 x.movedim(-1, 1), wt, b, stride=2)
-            return y[(..., *(slice(0, 2 * n) for n in shape[1:-1]))]
+            return y[(..., *(slice(lo, lo + m) for lo, m in zip(los, outs)))]
 
         cases.append(dict(
-            name=f"deconv:{layer}", mod=deconv,
-            kernel=lambda x, w, b: deconv.deconv(x, w, b, epilogue),
-            plain=lambda x, w, b: deconv.deconv_plain(x, w, b, epilogue),
+            name=f"deconv:{layer}", counter="deconv",
+            kernel=lambda x, w, b: deconv.deconv(x, w, b, epilogue, los, outs),
+            plain=lambda x, w, b: deconv.deconv_plain(x, w, b, epilogue, los, outs),
             library=library,
             library_inputs=lambda x, w, b: (x, w, None if b is None else b.to(x.dtype)),
             make=make,
-            bytes=lambda it: (int(np.prod(shape)) + 9 * 3 ** (rank - 2) * cin * cout
-                              + n_out) * it,
+            bytes=lambda it: (int(np.prod(shape)) + k ** rank * cin * cout + n_out) * it,
             ops=2 * cin * cout * taps * shape[0],
             source="mvsnet_tpu_torch/csrc/deconv.cu", replaces=replaces))
+
+    def add_warp(hm, replaces):
+        D, (H, W, C) = hm.shape[0], (120, 160, 32)
+        # F.grid_sample on (1, C, H, W) at the same taps (align_corners=False:
+        # pixel x sits at (2x + 1) / W - 1): a yardstick, it rounds otherwise
+        from mvsnet_tpu_torch.ops.warp import projected_coords
+        px, py = projected_coords(hm, H, W)
+        grid = torch.stack([(2 * px + 1) / W - 1, (2 * py + 1) / H - 1], -1)
+        grid = grid.reshape(1, D * H, W, 2)
+
+        def make(dtype):
+            return randn((H, W, C), dtype), hm
+
+        cases.append(dict(
+            name="warp", counter="warp", kernel=warp.warp_all_depths,
+            plain=warp.warp_all_depths_plain,
+            library=lambda img, _: F.grid_sample(img, grid.to(img.dtype), align_corners=False),
+            library_inputs=lambda img, h: (img.movedim(-1, 0)[None].contiguous(), h),
+            make=make, bytes=lambda it: (H * W * C + D * H * W * C) * it + hm.numel() * 4,
+            ops=D * H * W * (C * 6 + 25), source="mvsnet_tpu_torch/csrc/warp.cu",
+            replaces=replaces))
+
+        def lib_t_inputs(g, h):
+            inp = torch.zeros((1, C, H, W), dtype=g.dtype, device=dev, requires_grad=True)
+            out = F.grid_sample(inp, grid.to(g.dtype), align_corners=False)
+            gout = g.reshape(D, H, W, C).permute(3, 0, 1, 2).reshape(1, C, D * H, W)
+            return out, inp, gout.contiguous()
+
+        cases.append(dict(
+            name="warp_transpose", counter="warp_transpose", kernel=warp.warp_transpose,
+            plain=warp.warp_transpose_plain, f32_out=True,
+            library=lambda out, inp, gout: torch.autograd.grad(out, inp, gout,
+                                                               retain_graph=True),
+            library_inputs=lib_t_inputs,
+            make=lambda dtype: (randn((D, H, W, C), dtype), hm),
+            bytes=lambda it: D * H * W * C * it + H * W * C * 4 + hm.numel() * 4,
+            ops=D * H * W * (C * 8 + 25), source="mvsnet_tpu_torch/csrc/warp.cu",
+            replaces="mvsnet_tpu/ops/pallas/sweep.py:1701"))
+
+    def add_wgrad(layer, x_shape, g_shape, k, stride, replaces):
+        rank = len(x_shape) - 2
+        cin, cout = x_shape[-1], g_shape[-1]
+        pads = [conv.same_pads(n, k, stride) for n in x_shape[1:-1]]
+        taps = np.prod([valid_taps(n, k, stride, lo, out)
+                        for n, (lo, _, out) in zip(x_shape[1:-1], pads)])
+        fn = torch.nn.grad.conv3d_weight if rank == 3 else torch.nn.grad.conv2d_weight
+
+        def library_inputs(x, g):
+            # channels-first input with the SAME pad applied, untimed
+            flat = [p for lo, hi, _ in reversed(pads) for p in (lo, hi)]
+            return F.pad(x.movedim(-1, 1), flat).contiguous(), g.movedim(-1, 1).contiguous()
+
+        cases.append(dict(
+            name=f"wgrad:{layer}", counter="wgrad", f32_out=True,
+            kernel=lambda x, g: wgrad.wgrad(x, g, (k,) * rank, stride),
+            plain=lambda x, g: wgrad.wgrad_plain(x, g, (k,) * rank, stride),
+            library=lambda xp, gc: fn(xp, (cout, cin) + (k,) * rank, gc, stride=stride),
+            library_inputs=library_inputs,
+            make=lambda dtype: (randn(x_shape, dtype), randn(g_shape, dtype)),
+            bytes=lambda it: (int(np.prod(x_shape)) + int(np.prod(g_shape))) * it
+            + k ** rank * cin * cout * 4,
+            ops=2 * cin * cout * int(taps) * x_shape[0],
+            source="mvsnet_tpu_torch/csrc/wgrad.cu", replaces=replaces))
 
     c3, c2s1, c2s2 = ("mvsnet_tpu/ops/pallas/conv3d.py:974",
                       "mvsnet_tpu/ops/pallas/conv2d.py:871",
                       "mvsnet_tpu/ops/pallas/conv2d.py:578")
+    wg1, wg2 = ("mvsnet_tpu/ops/pallas/conv3d.py:1185", "mvsnet_tpu/ops/pallas/conv3d.py:1318")
     add_cost()
     add_conv("3dconv0_1", (1, 192, 216, 288, 32), 3, 1, 8, True, c3)
     add_conv("3dconv1_0", (1, 192, 216, 288, 32), 3, 2, 16, True, c3)
@@ -263,19 +451,30 @@ def main() -> int:
                "mvsnet_tpu/ops/pallas/deconv3d.py:194")
     add_deconv("2dconv8_0", (3, 432, 576, 16), 8, False,
                "mvsnet_tpu/ops/pallas/deconv2d.py:185")
+    # the backward kernels at the training point (features 120x160, D=192)
+    add_warp(t_homs[0], "mvsnet_tpu/ops/pallas/sweep.py:1599")
+    add_wgrad("3dconv0_1", (1, 192, 120, 160, 32), (1, 192, 120, 160, 8), 3, 1, wg1)
+    add_wgrad("3dconv1_0", (1, 192, 120, 160, 32), (1, 96, 60, 80, 16), 3, 2, wg2)
+    # the transposed conv's dk: input and cotangent swapped (dq = q(dk))
+    add_wgrad("3dconv6_0", (1, 192, 120, 160, 8), (1, 96, 60, 80, 16), 3, 2, wg2)
+    add_wgrad("2dconv0_2", (3, 480, 640, 8), (3, 480, 640, 8), 3, 1, wg1)
+    add_wgrad("conv9_0", (3, 480, 640, 8), (3, 240, 320, 16), 5, 2, wg2)
+    # conv9_0's input gradient: the 5x5 adjoint, low pad 1, at 480x640
+    add_deconv("conv9_0_dx", (3, 240, 320, 16), 8, False,
+               "mvsnet_tpu/ops/pallas/deconv2d.py:185", k=5, out_spatial=(480, 640))
 
     print("kernel phase: kernel vs plain version on the card "
           f"(pass: max abs err <= tol * max(1, max|plain|), tol {TOL[torch.float32]:g} "
-          f"f32, {TOL[torch.bfloat16]:g} bf16)")
+          f"f32, {TOL[torch.bfloat16]:g} bf16; float32 outputs take the f32 tol)")
     failures, records = [], {}
     for c in cases:
         for dtype in (torch.float32, torch.bfloat16):
             inputs = c["make"](dtype)
-            before = c["mod"].launches
+            before = kernels.launch_counts()[c["counter"]]
             got = c["kernel"](*inputs)
             want = c["plain"](*inputs)
             torch.cuda.synchronize()
-            if c["mod"].launches != before + 1:
+            if kernels.launch_counts()[c["counter"]] != before + 1:
                 failures.append(f"{c['name']} {dtype}: the wrapper did not launch its kernel")
                 continue
             if got.shape != want.shape:
@@ -285,7 +484,8 @@ def main() -> int:
             got, want = got.float(), want.float()
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
-            ok = bool(torch.isfinite(got).all()) and err <= TOL[dtype] * max(1.0, scale)
+            tol = TOL[torch.float32 if c.get("f32_out") else dtype]
+            ok = bool(torch.isfinite(got).all()) and err <= tol * max(1.0, scale)
             del got, want
             ms = cuda_time_ms(lambda: c["kernel"](*inputs))
             plain_ms = cuda_time_ms(lambda: c["plain"](*inputs), max_iters=10)
@@ -315,7 +515,7 @@ def main() -> int:
         print("kernel phase FAILED:\n  " + "\n  ".join(failures))
         return 1
 
-    # ---- 4. the main path: 3 requests at the operating point
+    # ---- 4. inference: 3 requests at the operating point
     cfg = ModelConfig(view_num=3, max_d=192, width=1152, height=864,
                       network_mode="normal", compute_dtype="bfloat16")
     predictor = Predictor(cfg, seed=0, device=dev)
@@ -332,22 +532,20 @@ def main() -> int:
         after = kernels.launch_counts()
         per_request.append({k: after[k] - before[k] for k in after})
         if not (torch.isfinite(depth).all() and torch.isfinite(prob).all()):
-            print("main path FAILED: non-finite depth or prob")
+            print("inference FAILED: non-finite depth or prob")
             return 1
-    run_launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    print(f"main path: 3 requests at 1152x864, D=192, V=3, normal, bf16: wall ms "
+    print(f"inference: 3 requests at 1152x864, D=192, V=3, normal, bf16: wall ms "
           f"{', '.join(f'{w:.2f}' for w in walls)}; peak memory {peak / 2 ** 30:.3f} GiB; "
           f"depth {tuple(depth.shape)} in [{depth.min().item():.1f}, {depth.max().item():.1f}], "
           f"prob in [{prob.min().item():.3f}, {prob.max().item():.3f}]")
     print(f"  launches per request: {per_request}")
     if any(r != EXPECTED_LAUNCHES for r in per_request):
-        print(f"main path FAILED: launches per request {per_request} != {EXPECTED_LAUNCHES}")
+        print(f"inference FAILED: launches per request {per_request} != {EXPECTED_LAUNCHES}")
         return 1
 
     # one more request, stage by stage (after the counts were read)
     model = predictor.model
-    stages = {}
     with torch.inference_mode():
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         x = torch.as_tensor(images, device=dev)
@@ -371,28 +569,12 @@ def main() -> int:
         stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
     print("  stages (ms, CUDA events, one request): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    print_profile("request", *profile_device(
+        lambda: predictor.predict(images, cams, ds, di, fetch=False)))
+    del predictor, model, depth, prob, ref_f, view_f, cost, reg
+    torch.cuda.empty_cache()
 
-    # one more request under torch.profiler: device time by kernel, idle share
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        predictor.predict(images, cams, ds, di, fetch=False)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in dev_events)
-    if busy_us > 0:
-        print(f"  profiled request: wall {wall_us / 1e3:.3f} ms, device busy "
-              f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.3f}; "
-              f"top device time:")
-        for e in sorted(dev_events, key=lambda e: -e.device_time_total)[:12]:
-            print(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<3d} {e.key[:90]}")
-    else:
-        print("  profiled request: the profiler saw no device time (not measured)")
-
-    # ---- 5. end to end: card kernels vs CPU plain path, float32
+    # ---- 5. inference end to end: card kernels vs CPU plain path, float32
     small = ModelConfig(view_num=3, max_d=32, width=320, height=256,
                         network_mode="normal", compute_dtype="float32")
     s_images, s_cams = scene(1, 3, 256, 320, 32, seed=1)
@@ -405,21 +587,106 @@ def main() -> int:
     p_err = float(np.abs(p_gpu - p_cpu).max())
     ok = (np.isfinite(d_gpu).all() and np.isfinite(p_gpu).all()
           and d_err <= E2E_DEPTH_ATOL and p_err <= E2E_PROB_ATOL)
-    print(f"end to end 320x256 D=32 normal f32, card vs CPU: depth max abs err "
+    print(f"inference end to end 320x256 D=32 normal f32, card vs CPU: depth max abs err "
           f"{d_err:.3e} (bound {E2E_DEPTH_ATOL:g}), prob max abs err {p_err:.3e} "
           f"(bound {E2E_PROB_ATOL:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         return 1
 
-    # ---- 6. records
+    # ---- 6. training: 3 steps at the reference training point
+    t_cfg = ModelConfig(view_num=3, max_d=192, width=640, height=480,
+                        network_mode="normal", compute_dtype="bfloat16")
+    tcfg = TrainConfig()
+    t_model = MVSNet(t_cfg, seed=0)
+    state = train_lib.create_train_state(t_model, t_cfg, tcfg, device=dev)
+    train_step = train_lib.make_train_step(t_model, t_cfg, tcfg)
+    expected = expected_train_launches(t_model, t_cfg, 120, 160)
+    params = list(t_model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls, per_step, step_losses = [], [], []
+    for _ in range(3):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, t_batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after = kernels.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        finite = torch.stack([torch.isfinite(p.grad).all() for p in params]).all()
+        step_losses.append(metrics["loss"].item())
+        if not (np.isfinite(step_losses[-1]) and bool(finite)):
+            print(f"training FAILED: loss {step_losses[-1]}, all gradients finite: {bool(finite)}")
+            return 1
+    train_launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"training: 3 steps at 640x480, D=192, V=3, normal, bf16, rmsprop, power+grad "
+          f"loss: step ms {', '.join(f'{w:.2f}' for w in walls)} (the first includes "
+          f"set-up); peak memory {peak / 2 ** 30:.3f} GiB; losses "
+          f"{', '.join(f'{v:.4f}' for v in step_losses)}")
+    print(f"  launches per step: {per_step}")
+    if any(r != expected for r in per_step):
+        print(f"training FAILED: launches per step {per_step} != {expected}")
+        return 1
+
+    # one more step, stage by stage (after the counts were read)
+    batch = train_lib.to_device(t_batch, dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    state.optimizer.zero_grad(set_to_none=True)
+    ev[0].record()
+    loss, _ = train_lib.compute_loss(t_model, t_cfg, tcfg, batch, training=True)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    train_lib.apply_gradients(state, tcfg)
+    ev[3].record()
+    torch.cuda.synchronize()
+    names = ["forward", "backward", "optimizer"]
+    print("  stages (ms, CUDA events, one step): "
+          + ", ".join(f"{n} {ev[i].elapsed_time(ev[i + 1]):.3f}" for i, n in enumerate(names)))
+    print_profile("step", *profile_device(lambda: train_step(state, t_batch)))
+    del state, t_model, train_step, params, batch, loss
+    torch.cuda.empty_cache()
+
+    # ---- 7. one train step: card kernels vs CPU plain path, float32
+    s_cfg = ModelConfig(view_num=3, max_d=16, width=128, height=128,
+                        network_mode="normal", compute_dtype="float32")
+    s_batch = train_scene(128, 128, 16, seed=3)
+    runs = []
+    for device in (dev, "cpu"):
+        m = MVSNet(s_cfg, seed=3)
+        perturb_norms(m, seed=4)
+        st = train_lib.create_train_state(m, s_cfg, tcfg, device=device)
+        _, met = train_lib.make_train_step(m, s_cfg, tcfg)(st, s_batch)
+        runs.append((met["loss"].item(), {n: p.grad.cpu() for n, p in m.named_parameters()},
+                     {n: b.cpu() for n, b in m.named_buffers()}))
+    (l_gpu, g_gpu, b_gpu), (l_cpu, g_cpu, b_cpu) = runs
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    leaf_err = {n: float((g_gpu[n] - g).abs().max()) / max(float(g.abs().max()), 1e-12)
+                for n, g in g_cpu.items()}
+    worst = max(leaf_err, key=leaf_err.get)
+    global_err = float(np.sqrt(sum(float(((g_gpu[n] - g) ** 2).sum()) for n, g in g_cpu.items())
+                               / sum(float((g ** 2).sum()) for g in g_cpu.values())))
+    stats_err = max(float((b_gpu[n] - b).abs().max()) / max(1.0, float(b.abs().max()))
+                    for n, b in b_cpu.items())
+    ok = (np.isfinite(l_gpu) and loss_err <= TRAIN_LOSS_RTOL
+          and global_err <= TRAIN_GRAD_GLOBAL_TOL and leaf_err[worst] <= TRAIN_GRAD_TOL
+          and stats_err <= TRAIN_STATS_TOL)
+    print(f"train step 128x128 D=16 normal f32, card vs CPU: loss rel err {loss_err:.3e} "
+          f"(bound {TRAIN_LOSS_RTOL:g}), gradients {global_err:.3e} in the global norm "
+          f"(bound {TRAIN_GRAD_GLOBAL_TOL:g}), worst leaf {worst} {leaf_err[worst]:.3e} of its "
+          f"max (bound {TRAIN_GRAD_TOL:g}), running stats {stats_err:.3e} (bound "
+          f"{TRAIN_STATS_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        return 1
+
+    # ---- records: launches from the training run of phase 6
     out = []
     for c in cases:
         r = records[(c["name"], "bfloat16")]
         out.append(dict(name=c["name"], route="cuda", source=c["source"],
-                        replaces=c["replaces"],
-                        launches=run_launches[{sweep: "cost_volume", conv: "conv",
-                                               deconv: "deconv"}[c["mod"]]],
-                        **r))
+                        replaces=c["replaces"], launches=train_launches[c["counter"]], **r))
     print(json.dumps({"kernels": out}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""Model configuration (counterpart of mvsnet_tpu/config.py:17-96).
+"""Model and training configuration (counterpart of
+mvsnet_tpu/config.py:17-122).
 
 A copy, not an import: the JAX package's config imports `jax.numpy`.
 """
@@ -77,3 +78,23 @@ class ModelConfig:
     @property
     def dtype(self) -> torch.dtype:
         return torch_dtype(self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters; field names and defaults match the JAX
+    `TrainConfig` (mvsnet_tpu/config.py:99-122, reference: train.py:92-135).
+    Only the fields the train step reads are copied: the batch size comes
+    from the inputs, the training script's fields (epochs, snapshots,
+    validation, seed) wait for the port of `train.py`, and the TPU knobs
+    (`num_devices`, `remat`) have no counterpart."""
+
+    base_lr: float = 1e-3
+    stepvalue: int = 70000            # lr decay interval (exponential, continuous)
+    gamma: float = 0.5                # lr decay rate
+    optimizer: str = "rmsprop"        # "rmsprop" | "momentum" | "adam"
+    loss_type: str = "power"          # "original" | "power" | "gaussian"
+    alpha: float = 0.25
+    beta: float = 0.0
+    eta: float = 0.02
+    grad_loss: bool = True

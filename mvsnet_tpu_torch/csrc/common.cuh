@@ -1,7 +1,8 @@
 // Shared helpers for the port's kernels: 8-wide channel loads and stores of
-// float32 or bfloat16 data, converted to and from float32 registers, and
-// the pieces the direct and transposed convs share (weights staged in
-// shared memory, the per-tap multiply-add, the bias + ReLU epilogue).
+// float32 or bfloat16 data, converted to and from float32 registers, the
+// pieces the direct and transposed convs share (weights staged in shared
+// memory, the per-tap multiply-add, the bias + ReLU epilogue), and the
+// homography projection and bilinear taps of the warp kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -118,6 +119,63 @@ __device__ __forceinline__ void epilogue(float acc[COT], const float* __restrict
   } else {
 #pragma unroll
     for (int c = 0; c < COT; ++c) dst[c] = from_float<T>(acc[c]);
+  }
+}
+
+// The four bilinear taps of reference pixel (x, y) in a source map of H x W
+// pixels, shared by the cost volume (K1), the warp (K2) and its adjoint
+// (K3) so that all three sample identically: the homography h (row-major
+// 3x3, float32) acts on image coordinates (pixel centres at +0.5), |w| <
+// 1e-7 is pushed out to +-1e-7, and the tap index is clamped to [-2, W]
+// (resp. H) before the int conversion, which keeps far-off projections
+// defined: every tap the clamp moves was outside the map and stays there.
+struct Taps {
+  int x0, y0;     // top-left tap
+  float fx, fy;   // weights of the right and lower taps
+  bool x0in, x1in, y0in, y1in;
+};
+
+__device__ __forceinline__ Taps project(const float* __restrict__ h, int x, int y,
+                                        int H, int W) {
+  const float px = (float)x + 0.5f;
+  const float py = (float)y + 0.5f;
+  const float u = h[0] * px + h[1] * py + h[2];
+  const float q = h[3] * px + h[4] * py + h[5];
+  float w = h[6] * px + h[7] * py + h[8];
+  if (fabsf(w) < 1e-7f) w = (w < 0.f) ? -1e-7f : 1e-7f;
+  const float sx = u / w - 0.5f;
+  const float sy = q / w - 0.5f;
+  const float x0f = floorf(sx);
+  const float y0f = floorf(sy);
+  Taps t;
+  t.fx = sx - x0f;
+  t.fy = sy - y0f;
+  t.x0 = (int)fminf(fmaxf(x0f, -2.f), (float)W);
+  t.y0 = (int)fminf(fmaxf(y0f, -2.f), (float)H);
+  t.x0in = t.x0 >= 0 && t.x0 < W;
+  t.x1in = t.x0 + 1 >= 0 && t.x0 + 1 < W;
+  t.y0in = t.y0 >= 0 && t.y0 < H;
+  t.y1in = t.y0 + 1 >= 0 && t.y0 + 1 < H;
+  return t;
+}
+
+// Bilinear sample of 8 channels at the taps, zero fill per tap, float32:
+// img points at channel 0 of the group in an (H, W, C) map.
+template <typename T>
+__device__ __forceinline__ void sample8(const T* __restrict__ img, const Taps& t, int W,
+                                        int C, float val[8]) {
+  float v00[8], v01[8], v10[8], v11[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v00[j] = v01[j] = v10[j] = v11[j] = 0.f;
+  if (t.y0in && t.x0in) load8(img + ((int64_t)t.y0 * W + t.x0) * C, v00);
+  if (t.y0in && t.x1in) load8(img + ((int64_t)t.y0 * W + t.x0 + 1) * C, v01);
+  if (t.y1in && t.x0in) load8(img + ((int64_t)(t.y0 + 1) * W + t.x0) * C, v10);
+  if (t.y1in && t.x1in) load8(img + ((int64_t)(t.y0 + 1) * W + t.x0 + 1) * C, v11);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float top = (1.f - t.fx) * v00[j] + t.fx * v01[j];
+    const float bot = (1.f - t.fx) * v10[j] + t.fx * v11[j];
+    val[j] = (1.f - t.fy) * top + t.fy * bot;
   }
 }
 

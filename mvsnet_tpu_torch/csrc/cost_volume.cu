@@ -7,7 +7,8 @@
 //
 // out[d, y, x, c] = mean_v(f_v^2) - mean_v(f_v)^2 over the reference view
 // and the V-1 source views, where f_v is source map v sampled bilinearly,
-// with zero fill per tap, at H_vd (x + 0.5, y + 0.5, 1) - 0.5. Coordinates,
+// with zero fill per tap, at H_vd (x + 0.5, y + 0.5, 1) - 0.5 (the taps of
+// common.cuh, which the warp kernels K2 and K3 share). Coordinates,
 // weights and the running sums are float32; the output is written once, in
 // the input's type. No warped volume of any view ever reaches device memory.
 //
@@ -47,44 +48,14 @@ cost_volume_kernel(const T* __restrict__ ref, const T* __restrict__ views,
 #pragma unroll
   for (int j = 0; j < 8; ++j) s2[j] = s[j] * s[j];
 
-  const float px = (float)x + 0.5f;
-  const float py = (float)y + 0.5f;
   for (int v = 0; v < V1; ++v) {
-    const float* h = homs + ((int64_t)v * D + d) * 9;
-    const float u = h[0] * px + h[1] * py + h[2];
-    const float q = h[3] * px + h[4] * py + h[5];
-    float w = h[6] * px + h[7] * py + h[8];
-    if (fabsf(w) < 1e-7f) w = (w < 0.f) ? -1e-7f : 1e-7f;
-    const float sx = u / w - 0.5f;
-    const float sy = q / w - 0.5f;
-    const float x0f = floorf(sx);
-    const float y0f = floorf(sy);
-    const float fx = sx - x0f;
-    const float fy = sy - y0f;
-    // Clamping keeps the int conversion defined for far-off projections;
-    // every tap it moves was outside the map before and stays outside.
-    const int x0 = (int)fminf(fmaxf(x0f, -2.f), (float)W);
-    const int y0 = (int)fminf(fmaxf(y0f, -2.f), (float)H);
-    const bool x0in = x0 >= 0 && x0 < W;
-    const bool x1in = x0 + 1 >= 0 && x0 + 1 < W;
-    const bool y0in = y0 >= 0 && y0 < H;
-    const bool y1in = y0 + 1 >= 0 && y0 + 1 < H;
-    const T* img = views + (int64_t)v * plane + g * 8;
-
-    float v00[8], v01[8], v10[8], v11[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v00[j] = v01[j] = v10[j] = v11[j] = 0.f;
-    if (y0in && x0in) mvs::load8(img + ((int64_t)y0 * W + x0) * C, v00);
-    if (y0in && x1in) mvs::load8(img + ((int64_t)y0 * W + x0 + 1) * C, v01);
-    if (y1in && x0in) mvs::load8(img + ((int64_t)(y0 + 1) * W + x0) * C, v10);
-    if (y1in && x1in) mvs::load8(img + ((int64_t)(y0 + 1) * W + x0 + 1) * C, v11);
+    const mvs::Taps t = mvs::project(homs + ((int64_t)v * D + d) * 9, x, y, H, W);
+    float val[8];
+    mvs::sample8(views + (int64_t)v * plane + g * 8, t, W, C, val);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const float top = (1.f - fx) * v00[j] + fx * v01[j];
-      const float bot = (1.f - fx) * v10[j] + fx * v11[j];
-      const float val = (1.f - fy) * top + fy * bot;
-      s[j] += val;
-      s2[j] += val * val;
+      s[j] += val[j];
+      s2[j] += val[j] * val[j];
     }
   }
 

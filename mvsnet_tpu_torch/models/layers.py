@@ -1,13 +1,18 @@
-"""Layer primitives for inference (counterpart of mvsnet_tpu/models/layers.py:
-`Conv`, `Deconv`, `group_norm_core`, `GroupNormRef`, `ConvGN`, `DeconvGN`,
-`ConvBN`, `DeconvBN`, `_fold_affine` and `_bn_affine_probe`).
+"""Layer primitives (counterpart of mvsnet_tpu/models/layers.py: `Conv`,
+`Deconv`, `group_norm_core`, `GroupNormRef`, `BatchNormRef`, `ConvGN`,
+`DeconvGN`, `ConvBN`, `DeconvBN`, `_fold_affine` and `_bn_affine_probe`).
 
 Parameters are float32 and keep flax's names and layouts: conv kernels are
 HWIO/DHWIO, transposed-conv kernels flax-oriented, group and batch norms
 carry `scale` and `bias`, batch norms their running `mean` and `var`. Every
 conv and transposed conv runs through the port's kernels (`ops/kernels`).
-Batch norms are eval-only: folded into the conv (kernel * scale in float32
-before the cast to the compute dtype; shift and ReLU on the float32 sums).
+
+The mode follows `nn.Module.training`. In eval, batch norms fold into the
+conv (kernel * scale in float32 before the cast to the compute dtype; shift
+and ReLU on the float32 sums in the kernel's epilogue). In training, convs
+run unfused through their autograd functions (`ops/autograd.py`) and batch
+norms normalise with the batch's statistics in float32 and update their
+running statistics, as flax's `BatchNorm` does.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from mvsnet_tpu_torch.ops import autograd
 from mvsnet_tpu_torch.ops.kernels import conv as conv_k
 from mvsnet_tpu_torch.ops.kernels import deconv as deconv_k
 
@@ -59,6 +65,15 @@ class _ConvBase(nn.Module):
         dtype = self.dtype or x.dtype
         return x.to(dtype), k.to(dtype), shift
 
+    def _train_forward(self, fn, x):
+        """Unfused, differentiable: conv in the compute dtype, then bias
+        and ReLU in the output's dtype (layers.py:426-434)."""
+        dtype = self.dtype or x.dtype
+        y = fn(x.to(dtype), self.kernel.to(dtype))
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        return torch.relu(y) if self.relu else y
+
 
 class Conv(_ConvBase):
     """SAME conv of rank 2 or 3 (layers.py:476-574), on the conv kernel.
@@ -74,6 +89,9 @@ class Conv(_ConvBase):
         self.stride = stride
 
     def forward(self, x, post_scale=None, post_shift=None, post_relu: bool = False):
+        if self.training:
+            return self._train_forward(
+                lambda a, k: autograd.ConvFn.apply(a, k, self.stride), x)
         x, k, shift = self._operands(x, post_scale, post_shift)
         return conv_k.conv(x, k, shift, self.stride, relu=post_relu or self.relu)
 
@@ -91,6 +109,8 @@ class Deconv(_ConvBase):
                          use_bias, dtype)
 
     def forward(self, x, post_scale=None, post_shift=None, post_relu: bool = False):
+        if self.training:
+            return self._train_forward(autograd.DeconvFn.apply, x)
         x, k, shift = self._operands(x, post_scale, post_shift)
         return deconv_k.deconv(x, k, shift, relu=post_relu or self.relu)
 
@@ -130,7 +150,10 @@ class GroupNormRef(nn.Module):
 
 
 class BatchNormRef(nn.Module):
-    """Eval batch norm with running statistics, eps 1e-5 (layers.py:878-902)."""
+    """Batch norm with running statistics, momentum 0.99, eps 1e-5, float32
+    output (layers.py:878-902, flax `BatchNorm`)."""
+
+    momentum = 0.99
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -139,6 +162,25 @@ class BatchNormRef(nn.Module):
         self.register_buffer("mean", torch.zeros(channels, dtype=torch.float32))
         self.register_buffer("var", torch.ones(channels, dtype=torch.float32))
         self.eps = eps
+
+    def forward(self, x):
+        """Normalise channels-last x over every axis but the last, in
+        float32. Training uses the batch's mean and biased variance
+        max(0, E[x^2] - E[x]^2) (flax `_compute_stats`) and moves the
+        running statistics to momentum * running + (1 - momentum) * batch,
+        without gradient; eval uses the running statistics."""
+        x32 = x.to(torch.float32)
+        if self.training:
+            axes = tuple(range(x.ndim - 1))
+            mean = x32.mean(dim=axes)
+            var = torch.clamp_min((x32 * x32).mean(dim=axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        return (x32 - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
 
     def affine(self):
         """(scale, shift) with bn(x) = x * scale + shift, probed as bn(1) -
@@ -183,8 +225,8 @@ class DeconvGN(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """conv (no bias) -> eval batch norm -> ReLU, the norm folded into the
-    conv (layers.py:1016-1049)."""
+    """conv (no bias) -> batch norm -> ReLU (layers.py:1016-1049); in eval
+    the norm is folded into the conv."""
 
     def __init__(self, in_channels: int, filters: int, kernel: int = 3,
                  stride: int = 1, relu: bool = True, rank: int = 3,
@@ -196,13 +238,16 @@ class ConvBN(nn.Module):
         self.relu = relu
 
     def forward(self, x):
+        if self.training:
+            y = self.bn(self.conv(x))
+            return torch.relu(y) if self.relu else y
         scale, shift = self.bn.affine()
         return self.conv(x, post_scale=scale, post_shift=shift, post_relu=self.relu)
 
 
 class DeconvBN(nn.Module):
-    """deconv (no bias) -> eval batch norm -> ReLU, folded
-    (layers.py:1052-1078)."""
+    """deconv (no bias) -> batch norm -> ReLU (layers.py:1052-1078); in
+    eval the norm is folded into the deconv."""
 
     def __init__(self, in_channels: int, filters: int, relu: bool = True,
                  rank: int = 3, dtype: Optional[torch.dtype] = None):
@@ -213,6 +258,9 @@ class DeconvBN(nn.Module):
         self.relu = relu
 
     def forward(self, x):
+        if self.training:
+            y = self.bn(self.deconv(x))
+            return torch.relu(y) if self.relu else y
         scale, shift = self.bn.affine()
         return self.deconv(x, post_scale=scale, post_shift=shift,
                            post_relu=self.relu)

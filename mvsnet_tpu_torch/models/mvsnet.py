@@ -1,11 +1,12 @@
-"""MVSNet 3D-CNN inference graph (counterpart of
-mvsnet_tpu/models/mvsnet.py:71-190: `apply_forward_3dcnn`,
-`MVSNet._extract_features`, `MVSNet.forward_3dcnn`).
+"""MVSNet 3D-CNN graph (counterpart of mvsnet_tpu/models/mvsnet.py:71-190:
+`apply_forward_3dcnn`, `MVSNet._extract_features`, `MVSNet.forward_3dcnn`).
 
 Features of the V views run as one batch of B*V images; homographies in
 float32; the fused cost volume (kernel K1); RegNetUS0; the fused
-soft-argmin + probability tail. Refinement and the GRU graphs are not part
-of this package yet.
+soft-argmin + probability tail. In training mode (`nn.Module.training`)
+the cost volume is differentiable (`CostVolumeFn`) and the layers train
+(`models/layers.py`). Refinement and the GRU graphs are not part of this
+package yet.
 """
 
 from __future__ import annotations
@@ -23,9 +24,9 @@ from mvsnet_tpu_torch.ops.geometry import homographies_for_views
 
 
 class MVSNet(nn.Module):
-    """Feature tower + 3D regularizer, eval only. Weights are seeded with
-    `seed` (lecun-normal kernels, identity norms) until a state dict from
-    `convert.py` is loaded."""
+    """Feature tower + 3D regularizer, in eval mode until `.train()`.
+    Weights are seeded with `seed` (lecun-normal kernels, identity norms)
+    until a state dict from `convert.py` is loaded."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0):
         super().__init__()
@@ -34,6 +35,9 @@ class MVSNet(nn.Module):
         self.regnet = RegNetUS0(cfg.network_mode, cfg.feature_channels,
                                 dtype=cfg.dtype)
         reset_parameters(self, seed)
+        # built for inference; `train_lib.create_train_state` (or `.train()`)
+        # switches to training mode, with batch statistics and autograd convs
+        self.eval()
 
     def extract_features(self, images):
         """(B, V, H, W, 3) -> ref (B, h, w, C), views (V-1, B, h, w, C)."""
@@ -69,7 +73,8 @@ class MVSNet(nn.Module):
         homs = homographies_for_views(cams, cfg.max_d, depth_start,
                                       depth_interval, depth_end,
                                       inverse_depth=cfg.inverse_depth)
-        cost = plane_sweep_cost_volume(ref_f, view_f, homs)
+        cost = plane_sweep_cost_volume(ref_f, view_f, homs,
+                                       differentiable=self.training)
         reg = self.regnet(cost)[..., 0].to(torch.float32)          # (B, D, h, w)
         return soft_argmin_prob_map(reg, depth_start, depth_interval, cfg.max_d,
                                     inverse_depth=cfg.inverse_depth,

@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("cost_volume", "conv", "deconv")
+SOURCES = ("cost_volume", "conv", "deconv", "warp", "wgrad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -86,8 +86,8 @@ def build_all(names=SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def launcher(name: str, argtypes):
-    """`<name>_launch` from the library built from `csrc/<name>.cu`,
+def launcher(name: str, argtypes, entry: str = "launch"):
+    """`<name>_<entry>` from the library built from `csrc/<name>.cu`,
     building every missing library first."""
     lib = _libs.get(name)
     if lib is None:
@@ -97,7 +97,7 @@ def launcher(name: str, argtypes):
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _libs[name] = lib
-    fn = getattr(lib, f"{name}_launch")
+    fn = getattr(lib, f"{name}_{entry}")
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn

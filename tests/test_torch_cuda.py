@@ -1,5 +1,6 @@
 """Card-only tests of the port: each CUDA kernel against its plain PyTorch
-version on the card, and a tiny forward on the card against the CPU.
+version on the card, the adjoint identities of the backward kernels, and a
+tiny forward and train step on the card against the CPU.
 
 This file imports no JAX (the card machine has none). Every test needs a
 CUDA device and skips without one; run them on the card with
@@ -12,8 +13,11 @@ import numpy as np
 import pytest
 import torch
 
-from mvsnet_tpu_torch.config import ModelConfig
-from mvsnet_tpu_torch.ops.kernels import conv, deconv, sweep
+from mvsnet_tpu_torch import train_lib
+from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+from mvsnet_tpu_torch.models import MVSNet
+from mvsnet_tpu_torch.ops import autograd
+from mvsnet_tpu_torch.ops.kernels import conv, deconv, sweep, warp, wgrad
 from mvsnet_tpu_torch.predict import Predictor
 
 pytestmark = pytest.mark.cuda
@@ -128,3 +132,172 @@ def test_tiny_forward_card_matches_cpu(dev):
     # float32 end to end; sums in another order only
     np.testing.assert_allclose(d_gpu, d_cpu, atol=2e-3, rtol=1e-4)
     np.testing.assert_allclose(p_gpu, p_cpu, atol=2e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_matches_plain(dev, dtype):
+    rng = np.random.default_rng(5)
+    img = _rand(rng, (20, 28, 16), dtype, dev)
+    for homs in (_homs(6, 0.02, 12.0, dev), _homs(6, -0.2, 30.0, dev)):
+        before = warp.launches
+        got = warp.warp_all_depths(img, homs)
+        assert warp.launches == before + 1
+        _close(got, warp.warp_all_depths_plain(img, homs), TOL[dtype])
+
+
+def test_warp_samples_as_the_cost_volume(dev):
+    """K1 and K2 share their taps (csrc/common.cuh): with one source view
+    and a zero reference, K1's variance is w^2 / 4 of K2's warp w, to float32
+    rounding of the variance arithmetic."""
+    rng = np.random.default_rng(13)
+    img = _rand(rng, (20, 28, 16), torch.float32, dev)
+    homs = _homs(6, -0.2, 30.0, dev)
+    cost = sweep.cost_volume(torch.zeros_like(img), img[None], homs[None])
+    w = warp.warp_all_depths(img, homs)
+    _close(cost, w * w / 4, 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_transpose_matches_plain(dev, dtype):
+    """Float32 output either way: the atomics change the order of the sums,
+    not their precision."""
+    rng = np.random.default_rng(6)
+    g = _rand(rng, (40, 20, 28, 16), dtype, dev)
+    for homs in (_homs(40, 0.02, 12.0, dev), _homs(40, -0.2, 30.0, dev)):
+        before = warp.transpose_launches
+        got = warp.warp_transpose(g, homs)
+        assert warp.transpose_launches == before + 1 and got.dtype == torch.float32
+        _close(got, warp.warp_transpose_plain(g, homs), TOL[torch.float32])
+
+
+def test_warp_transpose_is_the_adjoint_on_card(dev):
+    rng = np.random.default_rng(7)
+    x = _rand(rng, (20, 28, 16), torch.float32, dev)
+    g = _rand(rng, (12, 20, 28, 16), torch.float32, dev)
+    homs = _homs(12, -0.2, 30.0, dev)
+    lhs = (warp.warp_all_depths(x, homs).double() * g.double()).sum().item()
+    rhs = (x.double() * warp.warp_transpose(g, homs).double()).sum().item()
+    assert abs(lhs - rhs) <= 1e-5 * max(1.0, abs(lhs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,k,stride,cin,cout", [
+    ((1, 6, 10, 12), 3, 1, 32, 8),
+    ((1, 6, 10, 12), 3, 2, 16, 16),
+    ((2, 5, 7, 9), 3, 2, 8, 1),
+    ((3, 16, 20), 3, 1, 3, 8),
+    ((2, 15, 21), 5, 2, 8, 16),
+    ((1, 8, 12), 3, 1, 128, 128),
+])
+def test_wgrad_matches_plain(dev, dtype, shape, k, stride, cin, cout):
+    """Float32 sums on both sides; for bf16 the inputs are the same rounded
+    values, so the tolerance is float32's."""
+    rng = np.random.default_rng(8)
+    rank = len(shape) - 1
+    x = _rand(rng, shape + (cin,), dtype, dev)
+    out = [conv.same_pads(n, k, stride)[2] for n in shape[1:]]
+    g = _rand(rng, (shape[0], *out, cout), dtype, dev)
+    before = wgrad.launches
+    got = wgrad.wgrad(x, g, (k,) * rank, stride)
+    assert wgrad.launches == before + 1
+    _close(got, wgrad.wgrad_plain(x, g, (k,) * rank, stride), TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [16, 15])
+def test_k5_adjoint_deconv_matches_plain(dev, dtype, n):
+    rng = np.random.default_rng(9)
+    g = _rand(rng, (2, (n + 1) // 2, (n + 3) // 2, 16), dtype, dev)
+    k = _rand(rng, (5, 5, 16, 8), dtype, dev, 0.2)
+    lo = conv.same_pads(n, 5, 2)[0]
+    before = deconv.launches
+    got = deconv.deconv(g, k, lo=lo, out_spatial=(n, n + 2))
+    assert deconv.launches == before + 1
+    _close(got, deconv.deconv_plain(g, k, lo=lo, out_spatial=(n, n + 2)), TOL[dtype])
+
+
+@pytest.mark.parametrize("rank,stride", [(3, 1), (3, 2), (2, 2), (2, 1)])
+def test_conv_adjoint_identities_on_card(dev, rank, stride):
+    """<conv(x, k), g> = <x, dx> = <k, dk> through ConvFn's kernels."""
+    rng = np.random.default_rng(10)
+    shape = (1, 4, 6, 8) if rank == 3 else (2, 10, 12)
+    K = 5 if (rank, stride) == (2, 2) else 3
+    x = _rand(rng, shape + (8,), torch.float32, dev).requires_grad_()
+    k = _rand(rng, (K,) * rank + (8, 16), torch.float32, dev, 0.2).requires_grad_()
+    y = autograd.ConvFn.apply(x, k, stride)
+    g = torch.randn_like(y)
+    y.backward(g)
+    lhs = (y.detach().double() * g.double()).sum().item()
+    for a in (x, k):
+        rhs = (a.detach().double() * a.grad.double()).sum().item()
+        assert abs(lhs - rhs) <= 1e-5 * max(1.0, abs(lhs))
+
+
+@pytest.mark.parametrize("rank", [3, 2])
+def test_deconv_adjoint_identities_on_card(dev, rank):
+    rng = np.random.default_rng(11)
+    shape = (1, 3, 4, 5) if rank == 3 else (2, 4, 5)
+    x = _rand(rng, shape + (16,), torch.float32, dev).requires_grad_()
+    k = _rand(rng, (3,) * rank + (16, 8), torch.float32, dev, 0.2).requires_grad_()
+    y = autograd.DeconvFn.apply(x, k)
+    g = torch.randn_like(y)
+    y.backward(g)
+    lhs = (y.detach().double() * g.double()).sum().item()
+    for a in (x, k):
+        rhs = (a.detach().double() * a.grad.double()).sum().item()
+        assert abs(lhs - rhs) <= 1e-5 * max(1.0, abs(lhs))
+
+
+def _perturb_norms(model, seed):
+    """Non-identity norms: with the identity init some gradient leaves are
+    sums of terms that nearly cancel, and rounding alone moves them by
+    several 1e-3 of their largest entry (float64 convs against float32 on
+    the CPU), against under 1e-4 with these."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in list(model.named_parameters()) + list(model.named_buffers()):
+            if name.endswith(("scale", "var")):
+                t.copy_(0.5 + torch.rand(t.shape, generator=g))
+            elif name.endswith((".gn.bias", ".bn.bias", "mean")):
+                t.copy_(0.2 * torch.randn(t.shape, generator=g))
+
+
+def test_tiny_train_step_card_matches_cpu(dev):
+    """One float32 step of the normal-width graph at 64x64, D=8, with
+    non-identity norms: the loss to 1e-4; the gradients to 5e-3 in the
+    norm of all leaves and to 2e-2 of each leaf's largest entry. The
+    gradients are sensitive to rounding: at this size the CPU's float32
+    convs differ from float64 ones by 6e-4 globally and 3e-3 in the worst
+    leaf, and the card, which lands within 8e-5 of the float64 answer,
+    differs from the CPU by as much."""
+    cfg = ModelConfig(view_num=3, max_d=8, width=64, height=64,
+                      network_mode="normal", compute_dtype="float32")
+    tcfg = TrainConfig()
+    rng = np.random.default_rng(12)
+    images = rng.standard_normal((1, 3, 64, 64, 3)).astype(np.float32)
+    cam = np.zeros((2, 4, 4), np.float32)
+    cam[0] = np.eye(4)
+    cam[1, :3, :3] = [[15.0, 0, 8], [0, 15.0, 8], [0, 0, 1]]
+    cam[1, 3] = [5.0, 0.5, 8, 8.5]
+    cams = np.stack([cam] * 3)[None].copy()
+    cams[0, 1, 0, 0, 3] = 0.3
+    cams[0, 2, 0, 1, 3] = -0.2
+    gt = rng.uniform(5.0, 8.5, (1, 16, 16, 1)).astype(np.float32)
+    batch = (images, cams, gt, gt)
+    models = []
+    for device in (dev, "cpu"):
+        model = MVSNet(cfg, seed=5)
+        _perturb_norms(model, 6)
+        state = train_lib.create_train_state(model, cfg, tcfg, device=device)
+        _, metrics = train_lib.make_train_step(model, cfg, tcfg)(state, batch)
+        models.append((model, metrics))
+    (m_gpu, met_gpu), (m_cpu, met_cpu) = models
+    assert abs(met_gpu["loss"].item() - met_cpu["loss"].item()) <= 1e-4 * abs(met_cpu["loss"].item())
+    cpu_params = dict(m_cpu.named_parameters())
+    num = den = 0.0
+    for name, p in m_gpu.named_parameters():
+        want, got = cpu_params[name].grad, p.grad.cpu()
+        assert torch.isfinite(got).all(), name
+        assert (got - want).abs().max() <= 2e-2 * max(want.abs().max().item(), 1e-12), name
+        num, den = num + ((got - want) ** 2).sum().item(), den + (want ** 2).sum().item()
+    assert (num / den) ** 0.5 <= 5e-3
