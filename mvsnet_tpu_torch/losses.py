@@ -12,6 +12,13 @@ mvsnet_tpu/losses.py:29-158).
 
 Pixels with y_true == 0 are invalid everywhere. Tensors are (B, H, W, 1);
 sums are float32. The GRU classification loss waits for the GRU slice.
+
+With the batch sharded over ranks (`parallel/train_step.py`), `batch_sum`
+sums a tensor over the ranks that hold the rest of the batch. Every term
+that JAX takes over the whole batch (power_loss's depth sum, losses.py:68;
+gaussian_loss's sum, :83; gradient_loss's count, :93; the metrics' counts,
+:123) goes through it, and each rank's loss is its share: the ranks'
+losses add up to the global loss, and so do their gradients.
 """
 
 from __future__ import annotations
@@ -34,7 +41,11 @@ def original_loss(y_true, y_pred, interval):
     return torch.sum((mae / interval) / count)
 
 
-def power_loss(y_true, y_pred, interval, alpha: float, beta: float):
+def _total(batch_sum, t):
+    return t if batch_sum is None else batch_sum(t)
+
+
+def power_loss(y_true, y_pred, interval, alpha: float, beta: float, batch_sum=None):
     """(reference: loss.py:31-90)"""
     interval = interval.reshape(y_pred.shape[0])
     mask, count = _mask_and_count(y_true)
@@ -47,69 +58,78 @@ def power_loss(y_true, y_pred, interval, alpha: float, beta: float):
         numerator = torch.pow(numerator, alpha)
     numerator = numerator * mask
     loss = torch.sum(numerator / denominator, dim=(1, 2, 3))
-    mean_true_depth = torch.sum(y_true * mask) / count
+    mean_true_depth = _total(batch_sum, torch.sum(y_true * mask)) / count
     normalization = 10.0 * torch.pow(mean_true_depth, beta) / torch.pow(interval, alpha)
     return torch.sum(loss * normalization)
 
 
-def gaussian_loss(y_true, y_pred, interval, eta: float):
-    """(reference: loss.py:93-131)"""
+def gaussian_loss(y_true, y_pred, interval, eta: float, batch_sum=None):
+    """(reference: loss.py:93-131): sum(loss) / count summed over the
+    batch, sum(loss) over the whole batch."""
     mask, count = _mask_and_count(y_true)
     sigma = eta * y_true + 1e-6
     error = (y_true - y_pred) * mask
     loss = -torch.exp(-torch.pow(error / sigma, 2.0) / 2.0)
-    return torch.sum(torch.sum(loss) / count)
+    # sum_b (sum(loss) / count_b); with batch_sum this rank's share of it
+    return torch.sum(loss) * _total(batch_sum, torch.sum(1.0 / count))
 
 
-def gradient_loss(y_true, y_pred):
-    """Log-gradient difference over the spatial axes of (B, H, W, 1) maps."""
+def gradient_loss(y_true, y_pred, batch_sum=None):
+    """Log-gradient difference over the spatial axes of (B, H, W, 1) maps,
+    over the valid pixels of the whole batch."""
     mask = (y_true != 0.0).to(torch.float32)
-    num_valid = mask.sum()
+    num_valid = _total(batch_sum, mask.sum())
     diff = y_true - y_pred
     v_grad = torch.abs((diff[:, :-2, :] - diff[:, 2:, :]) * (mask[:, :-2, :] * mask[:, 2:, :]))
     h_grad = torch.abs((diff[:, :, :-2] - diff[:, :, 2:]) * (mask[:, :, :-2] * mask[:, :, 2:]))
     return (torch.log(1.0 + v_grad).sum() + torch.log(1.0 + h_grad).sum()) / num_valid
 
 
-def _less_x_percentage(y_true, y_pred, interval, x: float):
+def _less_x_percentage(y_true, y_pred, interval, x: float, batch_sum=None):
     interval = interval.reshape(y_pred.shape[0])[:, None, None, None]
     mask = (y_true != 0.0).to(torch.float32)
-    denom = torch.abs(mask.sum()) + 1e-6
+    denom = torch.abs(_total(batch_sum, mask.sum())) + 1e-6
     abs_diff = torch.abs(y_true - y_pred) / interval
-    return torch.sum(mask * (abs_diff <= x).to(torch.float32)) / denom
+    good = torch.sum(mask * (abs_diff <= x).to(torch.float32))
+    return _total(batch_sum, good) / denom
 
 
-def less_one_percentage(y_true, y_pred, interval):
+def less_one_percentage(y_true, y_pred, interval, batch_sum=None):
     """Fraction of valid pixels with |err| <= 1 interval (loss.py:162-173)."""
-    return _less_x_percentage(y_true, y_pred, interval, 1.0)
+    return _less_x_percentage(y_true, y_pred, interval, 1.0, batch_sum)
 
 
-def less_three_percentage(y_true, y_pred, interval):
+def less_three_percentage(y_true, y_pred, interval, batch_sum=None):
     """(reference: loss.py:176-187)"""
-    return _less_x_percentage(y_true, y_pred, interval, 3.0)
+    return _less_x_percentage(y_true, y_pred, interval, 3.0, batch_sum)
 
 
 def mvsnet_regression_loss(estimated_depth, depth_image, depth_start, depth_end,
                            loss_type: str = "original", alpha: float = 1.0,
                            beta: float = 0.0, eta: float = 0.02,
-                           grad_loss: bool = True):
+                           grad_loss: bool = True, batch_sum=None):
     """Loss, <1 and <3 interval metrics with the fixed (end - start) / 191
     interval (reference: loss.py:190-220). Returns (loss, less_one,
-    less_three, debug), debug the gradient-loss term or 0."""
+    less_three, debug), debug the gradient-loss term or 0. With
+    `batch_sum`, loss and debug are this rank's shares and the metrics
+    are the whole batch's."""
     depth_interval = (depth_end - depth_start) / 191.0
     if loss_type == "original":
         loss = original_loss(depth_image, estimated_depth, depth_interval)
     elif loss_type == "power":
-        loss = power_loss(depth_image, estimated_depth, depth_interval, alpha, beta)
+        loss = power_loss(depth_image, estimated_depth, depth_interval, alpha, beta,
+                          batch_sum)
     elif loss_type == "gaussian":
-        loss = gaussian_loss(depth_image, estimated_depth, depth_interval, eta)
+        loss = gaussian_loss(depth_image, estimated_depth, depth_interval, eta, batch_sum)
     else:
         raise NotImplementedError(loss_type)
     debug = torch.zeros((), dtype=torch.float32, device=estimated_depth.device)
     if grad_loss:
-        debug = gradient_loss(depth_image, estimated_depth)
+        debug = gradient_loss(depth_image, estimated_depth, batch_sum)
         loss = loss + 0.5 * debug
     with torch.no_grad():
-        less_one = less_one_percentage(depth_image, estimated_depth, depth_interval)
-        less_three = less_three_percentage(depth_image, estimated_depth, depth_interval)
+        less_one = less_one_percentage(depth_image, estimated_depth, depth_interval,
+                                       batch_sum)
+        less_three = less_three_percentage(depth_image, estimated_depth, depth_interval,
+                                           batch_sum)
     return loss, less_one, less_three, debug

@@ -79,7 +79,9 @@ class Conv(_ConvBase):
     """SAME conv of rank 2 or 3 (layers.py:476-574), on the conv kernel.
 
     `post_scale`, `post_shift` and `post_relu` apply a per-channel affine
-    and a ReLU after the conv, folded into the kernel and its epilogue."""
+    and a ReLU after the conv, folded into the kernel and its epilogue. In
+    eval, `op` replaces the kernel's call `conv(x, kernel, shift, stride,
+    relu)`, for example with the depth-slab version (`parallel/halo.py`)."""
 
     def __init__(self, in_channels: int, filters: int, kernel: int = 3,
                  stride: int = 1, relu: bool = True, use_bias: bool = True,
@@ -88,17 +90,19 @@ class Conv(_ConvBase):
                          relu, use_bias, dtype)
         self.stride = stride
 
-    def forward(self, x, post_scale=None, post_shift=None, post_relu: bool = False):
+    def forward(self, x, post_scale=None, post_shift=None, post_relu: bool = False,
+                op=None):
         if self.training:
             return self._train_forward(
                 lambda a, k: autograd.ConvFn.apply(a, k, self.stride), x)
         x, k, shift = self._operands(x, post_scale, post_shift)
-        return conv_k.conv(x, k, shift, self.stride, relu=post_relu or self.relu)
+        return (op or conv_k.conv)(x, k, shift, self.stride, relu=post_relu or self.relu)
 
 
 class Deconv(_ConvBase):
     """k3 s2 SAME transposed conv of rank 2 or 3 (layers.py:688-766), on the
-    transposed-conv kernel; `post_*` as for `Conv`."""
+    transposed-conv kernel; `post_*` and `op` (for `deconv(x, kernel,
+    shift, relu)`) as for `Conv`."""
 
     def __init__(self, in_channels: int, filters: int, kernel: int = 3,
                  stride: int = 2, relu: bool = True, use_bias: bool = True,
@@ -108,11 +112,12 @@ class Deconv(_ConvBase):
         super().__init__((3,) * rank + (in_channels, filters), filters, relu,
                          use_bias, dtype)
 
-    def forward(self, x, post_scale=None, post_shift=None, post_relu: bool = False):
+    def forward(self, x, post_scale=None, post_shift=None, post_relu: bool = False,
+                op=None):
         if self.training:
             return self._train_forward(autograd.DeconvFn.apply, x)
         x, k, shift = self._operands(x, post_scale, post_shift)
-        return deconv_k.deconv(x, k, shift, relu=post_relu or self.relu)
+        return (op or deconv_k.deconv)(x, k, shift, relu=post_relu or self.relu)
 
 
 def group_norm_core(x, gamma, beta, num_groups: int, eps: float):
@@ -162,6 +167,22 @@ class BatchNormRef(nn.Module):
         self.register_buffer("mean", torch.zeros(channels, dtype=torch.float32))
         self.register_buffer("var", torch.ones(channels, dtype=torch.float32))
         self.eps = eps
+        # With the batch sharded over ranks, set for the length of a step
+        # only (`parallel.train_step.global_batch_norms`): a differentiable
+        # sum over the ranks that hold the rest of it, so the statistics
+        # are the global batch's, as flax's under GSPMD.
+        self.batch_sum = None
+
+    def _batch_stats(self, x32):
+        """Mean and E[x^2] - mean^2 per channel over the (global) batch."""
+        axes = tuple(range(x32.ndim - 1))
+        C = x32.shape[-1]
+        sums = torch.cat([x32.sum(dim=axes), (x32 * x32).sum(dim=axes),
+                          x32.new_tensor([x32.numel() // C])])
+        if self.batch_sum is not None:
+            sums = self.batch_sum(sums)
+        mean = sums[:C] / sums[-1]
+        return mean, sums[C:2 * C] / sums[-1] - mean * mean
 
     def forward(self, x):
         """Normalise channels-last x over every axis but the last, in
@@ -171,9 +192,8 @@ class BatchNormRef(nn.Module):
         without gradient; eval uses the running statistics."""
         x32 = x.to(torch.float32)
         if self.training:
-            axes = tuple(range(x.ndim - 1))
-            mean = x32.mean(dim=axes)
-            var = torch.clamp_min((x32 * x32).mean(dim=axes) - mean * mean, 0.0)
+            mean, var = self._batch_stats(x32)
+            var = torch.clamp_min(var, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -237,12 +257,12 @@ class ConvBN(nn.Module):
         self.bn = BatchNormRef(filters)
         self.relu = relu
 
-    def forward(self, x):
+    def forward(self, x, op=None):
         if self.training:
             y = self.bn(self.conv(x))
             return torch.relu(y) if self.relu else y
         scale, shift = self.bn.affine()
-        return self.conv(x, post_scale=scale, post_shift=shift, post_relu=self.relu)
+        return self.conv(x, post_scale=scale, post_shift=shift, post_relu=self.relu, op=op)
 
 
 class DeconvBN(nn.Module):
@@ -257,13 +277,13 @@ class DeconvBN(nn.Module):
         self.bn = BatchNormRef(filters)
         self.relu = relu
 
-    def forward(self, x):
+    def forward(self, x, op=None):
         if self.training:
             y = self.bn(self.deconv(x))
             return torch.relu(y) if self.relu else y
         scale, shift = self.bn.affine()
         return self.deconv(x, post_scale=scale, post_shift=shift,
-                           post_relu=self.relu)
+                           post_relu=self.relu, op=op)
 
 
 def reset_parameters(module: nn.Module, seed: int) -> None:

@@ -47,39 +47,48 @@ class MVSNet(nn.Module):
         feats = feats.reshape(B, V, h, w, C)
         return feats[:, 0], feats[:, 1:].movedim(1, 0)
 
-    def forward_3dcnn(self, images, cams, depth_start, depth_interval):
-        """images (B, V, H, W, 3), view 0 the reference; cams (B, V, 2, 4, 4)
-        scaled to the cost-volume resolution; depth_start, depth_interval
-        (B,). Returns depth_map, prob_map, each (B, h, w, 1) float32."""
-        cfg = self.cfg
-        B = images.shape[0]
-        dev = images.device
+    def depth_range(self, depth_start, depth_interval, B, device):
+        """depth_start, depth_interval, depth_end as float32 (B,) tensors."""
         depth_start = torch.as_tensor(depth_start, dtype=torch.float32,
-                                      device=dev).expand(B)
+                                      device=device).expand(B)
         depth_interval = torch.as_tensor(depth_interval, dtype=torch.float32,
-                                         device=dev).expand(B)
-        depth_end = depth_start + (cfg.max_d - 1) * depth_interval
+                                         device=device).expand(B)
+        return depth_start, depth_interval, depth_start + (self.cfg.max_d - 1) * depth_interval
 
-        ref_f, view_f = self.extract_features(images)
-        fh, fw = ref_f.shape[1:3]
-        # RegNetUS0's three halvings must stay even: (D, h, w) % 8 == 0.
-        for dim, name in ((cfg.max_d, "max_d"), (fh, "feature height"),
+    def check_feature_shape(self, fh: int, fw: int) -> None:
+        """RegNetUS0's three halvings must stay even: (D, h, w) % 8 == 0."""
+        for dim, name in ((self.cfg.max_d, "max_d"), (fh, "feature height"),
                           (fw, "feature width")):
             if dim % 8 != 0:
                 raise ValueError(
                     f"{name}={dim} must be divisible by 8 for the 3D U-Net "
                     f"regularizer (input H/W divisible by 32)")
 
-        homs = homographies_for_views(cams, cfg.max_d, depth_start,
-                                      depth_interval, depth_end,
-                                      inverse_depth=cfg.inverse_depth)
-        cost = plane_sweep_cost_volume(ref_f, view_f, homs,
-                                       differentiable=self.training)
-        reg = self.regnet(cost)[..., 0].to(torch.float32)          # (B, D, h, w)
+    def homographies(self, cams, depth_start, depth_interval, depth_end):
+        """(V-1, B, D, 3, 3) float32 plane-sweep homographies."""
+        return homographies_for_views(cams, self.cfg.max_d, depth_start, depth_interval,
+                                      depth_end, inverse_depth=self.cfg.inverse_depth)
+
+    def depth_tail(self, reg, depth_start, depth_interval, depth_end):
+        """Regularized costs (B, D, h, w) float32 -> depth_map, prob_map."""
+        cfg = self.cfg
         return soft_argmin_prob_map(reg, depth_start, depth_interval, cfg.max_d,
                                     inverse_depth=cfg.inverse_depth,
                                     depth_end=depth_end,
                                     num_buckets=cfg.prob_num_buckets)
+
+    def forward_3dcnn(self, images, cams, depth_start, depth_interval):
+        """images (B, V, H, W, 3), view 0 the reference; cams (B, V, 2, 4, 4)
+        scaled to the cost-volume resolution; depth_start, depth_interval
+        (B,). Returns depth_map, prob_map, each (B, h, w, 1) float32."""
+        ds, di, de = self.depth_range(depth_start, depth_interval, images.shape[0],
+                                      images.device)
+        ref_f, view_f = self.extract_features(images)
+        self.check_feature_shape(*ref_f.shape[1:3])
+        cost = plane_sweep_cost_volume(ref_f, view_f, self.homographies(cams, ds, di, de),
+                                       differentiable=self.training)
+        reg = self.regnet(cost)[..., 0].to(torch.float32)          # (B, D, h, w)
+        return self.depth_tail(reg, ds, di, de)
 
     forward = forward_3dcnn
 

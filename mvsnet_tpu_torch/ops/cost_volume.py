@@ -15,6 +15,9 @@ view's warp (K2), forms the variance cotangents in PyTorch and scatters
 them back to the source maps with the transposed warp (K3), in depth
 chunks whose V float32 volumes stay under 2 GiB. The homographies get no
 gradient (cameras are data), as in the JAX VJP.
+
+`sweep_cost_volume_sharded` is the multi-device edition (kernel K1s): each
+rank computes its 'space' rows and its 'depth' slab of the volume.
 """
 
 from __future__ import annotations
@@ -101,3 +104,33 @@ def plane_sweep_cost_volume(ref_feature, view_features, homographies,
     outs = [_cost_one(ref_feature[b], view_features[:, b], homographies[:, b])
             for b in range(B)]
     return outs[0][None] if B == 1 else torch.stack(outs, dim=0)
+
+
+def sweep_cost_volume_sharded(ref_l, views_l, homographies, mesh):
+    """This rank's block of the cost volume (counterpart of
+    `pallas_sweep_cost_volume_sharded`, mvsnet_tpu/ops/pallas/sweep.py:1986).
+
+    ref_l (B, hl, w, C) and views_l (V-1, B, hl, w, C) are the rank's row
+    shard over 'space' (rows [s * hl, (s + 1) * hl), s its 'space' index);
+    homographies (V-1, B, D, 3, 3) are whole. The source views are
+    all-gathered over 'space', the homographies cut to the rank's depth
+    slab (D / depth planes at d * D / depth), and K1s runs per batch
+    element with row offset s * hl. Returns (B, D / depth, hl, w, C) in the
+    features' dtype. Inference only; shapes K1s cannot take raise.
+    """
+    if torch.is_grad_enabled() and (ref_l.requires_grad or views_l.requires_grad):
+        raise NotImplementedError("the sharded cost volume is inference only")
+    V1, B, D = homographies.shape[:3]
+    hl = ref_l.shape[1]
+    dp, d = mesh.axis_size("depth"), mesh.axis_index("depth")
+    s = mesh.axis_index("space")
+    if D % dp:
+        raise ValueError(f"{D} depth planes do not split over {dp} 'depth' ranks")
+    if views_l.shape[:2] != (V1, B) or views_l.shape[2:] != ref_l.shape[1:]:
+        raise ValueError(f"views {tuple(views_l.shape)} do not match ref {tuple(ref_l.shape)} "
+                         f"and homographies {tuple(homographies.shape)}")
+    views = mesh.all_gather(views_l.contiguous(), "space", dim=2)
+    Dl = D // dp
+    homs = homographies[:, :, d * Dl:(d + 1) * Dl]
+    return torch.stack([sweep.cost_volume(ref_l[b], views[:, b], homs[:, b],
+                                          row_offset=s * hl) for b in range(B)], dim=0)

@@ -8,6 +8,7 @@ from mvsnet_tpu_torch.ops.kernels import conv, deconv, sweep, warp, wgrad
 # kernel name -> (module, name of its launch counter)
 COUNTERS = {
     "cost_volume": (sweep, "launches"),
+    "cost_volume_sharded": (sweep, "launches_sharded"),
     "conv": (conv, "launches"),
     "deconv": (deconv, "launches"),
     "warp": (warp, "launches"),

@@ -64,13 +64,26 @@ def _check_args(x, kernel, bias, stride):
     return rank
 
 
-def conv_plain(x, kernel, bias=None, stride: int = 1, relu: bool = False):
-    """Plain PyTorch version: asymmetric SAME pads, then `F.conv{2,3}d`
-    with padding 0, in float32 on x's values and the kernel cast to x's
-    dtype; + bias, ReLU, cast to x's dtype."""
+def conv_pads(x_spatial, ks, stride: int, pads=None):
+    """((lo, hi), ...) and the output size per spatial axis: SAME pads, or
+    the explicit `pads` ((lo, hi) per axis, zeros read beyond the input)."""
+    if pads is None:
+        pads = [same_pads(n, k, stride)[:2] for n, k in zip(x_spatial, ks)]
+    pads = [tuple(int(p) for p in lo_hi) for lo_hi in pads]
+    if len(pads) != len(ks) or any(len(p) != 2 or min(p) < 0 for p in pads):
+        raise ValueError(f"one (lo, hi) pad >= 0 per spatial axis, got {pads}")
+    outs = [(n + lo + hi - k) // stride + 1 for n, k, (lo, hi) in zip(x_spatial, ks, pads)]
+    if min(outs) < 1:
+        raise ValueError(f"pads {pads} leave no output for input {tuple(x_spatial)}")
+    return pads, outs
+
+
+def conv_plain(x, kernel, bias=None, stride: int = 1, relu: bool = False, pads=None):
+    """Plain PyTorch version: asymmetric SAME (or the explicit) pads, then
+    `F.conv{2,3}d` with padding 0, in float32 on x's values and the kernel
+    cast to x's dtype; + bias, ReLU, cast to x's dtype."""
     rank = _check_args(x, kernel, bias, stride)
-    ks = kernel.shape[:rank]
-    pads = [same_pads(n, k, stride)[:2] for n, k in zip(x.shape[1:-1], ks)]
+    pads, _ = conv_pads(x.shape[1:-1], kernel.shape[:rank], stride, pads)
     flat_pads = [p for lo_hi in reversed(pads) for p in lo_hi]
     xf = F.pad(x.to(torch.float32).movedim(-1, 1), flat_pads)
     w = kernel.to(x.dtype).to(torch.float32).permute(rank + 1, rank, *range(rank))
@@ -82,13 +95,15 @@ def conv_plain(x, kernel, bias=None, stride: int = 1, relu: bool = False):
     return y.movedim(1, -1).to(x.dtype).contiguous()
 
 
-def conv(x, kernel, bias=None, stride: int = 1, relu: bool = False):
+def conv(x, kernel, bias=None, stride: int = 1, relu: bool = False, pads=None):
     """SAME conv of x (B, [D,] H, W, Cin) with kernel ([KD,] KH, KW, Cin,
     Cout), float32 sums; out = act(sum + bias) in x's dtype. The kernel is
-    cast to x's dtype; bias is float32 or None."""
+    cast to x's dtype; bias is float32 or None. `pads`, ((lo, hi), ...)
+    per spatial axis, replaces the SAME pads (the depth-slab halo convs of
+    `parallel/halo.py`)."""
     global launches
     if x.device.type == "cpu":
-        return conv_plain(x, kernel, bias, stride, relu)
+        return conv_plain(x, kernel, bias, stride, relu, pads)
     rank = _check_args(x, kernel, bias, stride)
     x = x.contiguous()
     w = kernel.to(x.dtype).contiguous()
@@ -107,9 +122,9 @@ def conv(x, kernel, bias=None, stride: int = 1, relu: bool = False):
                          f"got {(kd, kh, kw)}")
     B, Di, Hi, Wi, Cin = x5.shape
     Cout = w.shape[-1]
-    pd, _, Do = same_pads(Di, kd, sd)
-    ph, _, Ho = same_pads(Hi, kh, stride)
-    pw, _, Wo = same_pads(Wi, kw, stride)
+    lo_hi, outs = conv_pads(x.shape[1:-1], w.shape[:rank], stride, pads)
+    (pd, Do) = (lo_hi[0][0], outs[0]) if rank == 3 else (0, 1)
+    (ph, pw), (Ho, Wo) = (p[0] for p in lo_hi[-2:]), outs[-2:]
     if 4 * math.prod((kd, kh, kw, Cin)) * out_channel_tile(Cout) > 227 * 1024:
         raise ValueError(f"weights of {Cin} input channels exceed the shared memory")
     out = torch.empty((B, Do, Ho, Wo, Cout), dtype=x.dtype, device=x.device)

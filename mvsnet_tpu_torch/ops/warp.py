@@ -13,23 +13,27 @@ from __future__ import annotations
 import torch
 
 
-def _pixel_grid(height: int, width: int, device) -> torch.Tensor:
-    """(3, H*W) homogeneous grid: rows x+0.5, y+0.5, 1."""
+def _pixel_grid(height: int, width: int, device, row_offset: int = 0) -> torch.Tensor:
+    """(3, H*W) homogeneous grid: rows x+0.5, y+0.5, 1, for the `height`
+    image rows that start at `row_offset`."""
     x = torch.arange(width, dtype=torch.float32, device=device) + 0.5
-    y = torch.arange(height, dtype=torch.float32, device=device) + 0.5
+    y = torch.arange(row_offset, row_offset + height, dtype=torch.float32,
+                     device=device) + 0.5
     yy, xx = torch.meshgrid(y, x, indexing="ij")
     return torch.stack([xx.reshape(-1), yy.reshape(-1),
                         torch.ones_like(xx).reshape(-1)], dim=0)
 
 
-def projected_coords(homography, height: int, width: int, eps: float = 1e-7):
+def projected_coords(homography, height: int, width: int, eps: float = 1e-7,
+                     row_offset: int = 0):
     """Project the reference pixel grid through H, in float32.
 
     homography: (..., 3, 3). Returns (x, y), each (..., H*W), the source
-    pixel coordinates (centres at integers).
+    pixel coordinates (centres at integers) of the `height` reference rows
+    that start at `row_offset`.
     """
     homography = homography.to(torch.float32)
-    uvw = homography @ _pixel_grid(height, width, homography.device)
+    uvw = homography @ _pixel_grid(height, width, homography.device, row_offset)
     w = uvw[..., 2, :]
     small = w.abs() < eps
     w = torch.where(small, torch.where(w < 0, -eps, eps), w)

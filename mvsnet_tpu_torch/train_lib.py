@@ -102,9 +102,10 @@ def to_device(batch, device):
 
 
 def compute_loss(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, batch,
-                 training: bool):
+                 training: bool, batch_sum=None):
     """Forward and loss for one batch of device tensors (reference get_loss,
-    train.py:307-364). Returns (loss, metrics)."""
+    train.py:307-364). Returns (loss, metrics). `batch_sum`: see
+    `losses.py`; loss and metrics["loss"] are then this rank's share."""
     if cfg.regularization != "3DCNN":
         raise NotImplementedError("the GRU graphs are not ported yet")
     if cfg.refinement:
@@ -115,7 +116,8 @@ def compute_loss(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, batch,
     depth_map, _ = model.forward_3dcnn(images, cams, depth_start, depth_interval)
     loss, l1, l3, debug = mvsnet_regression_loss(
         depth_map, depth_image, depth_start, depth_end, loss_type=tcfg.loss_type,
-        alpha=tcfg.alpha, beta=tcfg.beta, eta=tcfg.eta, grad_loss=tcfg.grad_loss)
+        alpha=tcfg.alpha, beta=tcfg.beta, eta=tcfg.eta, grad_loss=tcfg.grad_loss,
+        batch_sum=batch_sum)
     metrics = {"loss": loss.detach(), "less_one": l1, "less_three": l3,
                "debug": debug.detach()}
     return loss, metrics

@@ -73,6 +73,34 @@ def test_cost_volume_matches_plain(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth,space", [(2, 2), (3, 1), (1, 4)])
+def test_sharded_cost_volume_blocks_stitch_to_k1(dev, dtype, depth, space):
+    """K1s on every (depth slab, row block) of a (depth, space) mesh,
+    stitched, is K1 bit for bit: each element is the same arithmetic on the
+    same inputs, so any difference is a wrong row or bound."""
+    rng = np.random.default_rng(1)
+    H, W, C, D = 20, 28, 16, 6
+    ref = _rand(rng, (H, W, C), dtype, dev)
+    views = _rand(rng, (2, H, W, C), dtype, dev)
+    homs = torch.stack([_homs(D, 0.02, 12.0, dev), _homs(D, -0.2, 30.0, dev)])
+    whole = sweep.cost_volume(ref, views, homs)
+    Dl, Hl = D // depth, H // space
+    before = (sweep.launches, sweep.launches_sharded)
+    stitched = torch.cat([
+        torch.cat([sweep.cost_volume(ref[s * Hl:(s + 1) * Hl], views,
+                                     homs[:, d * Dl:(d + 1) * Dl], row_offset=s * Hl)
+                   for s in range(space)], dim=1)
+        for d in range(depth)], dim=0)
+    assert (sweep.launches, sweep.launches_sharded) == (before[0],
+                                                        before[1] + depth * space)
+    assert torch.equal(stitched, whole)
+    block = sweep.cost_volume(ref[Hl:2 * Hl] if space > 1 else ref, views, homs[:, :Dl],
+                              row_offset=Hl if space > 1 else 0)
+    _close(block, sweep.cost_volume_plain(ref[Hl:2 * Hl] if space > 1 else ref, views,
+                                          homs[:, :Dl], Hl if space > 1 else 0), TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,k,stride,cin,cout", [
     ((1, 6, 10, 12), 3, 1, 32, 8),
     ((1, 6, 10, 12), 3, 2, 16, 16),
