@@ -82,6 +82,10 @@ E2E_DEPTH_ATOL = 0.05          # depth units; the plane interval is 15
 E2E_PROB_ATOL = 1e-3
 EXPECTED_LAUNCHES = {"cost_volume": 1, "cost_volume_sharded": 0, "conv": 36, "deconv": 7,
                      "warp": 0, "warp_transpose": 0, "wgrad": 0}
+# per bf16 request: every conv and deconv on the tensor cores but the two
+# convs on the 3-channel images (2dconv1_0, 2dconv0_1)
+EXPECTED_EDITIONS = {"conv": {"tc": 34, "simt": 2}, "deconv": {"tc": 7, "simt": 0}}
+SIMT_LAYERS = {"feature_net.2dconv1_0.conv", "feature_net.2dconv0_1.conv"}
 # one float32 train step at 128x128, D=16, card kernels vs the CPU's plain
 # path. The forward is well conditioned: loss and batch-norm statistics to
 # 1e-4. The gradients are not: with every kernel swapped for its plain
@@ -232,6 +236,87 @@ def perturb_norms(model, seed):
                 t.copy_(0.5 + torch.rand(t.shape, generator=g))
             elif name.endswith((".gn.bias", ".bn.bias", "mean")):
                 t.copy_(0.2 * torch.randn(t.shape, generator=g))
+
+
+def layer_bound_ms(kind, x, w, out, stride=1, los=None):
+    """The least time of one conv or deconv call: its bytes (input, weights
+    and output once each) at 3.35 TB/s or its operations on the taps inside
+    the input at 989 TFLOP/s (bf16), whichever is larger."""
+    from mvsnet_tpu_torch.ops.kernels.conv import same_pads
+
+    k = w.shape[0]
+    cin, cout = x.shape[-1], out.shape[-1]
+    ins, outs = x.shape[1:-1], out.shape[1:-1]
+    if kind == "conv":
+        taps = [valid_taps(n, k, stride, lo, m) for n, m, lo in
+                zip(ins, outs, los or [same_pads(n, k, stride)[0] for n in ins])]
+    else:
+        taps = [sum(1 for o in range(m) for t in range(k)
+                    if (o + lo - t) % 2 == 0 and 0 <= (o + lo - t) // 2 < n)
+                for n, m, lo in zip(ins, outs, los)]
+    ops = 2 * cin * cout * x.shape[0] * int(np.prod(taps))
+    n_bytes = (x.numel() + w.numel() + out.numel()) * x.element_size()
+    return max(n_bytes / HBM_BYTES_PER_S, ops / PEAK_OPS[x.dtype]) * 1e3
+
+
+def layer_times(smi, predictor, request):
+    """One steady request with every conv and deconv call timed by CUDA
+    events around the wrapper (launch included), named by module: one line
+    per layer (name, input shape, edition, ms, bound ms), then the sums per
+    source and edition. Returns whether every layer ran the edition the
+    rule gives it (simt only for the two convs on the images)."""
+    from mvsnet_tpu_torch.models.layers import Conv, Deconv
+    from mvsnet_tpu_torch.ops.kernels import conv, deconv
+
+    model = predictor.model
+    current, calls = [None], []
+    hooks = [m.register_forward_pre_hook(lambda mod, args, name=name: current.__setitem__(0, name))
+             for name, m in model.named_modules() if isinstance(m, (Conv, Deconv))]
+
+    def timed(kind, fn):
+        mod = conv if kind == "conv" else deconv
+
+        def call(x, kernel, *args, **kwargs):
+            before = dict(mod.launches_by_edition)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(x, kernel, *args, **kwargs)
+            end.record()
+            ed = next(e for e, n in mod.launches_by_edition.items() if n != before[e])
+            calls.append((current[0], kind, tuple(x.shape), tuple(kernel.shape), ed, start, end,
+                          (x, kernel, out, args, kwargs)))
+            return out
+        return call
+
+    real = conv.conv, deconv.deconv
+    conv.conv, deconv.deconv = timed("conv", real[0]), timed("deconv", real[1])
+    try:
+        predictor.predict(*request, fetch=False)
+        torch.cuda.synchronize()
+    finally:
+        conv.conv, deconv.deconv = real
+        for h in hooks:
+            h.remove()
+    print(f"  layers of one request (ms by CUDA events around each wrapper call; bound as "
+          f"phase 3) [{smi}]:")
+    sums, ok = {}, True
+    for name, kind, xs, ws, ed, start, end, (x, w, out, args, kwargs) in calls:
+        ms = start.elapsed_time(end)
+        if kind == "conv":
+            stride = args[1] if len(args) > 1 else kwargs.get("stride", 1)
+            bound = layer_bound_ms(kind, x, w, out, stride)
+        else:
+            bound = layer_bound_ms(kind, x, w, out, los=[0] * (x.ndim - 2))
+        src = f"{kind}.cu {ed}"
+        n, t, b = sums.get(src, (0, 0.0, 0.0))
+        sums[src] = (n + 1, t + ms, b + bound)
+        want = "simt" if name in SIMT_LAYERS else "tc"
+        ok = ok and ed == want
+        print(f"    {name:32s} {kind:6s} in {xs} k {ws} {ed:4s} {ms:8.4f} ms  bound "
+              f"{bound:.4f} ms{'' if ed == want else '  WRONG EDITION'}")
+    print("  per source and edition (launches, ms, bound ms): " + "; ".join(
+        f"{k} {n}, {t:.4f}, {b:.4f}" for k, (n, t, b) in sorted(sums.items())))
+    return ok and len(calls) == 43
 
 
 def profile_device(fn):
@@ -702,7 +787,8 @@ def main() -> int:
 
         cases.append(dict(
             name=f"conv:{layer}", counter="conv",
-            kernel=lambda x, w, b: conv.conv(x, w, b, stride, epilogue),
+            kernel=lambda x, w, b, edition=None: conv.conv(x, w, b, stride, epilogue,
+                                                           edition=edition),
             plain=lambda x, w, b: conv.conv_plain(x, w, b, stride, epilogue),
             library=library, library_inputs=library_inputs, make=make,
             bytes=lambda it: (int(np.prod(shape)) + k ** rank * cin * cout + n_out) * it,
@@ -736,7 +822,8 @@ def main() -> int:
 
         cases.append(dict(
             name=f"deconv:{layer}", counter="deconv",
-            kernel=lambda x, w, b: deconv.deconv(x, w, b, epilogue, los, outs),
+            kernel=lambda x, w, b, edition=None: deconv.deconv(x, w, b, epilogue, los, outs,
+                                                               edition=edition),
             plain=lambda x, w, b: deconv.deconv_plain(x, w, b, epilogue, los, outs),
             library=library,
             library_inputs=lambda x, w, b: (x, w, None if b is None else b.to(x.dtype)),
@@ -816,7 +903,9 @@ def main() -> int:
     add_conv("3dconv0_1", (1, 192, 216, 288, 32), 3, 1, 8, True, c3)
     add_conv("3dconv1_0", (1, 192, 216, 288, 32), 3, 2, 16, True, c3)
     add_conv("3dconv3_1", (1, 24, 27, 36, 64), 3, 1, 64, True, c3)
+    add_conv("3dconv6_2", (1, 192, 216, 288, 8), 3, 1, 1, False, c3)
     add_conv("2dconv0_1", (3, 864, 1152, 3), 3, 1, 8, False, c2s1)
+    add_conv("2dconv1_0", (3, 864, 1152, 3), 3, 2, 16, False, c2s2)
     add_conv("2dconv4_1", (3, 54, 72, 128), 3, 1, 128, False, c2s1)
     add_conv("conv9_0", (3, 864, 1152, 8), 5, 2, 16, False, c2s2)
     add_deconv("3dconv6_0", (1, 96, 108, 144, 16), 8, True,
@@ -839,18 +928,31 @@ def main() -> int:
 
     print("kernel phase: kernel vs plain version on the card "
           f"(pass: max abs err <= tol * max(1, max|plain|), tol {TOL[torch.float32]:g} "
-          f"f32, {TOL[torch.bfloat16]:g} bf16; float32 outputs take the f32 tol)")
+          f"f32, {TOL[torch.bfloat16]:g} bf16; float32 outputs take the f32 tol); bf16 conv "
+          "and deconv rows also time the CUDA-core edition (simt) beside the tensor-core one "
+          "(tc), in turns tc, simt, simt, tc")
     failures, records = [], {}
     for c in cases:
         for dtype in (torch.float32, torch.bfloat16):
             inputs = c["make"](dtype)
+            editioned = c["counter"] in kernels.EDITIONED
             before = kernels.launch_counts()[c["counter"]]
+            ed_before = kernels.edition_counts().get(c["counter"])
             got = c["kernel"](*inputs)
             want = c["plain"](*inputs)
             torch.cuda.synchronize()
             if kernels.launch_counts()[c["counter"]] != before + 1:
                 failures.append(f"{c['name']} {dtype}: the wrapper did not launch its kernel")
                 continue
+            tag = str(dtype).replace("torch.", "")
+            if editioned:
+                # bf16 with Cin % 8 == 0 runs the tensor-core edition
+                cin = inputs[0].shape[-1]
+                want_ed = "tc" if dtype == torch.bfloat16 and cin % 8 == 0 else "simt"
+                ed_after = kernels.edition_counts()[c["counter"]]
+                if ed_after[want_ed] != ed_before[want_ed] + 1:
+                    failures.append(f"{c['name']} {tag}: ran {ed_before} -> {ed_after}, "
+                                    f"not the {want_ed} edition")
             if got.shape != want.shape:
                 failures.append(f"{c['name']} {dtype}: shape {tuple(got.shape)} != "
                                 f"{tuple(want.shape)}")
@@ -861,7 +963,18 @@ def main() -> int:
             tol = TOL[torch.float32 if c.get("f32_out") else dtype]
             ok = bool(torch.isfinite(got).all()) and err <= tol * max(1.0, scale)
             del got, want
-            ms = cuda_time_ms(lambda: c["kernel"](*inputs))
+            simt_text = ""
+            if editioned and dtype == torch.bfloat16:
+                turns = {"tc": [], "simt": []}
+                for ed in ("tc", "simt", "simt", "tc"):
+                    if ed == "tc" and want_ed != "tc":
+                        continue
+                    turns[ed].append(cuda_time_ms(lambda ed=ed: c["kernel"](*inputs, edition=ed)))
+                ms = float(np.mean(turns[want_ed]))
+                simt_text = (f"  [{want_ed} {', '.join(f'{t:.4f}' for t in turns[want_ed])}; "
+                             f"simt {', '.join(f'{t:.4f}' for t in turns['simt'])}]")
+            else:
+                ms = cuda_time_ms(lambda: c["kernel"](*inputs))
             plain_ms = cuda_time_ms(lambda: c["plain"](*inputs), max_iters=10)
             lib_ms = None
             if c["library"] is not None:
@@ -872,12 +985,12 @@ def main() -> int:
             t_bytes = c["bytes"](it) / HBM_BYTES_PER_S * 1e3
             t_ops = c["ops"] / PEAK_OPS[dtype] * 1e3
             bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
-            tag = str(dtype).replace("torch.", "")
             print(f"  {c['name']:18s} {tag:8s} max_abs_err {err:.3e} max_rel_err "
                   f"{err / max(scale, 1e-30):.3e} {'ok' if ok else 'FAIL'} | "
                   f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
                   f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms  bound {bound_ms:.4f} ms "
-                  f"({bound_by}: {c['bytes'](it) / 1e6:.1f} MB, {c['ops'] / 1e9:.2f} GFLOP)")
+                  f"({bound_by}: {c['bytes'](it) / 1e6:.1f} MB, {c['ops'] / 1e9:.2f} GFLOP)"
+                  + simt_text)
             if not ok:
                 failures.append(f"{c['name']} {tag}: max abs err {err:.3e} (max|plain| {scale:.3e})")
             records[(c["name"], tag)] = dict(
@@ -896,15 +1009,17 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    walls, per_request = [], []
+    walls, per_request, editions = [], [], []
     for _ in range(3):
-        before = kernels.launch_counts()
+        before, ed_before = kernels.launch_counts(), kernels.edition_counts()
         t0 = time.perf_counter()
         depth, prob, _ = predictor.predict(images, cams, ds, di, fetch=False)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-        after = kernels.launch_counts()
+        after, ed_after = kernels.launch_counts(), kernels.edition_counts()
         per_request.append({k: after[k] - before[k] for k in after})
+        editions.append({k: {e: n - ed_before[k][e] for e, n in v.items()}
+                         for k, v in ed_after.items()})
         if not (torch.isfinite(depth).all() and torch.isfinite(prob).all()):
             print("inference FAILED: non-finite depth or prob")
             return 1
@@ -914,8 +1029,12 @@ def main() -> int:
           f"depth {tuple(depth.shape)} in [{depth.min().item():.1f}, {depth.max().item():.1f}], "
           f"prob in [{prob.min().item():.3f}, {prob.max().item():.3f}]")
     print(f"  launches per request: {per_request}")
+    print(f"  launches per request and edition: {editions}")
     if any(r != EXPECTED_LAUNCHES for r in per_request):
         print(f"inference FAILED: launches per request {per_request} != {EXPECTED_LAUNCHES}")
+        return 1
+    if any(r != EXPECTED_EDITIONS for r in editions):
+        print(f"inference FAILED: editions per request {editions} != {EXPECTED_EDITIONS}")
         return 1
 
     # one more request, stage by stage (after the counts were read)
@@ -943,6 +1062,9 @@ def main() -> int:
         stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
     print("  stages (ms, CUDA events, one request): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    if not layer_times(smi, predictor, (images, cams, ds, di)):
+        print("inference FAILED: a layer ran the wrong edition")
+        return 1
     print_profile("request", *profile_device(
         lambda: predictor.predict(images, cams, ds, di, fetch=False)))
     del predictor, model, depth, prob, ref_f, view_f, cost, reg
@@ -994,12 +1116,13 @@ def main() -> int:
             print(f"training FAILED: loss {step_losses[-1]}, all gradients finite: {bool(finite)}")
             return 1
     train_launches = kernels.launch_counts()
+    train_editions = kernels.edition_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"training: 3 steps at 640x480, D=192, V=3, normal, bf16, rmsprop, power+grad "
           f"loss: step ms {', '.join(f'{w:.2f}' for w in walls)} (the first includes "
           f"set-up); peak memory {peak / 2 ** 30:.3f} GiB; losses "
           f"{', '.join(f'{v:.4f}' for v in step_losses)}")
-    print(f"  launches per step: {per_step}")
+    print(f"  launches per step: {per_step}; editions over the 3 steps: {train_editions}")
     if any(r != expected for r in per_step):
         print(f"training FAILED: launches per step {per_step} != {expected}")
         return 1

@@ -14,15 +14,20 @@
 // the input read as zero (TF "SAME": low pad = total // 2). Products and
 // sums are float32; the epilogue runs on the float32 sum and casts once.
 //
-// Bound on the H100: at the operating point's largest layers, bytes for
-// the tensor cores (a 3x3x3 conv with 8 to 32 channels does a few hundred
-// operations per byte). This first kernel runs on the CUDA cores instead,
-// where operations bound it: each thread owns one output voxel and COT
-// output channels, keeps COT float32 sums in registers, reads its input in
-// 16-byte vectors of 8 channels, and takes the block's weight slice from
-// shared memory as float32, so one shared-memory broadcast feeds COT fused
-// multiply-adds. Tensor cores (wgmma fed by TMA) are later work.
+// Two editions, which the wrapper (ops/kernels/conv.py) picks by dtype and
+// shape. bf16 with Cin % 8 == 0 runs the tensor-core edition of
+// tc_conv.cuh (conv_tc_launch): an implicit GEMM on mma.sync fed by a
+// staged, zero-filled input box; its note says what bounds each layer on
+// the H100 and what the design does about it. float32, and bf16 with Cin
+// % 8 != 0 (the two convs on the 3-channel images), run the CUDA-core
+// edition below (conv_launch): there operations bound it, and each thread
+// owns one output voxel and COT output channels, keeps COT float32 sums in
+// registers, reads its input in 16-byte vectors of 8 channels, and takes
+// the block's weight slice from shared memory as float32, so one
+// shared-memory broadcast feeds COT fused multiply-adds. Float32 stays on
+// the CUDA cores because TF32 would not hold float32's tolerances.
 #include "common.cuh"
+#include "tc_conv.cuh"
 
 namespace {
 
@@ -151,6 +156,14 @@ extern "C" int conv_launch(int dtype, int kd, int kh, int kw, int cot,
                                  Cin, Do, Ho, Wo, Cout, sd, sh, sw, pd, ph, pw,
                                  relu, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core edition (bf16, Cin % 8 == 0): plan is the 200 ints of
+// tc_conv.cuh's Plan (ops/kernels/tc.py), w the (KD, KH, KW, Cin, Cout)
+// kernel, bias (Cout,) float32 or null.
+extern "C" int conv_tc_launch(int nt, int mt, int warps, const int* plan, const void* x,
+                              const void* w, const void* bias, void* out, void* stream) {
+  return mvs::tc::launch(nt, mt, warps, plan, x, w, bias, out, stream);
 }
 
 extern "C" const char* conv_error_string(int err) {

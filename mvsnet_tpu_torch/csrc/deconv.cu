@@ -18,12 +18,19 @@
 // fixed order of summation: at most (K + 1) / 2 taps per axis. Every
 // output is written once; sums and the epilogue are float32.
 //
-// Bound on the H100: bytes for the tensor cores (a quarter of the taps of a
-// 3x3x3 conv, with the output 8 times the input's voxels). This first kernel
-// runs on the CUDA cores, with the same tiling as the direct conv (conv.cu):
-// one output voxel and COT output channels per thread, 16-byte input reads,
-// and the weight slice in shared memory as float32.
+// Two editions, which the wrapper (ops/kernels/deconv.py) picks by dtype
+// and shape. bf16 with Cin % 8 == 0 runs the tensor-core edition of
+// tc_conv.cuh (deconv_tc_launch): the output splits into 2^rank parity
+// classes (one per parity of the output along each axis), each a stride-1
+// implicit GEMM over the input grid with 1-8 taps (3D, K = 3) or 1-9 (2D,
+// K = 5), all classes in one launch, stored to out[2 j + r]; bytes bound
+// it on the H100 (a quarter of a 3x3x3 conv's taps, the output 8 times the
+// input's voxels). float32, and bf16 with Cin % 8 != 0, run the CUDA-core
+// edition below (deconv_launch), with the tiling of conv.cu's: one output
+// voxel and COT output channels per thread, 16-byte input reads, and the
+// weight slice in shared memory as float32.
 #include "common.cuh"
+#include "tc_conv.cuh"
 
 namespace {
 
@@ -168,6 +175,14 @@ extern "C" int deconv_launch(int dtype, int rank, int k, int cot, const void* x,
     return dispatch_shape<bf16>(rank, k, cot, x, w, b, out, B, Di, Hi, Wi, Cin, Do, Ho, Wo,
                                 Cout, lod, loh, low, relu, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// The tensor-core edition (bf16, Cin % 8 == 0): plan is the 200 ints of
+// tc_conv.cuh's Plan with one class per output parity (ops/kernels/tc.py),
+// w the flax-oriented (KD, KH, KW, Cin, Cout) kernel (KD = 1 for rank 2).
+extern "C" int deconv_tc_launch(int nt, int mt, int warps, const int* plan, const void* x,
+                                const void* w, const void* bias, void* out, void* stream) {
+  return mvs::tc::launch(nt, mt, warps, plan, x, w, bias, out, stream);
 }
 
 extern "C" const char* deconv_error_string(int err) {

@@ -1,5 +1,5 @@
 """Direct "SAME" convolution, rank 2 or 3, with a bias + ReLU epilogue:
-kernels K4 and K6 (`csrc/conv.cu`).
+kernels K4 and K6 (`csrc/conv.cu`, `csrc/tc_conv.cuh`).
 
 Replaces the Pallas 3D conv kernels (mvsnet_tpu/ops/pallas/conv3d.py,
 `_rowconv3d_fwd_impl` at conv3d.py:974: `_make_kernel`, `_make_kernel_dpack`,
@@ -7,12 +7,16 @@ Replaces the Pallas 3D conv kernels (mvsnet_tpu/ops/pallas/conv3d.py,
 Pallas 2D conv kernels (mvsnet_tpu/ops/pallas/conv2d.py, `_rowconv2d_fwd_impl`
 at conv2d.py:871, :825, :774, and `_rowconv2d_s2_fwd_impl` at :578). It also
 serves the shapes the JAX package leaves to XLA: every conv of the path runs
-here. A 3x3x3 conv with 8 to 32 channels is bound by bytes on the H100's
-tensor cores; this first kernel runs on the CUDA cores, where operations
-bound it, with float32 sums in registers, 16-byte input reads and the
-weights staged in shared memory as float32 (see the source's comment).
+here. Two editions (see the sources' notes):
+- "tc", bf16 with Cin % 8 == 0 and Cout <= 128: an implicit GEMM on the
+  tensor cores, the input box staged once per tile, float32 sums;
+- "simt", float32, and bf16 with Cin % 8 != 0 (the convs on the 3-channel
+  images): the CUDA-core kernel, float32 sums in registers.
+`edition=None` picks by that rule; asking for "tc" on operands it does not
+take raises. `launches` counts every launch, `launches_by_edition` each
+edition's.
 
-`conv` runs the kernel on CUDA tensors and `conv_plain` on CPU tensors; it
+`conv` runs a kernel on CUDA tensors and `conv_plain` on CPU tensors; it
 never falls back from one to the other.
 """
 
@@ -24,10 +28,12 @@ import math
 import torch
 import torch.nn.functional as F
 
-from mvsnet_tpu_torch.ops.kernels import _lib
+from mvsnet_tpu_torch.ops.kernels import _lib, tc
 
-# Launches of the CUDA kernel in this process.
+# Launches of the CUDA kernels in this process, in all and per edition.
 launches = 0
+launches_by_edition = {"tc": 0, "simt": 0}
+EDITIONS = ("tc", "simt")
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
@@ -64,6 +70,19 @@ def _check_args(x, kernel, bias, stride):
     return rank
 
 
+def pick_edition(dtype, cin: int, cout: int, edition=None) -> str:
+    """The edition that runs these operands: `edition`, or by the rule
+    (bf16, Cin % 8 == 0 and Cout <= 128 -> "tc", else "simt")."""
+    if edition not in (None, *EDITIONS):
+        raise ValueError(f"edition must be None, 'tc' or 'simt', got {edition!r}")
+    if edition is None:
+        return "tc" if tc.takes(dtype, cin, cout) else "simt"
+    if edition == "tc" and not tc.takes(dtype, cin, cout):
+        raise ValueError(f"the tensor-core edition takes bf16 with Cin % 8 == 0 and "
+                         f"Cout <= {tc.MAX_COUT}, got {dtype}, Cin={cin}, Cout={cout}")
+    return edition
+
+
 def conv_pads(x_spatial, ks, stride: int, pads=None):
     """((lo, hi), ...) and the output size per spatial axis: SAME pads, or
     the explicit `pads` ((lo, hi) per axis, zeros read beyond the input)."""
@@ -95,16 +114,18 @@ def conv_plain(x, kernel, bias=None, stride: int = 1, relu: bool = False, pads=N
     return y.movedim(1, -1).to(x.dtype).contiguous()
 
 
-def conv(x, kernel, bias=None, stride: int = 1, relu: bool = False, pads=None):
+def conv(x, kernel, bias=None, stride: int = 1, relu: bool = False, pads=None,
+         edition=None):
     """SAME conv of x (B, [D,] H, W, Cin) with kernel ([KD,] KH, KW, Cin,
     Cout), float32 sums; out = act(sum + bias) in x's dtype. The kernel is
     cast to x's dtype; bias is float32 or None. `pads`, ((lo, hi), ...)
     per spatial axis, replaces the SAME pads (the depth-slab halo convs of
-    `parallel/halo.py`)."""
+    `parallel/halo.py`). `edition`: see the module docstring."""
     global launches
+    rank = _check_args(x, kernel, bias, stride)
+    edition = pick_edition(x.dtype, x.shape[-1], kernel.shape[-1], edition)
     if x.device.type == "cpu":
         return conv_plain(x, kernel, bias, stride, relu, pads)
-    rank = _check_args(x, kernel, bias, stride)
     x = x.contiguous()
     w = kernel.to(x.dtype).contiguous()
     b = None if bias is None else bias.to(torch.float32).contiguous()
@@ -125,9 +146,17 @@ def conv(x, kernel, bias=None, stride: int = 1, relu: bool = False, pads=None):
     lo_hi, outs = conv_pads(x.shape[1:-1], w.shape[:rank], stride, pads)
     (pd, Do) = (lo_hi[0][0], outs[0]) if rank == 3 else (0, 1)
     (ph, pw), (Ho, Wo) = (p[0] for p in lo_hi[-2:]), outs[-2:]
+    out = torch.empty((B, Do, Ho, Wo, Cout), dtype=x.dtype, device=x.device)
+    if edition == "tc":
+        cls = tc.TapClass(taps=(kd, kh, kw), pads=(pd, ph, pw), grid=(Do, Ho, Wo))
+        tc.launch("conv", x5, w.reshape(kd, kh, kw, Cin, Cout), b, out, (sd, stride, stride),
+                  (1, 1, 1), [cls], relu)
+        launches += 1
+        launches_by_edition["tc"] += 1
+        return out[:, 0] if rank == 2 else out
+    # the float32 edition stages the weights as float32 in shared memory
     if 4 * math.prod((kd, kh, kw, Cin)) * out_channel_tile(Cout) > 227 * 1024:
         raise ValueError(f"weights of {Cin} input channels exceed the shared memory")
-    out = torch.empty((B, Do, Ho, Wo, Cout), dtype=x.dtype, device=x.device)
     fn = _lib.launcher("conv", _ARGTYPES)
     err = fn(_lib.dtype_code(x), kd, kh, kw, out_channel_tile(Cout), _lib.ptr(x5),
              _lib.ptr(w), None if b is None else _lib.ptr(b), _lib.ptr(out),
@@ -135,4 +164,5 @@ def conv(x, kernel, bias=None, stride: int = 1, relu: bool = False, pads=None):
              int(relu), _lib.stream_of(x))
     _lib.check("conv", err)
     launches += 1
+    launches_by_edition["simt"] += 1
     return out[:, 0] if rank == 2 else out

@@ -8,10 +8,14 @@ deconv2d.py:185, `_make_kernel`): flax `ConvTranspose(3, 2, "SAME")`, that
 is out[2i + d] += k[2 - d] * x[i] along every upsampled axis. With a low-pad
 offset `lo` and an output size it is the adjoint of a K x K stride-2 SAME
 conv, K = 3 or (rank 2) 5: the input gradient of every stride-2 conv of the
-path (`ops/autograd.py`). Bound by bytes on the H100's tensor cores; this
-first kernel gathers the (at most (K + 1) / 2 per axis) taps of each output
-on the CUDA cores, with no atomics, float32 sums and the weights staged in
-shared memory (see the source's comment).
+path (`ops/autograd.py`). Bound by bytes on the H100. Two editions, picked
+as for the direct conv (`conv.pick_edition`, argument `edition`):
+- "tc", bf16 with Cin % 8 == 0: the output's 2^rank parity classes
+  (`tc.deconv_classes`), each a stride-1 implicit GEMM of the input with a
+  slice of the kernel on the tensor cores, all in one launch;
+- "simt", float32 and bf16 with Cin % 8 != 0: one thread gathers the (at
+  most (K + 1) / 2 per axis) taps of each output on the CUDA cores.
+Neither uses atomics; sums are float32 (see the sources' notes).
 
 `deconv` runs the kernel on CUDA tensors and `deconv_plain` on CPU tensors;
 it never falls back from one to the other.
@@ -24,11 +28,12 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from mvsnet_tpu_torch.ops.kernels import _lib
-from mvsnet_tpu_torch.ops.kernels.conv import out_channel_tile
+from mvsnet_tpu_torch.ops.kernels import _lib, tc
+from mvsnet_tpu_torch.ops.kernels.conv import out_channel_tile, pick_edition
 
-# Launches of the CUDA kernel in this process.
+# Launches of the CUDA kernels in this process, in all and per edition.
 launches = 0
+launches_by_edition = {"tc": 0, "simt": 0}
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
@@ -80,16 +85,18 @@ def deconv_plain(x, kernel, bias=None, relu: bool = False, lo=0, out_spatial=Non
     return y.movedim(1, -1).to(x.dtype).contiguous()
 
 
-def deconv(x, kernel, bias=None, relu: bool = False, lo=0, out_spatial=None):
+def deconv(x, kernel, bias=None, relu: bool = False, lo=0, out_spatial=None,
+           edition=None):
     """Stride-2 transposed conv of x (B, [D,] H, W, Cin) with the flax kernel
     (K, K, [K,] Cin, Cout): out[o] = sum_t k[K-1-t] x[(o + lo - t) / 2] per
     axis, over the taps inside x. The defaults (lo 0, output 2n per axis)
     are flax's k3 s2 SAME transposed conv. Returns (B, *out_spatial, Cout)
-    in x's dtype."""
+    in x's dtype. `edition`: see the module docstring."""
     global launches
+    rank, k, los, outs = _check_args(x, kernel, bias, lo, out_spatial)
+    edition = pick_edition(x.dtype, x.shape[-1], kernel.shape[-1], edition)
     if x.device.type == "cpu":
         return deconv_plain(x, kernel, bias, relu, lo, out_spatial)
-    rank, k, los, outs = _check_args(x, kernel, bias, lo, out_spatial)
     x = x.contiguous()
     w = kernel.to(x.dtype).contiguous()
     b = None if bias is None else bias.to(torch.float32).contiguous()
@@ -97,17 +104,27 @@ def deconv(x, kernel, bias=None, relu: bool = False, lo=0, out_spatial=None):
     x5 = x[:, None] if rank == 2 else x
     B, Di, Hi, Wi, Cin = x5.shape
     Cout = w.shape[-1]
-    cot = out_channel_tile(Cout)
-    if 4 * k ** rank * Cin * cot > 227 * 1024:
-        raise ValueError(f"weights of {Cin} input channels exceed the shared memory")
     (Do, lod) = (outs[0], los[0]) if rank == 3 else (1, 0)
     Ho, Wo = outs[-2:]
     loh, low = los[-2:]
     out = torch.empty((B, Do, Ho, Wo, Cout), dtype=x.dtype, device=x.device)
+    if edition == "tc":
+        classes = tc.deconv_classes(k, (Di, Hi, Wi), (lod, loh, low), (Do, Ho, Wo),
+                                    (rank == 3, True, True))
+        tc.launch("deconv", x5, w[None] if rank == 2 else w, b, out, (1, 1, 1),
+                  (2 if rank == 3 else 1, 2, 2), classes, relu)
+        launches += 1
+        launches_by_edition["tc"] += 1
+        return out[:, 0] if rank == 2 else out
+    # the float32 edition stages the weights as float32 in shared memory
+    cot = out_channel_tile(Cout)
+    if 4 * k ** rank * Cin * cot > 227 * 1024:
+        raise ValueError(f"weights of {Cin} input channels exceed the shared memory")
     fn = _lib.launcher("deconv", _ARGTYPES)
     err = fn(_lib.dtype_code(x), rank, k, cot, _lib.ptr(x5), _lib.ptr(w),
              None if b is None else _lib.ptr(b), _lib.ptr(out), B, Di, Hi, Wi,
              Cin, Do, Ho, Wo, Cout, lod, loh, low, int(relu), _lib.stream_of(x))
     _lib.check("deconv", err)
     launches += 1
+    launches_by_edition["simt"] += 1
     return out[:, 0] if rank == 2 else out

@@ -329,3 +329,97 @@ def test_tiny_train_step_card_matches_cpu(dev):
         assert (got - want).abs().max() <= 2e-2 * max(want.abs().max().item(), 1e-12), name
         num, den = num + ((got - want) ** 2).sum().item(), den + (want ** 2).sum().item()
     assert (num / den) ** 0.5 <= 5e-3
+
+
+def _editions():
+    return {"conv": dict(conv.launches_by_edition), "deconv": dict(deconv.launches_by_edition)}
+
+
+@pytest.mark.parametrize("shape,k,stride,cin,cout,pads", [
+    ((1, 6, 9, 11), 3, 1, 8, 1, None),                  # Cout = 1 (3dconv6_2)
+    ((2, 17, 19), 3, 1, 8, 8, None),                    # Cin = 8: two taps a k step
+    ((1, 5, 7, 9), 3, 1, 8, 16, None),
+    ((1, 5, 6, 7), 3, 1, 64, 64, None),                 # weights streamed (3dconv3_1)
+    ((1, 7, 9), 3, 1, 128, 128, None),                  # weights streamed (2dconv4_1)
+    ((1, 7, 9, 11), 3, 2, 16, 16, None),                # stride 2, odd sizes
+    ((2, 15, 17), 3, 2, 32, 64, None),
+    ((2, 15, 21), 5, 2, 8, 16, None),                   # 5x5 stride 2 (conv9_0), odd
+    ((1, 8, 9, 11), 3, 1, 16, 32, [(0, 0), (1, 1), (1, 1)]),   # halo_conv's pads
+    ((1, 9, 9, 11), 3, 2, 32, 16, [(0, 0), (0, 1), (1, 1)]),
+])
+def test_conv_tc_matches_plain(dev, shape, k, stride, cin, cout, pads):
+    rng = np.random.default_rng(14)
+    rank = len(shape) - 1
+    x = _rand(rng, shape + (cin,), torch.bfloat16, dev)
+    w = _rand(rng, (k,) * rank + (cin, cout), torch.bfloat16, dev, (k ** rank * cin) ** -0.5)
+    b = _rand(rng, (cout,), torch.float32, dev)
+    before = _editions()["conv"]
+    for bias, relu in ((None, False), (b, True)):
+        got = conv.conv(x, w, bias, stride, relu, pads, edition="tc")
+        _close(got, conv.conv_plain(x, w, bias, stride, relu, pads), TOL[torch.bfloat16])
+    assert _editions()["conv"] == {"tc": before["tc"] + 2, "simt": before["simt"]}
+
+
+@pytest.mark.parametrize("shape,k,cin,cout,lo,outs", [
+    ((1, 3, 5, 7), 3, 16, 8, 0, None),                  # 3D, odd input sizes
+    ((1, 5, 3, 3), 3, 64, 32, 0, None),                 # 3dconv4_0's channels
+    ((2, 4, 4, 5), 3, 8, 8, (2, 0, 0), (6, 8, 10)),     # halo_deconv's lo
+    ((3, 5, 7), 3, 32, 16, 0, None),                    # 2D
+    ((3, 240, 320), 5, 16, 8, 1, (480, 640)),           # conv9_0's dx at 480x640
+    ((2, 8, 11), 5, 16, 8, 1, (15, 21)),                # the K = 5 adjoint, odd sizes
+    ((2, 8, 11), 5, 16, 8, 2, (16, 21)),
+])
+def test_deconv_tc_matches_plain(dev, shape, k, cin, cout, lo, outs):
+    rng = np.random.default_rng(15)
+    rank = len(shape) - 1
+    x = _rand(rng, shape + (cin,), torch.bfloat16, dev)
+    w = _rand(rng, (k,) * rank + (cin, cout), torch.bfloat16, dev, (k * k * cin) ** -0.5)
+    b = _rand(rng, (cout,), torch.float32, dev)
+    before = _editions()["deconv"]
+    for bias, relu in ((None, False), (b, True)):
+        got = deconv.deconv(x, w, bias, relu, lo, outs, edition="tc")
+        _close(got, deconv.deconv_plain(x, w, bias, relu, lo, outs), TOL[torch.bfloat16])
+    assert _editions()["deconv"] == {"tc": before["tc"] + 2, "simt": before["simt"]}
+
+
+def test_edition_rule_on_card(dev):
+    """bf16 with Cin % 8 == 0 runs "tc" by default; float32 and Cin = 3 run
+    "simt", and asking for "tc" on them raises before any launch."""
+    rng = np.random.default_rng(16)
+    w8 = _rand(rng, (3, 3, 8, 8), torch.bfloat16, dev)
+    before = _editions()
+    conv.conv(_rand(rng, (1, 9, 10, 8), torch.bfloat16, dev), w8)
+    conv.conv(_rand(rng, (1, 9, 10, 3), torch.bfloat16, dev), w8[:, :, :3])
+    conv.conv(_rand(rng, (1, 9, 10, 8), torch.float32, dev), w8.float())
+    deconv.deconv(_rand(rng, (1, 4, 5, 8), torch.bfloat16, dev), w8)
+    after = _editions()
+    assert after["conv"] == {"tc": before["conv"]["tc"] + 1, "simt": before["conv"]["simt"] + 2}
+    assert after["deconv"]["tc"] == before["deconv"]["tc"] + 1
+    for x, w in ((_rand(rng, (1, 9, 10, 8), torch.float32, dev), w8.float()),
+                 (_rand(rng, (1, 9, 10, 3), torch.bfloat16, dev), w8[:, :, :3])):
+        with pytest.raises(ValueError, match="tensor-core"):
+            conv.conv(x, w, edition="tc")
+        with pytest.raises(ValueError, match="tensor-core"):
+            deconv.deconv(x, w, edition="tc")
+    assert _editions() == after
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv_tc_slab_equals_whole_volume(dev, stride):
+    """A depth slab with real neighbour planes and pads (0, 0) in depth, as
+    `parallel/halo.py` runs it, gives the whole conv's values bit for bit:
+    each output's sum order does not depend on where its tile starts."""
+    rng = np.random.default_rng(17)
+    x = _rand(rng, (1, 16, 13, 19, 32), torch.bfloat16, dev)
+    w = _rand(rng, (3, 3, 3, 32, 16), torch.bfloat16, dev, 0.1)
+    b = _rand(rng, (16,), torch.float32, dev)
+    whole = conv.conv(x, w, b, stride, True)
+    hw = [conv.same_pads(n, 3, stride)[:2] for n in x.shape[2:4]]
+    if stride == 1:
+        slab = torch.cat([x[:, 3:4], x[:, 4:8], x[:, 8:9]], dim=1)
+        want = whole[:, 4:8]
+    else:
+        slab = x[:, 4:9].contiguous()
+        want = whole[:, 2:4]
+    got = conv.conv(slab, w, b, stride, True, pads=[(0, 0)] + hw)
+    assert torch.equal(got, want)
