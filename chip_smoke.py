@@ -16,7 +16,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
      take (bytes at 3.35 TB/s, operations at 989 TFLOP/s bf16 or 67 TFLOP/s
      float32, whichever is larger): the forward kernels at the inference
      point, the backward kernels (warp, transposed warp, weight gradient,
-     the 5x5 transposed conv) at the training point;
+     the 5x5 transposed conv) at the training point; every bf16 conv,
+     transposed-conv and weight-gradient row of an editioned kernel is
+     timed in both editions, in turns (tc, simt, simt, tc);
   4. inference: `Predictor` at 1152x864, D=192, 3 views, "normal",
      bfloat16, seeded weights, answers 3 requests; launch counts per
      request are asserted (cost volume 1, conv 36, deconv 7), then one more
@@ -27,8 +29,9 @@ Phases, each of which fails the script (non-zero exit, no result line):
   6. training: `make_train_step` at 640x480, D=192, 3 views, "normal",
      bfloat16 with float32 parameters, RMSprop, power + gradient loss,
      seeded weights and a synthetic scene, takes 3 steps; launch counts per
-     step are asserted against counts derived from the model, losses and
-     gradients must be finite; then one step is timed stage by stage
+     step, and the weight gradient's editions (tc 41, simt 2), are asserted
+     against counts derived from the model, losses and gradients must be
+     finite; then one step is timed stage by stage
      (forward, backward, optimizer) and one is profiled;
   7. one float32 train step at 128x128, D=16, "normal", norms perturbed
      from the identity: the card's kernels against the CPU's plain path
@@ -84,7 +87,8 @@ EXPECTED_LAUNCHES = {"cost_volume": 1, "cost_volume_sharded": 0, "conv": 36, "de
                      "warp": 0, "warp_transpose": 0, "wgrad": 0}
 # per bf16 request: every conv and deconv on the tensor cores but the two
 # convs on the 3-channel images (2dconv1_0, 2dconv0_1)
-EXPECTED_EDITIONS = {"conv": {"tc": 34, "simt": 2}, "deconv": {"tc": 7, "simt": 0}}
+EXPECTED_EDITIONS = {"conv": {"tc": 34, "simt": 2}, "deconv": {"tc": 7, "simt": 0},
+                     "wgrad": {"tc": 0, "simt": 0}}
 SIMT_LAYERS = {"feature_net.2dconv1_0.conv", "feature_net.2dconv0_1.conv"}
 # one float32 train step at 128x128, D=16, card kernels vs the CPU's plain
 # path. The forward is well conditioned: loss and batch-norm statistics to
@@ -222,6 +226,24 @@ def expected_train_launches(model, cfg, h, w):
             "warp_transpose": (V - 1) * chunks, "wgrad": len(convs) + len(deconvs)}
 
 
+def expected_wgrad_editions(model, dtype):
+    """Weight-gradient launches of one train step by edition: a conv's dk
+    is wgrad(x, g) on (Cin, Cout), a transposed conv's wgrad(g, x) on (Cout,
+    Cin); each runs the edition `wgrad.pick_edition` gives its channels
+    (bf16: "simt" only for the two image convs' Cin = 3)."""
+    from mvsnet_tpu_torch.models.layers import Conv, Deconv
+    from mvsnet_tpu_torch.ops.kernels import wgrad
+
+    counts = {e: 0 for e in wgrad.EDITIONS}
+    for m in model.modules():
+        if isinstance(m, (Conv, Deconv)):
+            cin, cout = m.kernel.shape[-2:]
+            if isinstance(m, Deconv):
+                cin, cout = cout, cin
+            counts[wgrad.pick_edition(dtype, cin, cout)] += 1
+    return counts
+
+
 def perturb_norms(model, seed):
     """Non-identity norm parameters and running statistics, as a trained
     model has them. With the identity init, some gradient leaves are sums
@@ -335,18 +357,31 @@ def profile_device(fn):
     dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.device_time_total for e in dev_events) / 1e3
-    top = sorted(dev_events, key=lambda e: -e.device_time_total)[:14]
-    return wall_ms, (busy_ms if busy_ms > 0 else None), top
+    return wall_ms, (busy_ms if busy_ms > 0 else None), dev_events
 
 
-def print_profile(what, wall_ms, busy_ms, top):
+# the port's kernels by source and pass, as the profiler names them
+KERNEL_FAMILIES = (("wgrad tc", "wgrad_tc_kernel"), ("wgrad simt", "wgrad_partial_kernel"),
+                   ("wgrad reduce", "wgrad_reduce_kernel"), ("cost_volume", "cost_volume_kernel"),
+                   ("conv/deconv tc", "tc_conv_kernel"), ("conv simt", "::conv_kernel"),
+                   ("warp", "::warp_kernel"), ("warp transpose", "warp_transpose_kernel"))
+
+
+def print_profile(what, wall_ms, busy_ms, events):
     if busy_ms is None:
         print(f"  profiled {what}: the profiler saw no device time (not measured)")
         return
     print(f"  profiled {what}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f}; top device time:")
-    for e in top:
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:14]:
         print(f"    {e.device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    sums = []
+    for family, pattern in KERNEL_FAMILIES:
+        hits = [e for e in events if pattern in e.key]
+        if hits:
+            sums.append(f"{family} {sum(e.device_time_total for e in hits) / 1e3:.3f} ms "
+                        f"x{sum(e.count for e in hits)}")
+    print("    by kernel family: " + "; ".join(sums))
 
 
 def step_errors(got, ref):
@@ -787,6 +822,7 @@ def main() -> int:
 
         cases.append(dict(
             name=f"conv:{layer}", counter="conv",
+            edition=lambda dtype: conv.pick_edition(dtype, cin, cout),
             kernel=lambda x, w, b, edition=None: conv.conv(x, w, b, stride, epilogue,
                                                            edition=edition),
             plain=lambda x, w, b: conv.conv_plain(x, w, b, stride, epilogue),
@@ -822,6 +858,7 @@ def main() -> int:
 
         cases.append(dict(
             name=f"deconv:{layer}", counter="deconv",
+            edition=lambda dtype: conv.pick_edition(dtype, cin, cout),
             kernel=lambda x, w, b, edition=None: deconv.deconv(x, w, b, epilogue, los, outs,
                                                                edition=edition),
             plain=lambda x, w, b: deconv.deconv_plain(x, w, b, epilogue, los, outs),
@@ -885,7 +922,9 @@ def main() -> int:
 
         cases.append(dict(
             name=f"wgrad:{layer}", counter="wgrad", f32_out=True,
-            kernel=lambda x, g: wgrad.wgrad(x, g, (k,) * rank, stride),
+            edition=lambda dtype: wgrad.pick_edition(dtype, cin, cout),
+            kernel=lambda x, g, edition=None: wgrad.wgrad(x, g, (k,) * rank, stride,
+                                                          edition=edition),
             plain=lambda x, g: wgrad.wgrad_plain(x, g, (k,) * rank, stride),
             library=lambda xp, gc: fn(xp, (cout, cin) + (k,) * rank, gc, stride=stride),
             library_inputs=library_inputs,
@@ -921,6 +960,11 @@ def main() -> int:
     # the transposed conv's dk: input and cotangent swapped (dq = q(dk))
     add_wgrad("3dconv6_0", (1, 192, 120, 160, 8), (1, 96, 60, 80, 16), 3, 2, wg2)
     add_wgrad("2dconv0_2", (3, 480, 640, 8), (3, 480, 640, 8), 3, 1, wg1)
+    # Cout = 1, zero-padded to 8 columns in the tensor-core edition
+    add_wgrad("3dconv6_2", (1, 192, 120, 160, 8), (1, 192, 120, 160, 1), 3, 1, wg1)
+    # the layers whose partials split over row tiles and Cout slices
+    add_wgrad("3dconv3_1", (1, 24, 15, 20, 64), (1, 24, 15, 20, 64), 3, 1, wg1)
+    add_wgrad("2dconv4_1", (3, 30, 40, 128), (3, 30, 40, 128), 3, 1, wg1)
     add_wgrad("conv9_0", (3, 480, 640, 8), (3, 240, 320, 16), 5, 2, wg2)
     # conv9_0's input gradient: the 5x5 adjoint, low pad 1, at 480x640
     add_deconv("conv9_0_dx", (3, 240, 320, 16), 8, False,
@@ -928,9 +972,9 @@ def main() -> int:
 
     print("kernel phase: kernel vs plain version on the card "
           f"(pass: max abs err <= tol * max(1, max|plain|), tol {TOL[torch.float32]:g} "
-          f"f32, {TOL[torch.bfloat16]:g} bf16; float32 outputs take the f32 tol); bf16 conv "
-          "and deconv rows also time the CUDA-core edition (simt) beside the tensor-core one "
-          "(tc), in turns tc, simt, simt, tc")
+          f"f32, {TOL[torch.bfloat16]:g} bf16; float32 outputs take the f32 tol); bf16 conv, "
+          "deconv and wgrad rows also time the CUDA-core edition (simt) beside the tensor-core "
+          "one (tc), in turns tc, simt, simt, tc")
     failures, records = [], {}
     for c in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -946,9 +990,8 @@ def main() -> int:
                 continue
             tag = str(dtype).replace("torch.", "")
             if editioned:
-                # bf16 with Cin % 8 == 0 runs the tensor-core edition
-                cin = inputs[0].shape[-1]
-                want_ed = "tc" if dtype == torch.bfloat16 and cin % 8 == 0 else "simt"
+                # the edition the module's rule gives these operands
+                want_ed = c["edition"](dtype)
                 ed_after = kernels.edition_counts()[c["counter"]]
                 if ed_after[want_ed] != ed_before[want_ed] + 1:
                     failures.append(f"{c['name']} {tag}: ran {ed_before} -> {ed_after}, "
@@ -1097,19 +1140,21 @@ def main() -> int:
     state = train_lib.create_train_state(t_model, t_cfg, tcfg, device=dev)
     train_step = train_lib.make_train_step(t_model, t_cfg, tcfg)
     expected = expected_train_launches(t_model, t_cfg, 120, 160)
+    expected_wgrad = expected_wgrad_editions(t_model, torch.bfloat16)
     params = list(t_model.parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    walls, per_step, step_losses = [], [], []
+    walls, per_step, step_losses, step_wgrad = [], [], [], []
     for _ in range(3):
-        before = kernels.launch_counts()
+        before, ed_before = kernels.launch_counts(), kernels.edition_counts()["wgrad"]
         t0 = time.perf_counter()
         state, metrics = train_step(state, t_batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-        after = kernels.launch_counts()
+        after, ed_after = kernels.launch_counts(), kernels.edition_counts()["wgrad"]
         per_step.append({k: after[k] - before[k] for k in after})
+        step_wgrad.append({e: n - ed_before[e] for e, n in ed_after.items()})
         finite = torch.stack([torch.isfinite(p.grad).all() for p in params]).all()
         step_losses.append(metrics["loss"].item())
         if not (np.isfinite(step_losses[-1]) and bool(finite)):
@@ -1122,9 +1167,13 @@ def main() -> int:
           f"loss: step ms {', '.join(f'{w:.2f}' for w in walls)} (the first includes "
           f"set-up); peak memory {peak / 2 ** 30:.3f} GiB; losses "
           f"{', '.join(f'{v:.4f}' for v in step_losses)}")
-    print(f"  launches per step: {per_step}; editions over the 3 steps: {train_editions}")
+    print(f"  launches per step: {per_step}; editions over the 3 steps: {train_editions}; "
+          f"wgrad editions per step {step_wgrad} (expected {expected_wgrad})")
     if any(r != expected for r in per_step):
         print(f"training FAILED: launches per step {per_step} != {expected}")
+        return 1
+    if any(r != expected_wgrad for r in step_wgrad):
+        print(f"training FAILED: wgrad editions per step {step_wgrad} != {expected_wgrad}")
         return 1
 
     # one more step, stage by stage (after the counts were read)

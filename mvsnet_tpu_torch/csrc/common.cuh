@@ -1,5 +1,6 @@
 // Shared helpers for the port's kernels: 8-wide channel loads and stores of
-// float32 or bfloat16 data, converted to and from float32 registers, the
+// float32 or bfloat16 data, converted to and from float32 registers (and
+// the cache-hinted loads and streaming stores of the cost kernel), the
 // pieces the direct and transposed convs share (weights staged in shared
 // memory, the per-tap multiply-add, the bias + ReLU epilogue), and the
 // homography projection and bilinear taps of the warp kernels.
@@ -40,6 +41,48 @@ __device__ __forceinline__ void load8(const bf16* __restrict__ p, float v[8]) {
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
+}
+
+// An L2 cache policy that keeps the lines it loads ahead of evict-normal and
+// evict-first data (the createpolicy instruction, sm_80 and later).
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// 16 bytes through the read-only path under an L2 cache policy where
+// `pred` holds, else 16 zero bytes: one predicated load, no branch (p need
+// not be a valid address where pred is false).
+__device__ __forceinline__ uint4 ldg_policy_if(const void* p, bool pred, uint64_t policy) {
+  uint4 r;
+  asm("{\n"
+      "  .reg .pred q;\n"
+      "  setp.ne.b32 q, %5, 0;\n"
+      "  mov.b32 %0, 0;\n"
+      "  mov.b32 %1, 0;\n"
+      "  mov.b32 %2, 0;\n"
+      "  mov.b32 %3, 0;\n"
+      "  @q ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %6;\n"
+      "}\n"
+      : "=&r"(r.x), "=&r"(r.y), "=&r"(r.z), "=&r"(r.w)
+      : "l"(p), "r"((int)pred), "l"(policy));
+  return r;
+}
+
+// store8 with the streaming (evict-first) hint: data written once and not
+// read again by this kernel.
+__device__ __forceinline__ void store8_streaming(float* p, const float v[8]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  __stcs(reinterpret_cast<float4*>(p) + 1, make_float4(v[4], v[5], v[6], v[7]));
+}
+
+__device__ __forceinline__ void store8_streaming(bf16* p, const float v[8]) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+  __stcs(reinterpret_cast<uint4*>(p), u);
 }
 
 __device__ __forceinline__ void store8(float* p, const float v[8]) {
@@ -159,6 +202,18 @@ __device__ __forceinline__ Taps project(const float* __restrict__ h, int x, int 
   return t;
 }
 
+// The bilinear blend of the four taps' values (zero where a tap is outside
+// the map), float32: the one arithmetic of every sampling kernel.
+__device__ __forceinline__ void blend8(const Taps& t, const float v00[8], const float v01[8],
+                                       const float v10[8], const float v11[8], float val[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float top = (1.f - t.fx) * v00[j] + t.fx * v01[j];
+    const float bot = (1.f - t.fx) * v10[j] + t.fx * v11[j];
+    val[j] = (1.f - t.fy) * top + t.fy * bot;
+  }
+}
+
 // Bilinear sample of 8 channels at the taps, zero fill per tap, float32:
 // img points at channel 0 of the group in an (H, W, C) map.
 template <typename T>
@@ -171,12 +226,7 @@ __device__ __forceinline__ void sample8(const T* __restrict__ img, const Taps& t
   if (t.y0in && t.x1in) load8(img + ((int64_t)t.y0 * W + t.x0 + 1) * C, v01);
   if (t.y1in && t.x0in) load8(img + ((int64_t)(t.y0 + 1) * W + t.x0) * C, v10);
   if (t.y1in && t.x1in) load8(img + ((int64_t)(t.y0 + 1) * W + t.x0 + 1) * C, v11);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float top = (1.f - t.fx) * v00[j] + t.fx * v01[j];
-    const float bot = (1.f - t.fx) * v10[j] + t.fx * v11[j];
-    val[j] = (1.f - t.fy) * top + t.fy * bot;
-  }
+  blend8(t, v00, v01, v10, v11, val);
 }
 
 // Data types as the Python wrappers number them.

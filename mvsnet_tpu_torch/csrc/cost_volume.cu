@@ -18,98 +18,216 @@
 // and the V-1 source views, where f_v is source map v sampled bilinearly,
 // with zero fill per tap, at H_vd (x + 0.5, y + 0.5, 1) - 0.5 (the taps of
 // common.cuh, which the warp kernels K2 and K3 share). Coordinates,
-// weights and the running sums are float32; the output is written once, in
+// weights and the running sums are float32, summed as ref, then the views
+// in order; the means are sums times 1 / V. The output is written once, in
 // the input's type. No warped volume of any view ever reaches device memory.
 //
 // Bound on the H100: bytes. The output (D, h, w, C) is D/V times the size
-// of the inputs (64 times at the operating point), and the arithmetic is a few dozen operations per
-// output element. The design therefore writes every output element exactly
-// once, in 16-byte vectors: one thread owns 8 channels of one (d, y, x), so
-// a warp stores 512 (bf16) contiguous bytes, and the four taps of every view
-// are 16-byte reads that neighbouring threads share through L1/L2 (the
-// source maps, about 8 MB at the operating point, stay resident in L2).
+// of the inputs (64 times at the operating point: 764 MB of bf16 against
+// 12 MB read, 0.23 ms at 3.35 TB/s), and the arithmetic is a few dozen
+// operations per output element. Behind the output come the gathers: each
+// 16-byte output vector takes four 16-byte taps from each source view, 6 GB
+// of loads at the operating point, which must hit L1 to stay under the
+// output's time. The design:
+//  1. A block owns a tile of 8 rows of 32 / (C / 8) reference pixels (8 at
+//     C = 32; lanes past the last whole pixel idle), one warp a row, the
+//     C / 8 lanes of a pixel each 8 channels, so a warp stores 512
+//     contiguous bytes; and it walks a run of kRun depths in its inner
+//     loop. The taps of neighbouring depths lie a
+//     fraction of a pixel apart on the epipolar line, so they hit L1; the
+//     reference values, loaded once per pixel, carry over every depth.
+//  2. Each projection (two float32 divisions) is computed once per (pixel,
+//     view, depth), by one lane of the pixel's warp, into the warp's table
+//     of taps in shared memory for kChunk depths at a time, which the lanes
+//     of a pixel read as one broadcast (the old design repeated it on every
+//     channel group). A warp owns its row and its table, so it meets only
+//     __syncwarp, never a block-wide barrier.
+//  3. Every thread's work per output is a few hundred instructions, which
+//     at 47.8 M outputs of 16 bytes is itself near half a millisecond of
+//     issue: index arithmetic is 32-bit within a map (the launcher checks
+//     the sizes), a depth plane's base is one 64-bit offset, the table
+//     holds each tap's offset and in-map bits, a tap outside the map is a
+//     predicated-off load (zero fill without a branch), a view's four taps
+//     are loaded as raw 16-byte vectors before its blend, and the means
+//     multiply by 1 / V. (Loading two views' taps before the first blend,
+//     or holding four blocks an SM, measured slower: more registers, fewer
+//     warps; PERF.md.)
+//  4. The output goes out with streaming stores (st.global.cs) and the
+//     source maps come in under an L2 evict-last policy, so that the 764 MB
+//     of output passing through L2 does not evict the 8 MB of maps.
 #include "common.cuh"
 
 namespace {
 
 using mvs::bf16;
 
-template <typename T>
-__global__ void __launch_bounds__(256)
-cost_volume_kernel(const T* __restrict__ ref, const T* __restrict__ views,
-                   const float* __restrict__ homs, T* __restrict__ out,
-                   int V1, int D, int Hl, int H, int W, int C, int row_offset) {
-  const int G = C / 8;
-  const int64_t total = (int64_t)D * Hl * W * G;
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int g = (int)(i % G);
-  int64_t p = i / G;
-  const int x = (int)(p % W);
-  p /= W;
-  const int y = (int)(p % Hl);
-  const int d = (int)(p / Hl);
-  const int64_t plane = (int64_t)H * W * C;         // a source map
-  const int64_t out_plane = (int64_t)Hl * W * C;    // a depth plane of out
-  const int64_t off = ((int64_t)y * W + x) * C + g * 8;
+constexpr int kThreads = 256;
+constexpr int kRows = kThreads / 32;   // tile rows, one warp each
+constexpr int kRun = 16;               // depths a block walks
+constexpr int kChunk = 4;              // depths whose taps share one table
 
-  float s[8], s2[8];
-  mvs::load8(ref + off, s);
+// Eight elements as 16-byte vectors, converted to float32 where they are
+// blended, so that a view's four taps are in flight in few registers.
+template <typename T> struct Raw8;
+template <> struct Raw8<bf16> {
+  uint4 v;
+  __device__ __forceinline__ void load_if(const bf16* p, bool in, uint64_t pol) {
+    v = mvs::ldg_policy_if(p, in, pol);
+  }
+  __device__ __forceinline__ void to_float(float f[8]) const {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-  for (int j = 0; j < 8; ++j) s2[j] = s[j] * s[j];
-
-  for (int v = 0; v < V1; ++v) {
-    const mvs::Taps t =
-        mvs::project(homs + ((int64_t)v * D + d) * 9, x, row_offset + y, H, W);
-    float val[8];
-    mvs::sample8(views + (int64_t)v * plane + g * 8, t, W, C, val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j] += val[j];
-      s2[j] += val[j] * val[j];
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
     }
   }
-
-  const float nv = (float)(V1 + 1);
-  float r[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const float mean = s[j] / nv;
-    r[j] = s2[j] / nv - mean * mean;
+};
+template <> struct Raw8<float> {
+  uint4 v[2];
+  __device__ __forceinline__ void load_if(const float* p, bool in, uint64_t pol) {
+    v[0] = mvs::ldg_policy_if(p, in, pol);
+    v[1] = mvs::ldg_policy_if(p + 4, in, pol);
   }
-  mvs::store8(out + (int64_t)d * out_plane + off, r);
+  __device__ __forceinline__ void to_float(float f[8]) const {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      f[4 * i] = __uint_as_float(v[i].x);
+      f[4 * i + 1] = __uint_as_float(v[i].y);
+      f[4 * i + 2] = __uint_as_float(v[i].z);
+      f[4 * i + 3] = __uint_as_float(v[i].w);
+    }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 3)
+cost_volume_kernel(const T* __restrict__ ref, const T* __restrict__ views,
+                   const float* __restrict__ homs, T* __restrict__ out,
+                   int V1, int D, int Hl, int H, int W, int C, int row_offset, int tiles_x) {
+  // per warp, [kChunk][V1][TX] taps: offset of the top-left tap in the
+  // views, which of the four taps lie inside the map (bits 00, 01, 10,
+  // 11), fx, fy
+  extern __shared__ int4 table[];
+  const int G = C >> 3, TX = 32 / G;
+  const int tile_y = blockIdx.x / tiles_x;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int y = tile_y * kRows + warp, tx0 = (blockIdx.x - tile_y * tiles_x) * TX;
+  if (y >= Hl) return;   // a warp owns its row: no barrier below is shared
+  int4* wt = table + warp * kChunk * V1 * TX;
+  const int d0 = blockIdx.y * kRun, d1 = min(D, d0 + kRun);
+  const int px = lane / G, g = lane - px * G;
+  const int x = tx0 + px;
+  const bool mine = px < TX && x < W;
+  const int plane = H * W * C;                 // a source map
+  const int off = (y * W + x) * C + g * 8;     // in ref and in a depth plane of out
+  const uint64_t keep = mvs::l2_evict_last();
+  const float inv = 1.f / (float)(V1 + 1);
+
+  float r[8];
+  if (mine) mvs::load8(ref + off, r);
+
+  for (int dc = d0; dc < d1; dc += kChunk) {
+    const int nd = min(kChunk, d1 - dc);
+    __syncwarp();   // the previous chunk's table is consumed
+    for (int q = lane; q < nd * V1 * TX; q += 32) {
+      const int dv = q / TX, p = q - dv * TX;   // dv = dd * V1 + v
+      const int dd = dv / V1, v = dv - dd * V1;
+      int4 rec = make_int4(0, 0, 0, 0);
+      if (tx0 + p < W) {
+        const mvs::Taps t =
+            mvs::project(homs + ((int64_t)v * D + dc + dd) * 9, tx0 + p, row_offset + y, H, W);
+        const int in = (t.y0in && t.x0in) | (t.y0in && t.x1in) << 1 | (t.y1in && t.x0in) << 2 |
+                       (t.y1in && t.x1in) << 3;
+        rec = make_int4(v * plane + (t.y0 * W + t.x0) * C, in, __float_as_int(t.fx),
+                        __float_as_int(t.fy));
+      }
+      wt[q] = rec;
+    }
+    __syncwarp();
+    if (!mine) continue;
+    const T* img = views + g * 8;
+    for (int dd = 0; dd < nd; ++dd) {
+      float s[8], s2[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[j] = r[j];
+        s2[j] = s[j] * s[j];
+      }
+      for (int v = 0; v < V1; ++v) {
+        const int4 rec = wt[(dd * V1 + v) * TX + px];
+        const T* p = img + rec.x;
+        Raw8<T> tap[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          tap[k].load_if(p + (k >> 1) * W * C + (k & 1) * C, rec.y >> k & 1, keep);
+        mvs::Taps t;
+        t.fx = __int_as_float(rec.z);
+        t.fy = __int_as_float(rec.w);
+        float v00[8], v01[8], v10[8], v11[8], val[8];
+        tap[0].to_float(v00);
+        tap[1].to_float(v01);
+        tap[2].to_float(v10);
+        tap[3].to_float(v11);
+        mvs::blend8(t, v00, v01, v10, v11, val);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          s[j] += val[j];
+          s2[j] += val[j] * val[j];
+        }
+      }
+      float o[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float mean = s[j] * inv;
+        o[j] = s2[j] * inv - mean * mean;
+      }
+      mvs::store8_streaming(out + (int64_t)(dc + dd) * Hl * W * C + off, o);
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* ref, const void* views, const void* homs, void* out, int V1, int D,
+           int Hl, int H, int W, int C, int row_offset, cudaStream_t s) {
+  auto kern = cost_volume_kernel<T>;
+  const int TX = 32 / (C / 8);
+  const int tiles_x = (W + TX - 1) / TX, tiles_y = (Hl + kRows - 1) / kRows;
+  const size_t smem = sizeof(int4) * kChunk * V1 * kRows * TX;
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // a quarter of the SM's 256 KB as shared memory: the rest is L1 for the taps
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, 25);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)(tiles_x * tiles_y), (unsigned)((D + kRun - 1) / kRun));
+  kern<<<grid, kThreads, smem, s>>>(static_cast<const T*>(ref), static_cast<const T*>(views),
+                                    static_cast<const float*>(homs), static_cast<T*>(out), V1, D,
+                                    Hl, H, W, C, row_offset, tiles_x);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ref (Hl, W, C): rows [row_offset, row_offset + Hl) of the reference map;
 // views (V1, H, W, C); homs (V1, D, 3, 3) float32; out (D, Hl, W, C);
-// C % 8 == 0, all contiguous. Returns cudaGetLastError().
+// C % 8 == 0 and C <= 256, V1 * H * W * C < 2^31, all contiguous.
+// Returns cudaGetLastError().
 extern "C" int cost_volume_launch(int dtype, const void* ref, const void* views,
                                   const void* homs, void* out, int V1, int D,
                                   int Hl, int H, int W, int C, int row_offset,
                                   void* stream) {
-  if (C % 8 != 0 || V1 < 1 || row_offset < 0 || Hl < 1 || row_offset + Hl > H)
+  if (C % 8 != 0 || C > 256 || V1 < 1 || D < 1 || row_offset < 0 ||
+      Hl < 1 || row_offset + Hl > H || (int64_t)V1 * H * W * C >= ((int64_t)1 << 31) ||
+      (D + kRun - 1) / kRun > 65535)
     return (int)cudaErrorInvalidValue;
-  const int64_t total = (int64_t)D * Hl * W * (C / 8);
-  const int block = 256;
-  const int64_t grid = (total + block - 1) / block;
-  if (grid > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == mvs::kFloat32) {
-    cost_volume_kernel<float><<<(unsigned)grid, block, 0, s>>>(
-        static_cast<const float*>(ref), static_cast<const float*>(views),
-        static_cast<const float*>(homs), static_cast<float*>(out), V1, D, Hl, H, W, C,
-        row_offset);
-  } else if (dtype == mvs::kBFloat16) {
-    cost_volume_kernel<bf16><<<(unsigned)grid, block, 0, s>>>(
-        static_cast<const bf16*>(ref), static_cast<const bf16*>(views),
-        static_cast<const float*>(homs), static_cast<bf16*>(out), V1, D, Hl, H, W, C,
-        row_offset);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == mvs::kFloat32)
+    return launch<float>(ref, views, homs, out, V1, D, Hl, H, W, C, row_offset, s);
+  if (dtype == mvs::kBFloat16)
+    return launch<bf16>(ref, views, homs, out, V1, D, Hl, H, W, C, row_offset, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* cost_volume_error_string(int err) {

@@ -6,7 +6,7 @@ from __future__ import annotations
 from mvsnet_tpu_torch.ops.kernels import conv, deconv, sweep, warp, wgrad
 
 # kernels with a tensor-core and a CUDA-core edition
-EDITIONED = {"conv": conv, "deconv": deconv}
+EDITIONED = {"conv": conv, "deconv": deconv, "wgrad": wgrad}
 
 # kernel name -> (module, name of its launch counter)
 COUNTERS = {

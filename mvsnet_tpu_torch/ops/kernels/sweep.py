@@ -12,8 +12,10 @@ holding the rank's rows and the homographies its depth slab, the source
 maps whole.
 
 On the H100 the kernel is bound by bytes: its output is D/V times the size
-of its inputs. It writes each output element once, in 16-byte vectors, and
-never writes a warped view to device memory; the source maps stay in L2.
+of its inputs. A block owns a tile of reference pixels and walks a run of
+depths, so that neighbouring depths' taps hit L1; each projection is
+computed once per (pixel, view, depth); the output leaves in streaming
+16-byte stores and the source maps stay in L2 (see the source's note).
 
 `cost_volume` runs the kernel on CUDA tensors and `cost_volume_plain` on CPU
 tensors; it never falls back from one to the other.
@@ -86,8 +88,11 @@ def cost_volume(ref, views, homs, row_offset=None):
                          f"{H} rows (row_offset {row_offset})")
     if homs.shape != (V1, D, 3, 3):
         raise ValueError(f"homographies must be (V-1, D, 3, 3), got {tuple(homs.shape)}")
-    if C % 8:
-        raise ValueError(f"the cost kernel takes channels in multiples of 8, got {C}")
+    if C % 8 or C > 256:
+        raise ValueError(f"the cost kernel takes channels in multiples of 8 up to 256, got {C}")
+    if V1 * H * W * C >= 2 ** 31:
+        raise ValueError(f"source maps of {V1 * H * W * C} elements exceed the kernel's "
+                         f"32-bit indexing")
     out = torch.empty((D, Hl, W, C), dtype=ref.dtype, device=ref.device)
     fn = _lib.launcher("cost_volume", _ARGTYPES)
     err = fn(_lib.dtype_code(ref), _lib.ptr(ref), _lib.ptr(views), _lib.ptr(homs),

@@ -332,7 +332,8 @@ def test_tiny_train_step_card_matches_cpu(dev):
 
 
 def _editions():
-    return {"conv": dict(conv.launches_by_edition), "deconv": dict(deconv.launches_by_edition)}
+    return {"conv": dict(conv.launches_by_edition), "deconv": dict(deconv.launches_by_edition),
+            "wgrad": dict(wgrad.launches_by_edition)}
 
 
 @pytest.mark.parametrize("shape,k,stride,cin,cout,pads", [
@@ -423,3 +424,61 @@ def test_conv_tc_slab_equals_whole_volume(dev, stride):
         want = whole[:, 2:4]
     got = conv.conv(slab, w, b, stride, True, pads=[(0, 0)] + hw)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("edition", ["tc", "simt"])
+@pytest.mark.parametrize("shape,k,stride,cin,cout", [
+    ((1, 6, 10, 16), 3, 1, 32, 8),                      # 3D s1 (3dconv0_1)
+    ((1, 7, 11, 17), 3, 2, 32, 16),                     # 3D s2, odd sizes (3dconv1_0)
+    ((1, 8, 12, 16), 3, 2, 8, 16),                      # the deconv dk's roles (3dconv6_0)
+    ((1, 6, 10, 16), 3, 1, 8, 1),                       # Cout = 1 padded to 8 (3dconv6_2)
+    ((1, 5, 6, 8), 3, 1, 64, 64),                       # 64 x 64 x 27: slices (3dconv3_1)
+    ((2, 17, 24), 3, 1, 8, 8),                          # 2D 3x3 s1 (2dconv0_2)
+    ((2, 15, 21), 3, 2, 16, 32),                        # 2D 3x3 s2
+    ((2, 15, 21), 5, 2, 8, 16),                         # 2D 5x5 s2 (conv9_0)
+    ((3, 7, 9), 3, 1, 128, 128),                        # 128 x 128 x 9 (2dconv4_1)
+    ((3, 15, 20), 3, 2, 64, 128),                       # 2dconv5_0's dk
+])
+def test_wgrad_editions_match_plain(dev, edition, shape, k, stride, cin, cout):
+    """bf16 inputs, float32 sums in both editions: float32's tolerance."""
+    rng = np.random.default_rng(18)
+    rank = len(shape) - 1
+    x = _rand(rng, shape + (cin,), torch.bfloat16, dev)
+    out = [conv.same_pads(n, k, stride)[2] for n in shape[1:]]
+    g = _rand(rng, (shape[0], *out, cout), torch.bfloat16, dev)
+    before = _editions()["wgrad"]
+    got = wgrad.wgrad(x, g, (k,) * rank, stride, edition=edition)
+    assert _editions()["wgrad"][edition] == before[edition] + 1
+    _close(got, wgrad.wgrad_plain(x, g, (k,) * rank, stride), TOL[torch.float32])
+
+
+def test_wgrad_tc_is_deterministic(dev):
+    """Two tc calls on the same inputs are equal bit for bit: every block's
+    partial sums its tiles in one order and the second pass adds the
+    partials in one order (no atomics)."""
+    rng = np.random.default_rng(19)
+    x = _rand(rng, (1, 24, 30, 40, 32), torch.bfloat16, dev)
+    g = _rand(rng, (1, 12, 15, 20, 16), torch.bfloat16, dev)
+    a = wgrad.wgrad(x, g, (3, 3, 3), 2, edition="tc")
+    b = wgrad.wgrad(x, g, (3, 3, 3), 2, edition="tc")
+    assert torch.equal(a, b)
+
+
+def test_wgrad_edition_rule_on_card(dev):
+    """bf16 with Cin % 8 == 0 runs "tc" by default (Cout = 1 too); float32
+    and Cin = 3 run "simt", and asking for "tc" on them raises before any
+    launch."""
+    rng = np.random.default_rng(20)
+    cases = [((1, 9, 10, 8), (1, 9, 10, 8), torch.bfloat16, "tc"),
+             ((1, 9, 10, 3), (1, 9, 10, 8), torch.bfloat16, "simt"),
+             ((1, 9, 10, 8), (1, 9, 10, 1), torch.bfloat16, "tc"),
+             ((1, 9, 10, 8), (1, 9, 10, 8), torch.float32, "simt")]
+    for xs, gs, dtype, want in cases:
+        x, g = _rand(rng, xs, dtype, dev), _rand(rng, gs, dtype, dev)
+        before = _editions()["wgrad"]
+        wgrad.wgrad(x, g, (3, 3), 1)
+        assert _editions()["wgrad"][want] == before[want] + 1
+        if want == "simt":
+            with pytest.raises(ValueError, match="tensor-core"):
+                wgrad.wgrad(x, g, (3, 3), 1, edition="tc")
+            assert _editions()["wgrad"][want] == before[want] + 1
