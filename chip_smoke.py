@@ -18,7 +18,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
      point, the backward kernels (warp, transposed warp, weight gradient,
      the 5x5 transposed conv) at the training point; every bf16 conv,
      transposed-conv and weight-gradient row of an editioned kernel is
-     timed in both editions, in turns (tc, simt, simt, tc);
+     timed in both editions, in turns (tc, simt, simt, tc); the transposed
+     warp is called twice on the same inputs, which must agree bit for bit,
+     and so must two calls of the cost volume's backward at the training
+     point (bf16);
   4. inference: `Predictor` at 1152x864, D=192, 3 views, "normal",
      bfloat16, seeded weights, answers 3 requests; launch counts per
      request are asserted (cost volume 1, conv 36, deconv 7), then one more
@@ -35,7 +38,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
      (forward, backward, optimizer) and one is profiled;
   7. one float32 train step at 128x128, D=16, "normal", norms perturbed
      from the identity: the card's kernels against the CPU's plain path
-     (loss, every gradient, the batch-norm running statistics);
+     (loss, every gradient, the batch-norm running statistics), and two
+     such card steps against each other, bit for bit;
   8. multi-GPU serving and training (`mvsnet_tpu_torch/parallel/`):
      a. the row- and depth-sliced cost kernel K1s on every block of 8b's
         serving mesh and of the (1,4,1) and (1,2,2) meshes at the
@@ -96,10 +100,12 @@ SIMT_LAYERS = {"feature_net.2dconv1_0.conv", "feature_net.2dconv0_1.conv"}
 # version, the same PyTorch step on the card and on the CPU differs by
 # 6.2e-3 in the norm of all gradients and by 2.5e-2 of the worst leaf's
 # largest entry (on the CPU alone, float64 convs or a 1e-7 jiggle of the
-# homographies move them by up to 3e-3), while two runs on the card agree
-# to 2e-6. So gradients are held to 2e-2 in the global norm and to 1e-1
-# of each leaf's largest entry; a wrong kernel moves the leaves it feeds
-# by order 1.
+# homographies move them by up to 3e-3). So gradients are held to 2e-2 in
+# the global norm and to 1e-1 of each leaf's largest entry; a wrong kernel
+# moves the leaves it feeds by order 1. Two runs on the card are equal bit
+# for bit, and phase 7 gates that: every kernel of the step sums in a fixed
+# order (a scatter form of the transposed warp, adding with atomics, made
+# them differ by 2e-6).
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_GLOBAL_TOL = 2e-2   # ||g_card - g_cpu|| / ||g_cpu|| over all leaves
 TRAIN_GRAD_TOL = 1e-1          # of each gradient leaf's largest entry
@@ -364,7 +370,9 @@ def profile_device(fn):
 KERNEL_FAMILIES = (("wgrad tc", "wgrad_tc_kernel"), ("wgrad simt", "wgrad_partial_kernel"),
                    ("wgrad reduce", "wgrad_reduce_kernel"), ("cost_volume", "cost_volume_kernel"),
                    ("conv/deconv tc", "tc_conv_kernel"), ("conv simt", "::conv_kernel"),
-                   ("warp", "::warp_kernel"), ("warp transpose", "warp_transpose_kernel"))
+                   ("warp", "::warp_kernel"), ("warp transpose", "warp_transpose_kernel"),
+                   ("warp transpose plan", "::plan_kernel"),
+                   ("warp transpose run sum", "segment_sum_kernel"))
 
 
 def print_profile(what, wall_ms, busy_ms, events):
@@ -406,6 +414,38 @@ def step_errors(got, ref):
             f"running stats {stats_err:.3e} (bound {TRAIN_STATS_TOL:g}) "
             f"{'ok' if ok else 'FAIL'}")
     return ok, text
+
+
+def backward_repeat(smi, randn, homs, H=120, W=160, C=32):
+    """Two calls of `ops/cost_volume.cost_volume_backward` at the training
+    point (bf16 features, homs (2, D, 3, 3)) on the same inputs: K2, PyTorch's
+    elementwise chain and K3 in a fixed order, so equal bit for bit. Returns
+    the failures."""
+    from mvsnet_tpu_torch.ops.cost_volume import cost_volume_backward
+
+    D = homs.shape[1]
+    ref, views = randn((H, W, C), torch.bfloat16), randn((2, H, W, C), torch.bfloat16)
+    g = randn((D, H, W, C), torch.bfloat16)
+    first = cost_volume_backward(ref, views, homs, g)
+    second = cost_volume_backward(ref, views, homs, g)
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"  cost_volume_backward bf16 ({D},{H},{W},{C}), V=3: two calls equal bit for bit: "
+          f"{same} [{smi}]")
+    del ref, views, g, first, second
+    torch.cuda.empty_cache()
+    return [] if same else ["cost_volume_backward: two calls differ"]
+
+
+def repeat_difference(a, b):
+    """The largest absolute difference between two train steps' (loss,
+    grads, buffers), and the first leaf (loss, then gradients and buffers
+    in the model's order) where they differ, or None."""
+    (l_a, g_a, b_a), (l_b, g_b, b_b) = a, b
+    diffs = [("loss", abs(l_a - l_b))]
+    diffs += [(f"grad {n}", float(np.abs(g_a[n] - g_b[n]).max())) for n in g_a]
+    diffs += [(f"buffer {n}", float(np.abs(b_a[n] - b_b[n]).max())) for n in b_a]
+    first = next((n for n, d in diffs if d != 0), None)
+    return max(d for _, d in diffs), first
 
 
 def serving_setup():
@@ -532,7 +572,7 @@ def batch_witness(smi, dev, cfg, batch_in, n):
         d_err, p_err = (float(np.abs(b - np.concatenate(s)).max())
                         for b, s in zip(batch, zip(*single)))
         first = batch_divergence(predictor.model, tuple(
-            torch.as_tensor(a, device=dev) for a in batch_in), n)
+            torch.as_tensor(a, device=dev) for a in batch_in[:4]), n)
         where = ("every module's output is equal" if first is None else
                  f"the first module whose output differs is {first[0]} (its input "
                  f"{'equal' if first[1] else 'differs'}): {first[2]} of {first[3]} elements, "
@@ -550,7 +590,7 @@ def batch_witness(smi, dev, cfg, batch_in, n):
     return ok
 
 
-def phase8_ranks(smi, dev, images, cams, ds, di, backend, n):
+def phase8_ranks(smi, dev, serve_in, backend, n):
     """8b and 8c: serving in both regimes and one sharded train step on
     several ranks (`phase8_rank`), against the single-card `Predictor` and
     train step on the same inputs. Returns the K1s launches of the latency
@@ -568,10 +608,9 @@ def phase8_ranks(smi, dev, images, cams, ds, di, backend, n):
     # references: phase 4's single-card Predictor, phase 7's single-card step
     cfg = ModelConfig(view_num=3, max_d=192, width=1152, height=864,
                       network_mode="normal", compute_dtype="bfloat16")
-    serve_in = (images, cams, ds, di)
     b_images, b_cams = scene(n, 3, 864, 1152, 192, seed=5)
-    b_ds, b_di, _, _ = depth_params_from_cams(b_cams)
-    batch_in = (b_images, b_cams, b_ds, b_di)
+    b_ds, b_di, _, b_de = depth_params_from_cams(b_cams)
+    batch_in = (b_images, b_cams, b_ds, b_di, b_de)
     predictor = Predictor(cfg, seed=0, device=dev)
     # the throughput reference runs each map alone, as its rank does: in
     # bf16 one call on a batch of n differs from it (`batch_witness`)
@@ -679,7 +718,8 @@ def phase8_rank(backend, serve_in, batch_in, train_batch):
 
     # one latency request stage by stage: host clock after a synchronize
     model = predictor.model
-    args = tuple(torch.as_tensor(a, device=mesh.device) for a in serve_in)
+    # the graph's inputs: depth_end is the Predictor's alone
+    args = tuple(torch.as_tensor(a, device=mesh.device) for a in serve_in[:4])
     marks = []
 
     def mark(name):
@@ -767,13 +807,14 @@ def main() -> int:
                                       torch.from_numpy(di).to(dev))[:, 0].contiguous()
 
     images, cams = scene(1, 3, 864, 1152, 192, seed=0)
-    ds, di, _, _ = depth_params_from_cams(cams)
+    ds, di, _, de = depth_params_from_cams(cams)
+    request = (images, cams, ds, di, de)
     homs = homs_of(cams, 192)
     # the training point: 640x480 images, features 160x120, D=192
     t_batch = train_scene(480, 640, 192, seed=2)
     t_homs = homs_of(t_batch[1], 192)
     if sys.argv[1:] == ["--multi"]:
-        k1s = phase8(smi, dev, randn, homs, images, cams, ds, di)
+        k1s = phase8(smi, dev, randn, homs, request)
         return 1 if k1s is None else report([k1s])
     cases = []     # one dict per kernel and shape
 
@@ -898,7 +939,9 @@ def main() -> int:
 
         cases.append(dict(
             name="warp_transpose", counter="warp_transpose", kernel=warp.warp_transpose,
-            plain=warp.warp_transpose_plain, f32_out=True,
+            plain=warp.warp_transpose_plain, f32_out=True, deterministic=True,
+            # the train step's cotangents are float32 (ops/cost_volume.py)
+            path_dtype=torch.float32,
             library=lambda out, inp, gout: torch.autograd.grad(out, inp, gout,
                                                                retain_graph=True),
             library_inputs=lib_t_inputs,
@@ -1000,6 +1043,13 @@ def main() -> int:
                 failures.append(f"{c['name']} {dtype}: shape {tuple(got.shape)} != "
                                 f"{tuple(want.shape)}")
                 continue
+            repeat_text = ""
+            if c.get("deterministic"):
+                # a fixed order of sums: a second call is equal bit for bit
+                same = torch.equal(got, c["kernel"](*inputs))
+                repeat_text = f"; a second call equal bit for bit: {same}"
+                if not same:
+                    failures.append(f"{c['name']} {dtype}: two calls differ")
             got, want = got.float(), want.float()
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
@@ -1033,7 +1083,7 @@ def main() -> int:
                   f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
                   f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms  bound {bound_ms:.4f} ms "
                   f"({bound_by}: {c['bytes'](it) / 1e6:.1f} MB, {c['ops'] / 1e9:.2f} GFLOP)"
-                  + simt_text)
+                  + simt_text + repeat_text)
             if not ok:
                 failures.append(f"{c['name']} {tag}: max abs err {err:.3e} (max|plain| {scale:.3e})")
             records[(c["name"], tag)] = dict(
@@ -1041,6 +1091,7 @@ def main() -> int:
                 bound_by=bound_by, library_ms=lib_ms)
             del inputs
             torch.cuda.empty_cache()
+    failures += backward_repeat(smi, randn, t_homs)
     if failures:
         print("kernel phase FAILED:\n  " + "\n  ".join(failures))
         return 1
@@ -1056,7 +1107,7 @@ def main() -> int:
     for _ in range(3):
         before, ed_before = kernels.launch_counts(), kernels.edition_counts()
         t0 = time.perf_counter()
-        depth, prob, _ = predictor.predict(images, cams, ds, di, fetch=False)
+        depth, prob, _ = predictor.predict(*request, fetch=False)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         after, ed_after = kernels.launch_counts(), kernels.edition_counts()
@@ -1105,11 +1156,11 @@ def main() -> int:
         stages = {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
     print("  stages (ms, CUDA events, one request): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    if not layer_times(smi, predictor, (images, cams, ds, di)):
+    if not layer_times(smi, predictor, request):
         print("inference FAILED: a layer ran the wrong edition")
         return 1
     print_profile("request", *profile_device(
-        lambda: predictor.predict(images, cams, ds, di, fetch=False)))
+        lambda: predictor.predict(*request, fetch=False)))
     del predictor, model, depth, prob, ref_f, view_f, cost, reg
     torch.cuda.empty_cache()
 
@@ -1117,11 +1168,11 @@ def main() -> int:
     small = ModelConfig(view_num=3, max_d=32, width=320, height=256,
                         network_mode="normal", compute_dtype="float32")
     s_images, s_cams = scene(1, 3, 256, 320, 32, seed=1)
-    s_ds, s_di, _, _ = depth_params_from_cams(s_cams)
+    s_ds, s_di, _, s_de = depth_params_from_cams(s_cams)
     d_gpu, p_gpu, _ = Predictor(small, seed=1, device=dev).predict(
-        s_images, s_cams, s_ds, s_di)
+        s_images, s_cams, s_ds, s_di, s_de)
     d_cpu, p_cpu, _ = Predictor(small, seed=1, device="cpu").predict(
-        s_images, s_cams, s_ds, s_di)
+        s_images, s_cams, s_ds, s_di, s_de)
     d_err = float(np.abs(d_gpu - d_cpu).max())
     p_err = float(np.abs(p_gpu - p_cpu).max())
     ok = (np.isfinite(d_gpu).all() and np.isfinite(p_gpu).all()
@@ -1200,7 +1251,7 @@ def main() -> int:
                         network_mode="normal", compute_dtype="float32")
     s_batch = train_scene(128, 128, 16, seed=3)
     runs = []
-    for device in (dev, "cpu"):
+    for device in (dev, dev, "cpu"):
         m = MVSNet(s_cfg, seed=3)
         perturb_norms(m, seed=4)
         st = train_lib.create_train_state(m, s_cfg, tcfg, device=device)
@@ -1208,13 +1259,17 @@ def main() -> int:
         runs.append((met["loss"].item(),
                      {n: p.grad.cpu().numpy() for n, p in m.named_parameters()},
                      {n: b.cpu().numpy() for n, b in m.named_buffers()}))
-    ok, text = step_errors(runs[0], runs[1])
+    ok, text = step_errors(runs[0], runs[2])
     print(f"train step 128x128 D=16 normal f32, card vs CPU: {text}")
-    if not ok:
+    repeat, first = repeat_difference(runs[0], runs[1])
+    print(f"  two card steps from the same state and batch: largest difference {repeat:.3e}"
+          + ("" if first is None else f", first in {first}") + f" (bound 0) "
+          f"{'ok' if repeat == 0 else 'FAIL'}")
+    if not ok or repeat != 0:
         return 1
 
     # ---- 8. multi-GPU serving and training
-    k1s = phase8(smi, dev, randn, homs, images, cams, ds, di)
+    k1s = phase8(smi, dev, randn, homs, request)
     if k1s is None:
         return 1
 
@@ -1222,19 +1277,19 @@ def main() -> int:
     # the latency requests of phase 8 (all ranks)
     out = []
     for c in cases:
-        r = records[(c["name"], "bfloat16")]
+        r = records[(c["name"], str(c.get("path_dtype", torch.bfloat16)).replace("torch.", ""))]
         out.append(dict(name=c["name"], route="cuda", source=c["source"],
                         replaces=c["replaces"], launches=train_launches[c["counter"]], **r))
     return report(out + [k1s])
 
 
-def phase8(smi, dev, randn, homs, images, cams, ds, di):
+def phase8(smi, dev, randn, homs, request):
     """Phase 8; returns K1s's kernel record, or None on failure."""
     backend, n, serve_mesh = serving_setup()
     k1s = phase8_sharded_cost(smi, randn, homs, serve_mesh)
     if k1s is None:
         return None
-    launches = phase8_ranks(smi, dev, images, cams, ds, di, backend, n)
+    launches = phase8_ranks(smi, dev, request, backend, n)
     if launches is None:
         return None
     return dict(name="cost_volume_sharded", route="cuda",

@@ -1,9 +1,10 @@
 // Shared helpers for the port's kernels: 8-wide channel loads and stores of
 // float32 or bfloat16 data, converted to and from float32 registers (and
-// the cache-hinted loads and streaming stores of the cost kernel), the
+// the cache-hinted loads and streaming stores of the sampling kernels), the
 // pieces the direct and transposed convs share (weights staged in shared
 // memory, the per-tap multiply-add, the bias + ReLU epilogue), and the
-// homography projection and bilinear taps of the warp kernels.
+// homography projection, bilinear taps and tap-table entries of the cost
+// volume and warp kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -68,6 +69,25 @@ __device__ __forceinline__ uint4 ldg_policy_if(const void* p, bool pred, uint64_
       : "=&r"(r.x), "=&r"(r.y), "=&r"(r.z), "=&r"(r.w)
       : "l"(p), "r"((int)pred), "l"(policy));
   return r;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous copies (cp.async, sm_80 and later): 16 bytes global ->
+// shared; bytes = 0 writes 16 zero bytes instead.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // store8 with the streaming (evict-first) hint: data written once and not
@@ -226,6 +246,78 @@ __device__ __forceinline__ void sample8(const T* __restrict__ img, const Taps& t
   if (t.y0in && t.x1in) load8(img + ((int64_t)t.y0 * W + t.x0 + 1) * C, v01);
   if (t.y1in && t.x0in) load8(img + ((int64_t)(t.y0 + 1) * W + t.x0) * C, v10);
   if (t.y1in && t.x1in) load8(img + ((int64_t)(t.y0 + 1) * W + t.x0 + 1) * C, v11);
+  blend8(t, v00, v01, v10, v11, val);
+}
+
+// Eight elements as raw 16-byte vectors, loaded where `in` holds under an
+// L2 cache policy (zero where it does not: `ldg_policy_if`) and converted
+// to float32 only where they are blended, so that a pixel's four taps are
+// in flight in few registers.
+template <typename T> struct Raw8;
+template <> struct Raw8<bf16> {
+  uint4 v;
+  __device__ __forceinline__ void load_if(const bf16* p, bool in, uint64_t pol) {
+    v = ldg_policy_if(p, in, pol);
+  }
+  __device__ __forceinline__ void to_float(float f[8]) const {
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    }
+  }
+};
+template <> struct Raw8<float> {
+  uint4 v[2];
+  __device__ __forceinline__ void load_if(const float* p, bool in, uint64_t pol) {
+    v[0] = ldg_policy_if(p, in, pol);
+    v[1] = ldg_policy_if(p + 4, in, pol);
+  }
+  __device__ __forceinline__ void to_float(float f[8]) const {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      f[4 * i] = __uint_as_float(v[i].x);
+      f[4 * i + 1] = __uint_as_float(v[i].y);
+      f[4 * i + 2] = __uint_as_float(v[i].z);
+      f[4 * i + 3] = __uint_as_float(v[i].w);
+    }
+  }
+};
+
+// One entry of a sampling kernel's tap table (K1, K2): reference pixel
+// (x, y) projected once by `project`, as the offset of its top-left tap in
+// an (H, W, C) map plus `base`, which of the four taps lie inside the map
+// (bits 00, 01, 10, 11), and fx, fy as bits. 32-bit offsets: the launchers
+// check that the maps they index stay under 2^31 elements.
+__device__ __forceinline__ int4 tap_record(const float* __restrict__ h, int x, int y, int H,
+                                           int W, int C, int base) {
+  const Taps t = project(h, x, y, H, W);
+  const int in = (t.y0in && t.x0in) | (t.y0in && t.x1in) << 1 | (t.y1in && t.x0in) << 2 |
+                 (t.y1in && t.x1in) << 3;
+  return make_int4(base + (t.y0 * W + t.x0) * C, in, __float_as_int(t.fx),
+                   __float_as_int(t.fy));
+}
+
+// The blend of a table entry's four taps, 8 channels: img points at the
+// channel group in the maps the entry's offset indexes; each tap is a
+// predicated 16-byte load (zero fill without a branch) under `pol`.
+template <typename T>
+__device__ __forceinline__ void sample_record(const T* __restrict__ img, int4 rec, int W, int C,
+                                              uint64_t pol, float val[8]) {
+  const T* p = img + rec.x;
+  Raw8<T> tap[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    tap[k].load_if(p + (k >> 1) * W * C + (k & 1) * C, rec.y >> k & 1, pol);
+  Taps t;
+  t.fx = __int_as_float(rec.z);
+  t.fy = __int_as_float(rec.w);
+  float v00[8], v01[8], v10[8], v11[8];
+  tap[0].to_float(v00);
+  tap[1].to_float(v01);
+  tap[2].to_float(v10);
+  tap[3].to_float(v11);
   blend8(t, v00, v01, v10, v11, val);
 }
 

@@ -51,7 +51,8 @@
 //     are loaded as raw 16-byte vectors before its blend, and the means
 //     multiply by 1 / V. (Loading two views' taps before the first blend,
 //     or holding four blocks an SM, measured slower: more registers, fewer
-//     warps; PERF.md.)
+//     warps; PERF.md.) The table entries and the tap gather are
+//     common.cuh's tap_record and sample_record, which the warp K2 shares.
 //  4. The output goes out with streaming stores (st.global.cs) and the
 //     source maps come in under an L2 evict-last policy, so that the 764 MB
 //     of output passing through L2 does not evict the 8 MB of maps.
@@ -65,40 +66,6 @@ constexpr int kThreads = 256;
 constexpr int kRows = kThreads / 32;   // tile rows, one warp each
 constexpr int kRun = 16;               // depths a block walks
 constexpr int kChunk = 4;              // depths whose taps share one table
-
-// Eight elements as 16-byte vectors, converted to float32 where they are
-// blended, so that a view's four taps are in flight in few registers.
-template <typename T> struct Raw8;
-template <> struct Raw8<bf16> {
-  uint4 v;
-  __device__ __forceinline__ void load_if(const bf16* p, bool in, uint64_t pol) {
-    v = mvs::ldg_policy_if(p, in, pol);
-  }
-  __device__ __forceinline__ void to_float(float f[8]) const {
-    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-template <> struct Raw8<float> {
-  uint4 v[2];
-  __device__ __forceinline__ void load_if(const float* p, bool in, uint64_t pol) {
-    v[0] = mvs::ldg_policy_if(p, in, pol);
-    v[1] = mvs::ldg_policy_if(p + 4, in, pol);
-  }
-  __device__ __forceinline__ void to_float(float f[8]) const {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      f[4 * i] = __uint_as_float(v[i].x);
-      f[4 * i + 1] = __uint_as_float(v[i].y);
-      f[4 * i + 2] = __uint_as_float(v[i].z);
-      f[4 * i + 3] = __uint_as_float(v[i].w);
-    }
-  }
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
@@ -133,16 +100,9 @@ cost_volume_kernel(const T* __restrict__ ref, const T* __restrict__ views,
     for (int q = lane; q < nd * V1 * TX; q += 32) {
       const int dv = q / TX, p = q - dv * TX;   // dv = dd * V1 + v
       const int dd = dv / V1, v = dv - dd * V1;
-      int4 rec = make_int4(0, 0, 0, 0);
-      if (tx0 + p < W) {
-        const mvs::Taps t =
-            mvs::project(homs + ((int64_t)v * D + dc + dd) * 9, tx0 + p, row_offset + y, H, W);
-        const int in = (t.y0in && t.x0in) | (t.y0in && t.x1in) << 1 | (t.y1in && t.x0in) << 2 |
-                       (t.y1in && t.x1in) << 3;
-        rec = make_int4(v * plane + (t.y0 * W + t.x0) * C, in, __float_as_int(t.fx),
-                        __float_as_int(t.fy));
-      }
-      wt[q] = rec;
+      wt[q] = tx0 + p < W ? mvs::tap_record(homs + ((int64_t)v * D + dc + dd) * 9, tx0 + p,
+                                            row_offset + y, H, W, C, v * plane)
+                          : make_int4(0, 0, 0, 0);
     }
     __syncwarp();
     if (!mine) continue;
@@ -155,21 +115,8 @@ cost_volume_kernel(const T* __restrict__ ref, const T* __restrict__ views,
         s2[j] = s[j] * s[j];
       }
       for (int v = 0; v < V1; ++v) {
-        const int4 rec = wt[(dd * V1 + v) * TX + px];
-        const T* p = img + rec.x;
-        Raw8<T> tap[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          tap[k].load_if(p + (k >> 1) * W * C + (k & 1) * C, rec.y >> k & 1, keep);
-        mvs::Taps t;
-        t.fx = __int_as_float(rec.z);
-        t.fy = __int_as_float(rec.w);
-        float v00[8], v01[8], v10[8], v11[8], val[8];
-        tap[0].to_float(v00);
-        tap[1].to_float(v01);
-        tap[2].to_float(v10);
-        tap[3].to_float(v11);
-        mvs::blend8(t, v00, v01, v10, v11, val);
+        float val[8];
+        mvs::sample_record(img, wt[(dd * V1 + v) * TX + px], W, C, keep, val);
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           s[j] += val[j];

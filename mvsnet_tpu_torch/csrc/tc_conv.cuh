@@ -109,23 +109,11 @@ struct Plan {
 static_assert(sizeof(ClassPlan) == 20 * 4, "ClassPlan is 20 ints");
 static_assert(sizeof(Plan) == (40 + 20 * kMaxClasses) * 4, "Plan is 200 ints");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; bytes = 0 writes 16 zero bytes instead.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+// common.cuh's asynchronous copies, visible to `using namespace mvs::tc`
+using mvs::cp_async16;
+using mvs::cp_async_commit;
+using mvs::cp_async_wait;
+using mvs::smem_u32;
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t r[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"

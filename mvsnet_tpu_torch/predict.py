@@ -79,11 +79,13 @@ class Predictor:
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
 
     @torch.inference_mode()
-    def predict(self, images, cams, depth_start, depth_interval,
+    def predict(self, images, cams, depth_start, depth_interval, depth_end,
                 fetch: bool = True):
         """(depth_map, prob_map, residual), each (B, h, w, 1). fetch=True
         returns numpy arrays after the device finishes; fetch=False returns
-        the device tensors as soon as the work is queued."""
+        the device tensors as soon as the work is queued. `depth_end` is
+        JAX's argument (mvsnet_tpu/predict.py:139): the 3D-CNN graph does not
+        read it, as JAX's does not; the GRU graphs will."""
         out = self._forward(self._tensor(images), self._tensor(cams),
                             self._tensor(depth_start), self._tensor(depth_interval))
         if not fetch:

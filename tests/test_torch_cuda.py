@@ -17,6 +17,7 @@ from mvsnet_tpu_torch import train_lib
 from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
 from mvsnet_tpu_torch.models import MVSNet
 from mvsnet_tpu_torch.ops import autograd
+from mvsnet_tpu_torch.ops.cost_volume import cost_volume_backward
 from mvsnet_tpu_torch.ops.kernels import conv, deconv, sweep, warp, wgrad
 from mvsnet_tpu_torch.predict import Predictor
 
@@ -153,7 +154,7 @@ def test_tiny_forward_card_matches_cpu(dev):
     cams = np.stack([cam] * 3)[None].copy()
     cams[0, 1, 0, 0, 3] = 0.3
     cams[0, 2, 0, 1, 3] = -0.2
-    args = (images, cams, np.array([5.0]), np.array([0.5]))
+    args = (images, cams, np.array([5.0]), np.array([0.5]), np.array([8.5]))
     d_gpu, p_gpu, _ = Predictor(cfg, seed=4, device=dev).predict(*args)
     d_cpu, p_cpu, _ = Predictor(cfg, seed=4, device="cpu").predict(*args)
     assert np.isfinite(d_gpu).all() and np.isfinite(p_gpu).all()
@@ -187,8 +188,8 @@ def test_warp_samples_as_the_cost_volume(dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_warp_transpose_matches_plain(dev, dtype):
-    """Float32 output either way: the atomics change the order of the sums,
-    not their precision."""
+    """Float32 output either way: the gather sums in another order than the
+    plain version's index_add_, at float32 precision."""
     rng = np.random.default_rng(6)
     g = _rand(rng, (40, 20, 28, 16), dtype, dev)
     for homs in (_homs(40, 0.02, 12.0, dev), _homs(40, -0.2, 30.0, dev)):
@@ -196,6 +197,62 @@ def test_warp_transpose_matches_plain(dev, dtype):
         got = warp.warp_transpose(g, homs)
         assert warp.transpose_launches == before + 1 and got.dtype == torch.float32
         _close(got, warp.warp_transpose_plain(g, homs), TOL[torch.float32])
+
+
+def _degenerate_homs(D, dev):
+    """Ordinary planes with, among them, one whose every tap falls outside
+    the map, one whose horizon (w = 0) crosses it, one with w < 0 over all
+    of it, and one whose horizon lies just off its right edge."""
+    h = _homs(D, -0.2, 30.0, dev).cpu().numpy()
+    h[1, :2, 2] = [1000.0, -700.0]
+    h[2] = [[1.0, 0.05, 0.0], [0.0, 1.0, 0.0], [0.1, 0.0, -1.0]]
+    h[3] = -np.eye(3, dtype=np.float32)
+    h[4] = [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [-0.035, 0.0, 1.0]]
+    return torch.as_tensor(h, device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_transpose_matches_plain_on_degenerate_planes(dev, dtype):
+    rng = np.random.default_rng(8)
+    g = _rand(rng, (8, 20, 28, 16), dtype, dev)
+    homs = _degenerate_homs(8, dev)
+    assert warp.transpose_plan(homs, 20, 28)[1].tolist() == [1, 1, 0, -1, 1, 1, 1, 1]
+    _close(warp.warp_transpose(g, homs), warp.warp_transpose_plain(g, homs), TOL[torch.float32])
+
+
+def test_transpose_plan_kernel_matches_cpu(dev):
+    """K3's plan kernel against `transpose_plan`'s float64 PyTorch on the
+    CPU: the inverses to float32 rounding, the signs exactly."""
+    homs = torch.cat([_degenerate_homs(8, dev), _homs(192, 0.02, 12.0, dev)])
+    inv, wsign = warp.transpose_plan(homs, 120, 160)
+    inv_cpu, wsign_cpu = warp.transpose_plan(homs.cpu(), 120, 160)
+    assert torch.equal(wsign.cpu(), wsign_cpu)
+    ok = wsign_cpu != 0
+    torch.testing.assert_close(inv.cpu()[ok], inv_cpu[ok], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_transpose_is_deterministic(dev, dtype):
+    """Each output element is summed by one thread in a fixed order: two
+    calls are equal bit for bit, at the training point's shape."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randn((192, 120, 160, 32), generator=gen, device=dev).to(dtype)
+    homs = _homs(192, 0.02, 12.0, dev)
+    a, b = warp.warp_transpose(g, homs), warp.warp_transpose(g, homs)
+    assert torch.equal(a, b)
+
+
+def test_cost_volume_backward_is_deterministic(dev):
+    """The cost volume's backward (K2, PyTorch's elementwise chain, K3) at
+    the training point in bf16: two calls are equal bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ref, views = (torch.randn(s, generator=gen, device=dev).to(torch.bfloat16)
+                  for s in ((120, 160, 32), (2, 120, 160, 32)))
+    g = torch.randn((192, 120, 160, 32), generator=gen, device=dev).to(torch.bfloat16)
+    homs = torch.stack([_homs(192, 0.02, 12.0, dev), _homs(192, -0.05, 20.0, dev)])
+    first, second = cost_volume_backward(ref, views, homs, g), cost_volume_backward(
+        ref, views, homs, g)
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 def test_warp_transpose_is_the_adjoint_on_card(dev):

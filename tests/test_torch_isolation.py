@@ -31,7 +31,7 @@ rng = np.random.default_rng(0)
 cam = np.zeros((2, 4, 4)); cam[0] = np.eye(4)
 cam[1, :3, :3] = [[15, 0, 8], [0, 15, 8], [0, 0, 1]]
 depth, prob, _ = Predictor(cfg, device="cpu").predict(
-    rng.standard_normal((1, 3, 64, 64, 3)), np.stack([cam] * 3)[None], [5.0], [0.5])
+    rng.standard_normal((1, 3, 64, 64, 3)), np.stack([cam] * 3)[None], [5.0], [0.5], [8.5])
 assert np.isfinite(depth).all()
 print(sorted(m for m in sys.modules if m.split(".")[0] in %r))
 """

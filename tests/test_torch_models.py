@@ -25,6 +25,7 @@ from mvsnet_tpu.models import MVSNet as JaxMVSNet  # noqa: E402
 from mvsnet_tpu.models.feature_net import UNetDS2GN as JaxUNetDS2GN  # noqa: E402
 from mvsnet_tpu.models.layers import group_norm_core as jax_group_norm  # noqa: E402
 from mvsnet_tpu.models.regnet import RegNetUS0 as JaxRegNetUS0  # noqa: E402
+from mvsnet_tpu.predict import Predictor as JaxPredictor  # noqa: E402
 from mvsnet_tpu_torch.config import ModelConfig  # noqa: E402
 from mvsnet_tpu_torch.convert import state_dict_from_jax  # noqa: E402
 from mvsnet_tpu_torch.models import MVSNet  # noqa: E402
@@ -65,24 +66,26 @@ def _perturb(variables, seed):
 
 
 def _scene(H=64, W=64, D=8):
-    """Three views with a baseline, so the cost volume is not trivial."""
+    """Three views with a baseline, so the cost volume is not trivial:
+    images, cams, depth start, interval and end (`Predictor.predict`'s
+    arrays)."""
     images, cams, ds, di = tiny_inputs(H=H, W=W, D=D)
     cams = np.array(cams)
     cams[0, 1, 0, 0, 3] += 0.4
     cams[0, 2, 0, 1, 3] -= 0.3
-    return np.array(images), cams, np.array(ds), np.array(di)
+    return np.array(images), cams, np.array(ds), np.array(di), cams[:, 0, 1, 3, 3].copy()
 
 
 @pytest.fixture(scope="module")
 def lite_model():
     """JAX `lite` model with perturbed norms, and its forward on `_scene`."""
     cfg = JaxModelConfig(network_mode="lite", **TINY)
-    images, cams, ds, di = _scene()
+    images, cams, ds, di, de = _scene()
     model = JaxMVSNet(cfg)
     v = _perturb(_numpy_tree(model.init(jax.random.PRNGKey(7), images, cams, ds, di,
                                         method=JaxMVSNet.forward_3dcnn)), 11)
     depth, prob = model.apply(v, images, cams, ds, di, method=JaxMVSNet.forward_3dcnn)
-    return v, (images, cams, ds, di), (np.asarray(depth), np.asarray(prob))
+    return v, (images, cams, ds, di, de), (np.asarray(depth), np.asarray(prob))
 
 
 def test_convert_covers_every_tensor(golden_weights):
@@ -98,8 +101,9 @@ def test_forward_3dcnn_matches_golden(golden_weights):
     cfg = ModelConfig(network_mode="ultralite", **TINY)
     p = Predictor(cfg, state_dict=state_dict_from_jax(golden_weights), device="cpu")
     images, cams, ds, di = tiny_inputs()
+    de = depth_params_from_cams(np.array(cams))[3]
     depth, prob, residual = p.predict(np.array(images), np.array(cams), np.array(ds),
-                                      np.array(di))
+                                      np.array(di), de)
     data = np.load(GOLDEN)
     np.testing.assert_allclose(depth, data["3DCNN_depth"], rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(prob, data["3DCNN_prob"], rtol=5e-3, atol=5e-3)
@@ -155,6 +159,25 @@ def test_forward_3dcnn_matches_jax(lite_model):
     np.testing.assert_allclose(prob, want_prob, rtol=5e-3, atol=5e-3)
 
 
+def test_predict_takes_jax_arguments(lite_model):
+    """`Predictor.predict` has JAX's signature (mvsnet_tpu/predict.py:139):
+    five arrays by position, depth_end last, then `fetch`. Such a call with
+    fetch=False gives the JAX Predictor's maps on the same weights; a call
+    with four arrays leaves depth_end out and raises."""
+    v, inputs, _ = lite_model
+    cfg = dict(network_mode="lite", **TINY)
+    p = Predictor(ModelConfig(**cfg), state_dict=state_dict_from_jax(v), device="cpu")
+    depth, prob, residual = p.predict(*inputs, fetch=False)
+    assert all(torch.is_tensor(t) for t in (depth, prob, residual))
+    jp = JaxPredictor(JaxModelConfig(**cfg))
+    jp.variables = v
+    want = jp.predict(*inputs, fetch=False)
+    np.testing.assert_allclose(depth.numpy(), np.asarray(want[0]), rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(prob.numpy(), np.asarray(want[1]), rtol=5e-3, atol=5e-3)
+    with pytest.raises(TypeError):
+        p.predict(*inputs[:4])
+
+
 def test_seeded_weights_are_reproducible():
     cfg = ModelConfig(network_mode="ultralite", **TINY)
     inputs = _scene()
@@ -177,13 +200,13 @@ def test_unported_graphs_raise(kw, exc):
 
 def test_shape_check_raises():
     """Feature width 48/4 = 12 is not divisible by 8."""
-    images, cams, ds, di = _scene(W=48)
+    inputs = _scene(W=48)
     p = Predictor(ModelConfig(network_mode="ultralite", **TINY), device="cpu")
     with pytest.raises(ValueError, match="feature width=12"):
-        p.predict(images, cams, ds, di)
+        p.predict(*inputs)
 
 
 def test_depth_params_from_cams():
-    _, cams, _, _ = _scene()
+    cams = _scene()[1]
     ds, di, dn, de = depth_params_from_cams(cams)
     assert (ds.tolist(), di.tolist(), dn, de.tolist()) == ([5.0], [0.5], 8, [8.5])

@@ -80,17 +80,19 @@ def _perturb(variables, seed):
 
 def _scene(B, D, seed=3):
     """B maps of three views with a baseline, 64x64, D planes from 5.0 by
-    0.5; each map its own images and a slightly moved second view."""
+    0.5; each map its own images and a slightly moved second view. Returns
+    `Predictor.predict`'s arrays: images, cams, depth start, interval, end."""
     _, cams, _, _ = tiny_inputs(D=D)
     cams = np.repeat(np.array(cams, np.float32), B, axis=0)
     cams[:, 1, 0, 0, 3] += 0.4 + 0.05 * np.arange(B)
     cams[:, 2, 0, 1, 3] -= 0.3
     images = np.random.default_rng(seed).standard_normal((B, 3, 64, 64, 3)).astype(np.float32)
-    return images, cams, cams[:, 0, 1, 3, 0].copy(), cams[:, 0, 1, 3, 1].copy()
+    return (images, cams, cams[:, 0, 1, 3, 0].copy(), cams[:, 0, 1, 3, 1].copy(),
+            cams[:, 0, 1, 3, 3].copy())
 
 
 def _train_batch(B=2):
-    images, cams, _, _ = _scene(B, 8, seed=5)
+    images, cams = _scene(B, 8, seed=5)[:2]
     rng = np.random.default_rng(6)
     gt = rng.uniform(5.0, 8.5, (B, 16, 16, 1)).astype(np.float32)
     gt[:, :3] = 0.0
@@ -114,7 +116,7 @@ class World:
 
     def __init__(self, pool):
         serve_cfg = JaxModelConfig(**SERVE)
-        images, cams, ds, di = _scene(1, 32)
+        images, cams, ds, di, _ = _scene(1, 32)
         self.serve_model = JaxMVSNet(serve_cfg)
         init = jax.jit(lambda key: self.serve_model.init(
             key, images, cams, ds, di, method=JaxMVSNet.forward_3dcnn))
@@ -214,7 +216,7 @@ def _port_single(inputs, cfg=SERVE, state_dict=None):
 
 
 def _jax_forward(world, inputs, shape=None):
-    images, cams, ds, di = (jnp.asarray(a) for a in inputs)
+    images, cams, ds, di = (jnp.asarray(a) for a in inputs[:4])
     if shape is None:
         return world.serve_model.apply(world.serve_vars, images, cams, ds, di,
                                        method=JaxMVSNet.forward_3dcnn)
