@@ -61,7 +61,30 @@ Phases, each of which fails the script (non-zero exit, no result line):
         latency request, K1 1 per throughput map); one latency request is
         timed stage by stage, its halo exchanges alone, and one profiled;
      c. one float32 `make_sharded_train_step` on two data ranks at 128x128,
-        D=16, B=2 against the single-card step (phase 7's bounds).
+        D=16, B=2 against the single-card step (phase 7's bounds);
+  9. the training driver (`python -m mvsnet_tpu_torch.train`'s `main`):
+     a. at the bench train point (640x480, D=192, 3 views, "lite", bf16,
+        RMSprop, power + gradient loss), 6 steps with a validation round,
+        as a user runs it, except that the data plane's JPEG decode is
+        replaced (the card machine has no image codec): `train.make_loader`
+        serves samples of plane scenes rendered in memory
+        (`data/synthetic.py`) through `ClusterGenerator`'s transforms.
+        Launches per step and the conv, transposed-conv and weight-gradient
+        editions are asserted against counts derived from the model, and
+        every kernel of the path must have launched;
+     b. resuming: 4 steps, a snapshot, `--ckpt_step 4` and 2 more steps
+        must end equal, bit for bit, to the 6 straight steps (parameters,
+        batch-norm statistics, RMSprop state); the restored state equals
+        the saved one bit for bit, and `latest_step` reads 6;
+     c. the port's convergence gate (`tests/test_convergence.py:55-65`):
+        600 adam steps, "ultralite", 64x64, D=16, float32, on the
+        three-depth plane scenes rendered in memory; the mean loss of the
+        last 12 steps under 0.1 of the first 12's, their mean <3px
+        accuracy over 0.9;
+     d. the port's bench script (`mvsnet_tpu_torch/bench.py`): its
+        `depth_maps_per_sec_1152x864_d192_3dcnn` and
+        `train_step_sec_640x480_d192_lite` lines; one convergence step
+        and one bench train step are profiled.
 The last lines are the kernels' JSON record (launches from the training
 run of phase 6; K1s's from the latency requests of phase 8, summed over
 ranks), the card's name and power limit, and {"ok": true, "device":
@@ -250,6 +273,38 @@ def expected_wgrad_editions(model, dtype):
     return counts
 
 
+def expected_train_editions(model, dtype):
+    """Launches of one train step by kernel and edition, derived from the
+    model as `expected_train_launches` counts them: each conv's forward on
+    (Cin, Cout); a stride-1 conv's input gradient on the conv kernel and a
+    stride-2 conv's on the transposed-conv kernel, both on (Cout, Cin);
+    each transposed conv's forward on (Cin, Cout) and its input gradient,
+    a stride-2 conv, on (Cout, Cin); the weight gradients by
+    `expected_wgrad_editions`."""
+    from mvsnet_tpu_torch.models.layers import Conv, Deconv
+    from mvsnet_tpu_torch.ops.kernels import conv
+
+    fn = model.feature_net._modules
+    image_convs = {fn["2dconv1_0"].conv, fn["2dconv0_1"].conv}
+    counts = {k: {e: 0 for e in conv.EDITIONS} for k in ("conv", "deconv")}
+
+    def add(kind, cin, cout):
+        counts[kind][conv.pick_edition(dtype, cin, cout)] += 1
+
+    for m in model.modules():
+        if isinstance(m, (Conv, Deconv)):
+            cin, cout = m.kernel.shape[-2:]
+            if isinstance(m, Conv):
+                add("conv", cin, cout)
+                if m not in image_convs:
+                    add("conv" if m.stride == 1 else "deconv", cout, cin)
+            else:
+                add("deconv", cin, cout)
+                add("conv", cout, cin)
+    counts["wgrad"] = expected_wgrad_editions(model, dtype)
+    return counts
+
+
 def perturb_norms(model, seed):
     """Non-identity norm parameters and running statistics, as a trained
     model has them. With the identity init, some gradient leaves are sums
@@ -348,8 +403,9 @@ def layer_times(smi, predictor, request):
 
 
 def profile_device(fn):
-    """Wall ms, device-busy ms and the top kernels of one call of fn under
-    torch.profiler; busy is None when the profiler saw no device time."""
+    """Wall ms, device-busy ms, the device events and the host events of one
+    call of fn under torch.profiler; busy is None when the profiler saw no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -363,7 +419,8 @@ def profile_device(fn):
     dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                   and not getattr(e, "is_user_annotation", False)]
     busy_ms = sum(e.device_time_total for e in dev_events) / 1e3
-    return wall_ms, (busy_ms if busy_ms > 0 else None), dev_events
+    host_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    return wall_ms, (busy_ms if busy_ms > 0 else None), dev_events, host_events
 
 
 # the port's kernels by source and pass, as the profiler names them
@@ -375,7 +432,7 @@ KERNEL_FAMILIES = (("wgrad tc", "wgrad_tc_kernel"), ("wgrad simt", "wgrad_partia
                    ("warp transpose run sum", "segment_sum_kernel"))
 
 
-def print_profile(what, wall_ms, busy_ms, events):
+def print_profile(what, wall_ms, busy_ms, events, host_events):
     if busy_ms is None:
         print(f"  profiled {what}: the profiler saw no device time (not measured)")
         return
@@ -390,6 +447,9 @@ def print_profile(what, wall_ms, busy_ms, events):
             sums.append(f"{family} {sum(e.device_time_total for e in hits) / 1e3:.3f} ms "
                         f"x{sum(e.count for e in hits)}")
     print("    by kernel family: " + "; ".join(sums))
+    host = sorted(host_events, key=lambda e: -e.self_cpu_time_total)[:8]
+    print("    top host self time: " + "; ".join(
+        f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}" for e in host))
 
 
 def step_errors(got, ref):
@@ -767,6 +827,209 @@ def phase8_rank(backend, serve_in, batch_in, train_batch):
                         grads={n: p.grad.cpu().numpy() for n, p in m.named_parameters()},
                         buffers={n: b.cpu().numpy() for n, b in m.named_buffers()})
     return out
+
+
+# phase 9a/b: the driver's command line at the bench train point; every run
+# adds its own model dir, step limit and, when resuming, --ckpt_step
+DRIVER_ARGS = ["--view_num", "3", "--max_d", "192", "--width", "640", "--height", "480",
+               "--network_mode", "lite", "--compute_dtype", "bfloat16",
+               "--optimizer", "rmsprop", "--loss_type", "power", "--grad_loss", "true",
+               "--epoch", "1", "--snapshot", "4", "--train_steps_per_val", "3",
+               "--val_batch_size", "2", "--loader_workers", "1", "--device", "cuda:0"]
+DRIVER_PATH_KERNELS = ("cost_volume", "conv", "deconv", "warp", "warp_transpose", "wgrad")
+
+
+def _state_arrays(tree):
+    """{name: numpy array} of a checkpoint's model and optimizer state."""
+    out = {f"model.{k}": v.cpu().numpy() for k, v in tree["model"].items()}
+    for i, slot in tree["optimizer"]["state"].items():
+        out.update({f"optimizer.{i}.{k}": torch.as_tensor(v).cpu().numpy()
+                    for k, v in slot.items()})
+    return out
+
+
+def _first_difference(a, b):
+    """The first entry where two `_state_arrays` differ in a bit, or None."""
+    if a.keys() != b.keys():
+        return f"keys {sorted(a.keys() ^ b.keys())[:3]}"
+    return next((k for k in a if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
+                 or a[k].tobytes() != b[k].tobytes()), None)
+
+
+def phase9_driver(smi, dev):
+    """9a and 9b; returns whether every check held."""
+    import os
+    import tempfile
+
+    from mvsnet_tpu_torch import checkpoint, train_lib
+    from mvsnet_tpu_torch import train as driver
+    from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.data.synthetic import SyntheticGenerator, render_session
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.ops import kernels
+
+    print("phase 9a: the training driver (mvsnet_tpu_torch.train.main) at 640x480, D=192, V=3, "
+          "lite, bf16, rmsprop, power+grad loss. Substituted: the data plane's JPEG decode. No "
+          "image codec is installed here (no cv2, imageio or PIL), so train.make_loader serves "
+          "plane scenes rendered in memory (mvsnet_tpu_torch/data/synthetic.py) through "
+          "ClusterGenerator's transforms; arguments, configs, the step, snapshots, validation "
+          f"and metrics run as a user runs them [{smi}]")
+    sessions = [render_session(640, 480, n_images=5, seed=s) for s in (0, 1)]
+    cfg = ModelConfig(view_num=3, max_d=192, width=640, height=480, network_mode="lite",
+                      compute_dtype="bfloat16")
+    ref = MVSNet(cfg)
+    want_launches = expected_train_launches(ref, cfg, 120, 160)
+    want_editions = expected_train_editions(ref, torch.bfloat16)
+    del ref
+
+    def loader_from(start):
+        """train.make_loader over the rendered sessions; the train clusters
+        start at the `start`-th. The driver restarts the data on resume (as
+        JAX's does); this rotation makes the resumed run read the batches
+        the straight run read next, so that the two runs can be compared."""
+        def make_loader(dcfg, tcfg, mode):
+            def factory():
+                gen = SyntheticGenerator(
+                    sessions, view_num=dcfg.view_num, image_width=dcfg.image_width,
+                    image_height=dcfg.image_height, depth_num=dcfg.depth_num,
+                    interval_scale=dcfg.interval_scale, base_image_size=dcfg.base_image_size,
+                    mode=mode, flip_cams=dcfg.flip_cams, seed=tcfg.seed)
+                k = start if mode == "train" else 0
+                gen.clusters = gen.clusters[k:] + gen.clusters[:k]
+                return gen
+            return factory
+        return make_loader
+
+    steps, saved = [], {}
+    real = train_lib.make_train_step, driver.make_loader, checkpoint.save_checkpoint
+
+    def counting_make_train_step(*args, **kwargs):
+        step = real[0](*args, **kwargs)
+
+        def counted(state, batch):
+            before, ed_before = kernels.launch_counts(), kernels.edition_counts()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            after, ed_after = kernels.launch_counts(), kernels.edition_counts()
+            steps.append(dict(wall=wall, loss=out[1]["loss"].item(),
+                              launches={k: after[k] - before[k] for k in after},
+                              editions={k: {e: n - ed_before[k][e] for e, n in v.items()}
+                                        for k, v in ed_after.items()}))
+            return out
+        return counted
+
+    def recording_save(base_dir, regularization, network_mode, step, state):
+        saved[(base_dir, step)] = _state_arrays(
+            {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict()})
+        return real[2](base_dir, regularization, network_mode, step, state)
+
+    ok = True
+    with tempfile.TemporaryDirectory(prefix="mvsnet_driver_") as root:
+        data = os.path.join(root, "data")
+        os.makedirs(os.path.join(data, "val"))        # a validation split: val rounds run
+        straight, resumed = os.path.join(root, "straight"), os.path.join(root, "resumed")
+
+        def run(model_dir, start, *extra):
+            driver.make_loader = loader_from(start)
+            return driver.main(["--train_data_root", data, "--model_dir", model_dir,
+                                *DRIVER_ARGS, *extra])
+
+        train_lib.make_train_step, checkpoint.save_checkpoint = (counting_make_train_step,
+                                                                 recording_save)
+        try:
+            kernels.reset_launch_counts()
+            rcs = [run(straight, 0, "--max_steps_per_epoch", "6")]
+            path_counts = kernels.launch_counts()
+            straight_steps = list(steps)
+            rcs.append(run(resumed, 0, "--max_steps_per_epoch", "4"))
+            rcs.append(run(resumed, 4, "--max_steps_per_epoch", "2", "--ckpt_step", "4"))
+        finally:
+            train_lib.make_train_step, driver.make_loader, checkpoint.save_checkpoint = real
+        with open(os.path.join(straight, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f if line.strip()]
+        walls = [st["wall"] for st in straight_steps]
+        print(f"  6 steps: rc {rcs[0]}; step ms {', '.join(f'{w:.2f}' for w in walls)} (the first "
+              f"includes set-up; steady median {np.median(walls[1:]):.2f} ms); losses "
+              f"{', '.join(f'{st['loss']:.4f}' for st in straight_steps)} [{smi}]")
+        print(f"  launches per step {straight_steps[-1]['launches']} (expected {want_launches}); "
+              f"editions per step {straight_steps[-1]['editions']} (expected {want_editions})")
+        print(f"  launches over the driver's run (6 steps and a validation round): {path_counts}")
+        print(f"  metrics.jsonl: {records}")
+        bad_steps = [i for i, st in enumerate(steps) if st["launches"] != want_launches
+                     or st["editions"] != want_editions]
+        idle = [k for k in DRIVER_PATH_KERNELS if path_counts[k] == 0]
+        has_val = any("val_loss" in r for r in records)
+        finite = all(np.isfinite(st["loss"]) for st in steps)
+        if rcs != [0, 0, 0] or bad_steps or idle or not has_val or not finite:
+            print(f"phase 9a FAILED: rcs {rcs}, steps with other counts {bad_steps}, kernels that "
+                  f"never launched {idle}, val metrics {has_val}, losses finite {finite}")
+            ok = False
+
+        # ---- 9b: 4 + resume + 2 == 6, bit for bit
+        reg, mode = "3DCNN", "lite"
+        final = {d: _state_arrays(checkpoint.restore_tree(d, reg, mode, 6))
+                 for d in (straight, resumed)}
+        same_final = _first_difference(final[straight], final[resumed])
+        latest = checkpoint.latest_step(resumed, reg, mode)
+        state = train_lib.create_train_state(MVSNet(cfg, seed=1), cfg, TrainConfig(), device=dev)
+        checkpoint.restore_checkpoint(resumed, reg, mode, state, step=4)
+        restored = _state_arrays({"model": state.model.state_dict(),
+                                  "optimizer": state.optimizer.state_dict()})
+        same_restored = _first_difference(restored, saved[(resumed, 4)])
+        print(f"phase 9b: 4 steps + snapshot + --ckpt_step 4 + 2 steps vs 6 straight steps: "
+              f"parameters, statistics and RMSprop state equal bit for bit: {same_final is None}"
+              + ("" if same_final is None else f" (first difference {same_final})")
+              + f"; latest_step {latest} (expected 6); the state restored on the card equals the "
+              f"saved one bit for bit: {same_restored is None}"
+              + ("" if same_restored is None else f" (first difference {same_restored})"))
+        if same_final is not None or same_restored is not None or latest != 6:
+            print("phase 9b FAILED")
+            ok = False
+        del state
+        torch.cuda.empty_cache()
+    return ok
+
+
+def phase9_convergence(smi, dev):
+    """9c: the port's convergence gate; returns whether it held."""
+    import itertools
+
+    from mvsnet_tpu_torch import train_lib
+    from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.data import batch_iterator
+    from mvsnet_tpu_torch.data.synthetic import SyntheticGenerator, render_session
+    from mvsnet_tpu_torch.models import MVSNet
+
+    # tests/test_convergence.py:22-34: one session a plane depth, 4 images each
+    sessions = [render_session(n_images=4, plane_depth_mm=d, seed=i)
+                for i, d in enumerate((1700.0, 2000.0, 2300.0))]
+    gen = SyntheticGenerator(sessions, view_num=3, image_width=64, image_height=64,
+                             depth_num=16, base_image_size=32, mode="train", flip_cams=False)
+    batches = list(batch_iterator(gen.iterate_once(), 1))
+    cfg = ModelConfig(view_num=3, max_d=16, width=64, height=64, network_mode="ultralite",
+                      compute_dtype="float32")
+    tcfg = TrainConfig(optimizer="adam", base_lr=2e-3, loss_type="original", grad_loss=False)
+    model = MVSNet(cfg, seed=0)
+    state = train_lib.create_train_state(model, cfg, tcfg, device=dev)
+    step = train_lib.make_train_step(model, cfg, tcfg)
+    losses, l3s = [], []
+    t0 = time.perf_counter()
+    for b in itertools.islice(itertools.cycle(batches), 600):
+        state, m = step(state, b)
+        losses.append(m["loss"].item())
+        l3s.append(m["less_three"].item())
+    ms = (time.perf_counter() - t0) * 1e3 / 600
+    first, last, l3 = np.mean(losses[:12]), np.mean(losses[-12:]), np.mean(l3s[-12:])
+    ok = bool(last < 0.1 * first and l3 > 0.9)
+    print(f"phase 9c: convergence gate, 600 adam steps, ultralite 64x64 D=16 f32, {len(batches)} "
+          f"three-depth plane samples rendered in memory: mean loss of the first 12 steps "
+          f"{first:.4f}, of the last 12 {last:.4f} (bound {0.1 * first:.4f}), mean <3px of the "
+          f"last 12 {l3:.4f} (bound 0.9) {'ok' if ok else 'FAIL'}; {ms:.2f} ms a step (host "
+          f"clock, .item() each step) [{smi}]")
+    print_profile("convergence step", *profile_device(lambda: step(state, batches[0])))
+    return ok
 
 
 def main() -> int:
@@ -1272,6 +1535,20 @@ def main() -> int:
     k1s = phase8(smi, dev, randn, homs, request)
     if k1s is None:
         return 1
+
+    # ---- 9. the training driver, resuming, convergence, the bench script
+    if not (phase9_driver(smi, dev) and phase9_convergence(smi, dev)):
+        return 1
+    from mvsnet_tpu_torch import bench
+
+    print("phase 9d: the port's bench script (python -m mvsnet_tpu_torch.bench --metric all):")
+    for point in (bench.bench_3dcnn, bench.bench_train):
+        print(json.dumps(point(dev)), flush=True)
+    lite_step = bench.train_case(dev)
+    lite_step()
+    print_profile("bench train step (lite)", *profile_device(lite_step))
+    del lite_step
+    torch.cuda.empty_cache()
 
     # ---- records: launches from the training run of phase 6; K1s's from
     # the latency requests of phase 8 (all ranks)

@@ -1,4 +1,4 @@
-"""mvsnet_tpu_torch: the MVSNet 3D-CNN inference path in PyTorch and CUDA.
+"""mvsnet_tpu_torch: MVSNet 3D-CNN inference and training in PyTorch and CUDA.
 
 A port of `mvsnet_tpu` for one NVIDIA H100 (sm_90a). The JAX package stays
 the reference; this package imports `torch` and numpy only and keeps its own

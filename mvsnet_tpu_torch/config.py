@@ -1,12 +1,18 @@
-"""Model and training configuration (counterpart of
-mvsnet_tpu/config.py:17-122).
+"""Model, training and data configuration (counterpart of
+mvsnet_tpu/config.py), and `config.json` files.
 
-A copy, not an import: the JAX package's config imports `jax.numpy`.
+A copy, not an import: the JAX package's config imports `jax.numpy`. Field
+names and defaults are JAX's, so a `config.json` written by either package
+loads in the other: the port reads JAX's files and drops the TPU knobs it
+has no use for (`JAX_ONLY_FIELDS`); JAX reads the port's, which lack only
+those knobs, with their defaults.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+from typing import Any, Optional
 
 import torch
 
@@ -52,23 +58,31 @@ def torch_dtype(name: str) -> torch.dtype:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Static model hyperparameters of the 3D-CNN inference graph; field
-    names and defaults match the JAX `ModelConfig`. `view_num`, `width`
-    and `height` describe the operating point: the graph takes its shapes
-    from its inputs. The JAX config's refinement sub-options and TPU
-    knobs (`depth_chunk`, `use_pallas`) are not copied: nothing here reads
-    them."""
+    """Static model hyperparameters; field names and defaults match the JAX
+    `ModelConfig` (reference: train.py:53-90). `view_num`, `width` and
+    `height` describe the operating point: the graph takes its shapes from
+    its inputs. The refinement options are read by the data plane and the
+    configs only until the refinement slice; the JAX TPU knobs
+    (`depth_chunk`, `use_pallas`) are not copied."""
 
     view_num: int = 3
     max_d: int = 192
     width: int = 640
     height: int = 480
+    sample_scale: float = 0.25        # cost volume resolution vs input
+    interval_scale: float = 1.0
+    base_image_size: int = 8
     inverse_depth: bool = False
-    regularization: str = "3DCNN"
+    regularization: str = "3DCNN"     # "3DCNN" | "GRU"
     network_mode: str = "normal"
     refinement: bool = False
+    refinement_network: str = "original"   # "original" | "unet"
+    upsample_before_refinement: bool = True
+    refine_with_confidence: bool = False
+    refine_with_stereo: bool = False
+    residual_refinement: bool = True
     prob_num_buckets: int = 4
-    compute_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"   # conv compute dtype; params stay f32
 
     @property
     def feature_channels(self) -> int:
@@ -84,17 +98,76 @@ class ModelConfig:
 class TrainConfig:
     """Training hyperparameters; field names and defaults match the JAX
     `TrainConfig` (mvsnet_tpu/config.py:99-122, reference: train.py:92-135).
-    Only the fields the train step reads are copied: the batch size comes
-    from the inputs, the training script's fields (epochs, snapshots,
-    validation, seed) wait for the port of `train.py`, and the TPU knobs
-    (`num_devices`, `remat`) have no counterpart."""
+    `num_devices` is the number of ranks (`train.py`); JAX's `remat` has
+    no counterpart."""
 
+    batch_size: int = 1
+    epoch: int = 1
+    max_steps_per_epoch: Optional[int] = None
     base_lr: float = 1e-3
     stepvalue: int = 70000            # lr decay interval (exponential, continuous)
     gamma: float = 0.5                # lr decay rate
+    snapshot: int = 5000              # checkpoint every N steps
     optimizer: str = "rmsprop"        # "rmsprop" | "momentum" | "adam"
     loss_type: str = "power"          # "original" | "power" | "gaussian"
     alpha: float = 0.25
     beta: float = 0.0
     eta: float = 0.02
     grad_loss: bool = True
+    refinement_train_mode: str = "all"   # "all" | "refine_only" | "main_only"
+    val_batch_size: int = 100
+    train_steps_per_val: int = 500
+    seed: int = 0
+    num_devices: Optional[int] = None    # None = the ranks of the process group
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Data-plane parameters (mvsnet_tpu/config.py:125-142, reference:
+    cluster_generator.py:28-56)."""
+
+    data_dir: str = ""
+    view_num: int = 3
+    image_width: int = 640
+    image_height: int = 480
+    depth_num: int = 192
+    interval_scale: float = 1.0
+    base_image_size: int = 8
+    output_scale: float = 0.25
+    flip_cams: bool = False
+    sessions_frac: float = 1.0
+    max_clusters_per_session: Optional[int] = None
+    include_empty: bool = False
+    clear_cache: bool = False
+    prefetch: int = 2
+
+
+# fields of the JAX configs with no counterpart here, dropped on load
+JAX_ONLY_FIELDS = {"model": {"depth_chunk", "use_pallas"}, "train": {"remat"}, "data": set()}
+_CONFIGS = (("model", ModelConfig), ("train", TrainConfig), ("data", DataConfig))
+
+
+def _to_jsonable(obj: Any) -> Any:
+    if dataclasses.is_dataclass(obj):
+        return {f.name: _to_jsonable(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+    return obj
+
+
+def save_config(path: str, **configs) -> None:
+    """`config.json` as JAX's `save_config` writes it: {"model": {...},
+    "train": {...}, "data": {...}}."""
+    with open(path, "w") as f:
+        json.dump({k: _to_jsonable(v) for k, v in configs.items()}, f, indent=2)
+
+
+def load_config(path: str) -> dict:
+    """The configs of a `config.json` from either package; an unknown field
+    raises, as in JAX."""
+    with open(path) as f:
+        raw = json.load(f)
+    out = {}
+    for key, cls in _CONFIGS:
+        if key in raw:
+            fields = {k: v for k, v in raw[key].items() if k not in JAX_ONLY_FIELDS[key]}
+            out[key] = cls(**fields)
+    return out

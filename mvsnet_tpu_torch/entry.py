@@ -1,5 +1,7 @@
-"""Multi-device dry run of the port (counterpart of `dryrun_multichip` in
-the repository's `__graft_entry__.py:60-148`).
+"""Entry points of the port (counterparts of the repository's
+`__graft_entry__.py`): `entry()`, a forward function and its example
+arguments on the flagship 3D-CNN graph (`__graft_entry__.py:35-57`), and
+`dryrun_multichip`, the multi-device dry run (`__graft_entry__.py:60-148`).
 
     python -m mvsnet_tpu_torch.entry 4 gloo       # four CPU ranks
     python -m mvsnet_tpu_torch.entry 2 gloo-cuda  # two ranks on one card
@@ -17,6 +19,8 @@ import sys
 
 import numpy as np
 import torch
+
+from mvsnet_tpu_torch import resolve_device
 
 
 def tiny_batch(batch: int, view_num: int = 3, height: int = 64, width: int = 64,
@@ -38,6 +42,30 @@ def tiny_batch(batch: int, view_num: int = 3, height: int = 64, width: int = 64,
     depth = np.full((batch, height // 4, width // 4, 1), 2000.0, np.float32)
     full_depth = np.full((batch, height, width, 1), 2000.0, np.float32)
     return images, cams, depth, full_depth
+
+
+def entry(device=None):
+    """(forward, example_args): `forward(model, images, cams, depth_start,
+    depth_interval) -> (depth, prob)`, the eval forward of MVSNet 3D-CNN,
+    and its arguments at 64x64, D=8, 3 views, "lite", bfloat16, seeded
+    weights. The tensors live on `device` (None: `cuda:0`, raising without
+    CUDA; "cpu": the plain path)."""
+    from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch.models import MVSNet, apply_forward_3dcnn
+
+    dev = resolve_device(device)
+    cfg = ModelConfig(view_num=3, max_d=8, width=64, height=64, network_mode="lite",
+                      compute_dtype="bfloat16")
+    model = MVSNet(cfg, seed=0).to(dev).eval()
+    images, cams, _, _ = tiny_batch(1)
+
+    @torch.inference_mode()
+    def forward(model, images, cams, depth_start, depth_interval):
+        depth, prob, _ = apply_forward_3dcnn(model, images, cams, depth_start, depth_interval)
+        return depth, prob
+
+    inputs = (images, cams, cams[:, 0, 1, 3, 0], cams[:, 0, 1, 3, 1])
+    return forward, (model,) + tuple(torch.as_tensor(a, device=dev) for a in inputs)
 
 
 def _dryrun_rank(backend: str) -> dict:

@@ -15,8 +15,8 @@ Backends:
     can run a two-rank mesh.
 
 The collectives the port uses are `all_gather` and `all_reduce` (sum)
-along one axis or the whole mesh, and `all_reduce_grad`, whose backward
-is the same sum. The boundary-plane exchange of the depth-sharded U-Net
+along one axis or the whole mesh, `all_reduce_grad`, whose backward
+is the same sum, and `broadcast_` from rank 0 (`shard_state`). The boundary-plane exchange of the depth-sharded U-Net
 is an `all_gather` over 'depth' (`parallel/halo.py`).
 """
 
@@ -162,6 +162,16 @@ class Mesh:
         x = self._to_group(t, as_bytes=False).clone()
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.groups[axis])
         return self._from_group(x, t)
+
+    def broadcast_(self, t):
+        """Overwrite `t` on every rank with rank 0's, in place."""
+        if self.size == 1:
+            return t
+        x = self._to_group(t.to(self.device) if self.backend == "nccl" else t, as_bytes=True)
+        dist.broadcast(x, src=0, group=self.groups[None])
+        if x is not t:
+            t.copy_(self._from_group(x, t))
+        return t
 
     def all_reduce_grad(self, t, axis: Optional[str] = None):
         """`all_reduce` that autograd differentiates: the backward sums the

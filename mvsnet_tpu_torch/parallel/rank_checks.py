@@ -10,13 +10,15 @@ outputs (numpy), with the rank's coordinates on each mesh it used.
 
 from __future__ import annotations
 
+import hashlib
 import logging
 
 import numpy as np
 import torch
 
+from mvsnet_tpu_torch import train as driver
 from mvsnet_tpu_torch import train_lib
-from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+from mvsnet_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
 from mvsnet_tpu_torch.models import MVSNet
 from mvsnet_tpu_torch.models.layers import BatchNormRef
 from mvsnet_tpu_torch.ops.cost_volume import sweep_cost_volume_sharded
@@ -112,6 +114,25 @@ def train(inp):
                                       if isinstance(m, BatchNormRef))}
 
 
+def driver_batches(inp):
+    """The global batches that the driver's train loader gives this rank
+    inside the process group, at `inp["workers"]` decode workers: a digest
+    of each sample's arrays, batch by batch."""
+    mesh = make_mesh(backend="gloo")
+    dcfg, tcfg = DataConfig(**inp["data"]), TrainConfig(**inp["tcfg"])
+    loader = driver.make_batches(driver.make_loader(dcfg, tcfg, "train"), tcfg.batch_size,
+                                 1, inp["workers"], mesh)
+    return [[sample_digest(a[k] for a in batch) for k in range(tcfg.batch_size)]
+            for batch in loader]
+
+
+def sample_digest(arrays) -> str:
+    h = hashlib.sha1()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
 def default_device_error(_inp):
     """What `Predictor(device=None)` raises inside this CPU process group."""
     try:
@@ -122,7 +143,7 @@ def default_device_error(_inp):
 
 
 CASES = {"sweep": sweep, "halo": halo_ops, "predict": predict, "train": train,
-         "default_device_error": default_device_error}
+         "driver_batches": driver_batches, "default_device_error": default_device_error}
 
 
 def run(cases: list) -> list:

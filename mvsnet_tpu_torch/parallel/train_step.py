@@ -1,6 +1,6 @@
-"""The sharded train step (counterpart of mvsnet_tpu/parallel/train_step.py:
-24-77, and of the single-device step it equals, tests/test_parallel.py:
-45-75).
+"""The sharded train and eval steps (counterpart of
+mvsnet_tpu/parallel/train_step.py:24-77, and of the single-device steps
+they equal, tests/test_parallel.py:45-75), and `shard_state`.
 
 Parameters and optimizer state are replicated; each rank of the 'data'
 axis takes its slice of the batch. What GSPMD gives the JAX step for free
@@ -84,3 +84,45 @@ def make_sharded_train_step(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, 
         return train_lib.apply_gradients(state, tcfg), metrics
 
     return train_step
+
+
+def shard_state(state, mesh: Mesh):
+    """Replicate a TrainState over the mesh (JAX's `shard_state`, :58):
+    rank 0's parameters, buffers and optimizer state are broadcast to every
+    rank, in place, so that ranks that built their states apart hold equal
+    ones. Returns `state`."""
+    tensors = list(state.model.parameters()) + list(state.model.buffers())
+    for slot in state.optimizer.state.values():
+        tensors += [v for _, v in sorted(slot.items()) if torch.is_tensor(v)]
+    step = torch.tensor([state.step], dtype=torch.int64)
+    with torch.no_grad():
+        for t in tensors + [step]:
+            mesh.broadcast_(t)
+    state.step = int(step.item())
+    return state
+
+
+def make_sharded_eval_step(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh):
+    """eval_step(state, batch) -> metrics (JAX's `make_sharded_eval_step`,
+    :64): the eval forward on each 'data' rank's slice of the whole batch,
+    with running statistics, and the metrics summed over 'data' through the
+    same `batch_sum` as `make_sharded_train_step`, so every rank returns
+    the global batch's metrics."""
+    n, i = mesh.axis_size("data"), mesh.axis_index("data")
+    batch_sum = None if n == 1 else (lambda t: mesh.all_reduce(t, "data"))
+
+    @torch.no_grad()
+    def eval_step(state, batch):
+        B = batch[0].shape[0]
+        if B % n:
+            raise ValueError(f"a batch of {B} does not split over {n} 'data' ranks")
+        mine = slice(i * (B // n), (i + 1) * (B // n))
+        local = train_lib.to_device(tuple(b[mine] for b in batch), state.device)
+        _, metrics = train_lib.compute_loss(model, cfg, tcfg, local, training=False,
+                                            batch_sum=batch_sum)
+        if batch_sum is not None:
+            metrics["loss"] = batch_sum(metrics["loss"])
+            metrics["debug"] = batch_sum(metrics["debug"])
+        return metrics
+
+    return eval_step

@@ -2,8 +2,10 @@
 3D-CNN branches of mvsnet_tpu/predict.py:51-170, the multi-device one at
 :94-108).
 
-Weights come from `convert.state_dict_from_jax` or from a seed. Restoring
-an orbax checkpoint and the GRU branch wait for later slices of the port.
+Weights come from a seed, from `convert.state_dict_from_jax`, or from a
+checkpoint of the port (`checkpoint.restore_tree(...)["model"]`; a JAX
+checkpoint converts with `tools/jax_ckpt_to_torch.py`). The GRU branch
+waits for its slice of the port.
 """
 
 from __future__ import annotations

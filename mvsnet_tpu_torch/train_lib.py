@@ -6,8 +6,10 @@ PyTorch runs eagerly and updates in place: a step runs the forward in
 training mode (batch-norm statistics from the batch, running statistics
 updated), the backward through the port's kernels (`ops/autograd.py`,
 `ops/cost_volume.py`), then the optimizer. The state is changed and also
-returned, so calls read as in the JAX package. Refinement and the GRU
-graphs are later slices and raise here.
+returned, so calls read as in the JAX package. The training driver
+(`train.py`) runs these steps over a data loader, with checkpoints
+(`checkpoint.py`). Refinement and the GRU graphs are later slices and
+raise here.
 """
 
 from __future__ import annotations

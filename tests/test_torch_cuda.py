@@ -539,3 +539,131 @@ def test_wgrad_edition_rule_on_card(dev):
             with pytest.raises(ValueError, match="tensor-core"):
                 wgrad.wgrad(x, g, (3, 3), 1, edition="tc")
             assert _editions()["wgrad"][want] == before[want] + 1
+
+
+def _driver_run(tmp_path, device, extra):
+    """`mvsnet_tpu_torch.train.main` on `device` over plane scenes rendered
+    in memory (a card machine may lack an image codec), lite, 64x64, D=8,
+    float32; returns the model dir."""
+    from mvsnet_tpu_torch import train as driver
+    from mvsnet_tpu_torch.data.synthetic import SyntheticGenerator, render_session
+
+    sessions = [render_session(n_images=4, seed=1)]
+
+    def make_loader(dcfg, tcfg, mode):
+        return lambda: SyntheticGenerator(
+            sessions, view_num=3, image_width=64, image_height=64, depth_num=8,
+            base_image_size=32, mode=mode, flip_cams=False, seed=tcfg.seed)
+
+    model_dir = str(tmp_path / f"run_{torch.device(device).type}")
+    real = driver.make_loader
+    driver.make_loader = make_loader
+    try:
+        rc = driver.main(["--train_data_root", str(tmp_path / "data"), "--model_dir", model_dir,
+                          "--view_num", "3", "--max_d", "8", "--width", "64", "--height", "64",
+                          "--base_image_size", "32", "--network_mode", "lite",
+                          "--compute_dtype", "float32", "--loader_workers", "1",
+                          "--device", str(device), *extra])
+    finally:
+        driver.make_loader = real
+    assert rc == 0
+    return model_dir
+
+
+def test_driver_step_card_matches_cpu(dev, tmp_path):
+    """One step of the training driver on the card against the CPU's plain
+    path from the same checkpoint (non-identity norms), phase 7's bounds:
+    loss and running statistics to 1e-4, gradients to 2e-2 in the norm of
+    all leaves and 1e-1 of each leaf's largest entry. The step is SGD at
+    rate 1000 from zero momentum, so each update is -1000 times the
+    gradient and the checkpoints carry the gradients."""
+    import json
+
+    from mvsnet_tpu_torch import checkpoint
+
+    cfg = ModelConfig(view_num=3, max_d=8, width=64, height=64, network_mode="lite",
+                      compute_dtype="float32")
+    tcfg = TrainConfig(optimizer="momentum")
+    model = MVSNet(cfg, seed=5)
+    _perturb_norms(model, 6)
+    start = str(tmp_path / "start")
+    checkpoint.save_checkpoint(start, "3DCNN", "lite", 0,
+                               train_lib.create_train_state(model, cfg, tcfg, device="cpu"))
+    extra = ["--model_load_dir", start, "--ckpt_step", "0", "--optimizer", "momentum",
+             "--base_lr", "1000", "--max_steps_per_epoch", "1", "--loss_type", "power"]
+    runs = {}
+    for device in (dev, "cpu"):
+        model_dir = _driver_run(tmp_path, device, extra)
+        with open(f"{model_dir}/metrics.jsonl") as f:
+            loss = [json.loads(line)["loss"] for line in f if "loss" in line][0]
+        runs[device] = (loss, checkpoint.restore_tree(model_dir, "3DCNN", "lite", 1)["model"])
+    (l_gpu, sd_gpu), (l_cpu, sd_cpu) = runs[dev], runs["cpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    before = model.state_dict()
+    params = dict(model.named_parameters())
+    num = den = 0.0
+    for name, w in sd_cpu.items():
+        got = sd_gpu[name]
+        if name in params:
+            g_cpu, g_gpu = (before[name] - w) / 1000, (before[name] - got) / 1000
+            assert torch.isfinite(g_gpu).all(), name
+            assert (g_gpu - g_cpu).abs().max() <= 1e-1 * max(g_cpu.abs().max().item(), 1e-12), name
+            num += ((g_gpu - g_cpu) ** 2).sum().item()
+            den += (g_cpu ** 2).sum().item()
+        else:
+            assert (got - w).abs().max() <= 1e-4 * max(1.0, w.abs().max().item()), name
+    assert (num / den) ** 0.5 <= 2e-2
+
+
+def test_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A card state after two train steps saves and restores on the card bit
+    for bit: parameters, statistics, RMSprop state, step."""
+    from mvsnet_tpu_torch import checkpoint
+
+    cfg = ModelConfig(view_num=3, max_d=8, width=64, height=64, network_mode="lite",
+                      compute_dtype="bfloat16")
+    tcfg = TrainConfig()
+    rng = np.random.default_rng(21)
+    cam = np.zeros((2, 4, 4), np.float32)
+    cam[0] = np.eye(4)
+    cam[1, :3, :3] = [[15.0, 0, 8], [0, 15.0, 8], [0, 0, 1]]
+    cam[1, 3] = [5.0, 0.5, 8, 8.5]
+    cams = np.stack([cam] * 3)[None].copy()
+    cams[0, 1, 0, 0, 3] = 0.3
+    gt = rng.uniform(5.0, 8.5, (1, 16, 16, 1)).astype(np.float32)
+    batch = (rng.standard_normal((1, 3, 64, 64, 3)).astype(np.float32), cams, gt, gt)
+    model = MVSNet(cfg, seed=7)
+    state = train_lib.create_train_state(model, cfg, tcfg, device=dev)
+    step = train_lib.make_train_step(model, cfg, tcfg)
+    for _ in range(2):
+        state, _ = step(state, batch)
+    checkpoint.save_checkpoint(str(tmp_path), "3DCNN", "lite", 2, state)
+    fresh = train_lib.create_train_state(MVSNet(cfg, seed=8), cfg, tcfg, device=dev)
+    checkpoint.restore_checkpoint(str(tmp_path), "3DCNN", "lite", fresh)
+    assert fresh.step == state.step == 2
+    assert fresh.device == dev
+    for (k, a), (_, b) in zip(state.model.state_dict().items(), fresh.model.state_dict().items()):
+        assert torch.equal(a, b), k
+    for p, q in zip(state.model.parameters(), fresh.model.parameters()):
+        assert torch.equal(state.optimizer.state[p]["nu"], fresh.optimizer.state[q]["nu"])
+
+
+def test_entry_forward_on_card(dev):
+    """`entry()` puts its model and example arguments on cuda:0; the forward
+    launches the cost-volume kernel once and gives finite maps in the depth
+    range."""
+    from mvsnet_tpu_torch.entry import entry
+    from mvsnet_tpu_torch.ops import kernels
+
+    forward, args = entry()
+    model, images, cams, ds, di = args
+    assert images.device.type == "cuda" and next(model.parameters()).device.type == "cuda"
+    before = kernels.launch_counts()
+    depth, prob = forward(*args)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["cost_volume"] == before["cost_volume"] + 1
+    assert after["conv"] > before["conv"] and after["deconv"] > before["deconv"]
+    assert depth.shape == prob.shape == (1, 16, 16, 1)
+    assert torch.isfinite(depth).all() and torch.isfinite(prob).all()
+    assert ds.item() - 1e-3 <= depth.min().item() and depth.max().item() <= ds.item() + 7 * di.item() + 1e-3
