@@ -5,6 +5,8 @@ Run from the repository root, on a machine with one H100:
     python3 chip_smoke.py
     python3 chip_smoke.py --multi    # phases 1, 2 and 8 only (several cards)
 
+Phases run in the order 1-7, 10, 11, 8, 9.
+
 Phases, each of which fails the script (non-zero exit, no result line):
   1. the card's name and power limit; exits at once without CUDA;
   2. builds the CUDA kernels from `mvsnet_tpu_torch/csrc` with nvcc (sm_90a)
@@ -21,7 +23,13 @@ Phases, each of which fails the script (non-zero exit, no result line):
      timed in both editions, in turns (tc, simt, simt, tc); the transposed
      warp is called twice on the same inputs, which must agree bit for bit,
      and so must two calls of the cost volume's backward at the training
-     point (bf16);
+     point (bf16); the GRU serving path's rows: the seven convs of the
+     ConvGRU cells and prob_conv at R-MVSNet's serving point (features
+     296x400, Cin 48, 20, 6, 2), K1 over its 256 planes, and two tower
+     convs at 1184x1600; the GRU training path's rows at the bench
+     `train_gru` point ("lite", features 120x160x16, D=192): K1, K2 and K3
+     at C = 16, and each cell conv (Cin 24, 10, 3, 1) forward, its input
+     gradient and its weight gradient;
   4. inference: `Predictor` at 1152x864, D=192, 3 views, "normal",
      bfloat16, seeded weights, answers 3 requests; launch counts per
      request are asserted (cost volume 1, conv 36, deconv 7), then one more
@@ -62,6 +70,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
         timed stage by stage, its halo exchanges alone, and one profiled;
      c. one float32 `make_sharded_train_step` on two data ranks at 128x128,
         D=16, B=2 against the single-card step (phase 7's bounds);
+     d. on the same ranks, R-MVSNet throughput serving at 320x256, D=32,
+        "normal", bf16, B = ranks and B = ranks - 1 (padded to the ranks):
+        equal bit for bit to the single-card GRU `Predictor`, one call per
+        map; and `entry.gru_dryrun`, the dry run's GRU regime;
   9. the training driver (`python -m mvsnet_tpu_torch.train`'s `main`):
      a. at the bench train point (640x480, D=192, 3 views, "lite", bf16,
         RMSprop, power + gradient loss), 6 steps with a validation round,
@@ -82,13 +94,36 @@ Phases, each of which fails the script (non-zero exit, no result line):
         last 12 steps under 0.1 of the first 12's, their mean <3px
         accuracy over 0.9;
      d. the port's bench script (`mvsnet_tpu_torch/bench.py`): its
-        `depth_maps_per_sec_1152x864_d192_3dcnn` and
-        `train_step_sec_640x480_d192_lite` lines; one convergence step
-        and one bench train step are profiled.
+        `depth_maps_per_sec_1152x864_d192_3dcnn`,
+        `train_step_sec_640x480_d192_lite`,
+        `depth_maps_per_sec_1600x1184_d256_gru_wta` and
+        `train_step_sec_640x480_d192_gru_lite` lines; one convergence step
+        and one bench train step are profiled;
+ 10. R-MVSNet serving: the GRU `Predictor` at 1600x1184, D=256, 3 views,
+     "normal", bf16, seeded weights (the bench `gru` point's shapes): a first
+     request (it captures the depth step as a CUDA graph), then 3 timed
+     requests with launches per request and edition asserted against counts
+     derived from the model (K1 once, the tower's convs once, the cells'
+     convs once a plane), peak memory, one request stage by stage and one
+     profiled, whose kernel launches the profiler sees (most of them CUDA
+     graph replays) must equal the wrappers' counts by kernel and edition;
+     the graph-replayed sweep against the eager sweep on the same
+     cost volume, regs, depth and prob bit for bit; the card against the
+     CPU at 320x256, D=32, "normal", float32 (regs within 1e-3 of max(1,
+     max|regs|), depth equal wherever a pixel's top two regs differ by more
+     than that, prob within phase 5's 1e-3);
+ 11. R-MVSNet training (classification loss): 3 `make_train_step` steps at
+     the bench `train_gru` point (640x480, D=192, "lite", bf16,
+     `TrainConfig()`), launches and editions per step asserted, stages by
+     CUDA events, one step profiled; two "normal" steps at the same point,
+     timed, with their peak; one float32 step at 128x128, D=16, "normal",
+     card against CPU within phase 7's bounds, and two card steps bit for
+     bit.
 The last lines are the kernels' JSON record (launches from the training
-run of phase 6; K1s's from the latency requests of phase 8, summed over
-ranks), the card's name and power limit, and {"ok": true, "device":
-{...}}.
+run of phase 6, the GRU rows' from the requests of phase 10 and the
+training steps of phase 11; K1s's from the latency requests of phase 8,
+summed over ranks), the card's name and
+power limit, and {"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -133,6 +168,15 @@ TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_GLOBAL_TOL = 2e-2   # ||g_card - g_cpu|| / ||g_cpu|| over all leaves
 TRAIN_GRAD_TOL = 1e-1          # of each gradient leaf's largest entry
 TRAIN_STATS_TOL = 1e-4         # of max(1, each statistic's largest entry)
+# R-MVSNet, card vs CPU, float32: the regs after the tower, the cost volume
+# and 32 depth steps, within this share of max(1, max|regs|); the
+# winner-take-all depth is compared where a pixel's top two regs are
+# further apart than that (closer ones may take either plane)
+GRU_REGS_TOL = 1e-3
+# a gradient that vanishes analytically (prob_conv's bias, a constant over
+# the planes that the softmax removes) is rounding noise on both sides: held
+# below this share of the largest gradient entry instead of to TRAIN_GRAD_TOL
+VANISHING_TOL = 1e-6
 
 
 def smi_line() -> str:
@@ -229,47 +273,58 @@ def train_scene(H, W, D, seed):
     return images, cams, gt, gt
 
 
+def module_calls(model):
+    """Calls of a module in one forward (B = 1): the GRU sweep's modules run
+    once a plane, every other module once."""
+    gru = set(model.gru_sweep.modules()) if hasattr(model, "gru_sweep") else set()
+    return lambda m: model.cfg.max_d if m in gru else 1
+
+
 def expected_train_launches(model, cfg, h, w):
     """Kernel launches of one train step (B = 1), derived from the model:
-    every conv and transposed conv runs forward once and has one weight
-    gradient; every conv but the two on the images (2dconv1_0 and 2dconv0_1
-    take the images, which need no gradient) has an input gradient, on the
-    conv kernel at stride 1 and on the transposed-conv kernel at stride 2;
-    every transposed conv's input gradient is a stride-2 conv; the cost
-    volume runs K1 forward, and K2 and K3 once per source view and depth
-    chunk backward."""
+    every conv and transposed conv runs forward once (a GRU cell's once a
+    plane, `module_calls`) and has one weight gradient a run; every conv but
+    the two on the images (2dconv1_0 and 2dconv0_1 take the images, which
+    need no gradient) has an input gradient, on the conv kernel at stride 1
+    and on the transposed-conv kernel at stride 2; every transposed conv's
+    input gradient is a stride-2 conv; the cost volume runs K1 forward, and
+    K2 and K3 once per source view and depth chunk backward."""
     from mvsnet_tpu_torch.models.layers import Conv, Deconv
     from mvsnet_tpu_torch.ops.cost_volume import ACC_LIMIT_BYTES
 
     fn = model.feature_net._modules
     image_convs = {fn["2dconv1_0"].conv, fn["2dconv0_1"].conv}
+    calls = module_calls(model)
     convs = [m for m in model.modules() if isinstance(m, Conv)]
     deconvs = [m for m in model.modules() if isinstance(m, Deconv)]
-    dx_s1 = sum(1 for c in convs if c.stride == 1 and c not in image_convs)
-    dx_s2 = sum(1 for c in convs if c.stride == 2 and c not in image_convs)
+    n_conv, n_deconv = sum(map(calls, convs)), sum(map(calls, deconvs))
+    dx_s1 = sum(calls(c) for c in convs if c.stride == 1 and c not in image_convs)
+    dx_s2 = sum(calls(c) for c in convs if c.stride == 2 and c not in image_convs)
     V, C = cfg.view_num, cfg.feature_channels
     chunks = max(1, -(-(V * cfg.max_d * h * w * C * 4) // ACC_LIMIT_BYTES))
     return {"cost_volume": 1, "cost_volume_sharded": 0,
-            "conv": len(convs) + dx_s1 + len(deconvs),
-            "deconv": len(deconvs) + dx_s2, "warp": (V - 1) * chunks,
-            "warp_transpose": (V - 1) * chunks, "wgrad": len(convs) + len(deconvs)}
+            "conv": n_conv + dx_s1 + n_deconv,
+            "deconv": n_deconv + dx_s2, "warp": (V - 1) * chunks,
+            "warp_transpose": (V - 1) * chunks, "wgrad": n_conv + n_deconv}
 
 
 def expected_wgrad_editions(model, dtype):
     """Weight-gradient launches of one train step by edition: a conv's dk
     is wgrad(x, g) on (Cin, Cout), a transposed conv's wgrad(g, x) on (Cout,
-    Cin); each runs the edition `wgrad.pick_edition` gives its channels
-    (bf16: "simt" only for the two image convs' Cin = 3)."""
+    Cin), once a run (`module_calls`); each runs the edition
+    `wgrad.pick_edition` gives its channels (bf16 3D-CNN: "simt" only for
+    the two image convs' Cin = 3)."""
     from mvsnet_tpu_torch.models.layers import Conv, Deconv
     from mvsnet_tpu_torch.ops.kernels import wgrad
 
+    calls = module_calls(model)
     counts = {e: 0 for e in wgrad.EDITIONS}
     for m in model.modules():
         if isinstance(m, (Conv, Deconv)):
             cin, cout = m.kernel.shape[-2:]
             if isinstance(m, Deconv):
                 cin, cout = cout, cin
-            counts[wgrad.pick_edition(dtype, cin, cout)] += 1
+            counts[wgrad.pick_edition(dtype, cin, cout)] += calls(m)
     return counts
 
 
@@ -286,23 +341,45 @@ def expected_train_editions(model, dtype):
 
     fn = model.feature_net._modules
     image_convs = {fn["2dconv1_0"].conv, fn["2dconv0_1"].conv}
+    calls = module_calls(model)
     counts = {k: {e: 0 for e in conv.EDITIONS} for k in ("conv", "deconv")}
 
-    def add(kind, cin, cout):
-        counts[kind][conv.pick_edition(dtype, cin, cout)] += 1
+    def add(kind, cin, cout, n):
+        counts[kind][conv.pick_edition(dtype, cin, cout)] += n
 
     for m in model.modules():
         if isinstance(m, (Conv, Deconv)):
             cin, cout = m.kernel.shape[-2:]
             if isinstance(m, Conv):
-                add("conv", cin, cout)
+                add("conv", cin, cout, calls(m))
                 if m not in image_convs:
-                    add("conv" if m.stride == 1 else "deconv", cout, cin)
+                    add("conv" if m.stride == 1 else "deconv", cout, cin, calls(m))
             else:
-                add("deconv", cin, cout)
-                add("conv", cout, cin)
+                add("deconv", cin, cout, calls(m))
+                add("conv", cout, cin, calls(m))
     counts["wgrad"] = expected_wgrad_editions(model, dtype)
     return counts
+
+
+def expected_serving(model, dtype):
+    """Launches of one eval request (B = 1) by kernel, and by edition, derived
+    from the model: K1 once; every conv and transposed conv once a run
+    (`module_calls`: a GRU cell's once a plane), in the edition
+    `conv.pick_edition` gives its channels."""
+    from mvsnet_tpu_torch.models.layers import Conv, Deconv
+    from mvsnet_tpu_torch.ops.kernels import conv
+
+    calls = module_calls(model)
+    editions = {k: {e: 0 for e in conv.EDITIONS} for k in ("conv", "deconv", "wgrad")}
+    for m in model.modules():
+        if isinstance(m, (Conv, Deconv)):
+            cin, cout = m.kernel.shape[-2:]
+            kind = "conv" if isinstance(m, Conv) else "deconv"
+            editions[kind][conv.pick_edition(dtype, cin, cout)] += calls(m)
+    launches = {"cost_volume": 1, "cost_volume_sharded": 0, "warp": 0, "warp_transpose": 0,
+                "wgrad": 0, "conv": sum(editions["conv"].values()),
+                "deconv": sum(editions["deconv"].values())}
+    return launches, editions
 
 
 def perturb_norms(model, seed):
@@ -317,7 +394,7 @@ def perturb_norms(model, seed):
         for name, t in list(model.named_parameters()) + list(model.named_buffers()):
             if name.endswith(("scale", "var")):
                 t.copy_(0.5 + torch.rand(t.shape, generator=g))
-            elif name.endswith((".gn.bias", ".bn.bias", "mean")):
+            elif name.endswith((".gn.bias", ".bn.bias", "norm.bias", "mean")):
                 t.copy_(0.2 * torch.randn(t.shape, generator=g))
 
 
@@ -432,6 +509,29 @@ KERNEL_FAMILIES = (("wgrad tc", "wgrad_tc_kernel"), ("wgrad simt", "wgrad_partia
                    ("warp transpose run sum", "segment_sum_kernel"))
 
 
+def profiled_launches(events):
+    """Launches the profiler saw by kernel and edition, in the form of the
+    wrappers' counts (`kernels.launch_counts`, `kernels.edition_counts`),
+    for the kernels of a serving request: K1, and the conv and transposed
+    conv in both editions (the tensor-core kernel serves both)."""
+    def seen(pattern):
+        return sum(e.count for e in events if pattern in e.key)
+    return {"cost_volume": seen("cost_volume_kernel"),
+            "conv/deconv tc": seen("tc_conv_kernel"),
+            "conv simt": seen("::conv_kernel"), "deconv simt": seen("::deconv_kernel")}
+
+
+def counted_launches(before, after):
+    """The wrappers' counts between two (launch_counts, edition_counts)
+    readings, in `profiled_launches`' form."""
+    (l0, e0), (l1, e1) = before, after
+    ed = {k: {e: n - e0[k][e] for e, n in v.items()} for k, v in e1.items()}
+    return {"cost_volume": l1["cost_volume"] - l0["cost_volume"] + l1["cost_volume_sharded"]
+            - l0["cost_volume_sharded"],
+            "conv/deconv tc": ed["conv"]["tc"] + ed["deconv"]["tc"],
+            "conv simt": ed["conv"]["simt"], "deconv simt": ed["deconv"]["simt"]}
+
+
 def print_profile(what, wall_ms, busy_ms, events, host_events):
     if busy_ms is None:
         print(f"  profiled {what}: the profiler saw no device time (not measured)")
@@ -452,27 +552,33 @@ def print_profile(what, wall_ms, busy_ms, events, host_events):
         f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.3f} ms x{e.count}" for e in host))
 
 
-def step_errors(got, ref):
+def step_errors(got, ref, vanishing=()):
     """(loss rel err, global gradient err, worst leaf, its err, running
     statistics err) of one train step's (loss, grads, buffers) against
-    another's, as phase 7 bounds them."""
+    another's, as phase 7 bounds them. The leaves named in `vanishing`
+    have gradients that vanish analytically: each must stay under
+    VANISHING_TOL of the largest gradient entry on both sides."""
     (l_got, g_got, b_got), (l_ref, g_ref, b_ref) = got, ref
     loss_err = abs(l_got - l_ref) / abs(l_ref)
+    top = max(float(np.abs(g).max()) for g in g_ref.values())
+    tiny = all(max(float(np.abs(g_got[n]).max()), float(np.abs(g_ref[n]).max()))
+               <= VANISHING_TOL * top for n in vanishing)
     leaf_err = {n: float(np.abs(g_got[n] - g).max()) / max(float(np.abs(g).max()), 1e-12)
-                for n, g in g_ref.items()}
+                for n, g in g_ref.items() if n not in vanishing}
     worst = max(leaf_err, key=leaf_err.get)
     global_err = float(np.sqrt(sum(float(((g_got[n] - g) ** 2).sum()) for n, g in g_ref.items())
                                / sum(float((g ** 2).sum()) for g in g_ref.values())))
-    stats_err = max(float(np.abs(b_got[n] - b).max()) / max(1.0, float(np.abs(b).max()))
-                    for n, b in b_ref.items())
-    ok = (np.isfinite(l_got) and loss_err <= TRAIN_LOSS_RTOL
+    stats_err = max((float(np.abs(b_got[n] - b).max()) / max(1.0, float(np.abs(b).max()))
+                     for n, b in b_ref.items()), default=0.0)
+    ok = (np.isfinite(l_got) and loss_err <= TRAIN_LOSS_RTOL and tiny
           and global_err <= TRAIN_GRAD_GLOBAL_TOL and leaf_err[worst] <= TRAIN_GRAD_TOL
           and stats_err <= TRAIN_STATS_TOL)
     text = (f"loss rel err {loss_err:.3e} (bound {TRAIN_LOSS_RTOL:g}), gradients "
             f"{global_err:.3e} in the global norm (bound {TRAIN_GRAD_GLOBAL_TOL:g}), worst "
             f"leaf {worst} {leaf_err[worst]:.3e} of its max (bound {TRAIN_GRAD_TOL:g}), "
-            f"running stats {stats_err:.3e} (bound {TRAIN_STATS_TOL:g}) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"running stats {stats_err:.3e} (bound {TRAIN_STATS_TOL:g})"
+            + (f", vanishing leaves {list(vanishing)} under {VANISHING_TOL:g} of the largest "
+               f"gradient: {tiny}" if vanishing else "") + f" {'ok' if ok else 'FAIL'}")
     return ok, text
 
 
@@ -506,6 +612,11 @@ def repeat_difference(a, b):
     diffs += [(f"buffer {n}", float(np.abs(b_a[n] - b_b[n]).max())) for n in b_a]
     first = next((n for n, d in diffs if d != 0), None)
     return max(d for _, d in diffs), first
+
+
+# phase 8d: R-MVSNet throughput serving on the ranks
+GRU_MULTI_CFG_ARGS = dict(view_num=3, max_d=32, width=320, height=256, network_mode="normal",
+                          regularization="GRU", compute_dtype="bfloat16")
 
 
 def serving_setup():
@@ -690,10 +801,20 @@ def phase8_ranks(smi, dev, serve_in, backend, n):
     ref_step = (met["loss"].item(), {k: p.grad.cpu().numpy() for k, p in m.named_parameters()},
                 {k: b.cpu().numpy() for k, b in m.named_buffers()})
     del m, st, met
+    # 8d's reference: the single-card GRU Predictor, one call per map
+    g_pred = Predictor(ModelConfig(**GRU_MULTI_CFG_ARGS), seed=0, device=dev)
+    gru_in, gru_ref = {}, {}
+    for B in (n, n - 1):
+        g_images, g_cams = scene(B, 3, 256, 320, 32, seed=20 + B)
+        g_ds, g_di, _, g_de = depth_params_from_cams(g_cams)
+        gru_in[B] = (g_images, g_cams, g_ds, g_di, g_de)
+        per_map = [g_pred.predict(*(a[i:i + 1] for a in gru_in[B]))[:2] for i in range(B)]
+        gru_ref[B] = tuple(np.concatenate(p, axis=0) for p in zip(*per_map))
+    del g_pred
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    results = spawn(phase8_rank, n, backend, backend, serve_in, batch_in, t_batch)
+    results = spawn(phase8_rank, n, backend, backend, serve_in, batch_in, t_batch, gru_in)
     print(f"  ranks started, served, trained and joined in {time.perf_counter() - t0:.1f} s; "
           f"serving mesh {results[0]['mesh']}, devices {[r['device'] for r in results]}")
     expected = {"latency": {"cost_volume_sharded": 1, "cost_volume": 0},
@@ -729,18 +850,38 @@ def phase8_ranks(smi, dev, serve_in, backend, n):
         ok = ok and good and same
         print(f"  sharded train step, rank {i}, mesh {t['mesh']}, 128x128 D=16 B=2 normal f32, "
               f"vs the single-card step: {text}; running stats equal to rank 0's: {same}")
+    for B, (want_depth, want_prob) in gru_ref.items():
+        per_rank = -(-B // n)                  # maps a rank runs once B is padded to n
+        equal = all(np.array_equal(r["gru"][B]["depth"], want_depth)
+                    and np.array_equal(r["gru"][B]["prob"], want_prob) for r in results)
+        k1 = [r["gru"][B]["cost_volume"] for r in results]
+        good = equal and all(k == per_rank for k in k1)
+        ok = ok and good
+        walls = ", ".join(f"{r['gru'][B]['wall']:.2f}" for r in results)
+        padding = f"padded to {n}" if B % n else "no padding"
+        print(f"  8d: R-MVSNet throughput serving, B={B} ({padding}), 320x256, D=32, V=3, "
+              f"normal, bf16: wall ms per rank {walls} (a rank's first includes its "
+              f"capture); depth and prob equal bit for bit to the single-card Predictor, one "
+              f"call per map: {equal}; K1 launches per rank {k1} (expected {per_rank}) "
+              f"{'ok' if good else 'FAIL'} [{smi}]")
+    dry = [r["gru_dryrun"] for r in results]
+    print(f"  8d: entry.gru_dryrun (ultralite GRU 64x64 D=8 f32) on every rank: batch {dry} "
+          f"(expected {max(1, n - 1)}) {'ok' if dry == [max(1, n - 1)] * n else 'FAIL'}")
+    ok = ok and dry == [max(1, n - 1)] * n
     if not ok:
         print("phase 8 FAILED")
         return None
     return sum(r["latency"]["total"]["cost_volume_sharded"] for r in results)
 
 
-def phase8_rank(backend, serve_in, batch_in, train_batch):
+def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in):
     """One rank of phase 8 (started by `parallel.launch.spawn`): serving in
     the latency (B=1) and throughput (B=n) regimes through the default
-    multi-device `Predictor`, then one sharded f32 train step. Returns
-    numpy results, launch counts and timings."""
+    multi-device `Predictor`, GRU throughput serving on each batch of
+    `gru_in` and the dry run's GRU regime, then one sharded f32 train step.
+    Returns numpy results, launch counts and timings."""
     from mvsnet_tpu_torch import train_lib
+    from mvsnet_tpu_torch.entry import gru_dryrun
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.models import MVSNet
     from mvsnet_tpu_torch.ops import kernels
@@ -812,6 +953,22 @@ def phase8_rank(backend, serve_in, batch_in, train_batch):
     torch.distributed.barrier()
     out["profile"] = profile_device(lambda: predictor.predict(*serve_in, fetch=False))[:2]
     del predictor, model, args
+    torch.cuda.empty_cache()
+
+    # ---- 8d: GRU throughput serving (padded where B % n), the dry run's regime
+    g_pred = Predictor(ModelConfig(**GRU_MULTI_CFG_ARGS), seed=0)
+    out["gru"] = {}
+    for B, inputs in gru_in.items():
+        before = kernels.launch_counts()["cost_volume"]
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        depth, prob, _ = g_pred.predict(*inputs, fetch=False)
+        torch.cuda.synchronize()
+        out["gru"][B] = dict(wall=(time.perf_counter() - t0) * 1e3,
+                             cost_volume=kernels.launch_counts()["cost_volume"] - before,
+                             depth=depth.cpu().numpy(), prob=prob.cpu().numpy())
+    out["gru_dryrun"] = gru_dryrun(g_pred.mesh)
+    del g_pred
     torch.cuda.empty_cache()
 
     # ---- 8c: one sharded f32 train step, two data ranks
@@ -1032,6 +1189,271 @@ def phase9_convergence(smi, dev):
     return ok
 
 
+def serve_counted(predictor, request, n=3):
+    """n requests, each timed on the host clock to a synchronize, with the
+    launches per request by kernel and by edition. Returns (walls, launches,
+    editions, whether every depth and prob was finite, the last depth and
+    prob)."""
+    from mvsnet_tpu_torch.ops import kernels
+
+    walls, per_request, editions, finite = [], [], [], True
+    for _ in range(n):
+        before, ed_before = kernels.launch_counts(), kernels.edition_counts()
+        t0 = time.perf_counter()
+        depth, prob, _ = predictor.predict(*request, fetch=False)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after, ed_after = kernels.launch_counts(), kernels.edition_counts()
+        per_request.append({k: after[k] - before[k] for k in after})
+        editions.append({k: {e: m - ed_before[k][e] for e, m in v.items()}
+                         for k, v in ed_after.items()})
+        finite = finite and bool(torch.isfinite(depth).all() and torch.isfinite(prob).all())
+    return walls, per_request, editions, finite, depth, prob
+
+
+def phase10_gru_serving(smi, dev, request):
+    """R-MVSNet serving at the shapes of `request` (images, cams, depth
+    start, interval, end; main passes the bench `gru` point's 1600x1184,
+    D=256); returns the launch counts of its 3 counted requests, or None on
+    failure."""
+    from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.ops import kernels
+    from mvsnet_tpu_torch.ops.cost_volume import plane_sweep_cost_volume
+    from mvsnet_tpu_torch.ops.geometry import depth_values
+    from mvsnet_tpu_torch.predict import Predictor
+
+    B, V, H, W, _ = request[0].shape
+    cfg = ModelConfig(view_num=V, max_d=int(request[1][0, 0, 1, 3, 2]), width=W, height=H,
+                      interval_scale=0.8, network_mode="normal", regularization="GRU",
+                      compute_dtype="bfloat16")
+    point = f"{W}x{H}, D={cfg.max_d}, V={V}"
+    predictor = Predictor(cfg, seed=0, device=dev)
+    model = predictor.model
+    want_launches, want_editions = expected_serving(model, torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predictor.predict(*request, fetch=False)          # captures the depth step
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls, per_request, editions, ok, depth, prob = serve_counted(predictor, request)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 10: R-MVSNet serving, GRU Predictor at {point}, normal, bf16: "
+          f"first request {first_ms:.2f} ms (captures the depth step as a CUDA graph), then "
+          f"wall ms {', '.join(f'{w:.2f}' for w in walls)}; peak memory {peak / 2 ** 30:.3f} GiB; "
+          f"depth {tuple(depth.shape)} in [{depth.min().item():.1f}, {depth.max().item():.1f}], "
+          f"prob in [{prob.min().item():.4f}, {prob.max().item():.4f}] [{smi}]")
+    print(f"  launches per request {per_request[-1]} (expected {want_launches}); editions "
+          f"{editions[-1]} (expected {want_editions})")
+    idle = [k for k in ("cost_volume", "conv", "deconv") if counts[k] == 0]
+    if (not ok or idle or any(r != want_launches for r in per_request)
+            or any(e != want_editions for e in editions)):
+        print(f"phase 10 FAILED: finite {ok}, kernels never launched {idle}, launches per "
+              f"request {per_request}, editions {editions}")
+        return None
+
+    # one request stage by stage (CUDA events), then one profiled
+    args = [torch.as_tensor(a, device=dev) for a in request]
+    with torch.inference_mode():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ds, de = args[2], args[4]
+        di = (de - ds) / (cfg.max_d - 1)
+        ev[0].record()
+        ref_f, view_f = model.extract_features(args[0])
+        ev[1].record()
+        cost = plane_sweep_cost_volume(ref_f, view_f, model.homographies(args[1], ds, di, de))
+        ev[2].record()
+        samples = depth_values(ds, di, cfg.max_d)
+        regs_g, carry_g = model.gru_sweep(cost, samples)
+        ev[3].record()
+        max_prob, _, exp_sum = carry_g
+        max_prob / (exp_sum + 1e-7)
+        ev[4].record()
+        torch.cuda.synchronize()
+    names = ["feature_net", "homographies + cost_volume",
+             f"gru sweep (graph, {cfg.max_d} replays)", "prob_map"]
+    print("  stages (ms, CUDA events, one request): " + ", ".join(
+        f"{n} {ev[i].elapsed_time(ev[i + 1]):.3f}" for i, n in enumerate(names)))
+    # the profiler's kernel launches against the wrappers' counts: most of
+    # them are CUDA-graph replays, counted from the capture
+    before = kernels.launch_counts(), kernels.edition_counts()
+    profile = profile_device(lambda: predictor.predict(*request, fetch=False))
+    after = kernels.launch_counts(), kernels.edition_counts()
+    print_profile("GRU request", *profile)
+    seen, counted = profiled_launches(profile[2]), counted_launches(before, after)
+    print(f"  kernels launched in the profiled request: profiler {seen}, wrappers' counts "
+          f"{counted}")
+    if profile[1] is None or seen != counted:
+        print("phase 10 FAILED: the profiler saw other launches than the counts")
+        return None
+
+    # the graph-replayed sweep against the eager sweep, same cost volume
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        regs_e, carry_e = model.gru_sweep.eager(cost, samples)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        regs_g, carry_g = model.gru_sweep.graphed(cost, samples)
+        torch.cuda.synchronize()
+        graph_ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(regs_g, regs_e) and all(torch.equal(a, b) for a, b in zip(carry_g, carry_e))
+    print(f"  sweep of {cfg.max_d} planes on one cost volume: graph-replayed {graph_ms:.2f} ms, "
+          f"eager "
+          f"{eager_ms:.2f} ms (host clock to a synchronize); regs, depth and the "
+          f"winner-take-all sums equal bit for bit: {same} [{smi}]")
+    del predictor, model, cost, regs_g, regs_e, carry_g, carry_e, ref_f, view_f, args
+    torch.cuda.empty_cache()
+    if not same:
+        print("phase 10 FAILED: the graph-replayed sweep differs from the eager sweep")
+        return None
+
+    # card against CPU at 320x256, D=32, float32
+    small = ModelConfig(view_num=3, max_d=32, width=320, height=256, network_mode="normal",
+                        regularization="GRU", compute_dtype="float32")
+    s_images, s_cams = scene(1, 3, 256, 320, 32, seed=11)
+    s_args = (s_images, s_cams, s_cams[:, 0, 1, 3, 0], None, s_cams[:, 0, 1, 3, 3])
+    out = {}
+    for device in (dev, "cpu"):
+        m = MVSNet(small, seed=1)
+        perturb_norms(m, seed=2)
+        m = m.to(device).eval()
+        with torch.inference_mode():
+            out[str(device)] = [o.cpu() for o in m.forward_gru_wta(
+                *(None if a is None else torch.as_tensor(a, device=device) for a in s_args),
+                with_regs=True)]
+    (d_g, p_g, r_g), (d_c, p_c, r_c) = out[str(dev)], out["cpu"]
+    tol = GRU_REGS_TOL * max(1.0, r_c.abs().max().item())
+    r_err = (r_g - r_c).abs().max().item()
+    top2 = r_c.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1] > tol)[..., None]
+    d_same = torch.equal(d_g[decided], d_c[decided])
+    p_err = (p_g - p_c).abs().max().item()
+    good = r_err <= tol and d_same and p_err <= E2E_PROB_ATOL and bool(torch.isfinite(d_g).all())
+    print(f"  R-MVSNet 320x256 D=32 normal f32, card (graph) vs CPU: regs max abs err {r_err:.3e} "
+          f"(bound {tol:.3e}); depth equal at the {int(decided.sum())} of {decided.numel()} "
+          f"pixels whose top two regs differ by more: {d_same}; prob max abs err {p_err:.3e} "
+          f"(bound {E2E_PROB_ATOL:g}) {'ok' if good else 'FAIL'}")
+    return counts if good else None
+
+
+def phase11_gru_training(smi, dev, point=(480, 640, 192)):
+    """R-MVSNet training at `point` (height, width, D; main passes the bench
+    `train_gru` point's); returns the launch counts of its 3 counted steps,
+    or None on failure."""
+    from mvsnet_tpu_torch import train_lib
+    from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.ops import kernels
+
+    H, W, D = point
+    cfg = ModelConfig(view_num=3, max_d=D, width=W, height=H, network_mode="lite",
+                      regularization="GRU", compute_dtype="bfloat16")
+    tcfg = TrainConfig()
+    t_batch = train_scene(H, W, D, seed=12)
+    model = MVSNet(cfg, seed=0)
+    want = expected_train_launches(model, cfg, H // 4, W // 4)
+    want_ed = expected_train_editions(model, torch.bfloat16)
+    state = train_lib.create_train_state(model, cfg, tcfg, device=dev)
+    step = train_lib.make_train_step(model, cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls, per_step, per_ed, losses = [], [], [], []
+    for _ in range(3):
+        before, ed_before = kernels.launch_counts(), kernels.edition_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, t_batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after, ed_after = kernels.launch_counts(), kernels.edition_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        per_ed.append({k: {e: n - ed_before[k][e] for e, n in v.items()}
+                       for k, v in ed_after.items()})
+        losses.append(metrics["loss"].item())
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(np.isfinite(v) for v in losses) and all(
+        bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    print(f"phase 11: R-MVSNet training, 3 steps at {W}x{H}, D={D}, V=3, lite, bf16, rmsprop, "
+          f"classification loss: step ms {', '.join(f'{w:.2f}' for w in walls)} (the first "
+          f"includes set-up); peak memory {peak / 2 ** 30:.3f} GiB; losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; <1 {metrics['less_one'].item():.4f} [{smi}]")
+    print(f"  launches per step {per_step[-1]} (expected {want}); editions {per_ed[-1]} "
+          f"(expected {want_ed})")
+    idle = [k for k in DRIVER_PATH_KERNELS if counts[k] == 0]
+    if (not finite or idle or any(r != want for r in per_step)
+            or any(e != want_ed for e in per_ed)):
+        print(f"phase 11 FAILED: finite {finite}, kernels never launched {idle}, launches "
+              f"{per_step}, editions {per_ed}")
+        return None
+
+    # one step stage by stage, then one profiled
+    batch = train_lib.to_device(t_batch, dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    state.optimizer.zero_grad(set_to_none=True)
+    ev[0].record()
+    loss, _ = train_lib.compute_loss(model, cfg, tcfg, batch, training=True)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    train_lib.apply_gradients(state, tcfg)
+    ev[3].record()
+    torch.cuda.synchronize()
+    print("  stages (ms, CUDA events, one step): " + ", ".join(
+        f"{n} {ev[i].elapsed_time(ev[i + 1]):.3f}"
+        for i, n in enumerate(["forward", "backward", "optimizer"])))
+    print_profile("GRU train step (lite)", *profile_device(lambda: step(state, t_batch)))
+    del state, model, step, batch, loss
+    torch.cuda.empty_cache()
+
+    # two "normal" steps at the same point
+    n_cfg = dataclasses.replace(cfg, network_mode="normal")
+    model = MVSNet(n_cfg, seed=0)
+    state = train_lib.create_train_state(model, n_cfg, tcfg, device=dev)
+    step = train_lib.make_train_step(model, n_cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, metrics = step(state, t_batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    finite = np.isfinite(metrics["loss"].item())
+    print(f"  normal: 2 steps at {W}x{H}, D={D}, bf16: step ms "
+          f"{', '.join(f'{w:.2f}' for w in walls)} (the first includes set-up); peak memory {peak / 2 ** 30:.3f} GiB; loss "
+          f"{metrics['loss'].item():.4f} [{smi}]")
+    del state, model, step
+    torch.cuda.empty_cache()
+
+    # one float32 step at 128x128, D=16: card vs CPU, and two card steps
+    s_cfg = ModelConfig(view_num=3, max_d=16, width=128, height=128, network_mode="normal",
+                        regularization="GRU", compute_dtype="float32")
+    s_batch = train_scene(128, 128, 16, seed=13)
+    runs = []
+    for device in (dev, dev, "cpu"):
+        m = MVSNet(s_cfg, seed=3)
+        perturb_norms(m, seed=4)
+        st = train_lib.create_train_state(m, s_cfg, tcfg, device=device)
+        _, met = train_lib.make_train_step(m, s_cfg, tcfg)(st, s_batch)
+        runs.append((met["loss"].item(),
+                     {n: p.grad.cpu().numpy() for n, p in m.named_parameters()},
+                     {n: b.cpu().numpy() for n, b in m.named_buffers()}))
+    good, text = step_errors(runs[0], runs[2], vanishing=("gru_sweep.gru.prob_conv.bias",))
+    print(f"  R-MVSNet train step 128x128 D=16 normal f32, card vs CPU: {text}")
+    repeat, first = repeat_difference(runs[0], runs[1])
+    print(f"  two card steps from the same state and batch: largest difference {repeat:.3e}"
+          + ("" if first is None else f", first in {first}") + f" (bound 0) "
+          f"{'ok' if repeat == 0 else 'FAIL'}")
+    return counts if finite and good and repeat == 0 else None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1073,6 +1495,9 @@ def main() -> int:
     ds, di, _, de = depth_params_from_cams(cams)
     request = (images, cams, ds, di, de)
     homs = homs_of(cams, 192)
+    # R-MVSNet's serving point: 1600x1184 images, features 296x400, D=256
+    g_images, g_cams = scene(1, 3, 1184, 1600, 256, seed=10)
+    g_homs = homs_of(g_cams, 256)
     # the training point: 640x480 images, features 160x120, D=192
     t_batch = train_scene(480, 640, 192, seed=2)
     t_homs = homs_of(t_batch[1], 192)
@@ -1081,21 +1506,25 @@ def main() -> int:
         return 1 if k1s is None else report([k1s])
     cases = []     # one dict per kernel and shape
 
-    def add_cost():
+    def add_cost(name="cost_volume", hm=homs, h=216, w=288, path=None, C=32):
+        D = hm.shape[1]
+
         def make(dtype):
-            return (randn((216, 288, 32), dtype), randn((2, 216, 288, 32), dtype), homs)
-        n_out = 192 * 216 * 288 * 32
-        ops = n_out * (12 * 2 + 4) + 192 * 216 * 288 * 2 * 25
+            return (randn((h, w, C), dtype), randn((2, h, w, C), dtype), hm)
+        n_out = D * h * w * C
+        ops = n_out * (12 * 2 + 4) + D * h * w * 2 * 25
         cases.append(dict(
-            name="cost_volume", counter="cost_volume", kernel=sweep.cost_volume,
-            plain=sweep.cost_volume_plain, library=None, make=make,
-            bytes=lambda it: (3 * 216 * 288 * 32 + n_out) * it + homs.numel() * 4,
+            name=name, counter="cost_volume", kernel=sweep.cost_volume,
+            plain=sweep.cost_volume_plain, library=None, make=make, path=path,
+            bytes=lambda it: (3 * h * w * C + n_out) * it + hm.numel() * 4,
             ops=ops, source="mvsnet_tpu_torch/csrc/cost_volume.cu",
             replaces="mvsnet_tpu/ops/pallas/sweep.py:1094"))
 
-    def add_conv(layer, shape, k, stride, cout, epilogue, replaces):
+    def add_conv(layer, shape, k, stride, cout, epilogue, replaces, relu=None, path=None):
+        """`epilogue`: a bias, and a ReLU unless `relu` says otherwise."""
         cin = shape[-1]
         rank = len(shape) - 2
+        relu = epilogue if relu is None else relu
 
         def make(dtype):
             x = randn(shape, dtype)
@@ -1125,11 +1554,11 @@ def main() -> int:
             return xin, w, None if b is None else b.to(x.dtype)
 
         cases.append(dict(
-            name=f"conv:{layer}", counter="conv",
+            name=f"conv:{layer}", counter="conv", path=path,
             edition=lambda dtype: conv.pick_edition(dtype, cin, cout),
-            kernel=lambda x, w, b, edition=None: conv.conv(x, w, b, stride, epilogue,
+            kernel=lambda x, w, b, edition=None: conv.conv(x, w, b, stride, relu,
                                                            edition=edition),
-            plain=lambda x, w, b: conv.conv_plain(x, w, b, stride, epilogue),
+            plain=lambda x, w, b: conv.conv_plain(x, w, b, stride, relu),
             library=library, library_inputs=library_inputs, make=make,
             bytes=lambda it: (int(np.prod(shape)) + k ** rank * cin * cout + n_out) * it,
             ops=2 * cin * cout * int(taps) * shape[0],
@@ -1173,8 +1602,9 @@ def main() -> int:
             ops=2 * cin * cout * taps * shape[0],
             source="mvsnet_tpu_torch/csrc/deconv.cu", replaces=replaces))
 
-    def add_warp(hm, replaces):
-        D, (H, W, C) = hm.shape[0], (120, 160, 32)
+    def add_warp(hm, replaces, C=32, path=None):
+        D, (H, W) = hm.shape[0], (120, 160)
+        tag = "" if path is None else f":{path}"
         # F.grid_sample on (1, C, H, W) at the same taps (align_corners=False:
         # pixel x sits at (2x + 1) / W - 1): a yardstick, it rounds otherwise
         from mvsnet_tpu_torch.ops.warp import projected_coords
@@ -1186,7 +1616,7 @@ def main() -> int:
             return randn((H, W, C), dtype), hm
 
         cases.append(dict(
-            name="warp", counter="warp", kernel=warp.warp_all_depths,
+            name="warp" + tag, counter="warp", kernel=warp.warp_all_depths, path=path,
             plain=warp.warp_all_depths_plain,
             library=lambda img, _: F.grid_sample(img, grid.to(img.dtype), align_corners=False),
             library_inputs=lambda img, h: (img.movedim(-1, 0)[None].contiguous(), h),
@@ -1201,7 +1631,8 @@ def main() -> int:
             return out, inp, gout.contiguous()
 
         cases.append(dict(
-            name="warp_transpose", counter="warp_transpose", kernel=warp.warp_transpose,
+            name="warp_transpose" + tag, counter="warp_transpose", kernel=warp.warp_transpose,
+            path=path,
             plain=warp.warp_transpose_plain, f32_out=True, deterministic=True,
             # the train step's cotangents are float32 (ops/cost_volume.py)
             path_dtype=torch.float32,
@@ -1213,7 +1644,7 @@ def main() -> int:
             ops=D * H * W * (C * 8 + 25), source="mvsnet_tpu_torch/csrc/warp.cu",
             replaces="mvsnet_tpu/ops/pallas/sweep.py:1701"))
 
-    def add_wgrad(layer, x_shape, g_shape, k, stride, replaces):
+    def add_wgrad(layer, x_shape, g_shape, k, stride, replaces, path=None):
         rank = len(x_shape) - 2
         cin, cout = x_shape[-1], g_shape[-1]
         pads = [conv.same_pads(n, k, stride) for n in x_shape[1:-1]]
@@ -1227,7 +1658,7 @@ def main() -> int:
             return F.pad(x.movedim(-1, 1), flat).contiguous(), g.movedim(-1, 1).contiguous()
 
         cases.append(dict(
-            name=f"wgrad:{layer}", counter="wgrad", f32_out=True,
+            name=f"wgrad:{layer}", counter="wgrad", f32_out=True, path=path,
             edition=lambda dtype: wgrad.pick_edition(dtype, cin, cout),
             kernel=lambda x, g, edition=None: wgrad.wgrad(x, g, (k,) * rank, stride,
                                                           edition=edition),
@@ -1275,6 +1706,32 @@ def main() -> int:
     # conv9_0's input gradient: the 5x5 adjoint, low pad 1, at 480x640
     add_deconv("conv9_0_dx", (3, 240, 320, 16), 8, False,
                "mvsnet_tpu/ops/pallas/deconv2d.py:185", k=5, out_spatial=(480, 640))
+    # the GRU path at R-MVSNet's serving point (1600x1184: features 296x400,
+    # D=256): K1 over the 256 planes, then the cells' convs (bias, no ReLU)
+    add_cost("cost_volume:gru", g_homs, 296, 400, path="gru")
+    for layer, cin, cout in (("gru1_gates", 48, 32), ("gru1_output", 48, 16),
+                             ("gru2_gates", 20, 8), ("gru2_output", 20, 4),
+                             ("gru3_gates", 6, 4), ("gru3_output", 6, 2), ("prob_conv", 2, 1)):
+        add_conv(layer, (1, 296, 400, cin), 3, 1, cout, True, c2s1, relu=False, path="gru")
+    # ... and its feature tower at 1184x1600: the image conv (CUDA cores) and
+    # the first tensor-core conv
+    add_conv("2dconv0_1:gru", (3, 1184, 1600, 3), 3, 1, 8, False, c2s1, path="gru")
+    add_conv("2dconv0_2:gru", (3, 1184, 1600, 8), 3, 1, 8, False, c2s1, path="gru")
+    # the GRU training path at the bench train_gru point (640x480, "lite":
+    # features 120x160x16, D=192, filters 8, 2, 1): K1, K2 and K3 at C = 16;
+    # each cell conv forward (no bias: ConvFn), its input gradient (the
+    # conv kernel on the flipped, swapped weights) and its weight gradient
+    add_cost("cost_volume:train_gru", t_homs, 120, 160, path="train_gru", C=16)
+    add_warp(t_homs[0], "mvsnet_tpu/ops/pallas/sweep.py:1599", C=16, path="train_gru")
+    for layer, cin, cout in (("gru1_gates", 24, 16), ("gru1_output", 24, 8),
+                             ("gru2_gates", 10, 4), ("gru2_output", 10, 2),
+                             ("gru3_gates", 3, 2), ("gru3_output", 3, 1), ("prob_conv", 1, 1)):
+        name = f"lite_{layer}"
+        add_conv(name, (1, 120, 160, cin), 3, 1, cout, False, c2s1, path="train_gru")
+        if (cin, cout) != (1, 1):
+            add_conv(name + "_dx", (1, 120, 160, cout), 3, 1, cin, False, c2s1,
+                     path="train_gru")
+        add_wgrad(name, (1, 120, 160, cin), (1, 120, 160, cout), 3, 1, wg1, path="train_gru")
 
     print("kernel phase: kernel vs plain version on the card "
           f"(pass: max abs err <= tol * max(1, max|plain|), tol {TOL[torch.float32]:g} "
@@ -1366,20 +1823,10 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    walls, per_request, editions = [], [], []
-    for _ in range(3):
-        before, ed_before = kernels.launch_counts(), kernels.edition_counts()
-        t0 = time.perf_counter()
-        depth, prob, _ = predictor.predict(*request, fetch=False)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        after, ed_after = kernels.launch_counts(), kernels.edition_counts()
-        per_request.append({k: after[k] - before[k] for k in after})
-        editions.append({k: {e: n - ed_before[k][e] for e, n in v.items()}
-                         for k, v in ed_after.items()})
-        if not (torch.isfinite(depth).all() and torch.isfinite(prob).all()):
-            print("inference FAILED: non-finite depth or prob")
-            return 1
+    walls, per_request, editions, finite, depth, prob = serve_counted(predictor, request)
+    if not finite:
+        print("inference FAILED: non-finite depth or prob")
+        return 1
     peak = torch.cuda.max_memory_allocated()
     print(f"inference: 3 requests at 1152x864, D=192, V=3, normal, bf16: wall ms "
           f"{', '.join(f'{w:.2f}' for w in walls)}; peak memory {peak / 2 ** 30:.3f} GiB; "
@@ -1531,6 +1978,16 @@ def main() -> int:
     if not ok or repeat != 0:
         return 1
 
+    # ---- 10, 11. R-MVSNet serving and training
+    g_de = g_cams[:, 0, 1, 3, 3]
+    gru_counts = phase10_gru_serving(smi, dev, (g_images, g_cams, g_cams[:, 0, 1, 3, 0],
+                                                g_cams[:, 0, 1, 3, 1], g_de))
+    if gru_counts is None:
+        return 1
+    gru_train_counts = phase11_gru_training(smi, dev)
+    if gru_train_counts is None:
+        return 1
+
     # ---- 8. multi-GPU serving and training
     k1s = phase8(smi, dev, randn, homs, request)
     if k1s is None:
@@ -1542,21 +1999,24 @@ def main() -> int:
     from mvsnet_tpu_torch import bench
 
     print("phase 9d: the port's bench script (python -m mvsnet_tpu_torch.bench --metric all):")
-    for point in (bench.bench_3dcnn, bench.bench_train):
-        print(json.dumps(point(dev)), flush=True)
+    for name in sorted(bench.POINTS):
+        print(json.dumps(bench.POINTS[name](dev)), flush=True)
     lite_step = bench.train_case(dev)
     lite_step()
     print_profile("bench train step (lite)", *profile_device(lite_step))
     del lite_step
     torch.cuda.empty_cache()
 
-    # ---- records: launches from the training run of phase 6; K1s's from
+    # ---- records: launches from the training run of phase 6, the GRU rows'
+    # from the requests of phase 10 and the steps of phase 11; K1s's from
     # the latency requests of phase 8 (all ranks)
+    path_counts = {None: train_launches, "gru": gru_counts, "train_gru": gru_train_counts}
     out = []
     for c in cases:
         r = records[(c["name"], str(c.get("path_dtype", torch.bfloat16)).replace("torch.", ""))]
+        launches = path_counts[c.get("path")][c["counter"]]
         out.append(dict(name=c["name"], route="cuda", source=c["source"],
-                        replaces=c["replaces"], launches=train_launches[c["counter"]], **r))
+                        replaces=c["replaces"], launches=launches, **r))
     return report(out + [k1s])
 
 

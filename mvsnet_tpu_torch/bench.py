@@ -1,6 +1,6 @@
 """The port's benchmark at the repository's `bench.py` operating points.
 
-    python -m mvsnet_tpu_torch.bench [--metric 3dcnn|train|all]
+    python -m mvsnet_tpu_torch.bench [--metric 3dcnn|train|gru|train_gru|all]
 
   3dcnn: MVSNet 3D-CNN inference at 1152x864, D=192, 3 views, "normal",
          bfloat16, interval_scale 1.06, device-resident inputs
@@ -9,7 +9,14 @@
   train: one full train step (forward, backward, RMSprop update) at
          640x480, D=192, 3 views, "lite", bfloat16, power + gradient loss
          on a uniform random ground truth (`bench.py:173-219`): seconds
-         per step, `vs_baseline` 0 (no published baseline).
+         per step, `vs_baseline` 0 (no published baseline);
+  gru:   R-MVSNet winner-take-all serving at 1600x1184 (1600x1200 cut to
+         a multiple of 32), D=256, 3 views, "normal", bfloat16,
+         interval_scale 0.8 (`bench.py:135-170`): depth maps per second,
+         `vs_baseline` against the published 1 map per 9.1 s;
+  train_gru: one R-MVSNet train step (classification loss) at 640x480,
+         D=192, 3 views, "lite", bfloat16, `TrainConfig()`'s defaults
+         (`bench.py:221-266`): seconds per step, `vs_baseline` 0.
 Each point runs a warm-up, then `iters` calls between two
 `torch.cuda.synchronize()`, three times; the value is the median and
 `spread_pct` the spread of the three over it. Each prints one JSON line
@@ -30,6 +37,12 @@ import numpy as np
 import torch
 
 BASELINE_3DCNN_MAPS_PER_SEC = 1.0 / 4.7
+BASELINE_GRU_MAPS_PER_SEC = 1.0 / 9.1
+# each point's metric, under `bench.py`'s name
+METRICS = {"3dcnn": "depth_maps_per_sec_1152x864_d192_3dcnn",
+           "train": "train_step_sec_640x480_d192_lite",
+           "gru": "depth_maps_per_sec_1600x1184_d256_gru_wta",
+           "train_gru": "train_step_sec_640x480_d192_gru_lite"}
 
 
 def make_rig(view_num, width, height, depth_start, depth_interval, max_d,
@@ -92,17 +105,45 @@ def inference_case(device, height=864, width=1152, max_d=192, network_mode="norm
     return run
 
 
+def gru_case(device, height=1184, width=1600, max_d=256, network_mode="normal",
+             compute_dtype="bfloat16"):
+    """The gru point's call: () -> (depth, prob), inputs on the device."""
+    from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch.models import MVSNet
+
+    view_num = 3
+    cfg = ModelConfig(view_num=view_num, max_d=max_d, width=width, height=height,
+                      interval_scale=0.8, network_mode=network_mode, regularization="GRU",
+                      compute_dtype=compute_dtype)
+    model = MVSNet(cfg, seed=0).to(device).eval()
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((1, view_num, height, width, 3)).astype(np.float32)
+    depth_start, depth_interval = 425.0, 2.5 * 0.8
+    cams_s = _quarter_cams(make_rig(view_num, width, height, depth_start, depth_interval,
+                                    max_d))
+    args = tuple(torch.as_tensor(a, device=device) for a in
+                 (images, cams_s, cams_s[:, 0, 1, 3, 0], cams_s[:, 0, 1, 3, 1]))
+
+    @torch.inference_mode()
+    def run():
+        return model.forward_gru_wta(*args)
+    return run
+
+
 def train_case(device, height=480, width=640, max_d=192, network_mode="lite",
-               compute_dtype="bfloat16"):
-    """The train point's call: () -> metrics of one full train step."""
+               compute_dtype="bfloat16", regularization="3DCNN"):
+    """The train point's call (the train_gru point's with "GRU"): () ->
+    metrics of one full train step."""
     from mvsnet_tpu_torch import train_lib
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.models import MVSNet
 
     view_num = 3
     cfg = ModelConfig(view_num=view_num, max_d=max_d, width=width, height=height,
-                      network_mode=network_mode, compute_dtype=compute_dtype)
-    tcfg = TrainConfig(loss_type="power", grad_loss=True)
+                      network_mode=network_mode, regularization=regularization,
+                      compute_dtype=compute_dtype)
+    tcfg = (TrainConfig() if regularization == "GRU" else
+            TrainConfig(loss_type="power", grad_loss=True))
     model = MVSNet(cfg, seed=0)
     rng = np.random.default_rng(0)
     images = rng.standard_normal((1, view_num, height, width, 3)).astype(np.float32)
@@ -159,17 +200,28 @@ def _record(metric, value, unit, vs_baseline, samples, iters):
 
 def bench_3dcnn(device, iters: int = 5) -> dict:
     dt, samples = timed(inference_case(device), iters)
-    return _record("depth_maps_per_sec_1152x864_d192_3dcnn", round(1.0 / dt, 4), "maps/s",
+    return _record(METRICS["3dcnn"], round(1.0 / dt, 4), "maps/s",
                    round((1.0 / dt) / BASELINE_3DCNN_MAPS_PER_SEC, 3), samples, iters)
 
 
 def bench_train(device, iters: int = 3) -> dict:
     dt, samples = timed(train_case(device), iters)
-    return _record("train_step_sec_640x480_d192_lite", round(dt, 4), "s/step", 0.0,
-                   samples, iters)
+    return _record(METRICS["train"], round(dt, 4), "s/step", 0.0, samples, iters)
 
 
-POINTS = {"3dcnn": bench_3dcnn, "train": bench_train}
+def bench_gru(device, iters: int = 3) -> dict:
+    dt, samples = timed(gru_case(device), iters)
+    return _record(METRICS["gru"], round(1.0 / dt, 4), "maps/s",
+                   round((1.0 / dt) / BASELINE_GRU_MAPS_PER_SEC, 3), samples, iters)
+
+
+def bench_train_gru(device, iters: int = 3) -> dict:
+    dt, samples = timed(train_case(device, regularization="GRU"), iters)
+    return _record(METRICS["train_gru"], round(dt, 4), "s/step", 0.0, samples, iters)
+
+
+POINTS = {"3dcnn": bench_3dcnn, "train": bench_train, "gru": bench_gru,
+          "train_gru": bench_train_gru}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -8,9 +8,9 @@ arguments on the flagship 3D-CNN graph (`__graft_entry__.py:35-57`), and
 
 starts n ranks (`parallel.launch.spawn`) on a (data, depth, space) mesh
 from `factorize_devices(n)` and runs, on tiny shapes: one sharded train
-step, throughput serving at B = n, and B = 1 latency serving; every result
-must be finite. The GRU serving part waits for the GRU slice
-(`make_sharded_gru_forward` raises).
+step, throughput serving at B = n, B = 1 latency serving, and GRU
+winner-take-all serving at B = n - 1, which pads the batch to the ranks
+(`__graft_entry__.py:123-148`); every result must be finite.
 """
 
 from __future__ import annotations
@@ -68,6 +68,29 @@ def entry(device=None):
     return forward, (model,) + tuple(torch.as_tensor(a, device=dev) for a in inputs)
 
 
+def gru_dryrun(mesh) -> int:
+    """The dry run's fourth regime on `mesh`: `make_sharded_gru_forward` of
+    an "ultralite" GRU at 64x64, D=8, float32, on B = max(1, n - 1) maps,
+    which takes the pad-and-slice path when n > 1. Returns B; raises on a
+    non-finite or misshapen result."""
+    from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.parallel.infer_step import make_sharded_gru_forward
+
+    cfg = ModelConfig(view_num=3, max_d=8, width=64, height=64, network_mode="ultralite",
+                      regularization="GRU", compute_dtype="float32")
+    model = MVSNet(cfg, seed=2).to(mesh.device).eval()
+    B = max(1, mesh.size - 1)
+    images, cams, _, _ = tiny_batch(B)
+    args = (images, cams, cams[:, 0, 1, 3, 0], cams[:, 0, 1, 3, 3])
+    with torch.inference_mode():
+        depth, prob = make_sharded_gru_forward(model, mesh)(
+            *(torch.as_tensor(a, device=mesh.device) for a in args))
+    if depth.shape[0] != B or not (torch.isfinite(depth).all() and torch.isfinite(prob).all()):
+        raise FloatingPointError("non-finite or misshapen depth in GRU WTA serving")
+    return B
+
+
 def _dryrun_rank(backend: str) -> dict:
     from mvsnet_tpu_torch import train_lib
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
@@ -102,6 +125,7 @@ def _dryrun_rank(backend: str) -> dict:
                                        and np.isfinite(prob.cpu().numpy()).all()):
             raise FloatingPointError(f"non-finite or misshapen depth in {name} serving")
         out[name] = B
+    out["gru_wta"] = gru_dryrun(mesh)
     return out
 
 
@@ -116,7 +140,7 @@ def dryrun_multichip(n: int, backend: str = "nccl") -> dict:
     summary = spawn(_dryrun_rank, n, backend, backend)[0]
     print(f"dryrun_multichip({n}, {backend}): mesh={summary['mesh']} "
           f"loss={summary['loss']:.4f} serving_batch={summary['throughput']} "
-          f"latency_b1=OK gru_wta: waits for the GRU slice")
+          f"latency_b1=OK gru_wta_batch={summary['gru_wta']} OK")
     return summary
 
 

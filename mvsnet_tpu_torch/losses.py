@@ -1,17 +1,20 @@
-"""Regression losses and accuracy metrics (counterpart of
-mvsnet_tpu/losses.py:29-158).
+"""Regression and classification losses and accuracy metrics (counterpart
+of mvsnet_tpu/losses.py:29-195).
 
-  * original_loss: masked MAE in depth-interval units;
+  * non_zero_mean_absolute_diff / original_loss: masked MAE in
+    depth-interval units;
   * power_loss: N*(|dy| + 0.005 y)^alpha / y^beta with the 10 * mean^beta /
     interval^alpha normalisation;
   * gaussian_loss: -exp(-dy^2 / 2 (eta y)^2);
   * gradient_loss: log-gradient difference over the spatial axes (the JAX
     package's intended form, not the reference's batch-axis slice);
   * <1 and <3 interval metrics;
-  * mvsnet_regression_loss with the fixed (end - start) / 191 interval.
+  * mvsnet_regression_loss with the fixed (end - start) / 191 interval;
+  * mvsnet_classification_loss: R-MVSNet's cross entropy at the
+    ground-truth plane and the winner-take-all metrics.
 
-Pixels with y_true == 0 are invalid everywhere. Tensors are (B, H, W, 1);
-sums are float32. The GRU classification loss waits for the GRU slice.
+Pixels with y_true == 0 are invalid everywhere. Depth tensors are (B, H, W,
+1); sums are float32.
 
 With the batch sharded over ranks (`parallel/train_step.py`), `batch_sum`
 sums a tensor over the ranks that hold the rest of the batch. Every term
@@ -32,13 +35,20 @@ def _mask_and_count(y_true):
     return mask, count
 
 
-def original_loss(y_true, y_pred, interval):
-    """Masked MAE in interval units, averaged over valid pixels, summed
-    over the batch (reference: loss.py:15-28)."""
+def non_zero_mean_absolute_diff(y_true, y_pred, interval):
+    """Masked MAE in interval units, averaged over each map's valid pixels,
+    summed over the batch (losses.py:35-42; reference: loss.py:15-28).
+    Every term is per map, so with the batch sharded a rank's value is its
+    share of the global one."""
     interval = interval.reshape(y_pred.shape[0])
     mask, count = _mask_and_count(y_true)
     mae = torch.abs(mask * (y_true - y_pred)).sum(dim=(1, 2, 3))
     return torch.sum((mae / interval) / count)
+
+
+def original_loss(y_true, y_pred, interval):
+    """(reference: loss.py:15-28)"""
+    return non_zero_mean_absolute_diff(y_true, y_pred, interval)
 
 
 def _total(batch_sum, t):
@@ -133,3 +143,41 @@ def mvsnet_regression_loss(estimated_depth, depth_image, depth_start, depth_end,
         less_three = less_three_percentage(depth_image, estimated_depth, depth_interval,
                                            batch_sum)
     return loss, less_one, less_three, debug
+
+
+def mvsnet_classification_loss(prob_volume, gt_depth_image, depth_num: int, depth_start,
+                               depth_interval, batch_sum=None):
+    """R-MVSNet's cross entropy and winner-take-all metrics (losses.py:161-195;
+    reference: loss.py:223-267). prob_volume (B, D, H, W) softmax
+    probabilities, gt_depth_image (B, H, W, 1), depth_start and
+    depth_interval (B,). Returns (xent, masked_mae, less_one, less_three,
+    wta_depth_map).
+
+    The ground-truth plane is round((gt - start) / interval), half to even,
+    clipped to [0, D - 1]; its log-probability log(max(p, 1e-20)) is picked
+    with a one-hot product and a sum over D (a gather's backward would add
+    with atomics on the card, in no fixed order). The winner-take-all plane
+    is the first of equal maxima. xent and masked_mae are sums of per-map
+    terms; with `batch_sum` (see above) the metrics' counts are the whole
+    batch's."""
+    B, D = prob_volume.shape[:2]
+    mask = (gt_depth_image != 0.0).to(torch.float32)
+    valid = mask.sum(dim=(1, 2, 3)) + 1e-7
+    start = depth_start.reshape(B, 1, 1, 1)
+    interval = depth_interval.reshape(B, 1, 1, 1)
+    gt_index = torch.round(mask * ((gt_depth_image - start) / interval)).to(torch.int32)
+    gt_index = gt_index[..., 0].clamp(0, depth_num - 1)                 # (B, H, W)
+    logp = torch.log(torch.clamp(prob_volume, min=1e-20))
+    one_hot = (torch.arange(D, device=prob_volume.device)[None, :, None, None]
+               == gt_index[:, None]).to(logp.dtype)
+    picked = torch.sum(logp * one_hot, dim=1)
+    xent_image = -picked[..., None] * mask
+    xent = torch.sum(xent_image.sum(dim=(1, 2, 3)) / valid)
+    with torch.no_grad():
+        wta_index = torch.argmax(prob_volume, dim=1).to(torch.float32)[..., None]
+        wta_depth = wta_index * interval + start
+        abs_interval = torch.abs(interval.reshape(B))
+        masked_mae = non_zero_mean_absolute_diff(gt_depth_image, wta_depth, abs_interval)
+        less_one = less_one_percentage(gt_depth_image, wta_depth, abs_interval, batch_sum)
+        less_three = less_three_percentage(gt_depth_image, wta_depth, abs_interval, batch_sum)
+    return xent, masked_mae, less_one, less_three, wta_depth

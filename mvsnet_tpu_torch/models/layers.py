@@ -1,6 +1,7 @@
 """Layer primitives (counterpart of mvsnet_tpu/models/layers.py: `Conv`,
-`Deconv`, `group_norm_core`, `GroupNormRef`, `BatchNormRef`, `ConvGN`,
-`DeconvGN`, `ConvBN`, `DeconvBN`, `_fold_affine` and `_bn_affine_probe`).
+`Deconv`, `group_norm_core`, `GroupNormRef`, `GroupNormFlexible`,
+`BatchNormRef`, `ConvGN`, `DeconvGN`, `ConvBN`, `DeconvBN`, `_fold_affine`
+and `_bn_affine_probe`).
 
 Parameters are float32 and keep flax's names and layouts: conv kernels are
 HWIO/DHWIO, transposed-conv kernels flax-oriented, group and batch norms
@@ -152,6 +153,36 @@ class GroupNormRef(nn.Module):
 
     def forward(self, x):
         return group_norm_core(x, self.scale, self.bias, self.groups, self.eps)
+
+
+class GroupNormFlexible(nn.Module):
+    """The ConvGRU's group norm with its fallbacks (layers.py:835-875):
+    G = max(1, C // group_channel) (or min(group, C) when not channel-wise)
+      G == 1 -> a layer norm over every non-batch axis, eps 1e-12;
+      G >= C -> an instance norm (per channel over the spatial axes), eps 1e-6;
+      else   -> `group_norm_core`, eps 1e-5.
+    Statistics in float32, two-pass (the variance is mean((x - mean)^2), as
+    `jnp.var` computes it), the result cast back to x's dtype."""
+
+    def __init__(self, channels: int, group_channel: int = 16, channel_wise: bool = True,
+                 group: int = 32):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(channels, dtype=torch.float32))
+        self.bias = nn.Parameter(torch.zeros(channels, dtype=torch.float32))
+        self.groups = (max(1, channels // group_channel) if channel_wise
+                       else min(group, channels))
+
+    def forward(self, x):
+        C = x.shape[-1]
+        if self.groups == 1 or self.groups >= C:
+            eps = 1e-12 if self.groups == 1 else 1e-6
+            axes = tuple(range(1, x.ndim) if self.groups == 1 else range(1, x.ndim - 1))
+            centered = x.to(torch.float32)
+            centered = centered - centered.mean(dim=axes, keepdim=True)
+            var = torch.square(centered).mean(dim=axes, keepdim=True)
+            y = centered / torch.sqrt(var + eps) * self.scale + self.bias
+            return y.to(x.dtype)
+        return group_norm_core(x, self.scale, self.bias, self.groups, 1e-5)
 
 
 class BatchNormRef(nn.Module):

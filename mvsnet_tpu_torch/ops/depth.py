@@ -1,5 +1,5 @@
-"""Depth regression: soft-argmin and the 2/4-bucket probability map
-(counterpart of mvsnet_tpu/ops/depth.py:20-158).
+"""Depth regression: soft-argmin, the 2/4-bucket probability map and the
+winner-take-all update (counterpart of mvsnet_tpu/ops/depth.py:20-182).
 
 The JAX package leaves these to XLA, not to a Pallas kernel, so they are
 plain PyTorch in float32 here.
@@ -111,3 +111,16 @@ def soft_argmin_prob_map(reg_cost, depth_start, depth_interval,
     weight = _bucket_weight(left0, right0, D, num_buckets, e.dtype)
     prob = torch.sum(e * weight, dim=1) / s
     return depth[..., None], prob[..., None]
+
+
+def winner_take_all_update(carry, prob, depth_value):
+    """One winner-take-all step (depth.py:161-182): carry (max_prob,
+    depth_image, exp_sum), each (B, H, W, 1); prob (B, H, W, 1), the
+    unnormalised exp(reg) of this plane; depth_value (B,), its depth.
+    The test is strict, so on a tie the first plane keeps the pixel; the
+    carry keeps its dtypes."""
+    max_prob, depth_image, exp_sum = carry
+    d_img = depth_value.reshape(-1, 1, 1, 1).to(depth_image.dtype).expand_as(depth_image)
+    update = prob > max_prob
+    return (torch.where(update, prob, max_prob), torch.where(update, d_img, depth_image),
+            exp_sum + prob)

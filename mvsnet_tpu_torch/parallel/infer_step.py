@@ -1,5 +1,5 @@
 """Sharded inference over a mesh (counterpart of
-mvsnet_tpu/parallel/infer_step.py:25-99).
+mvsnet_tpu/parallel/infer_step.py:25-153).
 
 Two regimes, chosen per call by the batch size B over the mesh's n ranks:
 
@@ -18,6 +18,10 @@ Two regimes, chosen per call by the batch size B over the mesh's n ranks:
   runs whole on every rank. The 'data' axis replicates this regime.
   The U-Net does not shard rows yet: the cost volume's row blocks are
   gathered before it.
+
+The GRU (`make_sharded_gru_forward`) has the throughput regime only: its
+depth sweep is sequential, so a batch that does not divide over the ranks
+is padded by repeating its last map, and the padding is sliced off.
 """
 
 from __future__ import annotations
@@ -31,6 +35,13 @@ from mvsnet_tpu_torch.ops.cost_volume import sweep_cost_volume_sharded
 from mvsnet_tpu_torch.parallel.mesh import Mesh
 
 LATENCY_STAGES = ("features", "cost_volume", "space_gather", "regnet", "depth_gather_tail")
+
+
+def _pad_batch(xs, B: int, n: int):
+    """Every tensor's leading batch axis padded from B up to the next
+    multiple of n by repeating the last map (infer_step.py:25-31)."""
+    pad = (-B) % n
+    return tuple(torch.cat([x] + [x[-1:]] * pad, dim=0) for x in xs)
 
 
 def latency_forward(model: MVSNet, mesh: Mesh, images, cams, depth_start, depth_interval,
@@ -94,7 +105,23 @@ def make_sharded_forward(model: MVSNet, mesh: Mesh):
 
 
 def make_sharded_gru_forward(model: MVSNet, mesh: Mesh):
-    """The GRU's batch-parallel serving (infer_step.py:102-153) waits for
-    the GRU slice of the port."""
-    raise NotImplementedError("make_sharded_gru_forward waits for the GRU slice "
-                              "(R-MVSNet ConvGRU) of the port")
+    """forward(images, cams, depth_start, depth_end) -> (depth_map,
+    prob_map), `forward_gru_wta` over `mesh` (infer_step.py:102-153): the
+    batch is padded to a multiple of the ranks (`_pad_batch`), each rank
+    runs its maps in rank order, the results are all-gathered and sliced
+    back to B. Every rank calls it with the same inputs; the eval model is
+    replicated."""
+
+    def forward(images, cams, depth_start, depth_end):
+        B = images.shape[0]
+        if mesh.size == 1:
+            return model.forward_gru_wta(images, cams, depth_start, None, depth_end)
+        xs = _pad_batch((images, cams, depth_start.expand(B), depth_end.expand(B)), B,
+                        mesh.size)
+        Bl = xs[0].shape[0] // mesh.size
+        mine = slice(mesh.rank * Bl, (mesh.rank + 1) * Bl)
+        images, cams, ds, de = (x[mine] for x in xs)
+        out = model.forward_gru_wta(images, cams, ds, None, de)
+        return tuple(mesh.all_gather(o.contiguous(), None, dim=0)[:B] for o in out)
+
+    return forward

@@ -4,8 +4,7 @@
 
 Weights come from a seed, from `convert.state_dict_from_jax`, or from a
 checkpoint of the port (`checkpoint.restore_tree(...)["model"]`; a JAX
-checkpoint converts with `tools/jax_ckpt_to_torch.py`). The GRU branch
-waits for its slice of the port.
+checkpoint converts with `tools/jax_ckpt_to_torch.py`).
 """
 
 from __future__ import annotations
@@ -19,7 +18,7 @@ import torch.distributed as dist
 from mvsnet_tpu_torch import resolve_device
 from mvsnet_tpu_torch.config import ModelConfig
 from mvsnet_tpu_torch.models.mvsnet import MVSNet, apply_forward_3dcnn
-from mvsnet_tpu_torch.parallel.infer_step import make_sharded_forward
+from mvsnet_tpu_torch.parallel.infer_step import make_sharded_forward, make_sharded_gru_forward
 from mvsnet_tpu_torch.parallel.mesh import factorize_devices, make_mesh
 
 
@@ -45,12 +44,11 @@ class Predictor:
     than one rank (`mesh`, or by default inside a process group, every
     rank constructing its own Predictor with the same arguments and calling
     `predict` with the same inputs) `device=None` is the rank's own device,
-    which must be a card; the forward is `make_sharded_forward`'s."""
+    which must be a card; the forward is `make_sharded_forward`'s, or for
+    the GRU `make_sharded_gru_forward`'s (the maps split over the ranks)."""
 
     def __init__(self, mcfg: ModelConfig, state_dict: Optional[dict] = None,
                  seed: int = 0, device=None, mesh=None):
-        if mcfg.regularization != "3DCNN":
-            raise NotImplementedError("the GRU graphs are not ported yet")
         if mcfg.refinement:
             raise NotImplementedError("refinement is not ported yet")
         self.mcfg = mcfg
@@ -70,10 +68,21 @@ class Predictor:
         if state_dict is not None:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
-        if self.mesh is not None:
-            self._forward = make_sharded_forward(self.model, self.mesh)
+        # forward(images, cams, depth_start, depth_interval, depth_end)
+        if mcfg.regularization == "GRU":
+            gru = (make_sharded_gru_forward(self.model, self.mesh) if self.mesh is not None
+                   else lambda im, ca, ds, de: self.model.forward_gru_wta(im, ca, ds, None, de))
+
+            def forward(images, cams, ds, di, de):
+                depth, prob = gru(images, cams, ds, de)
+                return depth, prob, torch.zeros_like(depth)
+            self._forward = forward
+        elif self.mesh is not None:
+            sharded = make_sharded_forward(self.model, self.mesh)
+            self._forward = lambda im, ca, ds, di, de: sharded(im, ca, ds, di)
         else:
-            self._forward = lambda *args: apply_forward_3dcnn(self.model, *args)
+            self._forward = lambda im, ca, ds, di, de: apply_forward_3dcnn(
+                self.model, im, ca, ds, di)
 
     def _tensor(self, a):
         if not torch.is_tensor(a):
@@ -85,11 +94,13 @@ class Predictor:
                 fetch: bool = True):
         """(depth_map, prob_map, residual), each (B, h, w, 1). fetch=True
         returns numpy arrays after the device finishes; fetch=False returns
-        the device tensors as soon as the work is queued. `depth_end` is
-        JAX's argument (mvsnet_tpu/predict.py:139): the 3D-CNN graph does not
-        read it, as JAX's does not; the GRU graphs will."""
+        the device tensors as soon as the work is queued. As in JAX
+        (mvsnet_tpu/predict.py:110-139), the 3D-CNN graph reads
+        `depth_interval` and not `depth_end`, the GRU graph `depth_end` and
+        not `depth_interval`."""
         out = self._forward(self._tensor(images), self._tensor(cams),
-                            self._tensor(depth_start), self._tensor(depth_interval))
+                            self._tensor(depth_start), self._tensor(depth_interval),
+                            self._tensor(depth_end))
         if not fetch:
             return out
         return tuple(o.cpu().numpy() for o in out)

@@ -14,8 +14,9 @@ reads the same global batches (one shard, the same seed, one producer
 thread so that the order is the generator's) and takes its slice of each
 in the sharded step; only rank 0 writes checkpoints, metrics,
 renders and `config.json`. `--use_pallas` and `--depth_chunk` are parsed
-for the JAX command line and have no effect here. The GRU graphs and
-refinement wait for their slices and raise.
+for the JAX command line and have no effect here. `--regularization GRU`
+trains R-MVSNet with the classification loss; refinement waits for its
+slice and raises.
 """
 
 from __future__ import annotations
@@ -206,7 +207,11 @@ def make_vis_writer(model, model_dir, sink):
         ds, di, _ = train_lib.batch_depth_params(cams)
         model.eval()
         with torch.no_grad():
-            depth, prob, _ = apply_forward_3dcnn(model, images[:1], cams[:1], ds[:1], di[:1])
+            if model.cfg.regularization == "GRU":
+                depth, prob = model.forward_gru_wta(images[:1], cams[:1], ds[:1], di[:1])
+            else:
+                depth, prob, _ = apply_forward_3dcnn(model, images[:1], cams[:1], ds[:1],
+                                                     di[:1])
         depth = depth[0, ..., 0].float().cpu().numpy()
         prob = prob[0, ..., 0].float().cpu().numpy()
         gt = gt_depth[0, ..., 0].cpu().numpy()
@@ -282,9 +287,6 @@ def _mesh(args):
 def train(args) -> int:
     maybe_init_distributed(args)
     mcfg, tcfg, dcfg = configs_from_args(args)
-    if mcfg.regularization != "3DCNN":
-        raise NotImplementedError("GRU training waits for the port's GRU slice "
-                                  "(ROADMAP queue 1, slice 3)")
     if mcfg.refinement:
         raise NotImplementedError("refinement waits for the port's refinement slice "
                                   "(ROADMAP queue 1, slice 4)")

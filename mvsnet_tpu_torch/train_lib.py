@@ -1,4 +1,4 @@
-"""Training library for the 3D-CNN graph (counterpart of
+"""Training library for the 3D-CNN and GRU graphs (counterpart of
 mvsnet_tpu/train_lib.py): learning-rate schedule, optimizers, train state,
 loss, and the train and eval steps.
 
@@ -8,8 +8,8 @@ updated), the backward through the port's kernels (`ops/autograd.py`,
 `ops/cost_volume.py`), then the optimizer. The state is changed and also
 returned, so calls read as in the JAX package. The training driver
 (`train.py`) runs these steps over a data loader, with checkpoints
-(`checkpoint.py`). Refinement and the GRU graphs are later slices and
-raise here.
+(`checkpoint.py`). The GRU graph trains with R-MVSNet's classification
+loss and has no batch norms. Refinement is a later slice and raises here.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 
 from mvsnet_tpu_torch import resolve_device
 from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
-from mvsnet_tpu_torch.losses import mvsnet_regression_loss
+from mvsnet_tpu_torch.losses import mvsnet_classification_loss, mvsnet_regression_loss
 from mvsnet_tpu_torch.models.mvsnet import MVSNet
 
 
@@ -86,8 +86,6 @@ def create_train_state(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig,
     """Moves `model` (seeded at construction, or loaded from a state dict)
     to the device, `device=None` meaning `cuda:0`, and builds the
     optimizer."""
-    if cfg.regularization != "3DCNN":
-        raise NotImplementedError("the GRU graphs are not ported yet")
     model = model.to(resolve_device(device)).train()
     return TrainState(model, make_optimizer(tcfg, model.parameters()))
 
@@ -106,15 +104,20 @@ def to_device(batch, device):
 def compute_loss(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, batch,
                  training: bool, batch_sum=None):
     """Forward and loss for one batch of device tensors (reference get_loss,
-    train.py:307-364). Returns (loss, metrics). `batch_sum`: see
-    `losses.py`; loss and metrics["loss"] are then this rank's share."""
-    if cfg.regularization != "3DCNN":
-        raise NotImplementedError("the GRU graphs are not ported yet")
+    train.py:307-364; train_lib.py:116-123 for the GRU). Returns (loss,
+    metrics). `batch_sum`: see `losses.py`; loss, metrics["loss"] and
+    metrics["debug"] are then this rank's shares."""
     if cfg.refinement:
         raise NotImplementedError("refinement is not ported yet")
     images, cams, depth_image, _ = batch
     depth_start, depth_interval, depth_end = batch_depth_params(cams)
     model.train(training)
+    if cfg.regularization == "GRU":
+        prob_volume = model.forward_prob_recurrent(images, cams, depth_start, depth_interval)
+        loss, mae, l1, l3, _ = mvsnet_classification_loss(
+            prob_volume, depth_image, cfg.max_d, depth_start, depth_interval, batch_sum)
+        return loss, {"loss": loss.detach(), "less_one": l1, "less_three": l3,
+                      "debug": mae.detach()}
     depth_map, _ = model.forward_3dcnn(images, cams, depth_start, depth_interval)
     loss, l1, l3, debug = mvsnet_regression_loss(
         depth_map, depth_image, depth_start, depth_end, loss_type=tcfg.loss_type,

@@ -7,7 +7,7 @@ remote (memory://) model dir. A tiny JAX orbax checkpoint ("lite", 64x64,
 D=8, float32), converted, gives the port's `Predictor` the JAX
 `Predictor`'s depth and prob within 2e-3 / 5e-3 (the tolerances of
 `tests/test_torch_models.py`: float32 through ~45 layers in another sum
-order). The optimizer state maps slot by slot, equal bit for bit, and one
+order), and so does a converted GRU checkpoint. The optimizer state maps slot by slot, equal bit for bit, and one
 more update from it equals optax's within 1e-5 (float32 elementwise work
 in another order, as `tests/test_torch_train.py` holds the optimizers).
 """
@@ -154,6 +154,36 @@ def test_converted_checkpoint_predicts_as_jax(jax_lite, tmp_path):
     assert path == os.path.join(port_dir, "3DCNN", "lite", "10")
     tree = ckpt.restore_tree(port_dir, "3DCNN", "lite", 10)
     assert tree["step"] == 0
+    depth, prob, _ = Predictor(mcfg, state_dict=tree["model"], device="cpu").predict(*inputs)
+    np.testing.assert_allclose(depth, want_depth, rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(prob, want_prob, rtol=5e-3, atol=5e-3)
+
+
+def test_converted_gru_checkpoint_predicts_as_jax(tmp_path):
+    """A JAX GRU ("lite") checkpoint, converted, restores into the port's
+    GRU `Predictor` (no batch statistics), which serves the JAX
+    `Predictor`'s depth and prob on the same depth_end within the same
+    tolerances."""
+    cfg = JaxModelConfig(network_mode="lite", regularization="GRU", **TINY)
+    model = JaxMVSNet(cfg)
+    images, cams, _, _ = tiny_batch(1)
+    ds, di, de = cams[:, 0, 1, 3, 0], cams[:, 0, 1, 3, 1], cams[:, 0, 1, 3, 3]
+    init = jax.jit(lambda key: model.init(key, jnp.asarray(images), jnp.asarray(cams), ds, di,
+                                          method=JaxMVSNet.forward_prob_recurrent))
+    v = {"params": jax.tree_util.tree_map(np.asarray, init(jax.random.PRNGKey(5))["params"]),
+         "batch_stats": {}}
+    state, _ = _jax_state(v, "rmsprop")
+    jax_dir, port_dir = str(tmp_path / "jax"), str(tmp_path / "port")
+    jax_ckpt.save_checkpoint(jax_dir, "GRU", "lite", 3, state)
+    mcfg = ModelConfig(network_mode="lite", regularization="GRU", **TINY)
+    path = jax_ckpt_to_torch.convert(jax_dir, port_dir, mcfg, TrainConfig())
+    assert path == os.path.join(port_dir, "GRU", "lite", "3")
+    tree = ckpt.restore_tree(port_dir, "GRU", "lite", 3)
+    assert any(k.startswith("gru_sweep.gru.conv_gru3.") for k in tree["model"])
+    jp = JaxPredictor(cfg)
+    jp.variables = v
+    inputs = (images, cams, ds, di, de + 0.5)
+    want_depth, want_prob = (np.asarray(o) for o in jp.predict(*inputs)[:2])
     depth, prob, _ = Predictor(mcfg, state_dict=tree["model"], device="cpu").predict(*inputs)
     np.testing.assert_allclose(depth, want_depth, rtol=2e-3, atol=2e-3)
     np.testing.assert_allclose(prob, want_prob, rtol=5e-3, atol=5e-3)

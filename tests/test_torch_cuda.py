@@ -667,3 +667,169 @@ def test_entry_forward_on_card(dev):
     assert depth.shape == prob.shape == (1, 16, 16, 1)
     assert torch.isfinite(depth).all() and torch.isfinite(prob).all()
     assert ds.item() - 1e-3 <= depth.min().item() and depth.max().item() <= ds.item() + 7 * di.item() + 1e-3
+
+
+# ---- the R-MVSNet ConvGRU path
+
+# the GRU cells' convs (Cin, Cout) in "normal" mode: gates and output convs
+# of the three cells, prob_conv, and Cout = 1 from 48 channels
+GRU_CONVS = [(48, 32), (48, 16), (20, 8), (20, 4), (6, 4), (6, 2), (2, 1), (48, 1)]
+
+
+@pytest.mark.parametrize("dtype,edition", [(torch.bfloat16, "tc"), (torch.bfloat16, "simt"),
+                                           (torch.float32, "simt")])
+@pytest.mark.parametrize("cin,cout", GRU_CONVS)
+def test_gru_cell_convs_match_plain(dev, dtype, edition, cin, cout):
+    """A GRU cell's 3x3 SAME conv with bias and no ReLU at a feature map of
+    37x50 (odd, not a multiple of any tile), in each edition that takes
+    it (the tensor cores take bf16 with Cin % 8 == 0)."""
+    if edition == "tc" and cin % 8:
+        with pytest.raises(ValueError, match="tensor-core"):
+            conv.conv(torch.zeros((1, 4, 4, cin), dtype=dtype, device=dev),
+                      torch.zeros((3, 3, cin, cout), dtype=dtype, device=dev), edition="tc")
+        return
+    rng = np.random.default_rng(cin * 100 + cout)
+    x = _rand(rng, (1, 37, 50, cin), dtype, dev)
+    w = _rand(rng, (3, 3, cin, cout), dtype, dev, (9 * cin) ** -0.5)
+    b = _rand(rng, (cout,), torch.float32, dev)
+    before = dict(conv.launches_by_edition)
+    got = conv.conv(x, w, b, 1, False, edition=edition)
+    assert conv.launches_by_edition[edition] == before[edition] + 1
+    _close(got, conv.conv_plain(x, w, b, 1, False), TOL[dtype])
+
+
+def _gru_model(dev, dtype="bfloat16", mode="normal", max_d=12, seed=3):
+    cfg = ModelConfig(view_num=3, max_d=max_d, width=160, height=96, network_mode=mode,
+                      regularization="GRU", compute_dtype=dtype)
+    model = MVSNet(cfg, seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():                       # non-identity norms
+        for name, p in model.named_parameters():
+            if name.endswith("norm.scale"):
+                p.copy_(0.5 + torch.rand(p.shape, generator=g))
+            elif name.endswith("norm.bias") or name.endswith("conv.bias"):
+                p.copy_(0.2 * torch.randn(p.shape, generator=g))
+    return cfg, model.to(dev).eval()
+
+
+@pytest.mark.parametrize("wta", [True, False])
+def test_gru_graph_replay_equals_eager_sweep(dev, wta):
+    """The captured depth step replayed D times gives the eager sweep's regs
+    and winner-take-all carry bit for bit on the same cost volume, a second
+    sweep (states reset, graph reused) gives them again, and the replays
+    count the launches the eager sweep counts."""
+    from mvsnet_tpu_torch.ops import kernels
+
+    cfg, model = _gru_model(dev)
+    rng = np.random.default_rng(30)
+    cost = _rand(rng, (1, cfg.max_d, 24, 40, 32), torch.bfloat16, dev).abs()
+    samples = (torch.linspace(5.0, 10.5, cfg.max_d, device=dev)[None] if wta else None)
+    sweep = model.gru_sweep
+    with torch.inference_mode():
+        before = kernels.launch_counts()
+        regs_e, carry_e = sweep.eager(cost, samples)
+        eager_counts = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+        sweep.graphed(cost, samples)                     # captures
+        before = kernels.launch_counts()
+        regs_g, carry_g = sweep.graphed(cost, samples)
+        torch.cuda.synchronize()
+        graph_counts = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+        again = sweep(cost, samples)                      # eval, no autograd: the graph
+    assert len(sweep._graphs) == 1
+    assert graph_counts == eager_counts and eager_counts["conv"] == 7 * cfg.max_d
+    assert torch.equal(regs_g, regs_e) and torch.equal(again[0], regs_e)
+    if wta:
+        assert all(torch.equal(a, b) for a, b in zip(carry_g, carry_e))
+        assert all(torch.equal(a, b) for a, b in zip(again[1], carry_e))
+    else:
+        assert carry_g is None and carry_e is None
+
+
+def test_gru_graph_follows_reloaded_weights(dev):
+    """A load with `assign` moves the parameters, which a capture reads by
+    address: the sweep drops its graph, captures once more and replays the
+    new weights, equal bit for bit to the eager sweep, with one graph in
+    its cache."""
+    cfg, model = _gru_model(dev)
+    _, other = _gru_model(dev, seed=9)
+    rng = np.random.default_rng(33)
+    cost = _rand(rng, (1, cfg.max_d, 24, 40, 32), torch.bfloat16, dev).abs()
+    samples = torch.linspace(5.0, 10.5, cfg.max_d, device=dev)[None]
+    sweep = model.gru_sweep
+    with torch.inference_mode():
+        old, _ = sweep.graphed(cost, samples)
+    model.load_state_dict(other.state_dict(), assign=True)
+    with torch.inference_mode():
+        new, carry = sweep.graphed(cost, samples)
+        want, want_carry = sweep.eager(cost, samples)
+    assert len(sweep._graphs) == 1
+    assert torch.equal(new, want) and not torch.equal(old, new)
+    assert all(torch.equal(a, b) for a, b in zip(carry, want_carry))
+
+
+def test_gru_predictor_card_matches_cpu(dev):
+    """R-MVSNet serving (graph-replayed sweep) on the card against the CPU's
+    plain path, float32: regs within 1e-3 of max(1, max|regs|), depth equal
+    wherever a pixel's top two regs differ by more than that, prob within
+    1e-3 (phase 5's bound)."""
+    from mvsnet_tpu_torch.predict import Predictor
+
+    cfg, model = _gru_model(dev, dtype="float32", max_d=16)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    rng = np.random.default_rng(31)
+    images = rng.standard_normal((1, 3, 96, 160, 3)).astype(np.float32)
+    cam = np.zeros((2, 4, 4), np.float32)
+    cam[0] = np.eye(4)
+    cam[1, :3, :3] = [[30.0, 0, 20], [0, 30.0, 12], [0, 0, 1]]
+    cam[1, 3] = [5.0, 0.5, 16, 12.5]
+    cams = np.stack([cam] * 3)[None].copy()
+    cams[0, 1, 0, 0, 3] = 0.4
+    cams[0, 2, 0, 1, 3] = -0.3
+    inputs = (images, cams, cams[:, 0, 1, 3, 0], cams[:, 0, 1, 3, 1], cams[:, 0, 1, 3, 3])
+    out = {}
+    for device in (dev, "cpu"):
+        p = Predictor(cfg, state_dict=sd, device=device)
+        with torch.inference_mode():
+            t = [torch.as_tensor(a, device=p.device) for a in inputs]
+            out[str(device)] = [o.cpu() for o in p.model.forward_gru_wta(
+                t[0], t[1], t[2], None, t[4], with_regs=True)]
+        depth, prob, _ = p.predict(*inputs)
+        np.testing.assert_array_equal(depth, out[str(device)][0].numpy())
+    (d_g, p_g, r_g), (d_c, p_c, r_c) = out[str(dev)], out["cpu"]
+    tol = 1e-3 * max(1.0, r_c.abs().max().item())
+    assert (r_g - r_c).abs().max().item() <= tol
+    top2 = r_c.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1] > tol)[..., None]
+    assert decided.float().mean().item() > 0.5
+    assert torch.equal(d_g[decided], d_c[decided])
+    assert (p_g - p_c).abs().max().item() <= 1e-3
+
+
+def test_gru_train_steps_are_bit_equal_on_card(dev):
+    """Two float32 GRU train steps on the card from one state and batch give
+    the same loss and gradients bit for bit (every kernel of the step sums
+    in a fixed order; the classification loss picks with a one-hot product,
+    not an atomic scatter), and the step launches K1, K2, K3, the conv and
+    the weight-gradient kernels."""
+    from mvsnet_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(32)
+    cam = np.zeros((2, 4, 4), np.float32)
+    cam[0] = np.eye(4)
+    cam[1, :3, :3] = [[30.0, 0, 20], [0, 30.0, 12], [0, 0, 1]]
+    cam[1, 3] = [5.0, 0.5, 12, 10.5]
+    cams = np.stack([cam] * 3)[None].copy()
+    cams[0, 1, 0, 0, 3] = 0.4
+    gt = rng.uniform(5.0, 10.5, (1, 24, 40, 1)).astype(np.float32)
+    batch = (rng.standard_normal((1, 3, 96, 160, 3)).astype(np.float32), cams, gt, gt)
+    runs = []
+    for _ in range(2):
+        cfg, model = _gru_model(dev, dtype="float32")
+        state = train_lib.create_train_state(model, cfg, TrainConfig(), device=dev)
+        before = kernels.launch_counts()
+        _, metrics = train_lib.make_train_step(model, cfg, TrainConfig())(state, batch)
+        counts = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+        runs.append((metrics["loss"].item(), [p.grad.clone() for p in model.parameters()]))
+    assert all(counts[k] > 0 for k in ("cost_volume", "conv", "warp", "warp_transpose", "wgrad"))
+    assert np.isfinite(runs[0][0]) and runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -135,9 +135,26 @@ def test_cli_validation_rounds(tmp_path):
 
 
 def test_unported_graphs_raise(data, tmp_path):
-    for flag in (["--regularization", "GRU"], ["--refinement"]):
+    """Refinement, on either regularizer, waits for its slice (the driver
+    trains the GRU: `test_gru_training_run`)."""
+    for flag in (["--refinement"], ["--regularization", "GRU", "--refinement"]):
         with pytest.raises(NotImplementedError, match="slice"):
             train.main(_args(data, str(tmp_path / "m"), *flag))
+
+
+def test_gru_training_run(data, tmp_path):
+    """`--regularization GRU` trains R-MVSNet (classification loss) for two
+    steps, with the image log's winner-take-all renders, and snapshots under
+    GRU/<mode>."""
+    model_dir = str(tmp_path / "models")
+    assert train.main(_args(data, model_dir, "--regularization", "GRU",
+                            "--image_log_interval", "1")) == 0
+    recs = [r for r in _metrics(model_dir) if "loss" in r]
+    assert recs and all(np.isfinite(r["loss"]) and np.isfinite(r["debug"]) for r in recs)
+    assert checkpoint.latest_step(model_dir, "GRU", "ultralite") == 2
+    tree = checkpoint.restore_tree(model_dir, "GRU", "ultralite")
+    assert any(k.startswith("gru_sweep.gru.") for k in tree["model"])
+    assert os.path.exists(os.path.join(model_dir, "train_vis", "step_1", "depth.png"))
 
 
 def test_two_rank_gloo_run_matches_one_rank(data, tmp_path):
@@ -204,15 +221,35 @@ def test_entry_on_cpu():
 
 def test_bench_script_arguments_and_rig():
     assert bench.build_parser().parse_args([]).metric == "3dcnn"
-    for m in ("3dcnn", "train", "all"):
+    for m in ("3dcnn", "train", "gru", "train_gru", "all"):
         assert bench.build_parser().parse_args(["--metric", m]).metric == m
     with pytest.raises(SystemExit):
-        bench.build_parser().parse_args(["--metric", "gru"])
+        bench.build_parser().parse_args(["--metric", "refine"])
     for args in ((3, 1152, 864, 425.0, 2.5 * 1.06, 192), (3, 640, 480, 425.0, 2.5, 192),
                  (2, 64, 48, 1.0, 0.5, 8)):
         np.testing.assert_array_equal(bench.make_rig(*args), jax_bench.make_rig(*args))
     if not torch.cuda.is_available():
         assert bench.main(["--metric", "all"]) == 1        # times the card or fails
+
+
+def test_bench_metric_names_are_bench_py_names():
+    """Each point prints under the name the repository's `bench.py` gives it."""
+    with open(os.path.join(os.path.dirname(__file__), "..", "bench.py")) as f:
+        source = f.read()
+    assert set(bench.METRICS) == set(bench.POINTS)
+    for name in bench.METRICS.values():
+        assert f'"{name}"' in source, name
+
+
+def test_gru_bench_points_run_on_cpu_at_a_tiny_size():
+    """The gru and train_gru points' calls at 64x64, D=8 on the CPU's plain
+    path (not timed: the timing needs a card)."""
+    dev = torch.device("cpu")
+    depth, prob = bench.gru_case(dev, 64, 64, 8, "ultralite", "float32")()
+    assert depth.shape == prob.shape == (1, 16, 16, 1)
+    assert torch.isfinite(depth).all() and torch.isfinite(prob).all()
+    metrics = bench.train_case(dev, 64, 64, 8, "ultralite", "float32", regularization="GRU")()
+    assert np.isfinite(metrics["loss"].item()) and np.isfinite(metrics["debug"].item())
 
 
 def test_bench_points_run_on_cpu_at_a_tiny_size():

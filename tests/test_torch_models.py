@@ -191,9 +191,11 @@ def test_seeded_weights_are_reproducible():
 
 @pytest.mark.parametrize("kw,exc", [
     (dict(refinement=True), NotImplementedError),
-    (dict(regularization="GRU"), NotImplementedError),
+    (dict(regularization="GRU", refinement=True), NotImplementedError),
 ])
 def test_unported_graphs_raise(kw, exc):
+    """Refinement, on either regularizer, waits for its slice of the port
+    (the GRU graphs are ported: tests/test_torch_gru.py)."""
     with pytest.raises(exc):
         Predictor(ModelConfig(network_mode="ultralite", **TINY, **kw), device="cpu")
 

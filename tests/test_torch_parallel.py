@@ -7,7 +7,11 @@ children import the port alone. The JAX side runs in this process on the
 8-device CPU mesh of tests/conftest.py. Two worlds, of 4 and of 2 ranks,
 start once for the module, in background threads, while the JAX side
 computes. The sliced cost kernel K1s has its own file,
-tests/test_torch_sweep_sharded.py.
+tests/test_torch_sweep_sharded.py. The GRU's serving on two ranks (padded
+batches) is held against the port's single device and JAX's
+`make_sharded_gru_forward` on two devices, with JAX's variables; its train
+step on two ranks against the port's single device, whose JAX parity is
+tests/test_torch_gru.py's.
 
 Tolerances: the sharded port against the unsharded port 1e-5 (float32
 sums in other blocks: halo planes, slab convs); a single halo op 1e-6; the
@@ -39,6 +43,8 @@ from mvsnet_tpu.parallel import factorize_devices as jax_factorize  # noqa: E402
 from mvsnet_tpu.parallel import make_mesh as jax_make_mesh  # noqa: E402
 from mvsnet_tpu.parallel import set_active_mesh  # noqa: E402
 from mvsnet_tpu.parallel.infer_step import make_sharded_forward as jax_sharded_forward  # noqa: E402
+from mvsnet_tpu.parallel.infer_step import (  # noqa: E402
+    make_sharded_gru_forward as jax_sharded_gru_forward)
 from mvsnet_tpu.parallel.train_step import make_sharded_train_step as jax_sharded_step  # noqa: E402
 from mvsnet_tpu.parallel.train_step import shard_state  # noqa: E402
 from mvsnet_tpu_torch import train_lib  # noqa: E402
@@ -58,6 +64,8 @@ TRAIN = dict(view_num=3, max_d=8, width=64, height=64, network_mode="ultralite",
              compute_dtype="float32")
 TCFG = dict(loss_type="power", alpha=0.25, beta=1.0, grad_loss=True)
 PORT = dict(rtol=1e-5, atol=1e-5)
+GRU = dict(view_num=3, max_d=8, width=64, height=64, regularization="GRU",
+           compute_dtype="float32")
 
 
 def _numpy_tree(tree):
@@ -132,6 +140,20 @@ class World:
         self.train_vars = _perturb(_numpy_tree(tinit(jax.random.PRNGKey(7))), 12)
         tsd = {k: v.numpy() for k, v in state_dict_from_jax(self.train_vars).items()}
 
+        # the GRU's: JAX's serving variables ("lite"), seeded port weights
+        # for the train step (JAX parity is tests/test_torch_gru.py's)
+        self.gru_cfg = JaxModelConfig(network_mode="lite", **GRU)
+        self.gru_model = JaxMVSNet(self.gru_cfg)
+        self.gru_serve = {1: _scene(1, 8, seed=7), 3: _scene(3, 8, seed=8)}
+        g_images, g_cams, g_ds, _, g_de = self.gru_serve[1]
+        ginit = jax.jit(lambda key: self.gru_model.init(
+            key, g_images, g_cams, g_ds, depth_interval=None, depth_end=g_de,
+            method=JaxMVSNet.forward_gru_wta))
+        self.gru_vars = _perturb(_numpy_tree(ginit(jax.random.PRNGKey(7))), 13)
+        self.gru_sd = {k: v.numpy() for k, v in state_dict_from_jax(self.gru_vars).items()}
+        self.gru_train_sd = {k: v.numpy() for k, v in MVSNet(
+            ModelConfig(network_mode="ultralite", **GRU), seed=6).state_dict().items()}
+
         self.latency = {shape: _scene(1, 32) for shape in ((1, 4, 1), (1, 2, 2))}
         self.fallback = _scene(1, 16)
         self.throughput = _scene(4, 32, seed=4)
@@ -151,10 +173,16 @@ class World:
                   predict(None, self.throughput),
                   train((2, 2, 1)),
                   ("default_device_error", None)]
-        cases2 = [predict(None, self.throughput), train((2, 1, 1))]
+        gru_predict = [("predict", {"shape": None, "cfg": dict(GRU, network_mode="lite"),
+                                    "state_dict": self.gru_sd, "inputs": self.gru_serve[B]})
+                       for B in (1, 3)]
+        gru_train = ("train", {"shape": (2, 1, 1), "cfg": dict(GRU, network_mode="ultralite"),
+                               "tcfg": {}, "state_dict": self.gru_train_sd,
+                               "batch": self.batch})
+        cases2 = [predict(None, self.throughput), train((2, 1, 1)), *gru_predict, gru_train]
         self.index4 = {"halo4": 0, "halo2": 1, "latency141": 2, "latency122": 3,
                        "fallback": 4, "throughput": 5, "train": 6, "default_device_error": 7}
-        self.index2 = {"throughput": 0, "train": 1}
+        self.index2 = {"throughput": 0, "train": 1, "gru1": 2, "gru3": 3, "gru_train": 4}
         self.state_dict = sd
         self._futures = {
             4: pool.submit(spawn, rank_checks.run, 4, "gloo", cases4),
@@ -365,10 +393,71 @@ def test_predictor_default_device_raises_without_cuda(world):
 
 
 def test_sharded_gru_forward_waits_for_the_gru_slice():
-    with pytest.raises(NotImplementedError, match="GRU slice"):
-        make_sharded_gru_forward(None, None)
+    """On a mesh of one rank the sharded GRU forward is the model's own
+    `forward_gru_wta`, bit for bit (the ranks' cases:
+    `test_sharded_gru_forward_matches_single`). The name dates from before
+    the GRU slice, when this forward raised."""
+    cfg = ModelConfig(**dict(SERVE, max_d=8, regularization="GRU", network_mode="ultralite"))
+    model = MVSNet(cfg, seed=2)
+    images, cams, ds, _, de = (torch.from_numpy(a) for a in _scene(2, 8))
+    with torch.no_grad():
+        got = make_sharded_gru_forward(model, make_mesh(backend="gloo"))(images, cams, ds, de)
+        want = model.forward_gru_wta(images, cams, ds, None, de)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_sharded_gru_forward_matches_single(world, B):
+    """GRU serving on two gloo ranks (the default mesh of the process
+    group): B = 1 and B = 3 pad to 2 and 4 maps, each rank runs its half,
+    and every rank holds the single-device forward's B maps; rank 0's are
+    JAX's `make_sharded_gru_forward`'s on two devices, which pads the same
+    way, with the same variables."""
+    inputs = world.gru_serve[B]
+    ranks = world.ranks(2, f"gru{B}")
+    single = _port_single(inputs, dict(GRU, network_mode="lite"), world.gru_sd)
+    for r in ranks:
+        assert r["mesh"] == (1, 2, 1) and r["depth"].shape == (B, 16, 16, 1)
+        assert not r["residual"].any()
+        np.testing.assert_allclose(r["depth"], single[0], **PORT)
+        np.testing.assert_allclose(r["prob"], single[1], **PORT)
+    images, cams, ds, _, de = (jnp.asarray(a) for a in inputs)
+    mesh = jax_make_mesh(2, (1, 2, 1))
+    try:
+        want = jax_sharded_gru_forward(world.gru_model, world.gru_cfg, mesh)(
+            world.gru_vars, images, cams, ds, de)
+    finally:
+        set_active_mesh(None)
+    assert want[0].shape == (B, 16, 16, 1)
+    _assert_jax((ranks[0]["depth"], ranks[0]["prob"]), want)
+
+
+def test_sharded_gru_train_step_matches_single(world):
+    """A GRU train step (classification loss) on two data ranks against the
+    port's single-device step: the loss to 1e-5, each gradient leaf to 1e-4
+    of its largest entry; leaves whose gradient vanishes analytically (a
+    bias before a one-channel layer norm, prob_conv's bias before the
+    softmax: rounding noise on both sides) stay under 1e-6 of the largest."""
+    cfg, tcfg = ModelConfig(network_mode="ultralite", **GRU), TrainConfig()
+    model = MVSNet(cfg)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in world.gru_train_sd.items()})
+    state = train_lib.create_train_state(model, cfg, tcfg, device="cpu")
+    _, metrics = train_lib.make_train_step(model, cfg, tcfg)(state, world.batch)
+    top = max(float(p.grad.abs().max()) for p in model.parameters())
+    for r in world.ranks(2, "gru_train"):
+        np.testing.assert_allclose(r["metrics"]["loss"], metrics["loss"].item(), rtol=1e-5)
+        for k in ("less_one", "less_three"):
+            np.testing.assert_allclose(r["metrics"][k], metrics[k].item(), atol=1e-6)
+        for name, p in model.named_parameters():
+            scale = float(p.grad.abs().max())
+            got = r["grads"][name]
+            if max(scale, float(np.abs(got).max())) <= 1e-6 * top:
+                continue
+            assert float(np.abs(got - p.grad.numpy()).max()) <= 1e-4 * scale, name
 
 
 def test_dryrun_multichip_gloo():
     summary = dryrun_multichip(4, "gloo")
     assert summary["mesh"] == (2, 2, 1) and np.isfinite(summary["loss"])
+    assert summary["gru_wta"] == 3

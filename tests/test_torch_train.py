@@ -17,6 +17,7 @@ of its leaf can move one parameter by a few 1e-4: every updated parameter
 within 1e-3, and all but 0.1 % of them within 1e-5 (0.02 % seen).
 """
 
+import dataclasses
 import os
 import sys
 
@@ -283,10 +284,13 @@ def test_eval_step_uses_running_stats():
     assert not all(torch.equal(before[k], b) for k, b in model.named_buffers())
 
 
-@pytest.mark.parametrize("kw", [dict(refinement=True), dict(regularization="GRU")])
+@pytest.mark.parametrize("kw", [dict(refinement=True),
+                                dict(regularization="GRU", refinement=True)])
 def test_unported_training_graphs_raise(kw):
+    """Refinement, on either regularizer, waits for its slice (the GRU
+    graph trains: tests/test_torch_gru.py)."""
     cfg = ModelConfig(network_mode="ultralite", **TINY, **kw)
-    model = MVSNet(ModelConfig(network_mode="ultralite", **TINY))
+    model = MVSNet(dataclasses.replace(cfg, refinement=False))
     with pytest.raises(NotImplementedError):
         state = train_lib.create_train_state(model, cfg, TrainConfig(), device="cpu")
         train_lib.make_train_step(model, cfg, TrainConfig())(state, _train_batch())
