@@ -5,7 +5,7 @@ Run from the repository root, on a machine with one H100:
     python3 chip_smoke.py
     python3 chip_smoke.py --multi    # phases 1, 2 and 8 only (several cards)
 
-Phases run in the order 1-7, 10, 11, 8, 9.
+Phases run in the order 1-7, 10-13, 8, 9, 14.
 
 Phases, each of which fails the script (non-zero exit, no result line):
   1. the card's name and power limit; exits at once without CUDA;
@@ -29,7 +29,13 @@ Phases, each of which fails the script (non-zero exit, no result line):
      convs at 1184x1600; the GRU training path's rows at the bench
      `train_gru` point ("lite", features 120x160x16, D=192): K1, K2 and K3
      at C = 16, and each cell conv (Cin 24, 10, 3, 1) forward, its input
-     gradient and its weight gradient;
+     gradient and its weight gradient; the refinement U-Net's rows at the
+     refined-serving point (1x864x1152: `2dconv0_1_refine` 5->8 and
+     `2dconv1_0_refine` 5->16 s2 on the CUDA cores, `2dconv8_3_refine`
+     8->32, `2dconv8_4_refine` 32->1, `2dconv5_1_refine` 128->64 at
+     108x144, the transposed conv `2dconv5_0_refine` 128->64 from 54x72) and
+     at the training point (640x480: the Cin = 5 conv's weight gradient and
+     input gradient);
   4. inference: `Predictor` at 1152x864, D=192, 3 views, "normal",
      bfloat16, seeded weights, answers 3 requests; launch counts per
      request are asserted (cost volume 1, conv 36, deconv 7), then one more
@@ -74,6 +80,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
         "normal", bf16, B = ranks and B = ranks - 1 (padded to the ranks):
         equal bit for bit to the single-card GRU `Predictor`, one call per
         map; and `entry.gru_dryrun`, the dry run's GRU regime;
+     e. on the same ranks, refined serving (the U-Net upsampled with
+        confidence) at 320x256, D=32, "normal", float32: the latency
+        regime (B=1; every rank refines the gathered maps whole) within
+        phase 5's bounds and the residual within 1e-3 of max(1,
+        max|residual|), the throughput regime (B = ranks) equal bit for
+        bit, against the single-card refined `Predictor`, one call per map;
   9. the training driver (`python -m mvsnet_tpu_torch.train`'s `main`):
      a. at the bench train point (640x480, D=192, 3 views, "lite", bf16,
         RMSprop, power + gradient loss), 6 steps with a validation round,
@@ -118,11 +130,41 @@ Phases, each of which fails the script (non-zero exit, no result line):
      CUDA events, one step profiled; two "normal" steps at the same point,
      timed, with their peak; one float32 step at 128x128, D=16, "normal",
      card against CPU within phase 7's bounds, and two card steps bit for
-     bit.
+     bit;
+ 12. refined serving: `Predictor` at phase 4's point with refinement as
+     the training driver sets it (the U-Net, upsampled to the images, with
+     the confidence channel), seeded weights: a first request, then 3
+     requests with launches per request and edition asserted against the
+     counts derived from the model (conv 60: tc 56, simt 4; deconv 11),
+     peak memory, one request stage by stage (features, cost volume,
+     U-Net, tail, upsample, refinement net; equal bit for bit to the
+     Predictor's) and one profiled; one request each of the original net
+     with the stereo view (its first conv on the tensor cores) and of the
+     U-Net at the cost volume's resolution (1024x768); the card against the
+     CPU at 320x256, D=32, float32 (refined depth within phase 5's 0.05,
+     prob 1e-3, residual within 1e-3 of max(1, max|residual|));
+ 13. refined training ("all" mode): 3 `make_train_step` steps at the
+     training point (640x480, D=192, "normal", bf16, power + gradient
+     loss against the full-resolution depth), launches and editions per
+     step asserted, stages by CUDA events, one step profiled; one float32
+     step at 128x128, D=16, card against CPU within phase 7's bounds, and
+     two card steps bit for bit;
+ 14. the serving drivers with refinement: `infer.main` (upsampled) and
+     `test.main` (at the cost volume's resolution, its depth resized to the
+     ground truth) at the test driver's point (512x384, V=4, D=192,
+     "normal", bf16, the U-Net with confidence) on sessions rendered by
+     `data/synthetic.py` and written to disk, the weights restored from a
+     checkpoint this phase saved through `--model_dir --ckpt_step`; only the
+     JPEG decode of the session images and the JPEG write of the reference
+     images are substituted (the card machine has no codec); every PFM, PNG
+     (the port's decoder), reference image and cam file read back, the
+     results CSV's row checked, and K1, the conv and the transposed conv
+     launched.
 The last lines are the kernels' JSON record (launches from the training
 run of phase 6, the GRU rows' from the requests of phase 10 and the
-training steps of phase 11; K1s's from the latency requests of phase 8,
-summed over ranks), the card's name and
+training steps of phase 11, the refinement rows' from the requests of
+phase 12 and the steps of phase 13; K1s's from the latency requests of
+phase 8, summed over ranks), the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -811,10 +853,21 @@ def phase8_ranks(smi, dev, serve_in, backend, n):
         per_map = [g_pred.predict(*(a[i:i + 1] for a in gru_in[B]))[:2] for i in range(B)]
         gru_ref[B] = tuple(np.concatenate(p, axis=0) for p in zip(*per_map))
     del g_pred
+    # 8e's reference: the single-card refined Predictor, one call per map
+    r_pred = Predictor(ModelConfig(**REFINE_MULTI_CFG_ARGS), seed=0, device=dev)
+    refine_in, refine_ref = {}, {}
+    for regime, B in (("latency", 1), ("throughput", n)):
+        r_images, r_cams = scene(B, 3, 256, 320, 32, seed=30 + B)
+        r_ds, r_di, _, r_de = depth_params_from_cams(r_cams)
+        refine_in[regime] = (r_images, r_cams, r_ds, r_di, r_de)
+        per_map = [r_pred.predict(*(a[i:i + 1] for a in refine_in[regime])) for i in range(B)]
+        refine_ref[regime] = tuple(np.concatenate(p, axis=0) for p in zip(*per_map))
+    del r_pred
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    results = spawn(phase8_rank, n, backend, backend, serve_in, batch_in, t_batch, gru_in)
+    results = spawn(phase8_rank, n, backend, backend, serve_in, batch_in, t_batch, gru_in,
+                    refine_in)
     print(f"  ranks started, served, trained and joined in {time.perf_counter() - t0:.1f} s; "
           f"serving mesh {results[0]['mesh']}, devices {[r['device'] for r in results]}")
     expected = {"latency": {"cost_volume_sharded": 1, "cost_volume": 0},
@@ -864,6 +917,29 @@ def phase8_ranks(smi, dev, serve_in, backend, n):
               f"capture); depth and prob equal bit for bit to the single-card Predictor, one "
               f"call per map: {equal}; K1 launches per rank {k1} (expected {per_rank}) "
               f"{'ok' if good else 'FAIL'} [{smi}]")
+    for regime, (want_d, want_p, want_r) in refine_ref.items():
+        got = [r["refined"][regime] for r in results]
+        r_tol = REFINE_RESIDUAL_TOL * max(1.0, float(np.abs(want_r).max()))
+        d_err = max(float(np.abs(g["depth"] - want_d).max()) for g in got)
+        p_err = max(float(np.abs(g["prob"] - want_p).max()) for g in got)
+        r_err = max(float(np.abs(g["residual"] - want_r).max()) for g in got)
+        equal = d_err == p_err == r_err == 0
+        k1 = [g["counts"]["cost_volume_sharded" if regime == "latency" else "cost_volume"]
+              for g in got]
+        # throughput: each rank runs the single-card forward on its map, so
+        # bit for bit; latency: the depth-sharded U-Net, within phase 5's bounds
+        good = (k1 == [1] * n and (equal if regime == "throughput" else
+                                   d_err <= E2E_DEPTH_ATOL and p_err <= E2E_PROB_ATOL
+                                   and r_err <= r_tol))
+        ok = ok and good
+        bound = ("bit for bit" if regime == "throughput" else
+                 f"bounds {E2E_DEPTH_ATOL:g} / {E2E_PROB_ATOL:g} / {r_tol:.3e}")
+        print(f"  8e: refined serving, {regime} regime, B={len(want_d)}, 320x256, D=32, V=3, "
+              f"normal, f32, U-Net upsampled with confidence: wall ms per rank "
+              f"{', '.join(f'{g['wall']:.2f}' for g in got)}; vs the single-card Predictor, one "
+              f"call per map: refined depth max abs err {d_err:.3e}, prob {p_err:.3e}, residual "
+              f"{r_err:.3e} ({bound}); K1{'s' if regime == 'latency' else ''} launches per rank "
+              f"{k1} (expected 1) {'ok' if good else 'FAIL'} [{smi}]")
     dry = [r["gru_dryrun"] for r in results]
     print(f"  8d: entry.gru_dryrun (ultralite GRU 64x64 D=8 f32) on every rank: batch {dry} "
           f"(expected {max(1, n - 1)}) {'ok' if dry == [max(1, n - 1)] * n else 'FAIL'}")
@@ -874,7 +950,7 @@ def phase8_ranks(smi, dev, serve_in, backend, n):
     return sum(r["latency"]["total"]["cost_volume_sharded"] for r in results)
 
 
-def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in):
+def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in, refine_in):
     """One rank of phase 8 (started by `parallel.launch.spawn`): serving in
     the latency (B=1) and throughput (B=n) regimes through the default
     multi-device `Predictor`, GRU throughput serving on each batch of
@@ -969,6 +1045,22 @@ def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in):
                              depth=depth.cpu().numpy(), prob=prob.cpu().numpy())
     out["gru_dryrun"] = gru_dryrun(g_pred.mesh)
     del g_pred
+    torch.cuda.empty_cache()
+
+    # ---- 8e: refined serving in both regimes
+    r_pred = Predictor(ModelConfig(**REFINE_MULTI_CFG_ARGS), seed=0)
+    out["refined"] = {}
+    for regime, inputs in refine_in.items():
+        before = kernels.launch_counts()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        depth, prob, residual = r_pred.predict(*inputs, fetch=False)
+        torch.cuda.synchronize()
+        after = kernels.launch_counts()
+        out["refined"][regime] = dict(
+            wall=(time.perf_counter() - t0) * 1e3, counts={k: after[k] - before[k] for k in after},
+            depth=depth.cpu().numpy(), prob=prob.cpu().numpy(), residual=residual.cpu().numpy())
+    del r_pred
     torch.cuda.empty_cache()
 
     # ---- 8c: one sharded f32 train step, two data ranks
@@ -1454,6 +1546,406 @@ def phase11_gru_training(smi, dev, point=(480, 640, 192)):
     return counts if finite and good and repeat == 0 else None
 
 
+# phases 12-14 and 8e: refinement with the training driver's defaults
+# (mvsnet_tpu/train.py:57-65): the U-Net, upsampled to the images, with the
+# confidence channel
+REFINE_ARGS = dict(refinement=True, refinement_network="unet",
+                   upsample_before_refinement=True, refine_with_confidence=True)
+# per refined request, derived from the model: the tower's 28 convs and 4
+# transposed convs and the 3D U-Net's 8 and 3, then the refinement U-Net's
+# 24 and 4; on the CUDA cores the two image convs of the tower and the two
+# Cin = 5 convs of the refinement net (image, depth, confidence)
+REFINE_LAUNCHES = {"conv": 36 + 24, "deconv": 7 + 4}
+REFINE_EDITIONS = {"conv": {"tc": 56, "simt": 4}, "deconv": {"tc": 11, "simt": 0}}
+# card vs CPU, float32: the refined depth within phase 5's depth bound (the
+# net adds its residual to the depth) and the residual within this share of
+# max(1, max|residual|)
+REFINE_RESIDUAL_TOL = 1e-3
+# phase 8e: refined serving on the ranks
+REFINE_MULTI_CFG_ARGS = dict(view_num=3, max_d=32, width=320, height=256, network_mode="normal",
+                             compute_dtype="float32", **REFINE_ARGS)
+
+
+def refine_train_scene(H, W, D, seed):
+    """`train_scene` with the full-resolution depth the refined loss reads
+    (the ground truth repeated 4x4, as a nearest-neighbour upsample)."""
+    images, cams, gt, _ = train_scene(H, W, D, seed)
+    return images, cams, gt, np.repeat(np.repeat(gt, 4, axis=1), 4, axis=2)
+
+
+def refined_card_vs_cpu(dev, cfg, inputs, seed):
+    """A refined `Predictor` with seeded weights on the card and on the CPU:
+    (ok, text) under phase 5's bounds and REFINE_RESIDUAL_TOL."""
+    from mvsnet_tpu_torch.predict import Predictor
+
+    (d_g, p_g, r_g), (d_c, p_c, r_c) = (Predictor(cfg, seed=seed, device=d).predict(*inputs)
+                                        for d in (dev, "cpu"))
+    d_err, p_err = float(np.abs(d_g - d_c).max()), float(np.abs(p_g - p_c).max())
+    r_tol = REFINE_RESIDUAL_TOL * max(1.0, float(np.abs(r_c).max()))
+    r_err = float(np.abs(r_g - r_c).max())
+    ok = (all(np.isfinite(o).all() for o in (d_g, p_g, r_g)) and d_err <= E2E_DEPTH_ATOL
+          and p_err <= E2E_PROB_ATOL and r_err <= r_tol)
+    return ok, (f"refined depth max abs err {d_err:.3e} (bound {E2E_DEPTH_ATOL:g}), prob "
+                f"{p_err:.3e} (bound {E2E_PROB_ATOL:g}), residual {r_err:.3e} (bound "
+                f"{r_tol:.3e}, max|residual| {float(np.abs(r_c).max()):.3e}) "
+                f"{'ok' if ok else 'FAIL'}")
+
+
+def phase12_refined_serving(smi, dev, request, variant_sizes=((864, 1152), (768, 1024)),
+                            small=(256, 320, 32)):
+    """Refined serving at the point of `request` (main passes phase 4's:
+    1152x864, D=192, V=3), two other variants at `variant_sizes` (height,
+    width), and card against CPU at `small` (height, width, D); returns the
+    launch counts of its 3 counted requests, or None on failure."""
+    from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch.ops import kernels
+    from mvsnet_tpu_torch.ops.cost_volume import plane_sweep_cost_volume
+    from mvsnet_tpu_torch.ops.resize import resize_bilinear
+    from mvsnet_tpu_torch.predict import Predictor, depth_params_from_cams
+
+    _, V, H, W, _ = request[0].shape
+    D = int(request[1][0, 0, 1, 3, 2])
+    cfg = ModelConfig(view_num=V, max_d=D, width=W, height=H, network_mode="normal",
+                      compute_dtype="bfloat16", **REFINE_ARGS)
+    point = f"{W}x{H}, D={D}, V={V}"
+    predictor = Predictor(cfg, seed=0, device=dev)
+    model = predictor.model
+    want_launches, want_editions = expected_serving(model, torch.bfloat16)
+    derived = ({k: want_launches[k] for k in REFINE_LAUNCHES},
+               {k: want_editions[k] for k in REFINE_EDITIONS})
+    if derived != (REFINE_LAUNCHES, REFINE_EDITIONS):
+        print(f"phase 12 FAILED: the model gives {derived}, not {REFINE_LAUNCHES}, "
+              f"{REFINE_EDITIONS}")
+        return None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predictor.predict(*request, fetch=False)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls, per_request, editions, finite, depth, prob = serve_counted(predictor, request)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 12: refined serving, Predictor at {point}, normal, bf16, "
+          f"refinement U-Net upsampled with confidence (the training driver's defaults): "
+          f"first request {first_ms:.2f} ms, then wall ms {', '.join(f'{w:.2f}' for w in walls)}; "
+          f"peak memory {peak / 2 ** 30:.3f} GiB; refined depth {tuple(depth.shape)} in "
+          f"[{depth.min().item():.1f}, {depth.max().item():.1f}] [{smi}]")
+    print(f"  launches per request {per_request[-1]} (expected {want_launches}); editions "
+          f"{editions[-1]} (expected {want_editions})")
+    if (not finite or tuple(depth.shape) != (1, H, W, 1)
+            or any(r != want_launches for r in per_request)
+            or any(e != want_editions for e in editions)):
+        print(f"phase 12 FAILED: finite {finite}, launches {per_request}, editions {editions}")
+        return None
+
+    # one request stage by stage (CUDA events), the refinement's steps
+    # written out; it must give the Predictor's refined depth bit for bit
+    with torch.inference_mode():
+        x, cams_t, ds_t, di_t = (torch.as_tensor(a, device=dev) for a in request[:4])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        ev[0].record()
+        ref_f, view_f = model.extract_features(x)
+        ev[1].record()
+        ds_b, di_b, de_b = model.depth_range(ds_t, di_t, 1, dev)
+        cost = plane_sweep_cost_volume(ref_f, view_f, model.homographies(cams_t, ds_b, di_b,
+                                                                          de_b))
+        ev[2].record()
+        reg = model.regnet(cost)[..., 0].to(torch.float32)
+        ev[3].record()
+        d, p = model.depth_tail(reg, ds_b, di_b, de_b)
+        ev[4].record()
+        scale = (de_b - ds_b)[:, None, None, None]
+        norm, d_up, p_up = (resize_bilinear(t, H, W)
+                            for t in ((d - ds_b[:, None, None, None]) / scale, d, p))
+        ev[5].record()
+        residual = model.refine_net(x[:, 0], torch.cat([norm, p_up], dim=-1)).float() * scale
+        ev[6].record()
+        torch.cuda.synchronize()
+        same = torch.equal(residual + d_up, depth)
+    names = ["feature_net", "homographies + cost_volume", "regnet", "depth_tail",
+             "upsample (depth, normalised depth, prob)", "refine_net"]
+    print("  stages (ms, CUDA events, one request): " + ", ".join(
+        f"{n} {ev[i].elapsed_time(ev[i + 1]):.3f}" for i, n in enumerate(names))
+        + f"; their refined depth equals the Predictor's bit for bit: {same}")
+    print_profile("refined request", *profile_device(
+        lambda: predictor.predict(*request, fetch=False)))
+    # the refinement's two parts alone, on the staged request's tensors
+    with torch.inference_mode():
+        up_wall, up_busy, _, _ = profile_device(
+            lambda: [resize_bilinear(t, H, W) for t in (norm, d, p)])
+        print(f"  profiled alone: the upsample's three resizes wall {up_wall:.3f} ms, device busy "
+              + ("not measured" if up_busy is None else f"{up_busy:.3f} ms"))
+        print_profile("refinement net alone", *profile_device(
+            lambda: model.refine_net(x[:, 0], torch.cat([norm, p_up], dim=-1))))
+    del predictor, model, ref_f, view_f, cost, reg, d, p, norm, d_up, p_up, residual, depth
+    torch.cuda.empty_cache()
+    if not same:
+        print("phase 12 FAILED: the staged request differs from the Predictor's")
+        return None
+
+    # the other variants, one request each
+    ok = True
+    for what, kw, (vh, vw) in zip(
+            ("the original net with the stereo view (first conv Cin 8: tensor cores)",
+             "the U-Net at the cost volume's resolution (upsample_before_refinement=False; "
+             "its height and width divide by 16)"),
+            (dict(refinement_network="original", refine_with_stereo=True),
+             dict(upsample_before_refinement=False)), variant_sizes):
+        v_cfg = dataclasses.replace(cfg, width=vw, height=vh, **kw)
+        v_images, v_cams = scene(1, V, vh, vw, D, seed=15)
+        v_ds, v_di, _, v_de = depth_params_from_cams(v_cams)
+        v_in = (v_images, v_cams, v_ds, v_di, v_de)
+        p = Predictor(v_cfg, seed=0, device=dev)
+        want_l, want_e = expected_serving(p.model, torch.bfloat16)
+        p.predict(*v_in, fetch=False)
+        v_walls, v_req, v_ed, v_fin, v_depth, _ = serve_counted(p, v_in, n=1)
+        side = (vh, vw) if v_cfg.upsample_before_refinement else (vh // 4, vw // 4)
+        good = (v_fin and v_req == [want_l] and v_ed == [want_e]
+                and tuple(v_depth.shape[1:3]) == side)
+        ok = ok and good
+        print(f"  {what}, {vw}x{vh}, D={D}, bf16: wall {v_walls[0]:.2f} ms; refined depth "
+              f"{tuple(v_depth.shape)}; launches {v_req[0]} (expected {want_l}); conv "
+              f"editions {v_ed[0]['conv']} (expected {want_e['conv']}) "
+              f"{'ok' if good else 'FAIL'} [{smi}]")
+        del p, v_depth
+        torch.cuda.empty_cache()
+
+    # card against CPU at `small`, float32
+    sh, sw, sd = small
+    s_cfg = dataclasses.replace(cfg, max_d=sd, width=sw, height=sh, compute_dtype="float32")
+    s_images, s_cams = scene(1, V, sh, sw, sd, seed=16)
+    s_ds, s_di, _, s_de = depth_params_from_cams(s_cams)
+    good, text = refined_card_vs_cpu(dev, s_cfg, (s_images, s_cams, s_ds, s_di, s_de), seed=1)
+    print(f"  refined request {sw}x{sh} D={sd} normal f32, card vs CPU: {text}")
+    return counts if ok and good else None
+
+
+def phase13_refined_training(smi, dev, point=(480, 640, 192), small=(128, 128, 16)):
+    """Refined training at the training point (`point`: height, width, D),
+    "all" mode, and one float32 step card against CPU at `small`; returns
+    the launch counts of its 3 counted steps, or None on failure."""
+    from mvsnet_tpu_torch import train_lib
+    from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.ops import kernels
+
+    H, W, D = point
+    cfg = ModelConfig(view_num=3, max_d=D, width=W, height=H, network_mode="normal",
+                      compute_dtype="bfloat16", **REFINE_ARGS)
+    tcfg = TrainConfig()
+    t_batch = refine_train_scene(H, W, D, seed=17)
+    model = MVSNet(cfg, seed=0)
+    want = expected_train_launches(model, cfg, H // 4, W // 4)
+    want_ed = expected_train_editions(model, torch.bfloat16)
+    state = train_lib.create_train_state(model, cfg, tcfg, device=dev)
+    step = train_lib.make_train_step(model, cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls, per_step, per_ed, losses = [], [], [], []
+    for _ in range(3):
+        before, ed_before = kernels.launch_counts(), kernels.edition_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, t_batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after, ed_after = kernels.launch_counts(), kernels.edition_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        per_ed.append({k: {e: n - ed_before[k][e] for e, n in v.items()}
+                       for k, v in ed_after.items()})
+        losses.append(metrics["loss"].item())
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(np.isfinite(v) for v in losses) and all(
+        bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    print(f"phase 13: refined training, 3 steps at {W}x{H}, D={D}, V=3, normal, bf16, rmsprop, "
+          f"power + gradient loss, refinement_train_mode all: step ms "
+          f"{', '.join(f'{w:.2f}' for w in walls)} (the first includes set-up); peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; losses {', '.join(f'{v:.4f}' for v in losses)} [{smi}]")
+    print(f"  launches per step {per_step[-1]} (expected {want}); editions {per_ed[-1]} "
+          f"(expected {want_ed})")
+    idle = [k for k in DRIVER_PATH_KERNELS if counts[k] == 0]
+    if (not finite or idle or any(r != want for r in per_step)
+            or any(e != want_ed for e in per_ed)):
+        print(f"phase 13 FAILED: finite {finite}, kernels never launched {idle}, launches "
+              f"{per_step}, editions {per_ed}")
+        return None
+
+    batch = train_lib.to_device(t_batch, dev)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    state.optimizer.zero_grad(set_to_none=True)
+    ev[0].record()
+    loss, _ = train_lib.compute_loss(model, cfg, tcfg, batch, training=True)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    train_lib.apply_gradients(state, tcfg)
+    ev[3].record()
+    torch.cuda.synchronize()
+    print("  stages (ms, CUDA events, one step): " + ", ".join(
+        f"{n} {ev[i].elapsed_time(ev[i + 1]):.3f}"
+        for i, n in enumerate(["forward", "backward", "optimizer"])))
+    print_profile("refined train step", *profile_device(lambda: step(state, t_batch)))
+    del state, model, step, batch, loss
+    torch.cuda.empty_cache()
+
+    # one float32 step at `small`: card vs CPU, and two card steps
+    sh, sw, sd = small
+    s_cfg = dataclasses.replace(cfg, max_d=sd, width=sw, height=sh, compute_dtype="float32")
+    s_batch = refine_train_scene(sh, sw, sd, seed=18)
+    runs = []
+    for device in (dev, dev, "cpu"):
+        m = MVSNet(s_cfg, seed=3)
+        perturb_norms(m, seed=4)
+        st = train_lib.create_train_state(m, s_cfg, tcfg, device=device)
+        _, met = train_lib.make_train_step(m, s_cfg, tcfg)(st, s_batch)
+        runs.append((met["loss"].item(),
+                     {n: p.grad.cpu().numpy() for n, p in m.named_parameters()},
+                     {n: b.cpu().numpy() for n, b in m.named_buffers()}))
+    good, text = step_errors(runs[0], runs[2])
+    print(f"  refined train step {sw}x{sh} D={sd} normal f32, card vs CPU: {text}")
+    repeat, first = repeat_difference(runs[0], runs[1])
+    print(f"  two card steps from the same state and batch: largest difference {repeat:.3e}"
+          + ("" if first is None else f", first in {first}") + f" (bound 0) "
+          f"{'ok' if repeat == 0 else 'FAIL'}")
+    return counts if good and repeat == 0 else None
+
+
+def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
+    """The serving drivers `test.main` and `infer.main` with refinement at
+    `point` (height, width, views, D; main passes the test driver's),
+    `clusters` a session; returns whether every check held."""
+    import os
+    import tempfile
+
+    from mvsnet_tpu_torch import checkpoint, infer, predict, train_lib
+    from mvsnet_tpu_torch import test as bench_driver
+    from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.data import cluster
+    from mvsnet_tpu_torch.data.synthetic import render_session
+    from mvsnet_tpu_torch.io import images as imio
+    from mvsnet_tpu_torch.io.cams import load_cam_txt
+    from mvsnet_tpu_torch.io.pfm import load_pfm
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.ops import kernels
+
+    (H, W, V, D), N = point, clusters
+    print(f"phase 14: the serving drivers (mvsnet_tpu_torch.infer.main, mvsnet_tpu_torch.test."
+          f"main) with --refinement at the test driver's point, {W}x{H}, V={V}, D={D}, normal, "
+          f"bf16, the refinement U-Net with confidence, on plane scenes rendered by "
+          f"data/synthetic.py ({N} clusters a session). Substituted: the JPEG decode of the "
+          f"session images (served from the rendered arrays) and the JPEG write of each "
+          f"reference image <index>.jpg (written as a PNG by the port's encoder under that "
+          f"name). No image codec is installed here (no cv2, imageio or PIL); cameras, "
+          f"covisibility and depth PNGs are files, and the drivers, Predictor, writers and "
+          f"results CSV run as a user runs them [{smi}]")
+    arrays = {}
+
+    def write_session(path, seed):
+        session = render_session(W, H, n_images=N, seed=seed)
+        for sub in ("images", "cameras", "depths"):
+            os.makedirs(os.path.join(path, sub))
+        for i, (img, cam, depth) in enumerate(zip(session["images"], session["cameras"],
+                                                  session["depths"])):
+            arrays[os.path.join(path, "images", f"{i}.jpg")] = img
+            with open(os.path.join(path, "cameras", f"{i}.json"), "w") as f:
+                json.dump(cam, f)
+            imio.write_depth_png(os.path.join(path, "depths", f"{i}.png"), depth)
+        with open(os.path.join(path, "covisibility.json"), "w") as f:
+            json.dump(session["covisibility"], f)
+
+    ok = True
+    with tempfile.TemporaryDirectory(prefix="mvsnet_serving_") as root:
+        infer_dir, bench_dir = os.path.join(root, "session"), os.path.join(root, "bench")
+        write_session(infer_dir, 0)
+        write_session(os.path.join(bench_dir, "test", "session_0"), 1)
+        model_dir, results = os.path.join(root, "models"), os.path.join(root, "results.csv")
+        cfg = ModelConfig(view_num=V, max_d=D, width=W, height=H, network_mode="normal",
+                          compute_dtype="bfloat16", **REFINE_ARGS)
+        state = train_lib.create_train_state(MVSNet(cfg, seed=0), cfg, TrainConfig(), device=dev)
+        checkpoint.save_checkpoint(model_dir, "3DCNN", "normal", 100, state)
+        del state
+        common = ["--view_num", str(V), "--max_d", str(D), "--width", str(W), "--height", str(H),
+                  "--network_mode", "normal", "--compute_dtype", "bfloat16", "--refinement",
+                  "--refinement_network", "unet", "--refine_with_confidence", "--visualize",
+                  "--model_dir", model_dir, "--ckpt_step", "100", "--device", str(dev)]
+        runs = {"infer": (infer.main, ["--input_dir", infer_dir,
+                                       "--upsample_before_refinement"]),
+                "test": (bench_driver.main, ["--input_dir", bench_dir, "--results_path",
+                                             results, "--write_output"])}
+        real = cluster.load_image, predict.write_image
+        cluster.load_image = arrays.__getitem__
+        predict.write_image = lambda path, image: imio.write_png(
+            path, np.asarray(image).astype(np.uint8))
+        out = {}
+        try:
+            for name, (main_fn, args) in runs.items():
+                kernels.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = main_fn(args + common)
+                torch.cuda.synchronize()
+                out[name] = (rc, (time.perf_counter() - t0) * 1e3, kernels.launch_counts())
+        finally:
+            cluster.load_image, predict.write_image = real
+        # read every file back: (full resolution with the net upsampled, the
+        # cost volume's without; the test driver resizes its depth to the
+        # ground truth before writing it)
+        h, w = H // 4, W // 4
+        shapes = {"infer": {"init": (H, W), "prob": (H, W), "residual": (H, W),
+                            "jpg": (H, W, 3)},
+                  "test": {"init": (H, W), "prob": (h, w), "residual": (h, w),
+                           "jpg": (h, w, 3)}}
+        for name, out_dir in (("infer", os.path.join(infer_dir, "depths_mvsnet")),
+                              ("test", os.path.join(bench_dir, "test", "session_0",
+                                                    "depths_mvsnet"))):
+            rc, wall, counts = out[name]
+            bad, seen = [], 0
+            for i in range(N):
+                def path(suffix):
+                    return os.path.join(out_dir, f"{i}{suffix}")
+                maps = {k: load_pfm(path(f"_{k}.pfm")) for k in ("init", "prob", "residual")}
+                pngs = {k: imio.read_png(path(f"_{k}.png"))
+                        for k in ("depth", "prob", "depth_inverse")}
+                ref_image = imio.read_png(path(".jpg"))
+                cam = load_cam_txt(path(".txt"))
+                seen += 8
+                for k, m in maps.items():
+                    if m.shape != shapes[name][k] or not np.isfinite(m).all():
+                        bad.append(f"{i}_{k}.pfm {m.shape}")
+                for k, png in pngs.items():
+                    want = shapes[name]["prob" if k == "prob" else "init"]
+                    if png.shape != want or png.dtype != np.uint16:
+                        bad.append(f"{i}_{k}.png {png.shape} {png.dtype}")
+                if ref_image.shape != shapes[name]["jpg"] or not np.isfinite(cam).all():
+                    bad.append(f"{i}.jpg {ref_image.shape} / {i}.txt")
+                if not np.array_equal(pngs["depth"], np.clip(maps["init"], 0, 65535).astype(
+                        np.uint16)):
+                    bad.append(f"{i}_depth.png is not its PFM")
+            idle = [k for k in ("cost_volume", "conv", "deconv") if counts[k] == 0]
+            good = rc == 0 and not bad and not idle and len(os.listdir(out_dir)) == seen
+            ok = ok and good
+            print(f"  {name}.main: rc {rc}, {wall:.1f} ms for {N} clusters "
+                  f"({wall / N:.1f} ms a cluster, the first's set-up and restore included); "
+                  f"read back {len(os.listdir(out_dir))} files (PFMs, PNGs by the port's "
+                  f"decoder, reference images, cams): {'ok' if not bad else bad}; launches "
+                  f"{ {k: counts[k] for k in ('cost_volume', 'conv', 'deconv')} } "
+                  f"{'ok' if good else 'FAIL'} [{smi}]")
+        with open(results) as f:
+            lines = f.readlines()
+        fields = lines[1].split(", ") if len(lines) == 2 else []
+        row_ok = (lines[:1] == [predict.RESULTS_HEADER] and len(fields) == 6
+                  and fields[:2] == [model_dir, "100"] and lines[1].endswith(" \n")
+                  and all(np.isfinite(float(x)) for x in fields[2:]))
+        ok = ok and row_ok
+        print(f"  results CSV: {lines!r} {'ok' if row_ok else 'FAIL'}")
+    if not ok:
+        print("phase 14 FAILED")
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1564,7 +2056,7 @@ def main() -> int:
             ops=2 * cin * cout * int(taps) * shape[0],
             source="mvsnet_tpu_torch/csrc/conv.cu", replaces=replaces))
 
-    def add_deconv(layer, shape, cout, epilogue, replaces, k=3, out_spatial=None):
+    def add_deconv(layer, shape, cout, epilogue, replaces, k=3, out_spatial=None, path=None):
         """flax's k3 s2 transposed conv, or (k=5, out_spatial) the adjoint
         of a 5x5 stride-2 SAME conv of that output size."""
         cin = shape[-1]
@@ -1590,7 +2082,7 @@ def main() -> int:
             return y[(..., *(slice(lo, lo + m) for lo, m in zip(los, outs)))]
 
         cases.append(dict(
-            name=f"deconv:{layer}", counter="deconv",
+            name=f"deconv:{layer}", counter="deconv", path=path,
             edition=lambda dtype: conv.pick_edition(dtype, cin, cout),
             kernel=lambda x, w, b, edition=None: deconv.deconv(x, w, b, epilogue, los, outs,
                                                                edition=edition),
@@ -1732,6 +2224,23 @@ def main() -> int:
             add_conv(name + "_dx", (1, 120, 160, cout), 3, 1, cin, False, c2s1,
                      path="train_gru")
         add_wgrad(name, (1, 120, 160, cin), (1, 120, 160, cout), 3, 1, wg1, path="train_gru")
+
+    # the refinement U-Net at the refined-serving point (1152x864 images,
+    # "normal"; image + depth + confidence: Cin 5, so its two first convs run
+    # on the CUDA cores); bias and ReLU but for the output conv
+    d2 = "mvsnet_tpu/ops/pallas/deconv2d.py:185"
+    add_conv("2dconv0_1_refine", (1, 864, 1152, 5), 3, 1, 8, True, c2s1, path="refine")
+    add_conv("2dconv1_0_refine", (1, 864, 1152, 5), 3, 2, 16, True, c2s2, path="refine")
+    add_conv("2dconv5_1_refine", (1, 108, 144, 128), 3, 1, 64, True, c2s1, path="refine")
+    add_conv("2dconv8_3_refine", (1, 864, 1152, 8), 3, 1, 32, True, c2s1, path="refine")
+    add_conv("2dconv8_4_refine", (1, 864, 1152, 32), 3, 1, 1, True, c2s1, relu=False,
+             path="refine")
+    add_deconv("2dconv5_0_refine", (1, 54, 72, 128), 64, True, d2, path="refine")
+    # ... and at the training point (640x480): the Cin = 5 conv's weight
+    # gradient (CUDA cores) and its input gradient (8 -> 5, tensor cores)
+    add_wgrad("2dconv0_1_refine", (1, 480, 640, 5), (1, 480, 640, 8), 3, 1, wg1,
+              path="train_refine")
+    add_conv("2dconv0_1_refine_dx", (1, 480, 640, 8), 3, 1, 5, False, c2s1, path="train_refine")
 
     print("kernel phase: kernel vs plain version on the card "
           f"(pass: max abs err <= tol * max(1, max|plain|), tol {TOL[torch.float32]:g} "
@@ -1988,6 +2497,14 @@ def main() -> int:
     if gru_train_counts is None:
         return 1
 
+    # ---- 12, 13. refinement: serving and training
+    refine_counts = phase12_refined_serving(smi, dev, request)
+    if refine_counts is None:
+        return 1
+    refine_train_counts = phase13_refined_training(smi, dev)
+    if refine_train_counts is None:
+        return 1
+
     # ---- 8. multi-GPU serving and training
     k1s = phase8(smi, dev, randn, homs, request)
     if k1s is None:
@@ -2007,10 +2524,16 @@ def main() -> int:
     del lite_step
     torch.cuda.empty_cache()
 
+    # ---- 14. the serving drivers with refinement
+    if not phase14_drivers(smi, dev):
+        return 1
+
     # ---- records: launches from the training run of phase 6, the GRU rows'
     # from the requests of phase 10 and the steps of phase 11; K1s's from
-    # the latency requests of phase 8 (all ranks)
-    path_counts = {None: train_launches, "gru": gru_counts, "train_gru": gru_train_counts}
+    # the latency requests of phase 8 (all ranks); the refinement rows' from
+    # the refined requests of phase 12 and the refined steps of phase 13
+    path_counts = {None: train_launches, "gru": gru_counts, "train_gru": gru_train_counts,
+                   "refine": refine_counts, "train_refine": refine_train_counts}
     out = []
     for c in cases:
         r = records[(c["name"], str(c.get("path_dtype", torch.bfloat16)).replace("torch.", ""))]

@@ -61,9 +61,9 @@ class ModelConfig:
     """Static model hyperparameters; field names and defaults match the JAX
     `ModelConfig` (reference: train.py:53-90). `view_num`, `width` and
     `height` describe the operating point: the graph takes its shapes from
-    its inputs. The refinement options are read by the data plane and the
-    configs only until the refinement slice; the JAX TPU knobs
-    (`depth_chunk`, `use_pallas`) are not copied."""
+    its inputs. The refinement options build and drive the 3D-CNN graph's
+    refinement network (`models/refine.py`, `MVSNet.refine`); the JAX TPU
+    knobs (`depth_chunk`, `use_pallas`) are not copied."""
 
     view_num: int = 3
     max_d: int = 192

@@ -1,7 +1,7 @@
 """MVSNet 3D-CNN and R-MVSNet ConvGRU graphs (counterpart of
 mvsnet_tpu/models/mvsnet.py:50-285: `_GRUStep`, `apply_forward_3dcnn`,
 `MVSNet._extract_features`, `forward_3dcnn`, `gru_cost_sweep`,
-`forward_prob_recurrent` and `forward_gru_wta`).
+`forward_prob_recurrent`, `forward_gru_wta` and `refine`).
 
 Features of the V views run as one batch of B*V images; homographies in
 float32; the fused cost volume (kernel K1). The 3D-CNN graph runs RegNetUS0
@@ -9,8 +9,10 @@ and the fused soft-argmin + probability tail; the GRU graphs run the
 three-cell ConvGRU over the depth planes (`GRUSweep`), then a softmax over
 depth (training) or a winner-take-all (serving). In training mode
 (`nn.Module.training`) the cost volume is differentiable (`CostVolumeFn`)
-and the layers train (`models/layers.py`). Refinement is not part of this
-package yet.
+and the layers train (`models/layers.py`). With `cfg.refinement` the
+3D-CNN graph builds a refinement network (`models/refine.py`) that
+`refine` runs on the depth map and the reference image; the GRU graphs
+ignore refinement, as JAX's do.
 """
 
 from __future__ import annotations
@@ -22,12 +24,16 @@ from mvsnet_tpu_torch.config import ModelConfig
 from mvsnet_tpu_torch.models.feature_net import UNetDS2GN
 from mvsnet_tpu_torch.models.gru import GRURegularizer
 from mvsnet_tpu_torch.models.layers import reset_parameters
+from mvsnet_tpu_torch.models.refine import RefineNetConv, RefineUNetConv
 from mvsnet_tpu_torch.models.regnet import RegNetUS0
 from mvsnet_tpu_torch.ops import kernels
 from mvsnet_tpu_torch.ops.cost_volume import plane_sweep_cost_volume
 from mvsnet_tpu_torch.ops.depth import soft_argmin_prob_map, winner_take_all_update
 from mvsnet_tpu_torch.ops.geometry import (depth_values, homographies_for_views,
                                            inv_depth_values)
+from mvsnet_tpu_torch.ops.resize import resize_bilinear
+
+REFINE_NETS = {"original": RefineNetConv, "unet": RefineUNetConv}
 
 
 class GRUSweep(nn.Module):
@@ -151,9 +157,11 @@ class _StepGraph:
 
 class MVSNet(nn.Module):
     """Feature tower + 3D U-Net (`regnet`, "3DCNN") or ConvGRU sweep
-    (`gru_sweep`, "GRU"), in eval mode until `.train()`.
-    Weights are seeded with `seed` (lecun-normal kernels, identity norms)
-    until a state dict from `convert.py` is loaded."""
+    (`gru_sweep`, "GRU"), and with refinement on the 3D-CNN graph the
+    refinement network (`refine_net`, `cfg.refinement_network`), in eval
+    mode until `.train()`. Weights are seeded with `seed` (lecun-normal
+    kernels, identity norms) until a state dict from `convert.py` is
+    loaded."""
 
     def __init__(self, cfg: ModelConfig, seed: int = 0):
         super().__init__()
@@ -162,6 +170,13 @@ class MVSNet(nn.Module):
         if cfg.regularization == "3DCNN":
             self.regnet = RegNetUS0(cfg.network_mode, cfg.feature_channels,
                                     dtype=cfg.dtype)
+            if cfg.refinement:
+                if cfg.refinement_network not in REFINE_NETS:
+                    raise NotImplementedError(cfg.refinement_network)
+                # the image, then the depth, the confidence and the stereo view
+                data = 1 + cfg.refine_with_confidence + 3 * cfg.refine_with_stereo
+                self.refine_net = REFINE_NETS[cfg.refinement_network](
+                    3 + data, cfg.network_mode, dtype=cfg.dtype)
         elif cfg.regularization == "GRU":
             self.gru_sweep = GRUSweep(cfg)
         else:
@@ -195,6 +210,11 @@ class MVSNet(nn.Module):
                 raise ValueError(
                     f"{name}={dim} must be divisible by 8 for the 3D U-Net "
                     f"regularizer (input H/W divisible by 32)")
+
+    @property
+    def refines(self) -> bool:
+        """Whether the 3D-CNN graph ends in the refinement network."""
+        return hasattr(self, "refine_net")
 
     def homographies(self, cams, depth_start, depth_interval, depth_end):
         """(V-1, B, D, 3, 3) float32 plane-sweep homographies."""
@@ -266,12 +286,66 @@ class MVSNet(nn.Module):
         out = (depth_image, max_prob / (exp_sum + 1e-7))
         return out + (regs,) if with_regs else out
 
+    def refine(self, init_depth_map, image, prob_map, depth_start, depth_interval,
+               stereo_image=None):
+        """Depth refinement (mvsnet.py:287-336; reference: model.py:753-811).
+        init_depth_map, prob_map (B, h, w, 1) float32; image, stereo_image
+        (B, H, W, 3); depth_start, depth_interval (B,). The depth is
+        normalised by (max_d - 1) * interval in float32; the net runs at the
+        image's resolution with `upsample_before_refinement` (depth,
+        normalised depth and confidence resized up), else at the depth's
+        (images resized down). Returns (refined, residual), each at that
+        resolution, float32; refined = residual + depth with
+        `residual_refinement`, else the residual."""
+        cfg = self.cfg
+        B = init_depth_map.shape[0]
+        ds, di, de = self.depth_range(depth_start, depth_interval, B, init_depth_map.device)
+        scale = (de - ds)[:, None, None, None]
+        norm_depth = (init_depth_map - ds[:, None, None, None]) / scale
+        if cfg.upsample_before_refinement:
+            H, W = image.shape[1:3]
+            norm_depth = resize_bilinear(norm_depth, H, W)
+            init_depth_map = resize_bilinear(init_depth_map, H, W)
+            if cfg.refine_with_confidence:
+                prob_map = resize_bilinear(prob_map, H, W)
+        else:
+            dh, dw = init_depth_map.shape[1:3]
+            image = resize_bilinear(image, dh, dw)
+            if stereo_image is not None:
+                stereo_image = resize_bilinear(stereo_image, dh, dw)
+        rh, rw = image.shape[1:3]
+        if cfg.refinement_network == "unet" and (rh % 16 or rw % 16):
+            raise ValueError(
+                f"the refinement U-Net runs at {rh}x{rw} (height x width), and its four "
+                f"stride-2 levels need both divisible by 16")
+        if cfg.refine_with_stereo != (stereo_image is not None):
+            raise ValueError("refine_with_stereo needs a stereo image, and only then takes one")
+        data = [norm_depth]
+        if cfg.refine_with_confidence:
+            data.append(prob_map)
+        if stereo_image is not None:
+            data.append(stereo_image)
+        residual = self.refine_net(image, torch.cat(data, dim=-1)).to(torch.float32) * scale
+        refined = residual + init_depth_map if cfg.residual_refinement else residual
+        return refined, residual
+
+
+def refine_outputs(model: MVSNet, images, depth, prob, depth_start, depth_interval):
+    """(refined, prob, residual) of the 3D-CNN graph's depth and prob
+    (mvsnet.py:88-96): the reference view's image, and with
+    `refine_with_stereo` the first source view's, through `model.refine`."""
+    stereo = images[:, 1] if model.cfg.refine_with_stereo and images.shape[1] > 1 else None
+    refined, residual = model.refine(depth, images[:, 0], prob, depth_start, depth_interval,
+                                     stereo_image=stereo)
+    return refined, prob, residual
+
 
 def apply_forward_3dcnn(model: MVSNet, images, cams, depth_start, depth_interval):
-    """Eval 3D-CNN forward: (depth, prob, residual), residual zeros.
-    Refinement is a later slice of the port and raises here."""
-    if model.cfg.refinement:
-        raise NotImplementedError("refinement is not ported yet")
+    """Eval 3D-CNN forward (mvsnet.py:71-96): (depth, prob, residual), the
+    residual zeros without refinement; with it (refined depth, prob,
+    residual) from `refine_outputs`."""
     depth, prob = model.forward_3dcnn(images, cams, depth_start, depth_interval)
-    return depth, prob, torch.zeros_like(depth)
+    if not model.refines:
+        return depth, prob, torch.zeros_like(depth)
+    return refine_outputs(model, images, depth, prob, depth_start, depth_interval)
 

@@ -15,9 +15,13 @@ Two regimes, chosen per call by the batch size B over the mesh's n ranks:
   on the slabs with halo exchanges over 'depth'
   (`RegNetUS0.forward_sharded`); the 1-channel regularized slabs (B, Dl,
   h, w) float32 are all-gathered over 'depth', and the soft-argmin tail
-  runs whole on every rank. The 'data' axis replicates this regime.
-  The U-Net does not shard rows yet: the cost volume's row blocks are
-  gathered before it.
+  runs whole on every rank. With refinement every rank then holds the
+  whole depth and prob maps and runs the refinement network whole on
+  them. The 'data' axis replicates this regime. The U-Net does not shard
+  rows yet: the cost volume's row blocks are gathered before it.
+
+Refinement runs in both regimes, as in JAX (infer_step.py:53-79): in the
+throughput regime inside the single-device forward on each rank's maps.
 
 The GRU (`make_sharded_gru_forward`) has the throughput regime only: its
 depth sweep is sequential, so a batch that does not divide over the ranks
@@ -30,7 +34,7 @@ from typing import Callable, Optional
 
 import torch
 
-from mvsnet_tpu_torch.models.mvsnet import MVSNet, apply_forward_3dcnn
+from mvsnet_tpu_torch.models.mvsnet import MVSNet, apply_forward_3dcnn, refine_outputs
 from mvsnet_tpu_torch.ops.cost_volume import sweep_cost_volume_sharded
 from mvsnet_tpu_torch.parallel.mesh import Mesh
 
@@ -47,12 +51,10 @@ def _pad_batch(xs, B: int, n: int):
 def latency_forward(model: MVSNet, mesh: Mesh, images, cams, depth_start, depth_interval,
                     on_stage: Optional[Callable[[str], None]] = None):
     """The latency regime on this rank; see the module docstring. Returns
-    (depth_map, prob_map, residual), each (B, h, w, 1), the residual zeros.
+    (depth_map, prob_map, residual) as `apply_forward_3dcnn` does.
     `on_stage(name)`, where given, is called after each of
-    `LATENCY_STAGES`."""
+    `LATENCY_STAGES`, and with refinement after "refine"."""
     mark = on_stage or (lambda name: None)
-    if model.cfg.refinement:
-        raise NotImplementedError("refinement is not ported yet")
     B = images.shape[0]
     ds, di, de = model.depth_range(depth_start, depth_interval, B, images.device)
     ref_f, view_f = model.extract_features(images)
@@ -73,7 +75,11 @@ def latency_forward(model: MVSNet, mesh: Mesh, images, cams, depth_start, depth_
     reg = mesh.all_gather(reg.contiguous(), "depth", dim=1)          # (B, D, h, w)
     depth, prob = model.depth_tail(reg, ds, di, de)
     mark("depth_gather_tail")
-    return depth, prob, torch.zeros_like(depth)
+    if not model.refines:
+        return depth, prob, torch.zeros_like(depth)
+    out = refine_outputs(model, images, depth, prob, ds, di)
+    mark("refine")
+    return out
 
 
 def throughput_forward(model: MVSNet, mesh: Mesh, images, cams, depth_start, depth_interval):

@@ -1,6 +1,6 @@
 """Rank programs that run the sharded paths on CPU ranks and hand back what
-`tests/test_torch_parallel.py` holds against the unsharded port and the JAX
-package. They live in the package because `launch.spawn` imports a rank
+`tests/test_torch_parallel.py` (and `tests/test_torch_drivers.py`) hold
+against the unsharded port and the JAX package. They live in the package because `launch.spawn` imports a rank
 program by name in a fresh process, which must import the port alone.
 
 `run(cases)` runs on every rank of a gloo process group; `cases` maps a
@@ -16,6 +16,7 @@ import logging
 import numpy as np
 import torch
 
+from mvsnet_tpu_torch import infer
 from mvsnet_tpu_torch import train as driver
 from mvsnet_tpu_torch import train_lib
 from mvsnet_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
@@ -133,6 +134,12 @@ def sample_digest(arrays) -> str:
     return h.hexdigest()
 
 
+def infer_driver(inp):
+    """`python -m mvsnet_tpu_torch.infer`'s `main(inp["argv"])` on this
+    rank of the process group: its return code."""
+    return infer.main(inp["argv"])
+
+
 def default_device_error(_inp):
     """What `Predictor(device=None)` raises inside this CPU process group."""
     try:
@@ -143,7 +150,8 @@ def default_device_error(_inp):
 
 
 CASES = {"sweep": sweep, "halo": halo_ops, "predict": predict, "train": train,
-         "driver_batches": driver_batches, "default_device_error": default_device_error}
+         "driver_batches": driver_batches, "default_device_error": default_device_error,
+         "infer_driver": infer_driver}
 
 
 def run(cases: list) -> list:

@@ -15,8 +15,8 @@ thread so that the order is the generator's) and takes its slice of each
 in the sharded step; only rank 0 writes checkpoints, metrics,
 renders and `config.json`. `--use_pallas` and `--depth_chunk` are parsed
 for the JAX command line and have no effect here. `--regularization GRU`
-trains R-MVSNet with the classification loss; refinement waits for its
-slice and raises.
+trains R-MVSNet with the classification loss; `--refinement` trains the
+3D-CNN graph with its refinement network (`--refinement_train_mode`).
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ from mvsnet_tpu_torch import checkpoint as ckpt
 from mvsnet_tpu_torch import resolve_device, train_lib
 from mvsnet_tpu_torch.config import DataConfig, ModelConfig, TrainConfig, save_config
 from mvsnet_tpu_torch.data import ClusterGenerator, PrefetchingLoader
-from mvsnet_tpu_torch.models import MVSNet, apply_forward_3dcnn
+from mvsnet_tpu_torch.models import MVSNet
 from mvsnet_tpu_torch.parallel.launch import init_from_env
 from mvsnet_tpu_torch.parallel.mesh import make_mesh
 from mvsnet_tpu_torch.parallel.train_step import (make_sharded_eval_step,
@@ -210,8 +210,8 @@ def make_vis_writer(model, model_dir, sink):
             if model.cfg.regularization == "GRU":
                 depth, prob = model.forward_gru_wta(images[:1], cams[:1], ds[:1], di[:1])
             else:
-                depth, prob, _ = apply_forward_3dcnn(model, images[:1], cams[:1], ds[:1],
-                                                     di[:1])
+                # the main map, as JAX's driver renders it (train.py:187-188)
+                depth, prob = model.forward_3dcnn(images[:1], cams[:1], ds[:1], di[:1])
         depth = depth[0, ..., 0].float().cpu().numpy()
         prob = prob[0, ..., 0].float().cpu().numpy()
         gt = gt_depth[0, ..., 0].cpu().numpy()
@@ -287,9 +287,6 @@ def _mesh(args):
 def train(args) -> int:
     maybe_init_distributed(args)
     mcfg, tcfg, dcfg = configs_from_args(args)
-    if mcfg.refinement:
-        raise NotImplementedError("refinement waits for the port's refinement slice "
-                                  "(ROADMAP queue 1, slice 4)")
     mesh = _mesh(args)
     world = 1 if mesh is None else mesh.size
     if tcfg.num_devices not in (None, world):

@@ -9,7 +9,8 @@ updated), the backward through the port's kernels (`ops/autograd.py`,
 returned, so calls read as in the JAX package. The training driver
 (`train.py`) runs these steps over a data loader, with checkpoints
 (`checkpoint.py`). The GRU graph trains with R-MVSNet's classification
-loss and has no batch norms. Refinement is a later slice and raises here.
+loss and has no batch norms. With refinement the 3D-CNN loss mixes the
+main depth map's loss with the refined map's (`refinement_train_mode`).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 from mvsnet_tpu_torch import resolve_device
 from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
 from mvsnet_tpu_torch.losses import mvsnet_classification_loss, mvsnet_regression_loss
-from mvsnet_tpu_torch.models.mvsnet import MVSNet
+from mvsnet_tpu_torch.models.mvsnet import MVSNet, refine_outputs
 
 
 def lr_schedule(tcfg: TrainConfig, step: int) -> float:
@@ -104,12 +105,16 @@ def to_device(batch, device):
 def compute_loss(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, batch,
                  training: bool, batch_sum=None):
     """Forward and loss for one batch of device tensors (reference get_loss,
-    train.py:307-364; train_lib.py:116-123 for the GRU). Returns (loss,
-    metrics). `batch_sum`: see `losses.py`; loss, metrics["loss"] and
-    metrics["debug"] are then this rank's shares."""
-    if cfg.refinement:
-        raise NotImplementedError("refinement is not ported yet")
-    images, cams, depth_image, _ = batch
+    train.py:307-364; train_lib.py:71-123). Returns (loss, metrics).
+    With refinement (3D-CNN only; the GRU graph ignores it, as in JAX) the
+    main map's loss is against `depth_image` and the refined map's against
+    `full_depth` when the net runs upsampled, else `depth_image`; they mix
+    by `refinement_train_mode`: "all" (loss0 + loss1) / 2, "refine_only"
+    loss1 + 1e-9 loss0, "main_only" loss0 + 1e-12 loss1 with the main
+    map's <1px and <3px; "debug" is the refined map's. `batch_sum`: see
+    `losses.py`; loss, metrics["loss"] and metrics["debug"] are then this
+    rank's shares."""
+    images, cams, depth_image, full_depth = batch
     depth_start, depth_interval, depth_end = batch_depth_params(cams)
     model.train(training)
     if cfg.regularization == "GRU":
@@ -118,11 +123,28 @@ def compute_loss(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, batch,
             prob_volume, depth_image, cfg.max_d, depth_start, depth_interval, batch_sum)
         return loss, {"loss": loss.detach(), "less_one": l1, "less_three": l3,
                       "debug": mae.detach()}
-    depth_map, _ = model.forward_3dcnn(images, cams, depth_start, depth_interval)
-    loss, l1, l3, debug = mvsnet_regression_loss(
-        depth_map, depth_image, depth_start, depth_end, loss_type=tcfg.loss_type,
-        alpha=tcfg.alpha, beta=tcfg.beta, eta=tcfg.eta, grad_loss=tcfg.grad_loss,
-        batch_sum=batch_sum)
+    depth_map, prob_map = model.forward_3dcnn(images, cams, depth_start, depth_interval)
+
+    def regression_loss(estimate, target):
+        return mvsnet_regression_loss(
+            estimate, target, depth_start, depth_end, loss_type=tcfg.loss_type,
+            alpha=tcfg.alpha, beta=tcfg.beta, eta=tcfg.eta, grad_loss=tcfg.grad_loss,
+            batch_sum=batch_sum)
+
+    loss, l1, l3, debug = regression_loss(depth_map, depth_image)
+    if model.refines:
+        refined, _, _ = refine_outputs(model, images, depth_map, prob_map, depth_start,
+                                       depth_interval)
+        loss0, l1_main, l3_main = loss, l1, l3
+        loss1, l1, l3, debug = regression_loss(
+            refined, full_depth if cfg.upsample_before_refinement else depth_image)
+        if tcfg.refinement_train_mode == "refine_only":
+            loss = loss1 + 1e-9 * loss0
+        elif tcfg.refinement_train_mode == "main_only":
+            loss = loss0 + 1e-12 * loss1
+            l1, l3 = l1_main, l3_main
+        else:
+            loss = (loss0 + loss1) / 2
     metrics = {"loss": loss.detach(), "less_one": l1, "less_three": l3,
                "debug": debug.detach()}
     return loss, metrics

@@ -238,3 +238,32 @@ def test_unmappable_optimizer_state_raises(jax_lite):
     adam_for_rmsprop = dict(tree, opt_state=[{"count": 0, "mu": v["params"], "nu": v["params"]}])
     with pytest.raises(ValueError, match="not optax rmsprop"):
         jax_ckpt_to_torch.convert_tree(adam_for_rmsprop, mcfg, TrainConfig())
+
+
+def test_predictor_takes_jax_constructor_arguments(tmp_path):
+    """`Predictor(mcfg, model_dir, ckpt_step, num_devices)` by position, as
+    JAX's drivers call it (mvsnet_tpu/predict.py:59, test.py:65-66,
+    infer.py:80-81): it restores the port's checkpoint, the given step or
+    the latest, and predicts as a keyword call with that checkpoint's state
+    dict, bit for bit. A model dir with a state dict, or more devices than
+    ranks, raises."""
+    cfg, tcfg, state = _trained_state("rmsprop")
+    model_dir = str(tmp_path / "m")
+    ckpt.save_checkpoint(model_dir, "3DCNN", "ultralite", 3, state)
+    for model in state.model.modules():
+        for p in model.parameters(recurse=False):
+            p.data.add_(1.0)
+    ckpt.save_checkpoint(model_dir, "3DCNN", "ultralite", 5, state)
+    images, cams = tiny_batch(1)[:2]
+    inputs = (images, cams) + tuple(cams[:, 0, 1, 3, i] for i in (0, 1, 3))
+    for step in (3, None):
+        got = Predictor(cfg, model_dir, step, 1, device="cpu").predict(*inputs)
+        sd = ckpt.restore_tree(model_dir, "3DCNN", "ultralite", 5 if step is None else step)
+        want = Predictor(cfg, state_dict=sd["model"], device="cpu").predict(*inputs)
+        assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    other = Predictor(cfg, model_dir, 3, device="cpu").predict(*inputs)
+    assert not np.array_equal(other[0], got[0])
+    with pytest.raises(ValueError, match="not both"):
+        Predictor(cfg, model_dir, state_dict=sd["model"], device="cpu")
+    with pytest.raises(ValueError, match="torchrun"):
+        Predictor(cfg, model_dir, None, 2, device="cpu")

@@ -833,3 +833,103 @@ def test_gru_train_steps_are_bit_equal_on_card(dev):
     assert all(counts[k] > 0 for k in ("cost_volume", "conv", "warp", "warp_transpose", "wgrad"))
     assert np.isfinite(runs[0][0]) and runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+# refinement (the training driver's defaults: U-Net, upsampled, confidence)
+REFINED = dict(refinement=True, refinement_network="unet", upsample_before_refinement=True,
+               refine_with_confidence=True)
+
+
+def _refine_scene(rng, B=1, H=128, W=160, D=16):
+    cam = np.zeros((2, 4, 4), np.float32)
+    cam[0] = np.eye(4)
+    cam[1, :3, :3] = [[30.0, 0, W / 8], [0, 30.0, H / 8], [0, 0, 1]]
+    cam[1, 3] = [5.0, 0.5, D, 5.0 + 0.5 * (D - 1)]
+    cams = np.stack([cam] * 3)[None].repeat(B, axis=0)
+    cams[:, 1, 0, 0, 3] = 0.4
+    cams[:, 2, 0, 1, 3] = -0.3
+    images = rng.standard_normal((B, 3, H, W, 3)).astype(np.float32)
+    return images, cams
+
+
+def test_resize_on_card_matches_cpu_and_repeats(dev):
+    """`ops/resize.resize_bilinear` up and down on the card: within 1e-5 of
+    the CPU, and two forward and backward passes equal bit for bit (matrix
+    products, no atomics)."""
+    from mvsnet_tpu_torch.ops.resize import resize_bilinear
+
+    x = torch.randn(2, 54, 72, 3, generator=torch.Generator().manual_seed(4))
+    for size in ((216, 288), (13, 18)):
+        want = resize_bilinear(x, *size)
+        runs = []
+        for _ in range(2):
+            xg = x.to(dev).requires_grad_()
+            y = resize_bilinear(xg, *size)
+            y.backward(torch.ones_like(y) * 0.5)
+            runs.append((y.detach(), xg.grad))
+        assert (runs[0][0].cpu() - want).abs().max().item() <= 1e-5
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_refined_predictor_card_matches_cpu(dev, dtype):
+    """A refined request (`normal`, 128x160, D=16) on the card against the
+    CPU's plain path: in float32 the refined depth within phase 5's 0.05,
+    prob 1e-3, the residual within 1e-3 of max(1, max|residual|); in
+    bfloat16 the refinement net's two Cin = 5 convs run the CUDA-core
+    edition and every other conv and transposed conv the tensor cores,
+    and the maps are finite."""
+    from mvsnet_tpu_torch.ops import kernels
+
+    cfg = ModelConfig(view_num=3, max_d=16, width=160, height=128, network_mode="normal",
+                      compute_dtype=dtype, **REFINED)
+    sd = MVSNet(cfg, seed=7).state_dict()
+    images, cams = _refine_scene(np.random.default_rng(33))
+    inputs = (images, cams, cams[:, 0, 1, 3, 0], cams[:, 0, 1, 3, 1], cams[:, 0, 1, 3, 3])
+    before = kernels.edition_counts()
+    card = Predictor(cfg, state_dict=sd, device=dev).predict(*inputs)
+    after = kernels.edition_counts()
+    assert all(np.isfinite(o).all() for o in card) and card[0].shape == (1, 128, 160, 1)
+    if dtype == "bfloat16":
+        # the tower's two image convs and the refinement net's two Cin = 5 convs
+        assert after["conv"]["simt"] - before["conv"]["simt"] == 4
+        assert after["conv"]["tc"] - before["conv"]["tc"] == 56
+        assert after["deconv"]["tc"] - before["deconv"]["tc"] == 11
+        return
+    cpu = Predictor(cfg, state_dict=sd, device="cpu").predict(*inputs)
+    assert np.abs(card[0] - cpu[0]).max() <= 0.05
+    assert np.abs(card[1] - cpu[1]).max() <= 1e-3
+    assert np.abs(card[2] - cpu[2]).max() <= 1e-3 * max(1.0, np.abs(cpu[2]).max())
+
+
+def test_refined_train_step_card_matches_cpu_and_repeats(dev):
+    """One float32 train step with refinement ("all" mode; `normal`, 64x64,
+    D=8, norms perturbed) on the card against the CPU under
+    `test_tiny_train_step_card_matches_cpu`'s bounds, and two card steps
+    from one state and batch equal bit for bit."""
+    cfg = ModelConfig(view_num=3, max_d=8, width=64, height=64, network_mode="normal",
+                      compute_dtype="float32", **REFINED)
+    tcfg = TrainConfig()
+    rng = np.random.default_rng(34)
+    images, cams = _refine_scene(rng, H=64, W=64, D=8)
+    gt = rng.uniform(5.0, 8.5, (1, 16, 16, 1)).astype(np.float32)
+    batch = (images, cams, gt, np.repeat(np.repeat(gt, 4, axis=1), 4, axis=2))
+    runs = []
+    for device in (dev, dev, "cpu"):
+        model = MVSNet(cfg, seed=5)
+        _perturb_norms(model, 6)
+        state = train_lib.create_train_state(model, cfg, tcfg, device=device)
+        _, metrics = train_lib.make_train_step(model, cfg, tcfg)(state, batch)
+        runs.append((metrics["loss"].item(),
+                     {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (l_a, g_a), (l_b, g_b), (l_c, g_c) = runs
+    assert l_a == l_b and all(torch.equal(g_a[n], g_b[n]) for n in g_a)
+    assert any(n.startswith("refine_net.") for n in g_a)
+    assert abs(l_a - l_c) <= 1e-4 * abs(l_c)
+    num = den = 0.0
+    for name, want in g_c.items():
+        got = g_a[name]
+        assert torch.isfinite(got).all(), name
+        assert (got - want).abs().max() <= 2e-2 * max(want.abs().max().item(), 1e-12), name
+        num, den = num + ((got - want) ** 2).sum().item(), den + (want ** 2).sum().item()
+    assert (num / den) ** 0.5 <= 5e-3

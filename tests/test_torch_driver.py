@@ -27,9 +27,13 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 from synthetic_session import make_dataset  # noqa: E402
+from test_golden import tiny_inputs  # noqa: E402
+
+import jax  # noqa: E402
 
 import bench as jax_bench  # noqa: E402
 from mvsnet_tpu import config as jax_config  # noqa: E402
+from mvsnet_tpu import models as jax_models  # noqa: E402
 from mvsnet_tpu import train as jax_train  # noqa: E402
 from mvsnet_tpu_torch import bench, checkpoint, config, train  # noqa: E402
 from mvsnet_tpu_torch.config import ModelConfig  # noqa: E402
@@ -135,11 +139,40 @@ def test_cli_validation_rounds(tmp_path):
 
 
 def test_unported_graphs_raise(data, tmp_path):
-    """Refinement, on either regularizer, waits for its slice (the driver
-    trains the GRU: `test_gru_training_run`)."""
+    """`--refinement` trains, on either regularizer, as JAX's driver does
+    (its defaults: the U-Net, upsampled, with confidence): two steps with
+    finite losses; `config.json` holds the configs JAX's driver builds
+    from the same command line; the checkpoint's model holds the tensors
+    of JAX's variables for that config under the port's names, the 3D-CNN
+    graph's refinement net included and the GRU graph's without one (JAX
+    ignores refinement there)."""
     for flag in (["--refinement"], ["--regularization", "GRU", "--refinement"]):
-        with pytest.raises(NotImplementedError, match="slice"):
-            train.main(_args(data, str(tmp_path / "m"), *flag))
+        model_dir = str(tmp_path / "-".join(flag))
+        argv = _args(data, model_dir, *flag)
+        assert train.main(argv) == 0
+        recs = [r for r in _metrics(model_dir) if "loss" in r]
+        assert recs and all(np.isfinite(r["loss"]) for r in recs)
+        jax_argv = argv[:argv.index("--device")] + argv[argv.index("--device") + 2:]
+        jax_cfgs = jax_train.configs_from_args(jax_train.build_parser().parse_args(jax_argv))
+        saved = config.load_config(os.path.join(model_dir, "config.json"))
+        assert dataclasses.asdict(saved["model"]) == {
+            k: v for k, v in dataclasses.asdict(jax_cfgs[0]).items()
+            if k not in config.JAX_ONLY_FIELDS["model"]}
+        assert saved["model"].refinement and saved["model"].refinement_network == "unet"
+        reg = saved["model"].regularization
+        tree = checkpoint.restore_tree(model_dir, reg, "ultralite")
+        jax_model = jax_models.MVSNet(jax_cfgs[0])
+        images, cams, ds, di = tiny_inputs()
+        shapes = jax.eval_shape(lambda k: jax_model.init(k, images, cams, ds, di),
+                                jax.random.PRNGKey(0))
+        names = {".".join(str(getattr(p, "key", p)) for p in path
+                          if str(getattr(p, "key", p)) not in ("Conv_0", "ConvTranspose_0",
+                                                                "BatchNorm_0"))[len("params."):]
+                 for path, _ in jax.tree_util.tree_flatten_with_path(
+                     {"params": shapes["params"]})[0]}
+        params = {k for k in tree["model"] if not k.endswith((".mean", ".var"))}
+        assert params == names
+        assert any(k.startswith("refine_net.") for k in names) == (reg == "3DCNN")
 
 
 def test_gru_training_run(data, tmp_path):

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, nor
 (at module level) an image codec, fsspec or orbax, which the card machine
-lacks; and it does not quietly leave the card for the CPU."""
+lacks; its PNG writers and serving drivers run without a codec; and it
+does not quietly leave the card for the CPU."""
 
 import ast
 import os
@@ -8,6 +9,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -40,6 +42,60 @@ depth, prob, _ = Predictor(cfg, device="cpu").predict(
 assert np.isfinite(depth).all()
 print(sorted(m for m in sys.modules if m.split(".")[0] in %r))
 """
+
+
+_NO_CODEC = """
+import sys
+for name in ("imageio", "cv2", "PIL"):
+    sys.modules[name] = None                # any import of them raises ImportError
+import numpy as np
+from mvsnet_tpu_torch import infer, predict, test
+from mvsnet_tpu_torch.data import cluster
+from mvsnet_tpu_torch.io import images
+
+root, session, data = sys.argv[1:4]
+rng = np.random.default_rng(0)
+depth = rng.uniform(0, 70000, (12, 20)).astype(np.float32)
+images.write_depth_png(root + "/d.png", depth)
+images.write_confidence_png(root + "/c.png", depth / 70000)
+images.write_inverse_depth_png(root + "/i.png", depth)
+assert (images.read_png(root + "/d.png") == np.clip(depth, 0, 65535).astype(np.uint16)).all()
+assert (images.load_depth_png(root + "/d.png") == images.read_png(root + "/d.png")).all()
+# the sessions' JPEGs come decoded (.npy beside them), and <index>.jpg goes to .npy
+cluster.load_image = lambda path: np.load(path + ".npy")
+predict.write_image = lambda path, image: np.save(path + ".npy", image)
+argv = ["--view_num", "3", "--max_d", "8", "--width", "64", "--height", "64",
+        "--network_mode", "ultralite", "--compute_dtype", "float32", "--device", "cpu",
+        "--refinement", "--visualize"]
+assert infer.main(["--input_dir", session] + argv) == 0
+assert test.main(["--input_dir", data, "--results_path", root + "/r.csv", "--write_output"]
+                 + argv) == 0
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("imageio", "cv2", "PIL")
+             and sys.modules[m] is not None))
+"""
+
+
+def test_writers_and_serving_drivers_run_without_a_codec(tmp_path):
+    """With imageio, cv2 and PIL blocked, as on the card machine: the PNG
+    writers, the port's decoder (the data plane's depth PNGs, written by
+    cv2 with filtered rows), `infer.main` and `test.main` with refinement.
+    Stubbed in this test only: the decode of the sessions' JPEGs (read
+    from arrays saved beside them) and the write of the reference JPEG."""
+    import imageio.v2 as imageio
+    from synthetic_session import make_dataset, make_session
+
+    session = make_session(str(tmp_path / "s"), n_images=3, with_depths=False)
+    data = make_dataset(str(tmp_path / "d"), n_sessions=1, split="test", n_images=3)
+    for jpg in list(tmp_path.rglob("*.jpg")):
+        np.save(str(jpg) + ".npy", imageio.imread(jpg))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
+    out = subprocess.run([sys.executable, "-c", _NO_CODEC, str(tmp_path), session, data],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+    written = sorted(p.name for p in (tmp_path / "s" / "depths_mvsnet").iterdir())
+    assert "0_depth.png" in written and "0.jpg.npy" in written and "0_residual.pfm" in written
+    assert (tmp_path / "r.csv").read_text().count("\n") == 2
 
 
 def test_import_and_cpu_forward_load_no_jax():

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_golden import GOLDEN, tiny_inputs  # noqa: E402
+from test_torch_refine import seeded_variables  # noqa: E402
 
 from mvsnet_tpu.config import ModelConfig as JaxModelConfig  # noqa: E402
 from mvsnet_tpu.models import MVSNet as JaxMVSNet  # noqa: E402
@@ -189,15 +190,32 @@ def test_seeded_weights_are_reproducible():
     assert np.isfinite(a[0]).all() and np.isfinite(a[1]).all()
 
 
-@pytest.mark.parametrize("kw,exc", [
-    (dict(refinement=True), NotImplementedError),
-    (dict(regularization="GRU", refinement=True), NotImplementedError),
+@pytest.mark.parametrize("kw", [
+    dict(refinement=True),
+    dict(regularization="GRU", refinement=True),
 ])
-def test_unported_graphs_raise(kw, exc):
-    """Refinement, on either regularizer, waits for its slice of the port
-    (the GRU graphs are ported: tests/test_torch_gru.py)."""
-    with pytest.raises(exc):
-        Predictor(ModelConfig(network_mode="ultralite", **TINY, **kw), device="cpu")
+def test_unported_graphs_raise(kw):
+    """Refinement on either regularizer, against the JAX `Predictor` on the
+    same seeded variables (`ultralite`; tests/test_torch_refine.py): the
+    3D-CNN graph returns the refined depth at the images' resolution (the
+    default "original" net, upsampled) and its residual; the GRU graph
+    ignores refinement, as JAX's does (no refinement net, a zero residual).
+    Tolerances: the golden fixture's (depth and residual 2e-3, prob 5e-3)."""
+    cfg = dict(network_mode="ultralite", **TINY, **kw)
+    inputs = _scene()
+    jax_model = JaxMVSNet(JaxModelConfig(**cfg))
+    v = seeded_variables(jax.eval_shape(lambda key: jax_model.init(key, *inputs[:4]),
+                                        jax.random.PRNGKey(0)), 9)
+    jp = JaxPredictor(JaxModelConfig(**cfg))
+    jp.variables = v
+    want = jp.predict(*inputs)
+    p = Predictor(ModelConfig(**cfg), state_dict=state_dict_from_jax(v), device="cpu")
+    assert p.model.refines == ("regularization" not in kw)
+    got = p.predict(*inputs)
+    for g, w, tol in zip(got, want, (2e-3, 5e-3, 2e-3)):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, np.asarray(w), rtol=tol, atol=tol)
+    assert got[2].any() == p.model.refines
 
 
 def test_shape_check_raises():

@@ -34,11 +34,13 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_golden import tiny_inputs  # noqa: E402
+from test_torch_refine import seeded_variables  # noqa: E402
 
 from mvsnet_tpu import train_lib as jax_train  # noqa: E402
 from mvsnet_tpu.config import ModelConfig as JaxModelConfig  # noqa: E402
 from mvsnet_tpu.config import TrainConfig as JaxTrainConfig  # noqa: E402
 from mvsnet_tpu.models import MVSNet as JaxMVSNet  # noqa: E402
+from mvsnet_tpu.models.mvsnet import apply_forward_3dcnn as jax_apply_forward_3dcnn  # noqa: E402
 from mvsnet_tpu.parallel import factorize_devices as jax_factorize  # noqa: E402
 from mvsnet_tpu.parallel import make_mesh as jax_make_mesh  # noqa: E402
 from mvsnet_tpu.parallel import set_active_mesh  # noqa: E402
@@ -66,6 +68,9 @@ TCFG = dict(loss_type="power", alpha=0.25, beta=1.0, grad_loss=True)
 PORT = dict(rtol=1e-5, atol=1e-5)
 GRU = dict(view_num=3, max_d=8, width=64, height=64, regularization="GRU",
            compute_dtype="float32")
+# refinement with the training driver's defaults; D=16 splits over 2 depth ranks
+REFINED = dict(SERVE, max_d=16, refinement=True, refinement_network="unet",
+               upsample_before_refinement=True, refine_with_confidence=True)
 
 
 def _numpy_tree(tree):
@@ -154,6 +159,15 @@ class World:
         self.gru_train_sd = {k: v.numpy() for k, v in MVSNet(
             ModelConfig(network_mode="ultralite", **GRU), seed=6).state_dict().items()}
 
+        # refinement: seeded JAX variables (tests/test_torch_refine.py)
+        self.refine_model = JaxMVSNet(JaxModelConfig(**REFINED))
+        self.refined = {B: _scene(B, 16, seed=8 + B) for B in (1, 2)}
+        r_images, r_cams, r_ds, r_di, _ = self.refined[1]
+        self.refine_vars = seeded_variables(jax.eval_shape(
+            lambda key: self.refine_model.init(key, r_images, r_cams, r_ds, r_di),
+            jax.random.PRNGKey(0)), 14)
+        self.refine_sd = {k: v.numpy() for k, v in state_dict_from_jax(self.refine_vars).items()}
+
         self.latency = {shape: _scene(1, 32) for shape in ((1, 4, 1), (1, 2, 2))}
         self.fallback = _scene(1, 16)
         self.throughput = _scene(4, 32, seed=4)
@@ -179,10 +193,14 @@ class World:
         gru_train = ("train", {"shape": (2, 1, 1), "cfg": dict(GRU, network_mode="ultralite"),
                                "tcfg": {}, "state_dict": self.gru_train_sd,
                                "batch": self.batch})
-        cases2 = [predict(None, self.throughput), train((2, 1, 1)), *gru_predict, gru_train]
+        refined = [("predict", {"shape": None, "cfg": REFINED, "state_dict": self.refine_sd,
+                                "inputs": self.refined[B]}) for B in (1, 2)]
+        cases2 = [predict(None, self.throughput), train((2, 1, 1)), *gru_predict, gru_train,
+                  *refined]
         self.index4 = {"halo4": 0, "halo2": 1, "latency141": 2, "latency122": 3,
                        "fallback": 4, "throughput": 5, "train": 6, "default_device_error": 7}
-        self.index2 = {"throughput": 0, "train": 1, "gru1": 2, "gru3": 3, "gru_train": 4}
+        self.index2 = {"throughput": 0, "train": 1, "gru1": 2, "gru3": 3, "gru_train": 4,
+                       "refined1": 5, "refined2": 6}
         self.state_dict = sd
         self._futures = {
             4: pool.submit(spawn, rank_checks.run, 4, "gloo", cases4),
@@ -297,6 +315,28 @@ def test_throughput_regime_matches_port_and_jax(world, n):
         np.testing.assert_allclose(r["prob"], single[1], **PORT)
     _assert_jax((ranks[0]["depth"], ranks[0]["prob"]),
                 _jax_forward(world, world.throughput, (1, n, 1)))
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_refined_serving_on_two_ranks_matches_port_and_jax(world, B):
+    """Refinement over the default (1, 2, 1) mesh of two ranks (JAX's
+    tests/test_parallel.py:266): B=1 the latency regime, in which every
+    rank refines the gathered maps whole, B=2 the throughput regime, each
+    rank refining its own map. Every rank's refined depth, prob and
+    residual against one device of the port, and rank 0's against JAX's
+    `apply_forward_3dcnn` on the same variables."""
+    inputs = world.refined[B]
+    ranks = world.ranks(2, f"refined{B}")
+    single = _port_single(inputs, REFINED, world.refine_sd)
+    for r in ranks:
+        assert r["mesh"] == (1, 2, 1) and r["depth"].shape == (B, 64, 64, 1)
+        for key, want in zip(("depth", "prob", "residual"), single):
+            np.testing.assert_allclose(r[key], want, **PORT)
+    want = jax.jit(lambda v, *a: jax_apply_forward_3dcnn(world.refine_model, v, *a))(
+        world.refine_vars, *inputs[:4])
+    for key, w, tol in zip(("depth", "prob", "residual"), want, (2e-3, 5e-3, 2e-3)):
+        np.testing.assert_allclose(ranks[0][key], np.asarray(w), rtol=tol, atol=tol)
+    assert np.abs(ranks[0]["residual"]).max() > 0
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_golden import tiny_inputs  # noqa: E402
+from test_torch_refine import seeded_variables  # noqa: E402
 
 from mvsnet_tpu import losses as jax_losses  # noqa: E402
 from mvsnet_tpu import train_lib as jax_train  # noqa: E402
@@ -287,10 +288,52 @@ def test_eval_step_uses_running_stats():
 @pytest.mark.parametrize("kw", [dict(refinement=True),
                                 dict(regularization="GRU", refinement=True)])
 def test_unported_training_graphs_raise(kw):
-    """Refinement, on either regularizer, waits for its slice (the GRU
-    graph trains: tests/test_torch_gru.py)."""
+    """Refinement in training, on either regularizer, against JAX. The
+    3D-CNN graph (the default "original" net, upsampled to the full
+    resolution's ground truth) takes one `make_train_step` whose loss,
+    metrics and gradients match JAX's `compute_loss` on the same seeded
+    variables (tests/test_torch_refine.py), under this file's step bounds.
+    The GRU graph ignores refinement, as JAX's does: JAX's variables hold
+    no refinement net, the port's state dict has JAX's names, and its step
+    equals, bit for bit, the step of the GRU graph without refinement
+    (whose JAX parity is tests/test_torch_gru.py's)."""
     cfg = ModelConfig(network_mode="ultralite", **TINY, **kw)
-    model = MVSNet(dataclasses.replace(cfg, refinement=False))
-    with pytest.raises(NotImplementedError):
-        state = train_lib.create_train_state(model, cfg, TrainConfig(), device="cpu")
-        train_lib.make_train_step(model, cfg, TrainConfig())(state, _train_batch())
+    jcfg = JaxModelConfig(network_mode="ultralite", **TINY, **kw)
+    tcfg = TrainConfig()
+    images, cams, gt, _ = _train_batch()
+    batch = (images, cams, gt, np.repeat(np.repeat(gt, 4, axis=1), 4, axis=2))
+    ds, di, _ = jax_train.batch_depth_params(jnp.asarray(cams))
+    model = JaxMVSNet(jcfg)
+    v = seeded_variables(jax.eval_shape(lambda k: model.init(k, images, cams, ds, di),
+                                        jax.random.PRNGKey(0)), 8)
+    sd = state_dict_from_jax(v)
+
+    def port_step(c):
+        m = MVSNet(c)
+        m.load_state_dict(sd)
+        state = train_lib.create_train_state(m, c, tcfg, device="cpu")
+        _, metrics = train_lib.make_train_step(m, c, tcfg)(state, batch)
+        return metrics, {n: p.grad for n, p in m.named_parameters()}
+
+    metrics, grads = port_step(cfg)
+    if cfg.regularization == "GRU":
+        assert "refine_net" not in v["params"] and set(sd) == set(MVSNet(cfg).state_dict())
+        want_metrics, want = port_step(dataclasses.replace(cfg, refinement=False))
+        assert all(torch.equal(metrics[k], want_metrics[k]) for k in metrics)
+        assert all(torch.equal(grads[n], want[n]) for n in want)
+        return
+    assert "refine_net" in v["params"]
+
+    def loss_fn(p):
+        return jax_train.compute_loss(model, jcfg, JaxTrainConfig(), p, v["batch_stats"],
+                                      batch, True)
+    want, (_, want_metrics) = jax.jit(jax.grad(loss_fn, has_aux=True))(v["params"])
+    np.testing.assert_allclose(metrics["loss"].item(), float(want_metrics["loss"]), rtol=1e-4)
+    for k in ("less_one", "less_three"):
+        np.testing.assert_allclose(metrics[k].item(), float(want_metrics[k]), atol=1e-6)
+    want = state_dict_from_jax({"params": _numpy_tree(want)})
+    assert set(want) == set(grads)
+    for name, w in want.items():
+        scale = max(float(w.abs().max()), 1e-30)
+        err = float((grads[name] - w).abs().max())
+        assert err <= 1e-3 * scale, f"{name}: max err {err:.3e}, max |grad| {scale:.3e}"
