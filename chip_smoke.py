@@ -5,7 +5,7 @@ Run from the repository root, on a machine with one H100:
     python3 chip_smoke.py
     python3 chip_smoke.py --multi    # phases 1, 2 and 8 only (several cards)
 
-Phases run in the order 1-7, 10-13, 8, 9, 14.
+Phases run in the order 1-7, 10-13, 8, 9, 14, 15.
 
 Phases, each of which fails the script (non-zero exit, no result line):
   1. the card's name and power limit; exits at once without CUDA;
@@ -159,7 +159,37 @@ Phases, each of which fails the script (non-zero exit, no result line):
      images are substituted (the card machine has no codec); every PFM, PNG
      (the port's decoder), reference image and cam file read back, the
      results CSV's row checked, and K1, the conv and the transposed conv
-     launched.
+     launched;
+ 15. TF-checkpoint import, the user's chain to a point cloud, and fusion
+     (`tf_import`, `fusion`, `native/`, `visualize`, `utils/profiling`):
+     a. Saver V2 bundles in the reference's TF names and layouts, written
+        by `io/tf_bundle.write_bundle` from seeded models (3D-CNN "normal"
+        with the refinement U-Net as the test driver sets it; the GRU
+        "normal"), imported by `import_checkpoint`: the restored state dict
+        equals the seeded one bit for bit, and `Predictor(mcfg, model_dir,
+        ckpt_step)` answers bit-equal to a `Predictor` of the seeded state
+        dict (1152x864, D=192 and 320x256, D=32, bf16); bundle read,
+        mapping and restore times;
+     b. `infer.main --model_dir <imported> --ckpt_step` with refinement at
+        phase 14's point, then `fusion.main --dense_folder` on the card:
+        the reference's thresholds, 2 shards merged (the same points as
+        unsharded), the native consolidation, `--mode gipuma-export`
+        (.P and .dmb files read back); phase 14's JPEG substitutions, and
+        fusion's read of the reference image by the port's PNG decoder;
+        K1, the conv and the transposed conv launched;
+     c. `fusion.fuse_reference` over the 49 views (a 7x7 grid of cameras,
+        a DTU evaluation scan's count) of tests/test_fusion_quality.py's
+        analytic sphere-cap scene at 1152x864 with the reference's
+        thresholds: that test's accuracy and completeness gates, wall
+        time, time a view and a pair beside the pair's bound, peak memory,
+        one reference view profiled; the native voxel merge of the whole
+        cloud timed; 8 views at 320x256 on the card against the CPU (keep
+        masks within 1e-3 of the pixels, matched points within 1e-4 of the
+        scene's depth); the native library against its numpy plain
+        versions on that cloud, after sorting;
+     d. `visualize.load_depth_any` on 15b's .pfm, .png and .dmb files,
+        `utils.profiling.trace` around one `Predictor` call, and
+        `device_memory_stats()`.
 The last lines are the kernels' JSON record (launches from the training
 run of phase 6, the GRU rows' from the requests of phase 10 and the
 training steps of phase 11, the refinement rows' from the requests of
@@ -1813,6 +1843,29 @@ def phase13_refined_training(smi, dev, point=(480, 640, 192), small=(128, 128, 1
     return counts if good and repeat == 0 else None
 
 
+def write_rendered_session(path, W, H, N, seed, arrays):
+    """A session of `data/synthetic.py`'s rendered plane scene, N images of
+    WxH, on disk as the data plane reads it: cameras, covisibility and
+    depth PNGs as files; the images' JPEG paths mapped to their arrays in
+    `arrays` (the card machine has no codec to write or read JPEGs)."""
+    import os
+
+    from mvsnet_tpu_torch.data.synthetic import render_session
+    from mvsnet_tpu_torch.io import images as imio
+
+    session = render_session(W, H, n_images=N, seed=seed)
+    for sub in ("images", "cameras", "depths"):
+        os.makedirs(os.path.join(path, sub))
+    for i, (img, cam, depth) in enumerate(zip(session["images"], session["cameras"],
+                                              session["depths"])):
+        arrays[os.path.join(path, "images", f"{i}.jpg")] = img
+        with open(os.path.join(path, "cameras", f"{i}.json"), "w") as f:
+            json.dump(cam, f)
+        imio.write_depth_png(os.path.join(path, "depths", f"{i}.png"), depth)
+    with open(os.path.join(path, "covisibility.json"), "w") as f:
+        json.dump(session["covisibility"], f)
+
+
 def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
     """The serving drivers `test.main` and `infer.main` with refinement at
     `point` (height, width, views, D; main passes the test driver's),
@@ -1824,7 +1877,6 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
     from mvsnet_tpu_torch import test as bench_driver
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.data import cluster
-    from mvsnet_tpu_torch.data.synthetic import render_session
     from mvsnet_tpu_torch.io import images as imio
     from mvsnet_tpu_torch.io.cams import load_cam_txt
     from mvsnet_tpu_torch.io.pfm import load_pfm
@@ -1842,25 +1894,11 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
           f"covisibility and depth PNGs are files, and the drivers, Predictor, writers and "
           f"results CSV run as a user runs them [{smi}]")
     arrays = {}
-
-    def write_session(path, seed):
-        session = render_session(W, H, n_images=N, seed=seed)
-        for sub in ("images", "cameras", "depths"):
-            os.makedirs(os.path.join(path, sub))
-        for i, (img, cam, depth) in enumerate(zip(session["images"], session["cameras"],
-                                                  session["depths"])):
-            arrays[os.path.join(path, "images", f"{i}.jpg")] = img
-            with open(os.path.join(path, "cameras", f"{i}.json"), "w") as f:
-                json.dump(cam, f)
-            imio.write_depth_png(os.path.join(path, "depths", f"{i}.png"), depth)
-        with open(os.path.join(path, "covisibility.json"), "w") as f:
-            json.dump(session["covisibility"], f)
-
     ok = True
     with tempfile.TemporaryDirectory(prefix="mvsnet_serving_") as root:
         infer_dir, bench_dir = os.path.join(root, "session"), os.path.join(root, "bench")
-        write_session(infer_dir, 0)
-        write_session(os.path.join(bench_dir, "test", "session_0"), 1)
+        write_rendered_session(infer_dir, W, H, N, 0, arrays)
+        write_rendered_session(os.path.join(bench_dir, "test", "session_0"), W, H, N, 1, arrays)
         model_dir, results = os.path.join(root, "models"), os.path.join(root, "results.csv")
         cfg = ModelConfig(view_num=V, max_d=D, width=W, height=H, network_mode="normal",
                           compute_dtype="bfloat16", **REFINE_ARGS)
@@ -1943,6 +1981,418 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
         print(f"  results CSV: {lines!r} {'ok' if row_ok else 'FAIL'}")
     if not ok:
         print("phase 14 FAILED")
+    return ok
+
+
+# phase 15: the analytic scene of tests/test_fusion_quality.py (a sphere cap
+# in front of a background plane, depths exact at pixel centres), the
+# reference's fusion thresholds (depthfusion.py), and the bounds of the
+# card-vs-CPU fusion check
+SPHERE_CENTER = np.array([0.0, 0.0, 2000.0])
+SPHERE_RADIUS = 400.0
+SPHERE_BG = 2400.0
+FUSION_ARGS = dict(disp_threshold=0.25, num_consistent=3, depth_rel_threshold=0.01)
+# card vs CPU: float32 projections in another order flip a pixel's
+# pass/fail only at a threshold's edge, and move a fused point by ulps
+FUSION_MASK_TOL = 1e-3            # share of pixels whose keep mask may differ
+FUSION_POINT_TOL = 1e-4 * SPHERE_BG
+
+
+def sphere_scene(H, W, grid, baseline=60.0):
+    """Depth maps (H, W) and cam tensors of the sphere scene seen by
+    rows x cols cameras translated on a grid `baseline` mm apart, looking
+    along +z (`tests/test_fusion_quality.py:_sphere_depth`, in numpy here)."""
+    focal = W * 1.2
+    K = np.array([[focal, 0, W / 2.0], [0, focal, H / 2.0], [0, 0, 1.0]])
+    us, vs = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5)
+    d = np.stack([(us - W / 2.0) / focal, (vs - H / 2.0) / focal, np.ones_like(us)], axis=-1)
+    a = (d * d).sum(-1)
+    rows, cols = grid
+    depths, cams = [], []
+    for r in range(rows):
+        for c in range(cols):
+            pos = np.array([baseline * (c - (cols - 1) / 2), baseline * (r - (rows - 1) / 2), 0.0])
+            oc = pos - SPHERE_CENTER
+            b = 2.0 * (d @ oc)
+            disc = b * b - 4 * a * ((oc * oc).sum() - SPHERE_RADIUS ** 2)
+            hit = disc > 0
+            t = np.where(hit, (-b - np.sqrt(np.maximum(disc, 0.0))) / (2 * a), 0.0)
+            depths.append(np.where(hit & (t > 0), t * d[..., 2],
+                                   SPHERE_BG - pos[2]).astype(np.float32))
+            cam = np.zeros((2, 4, 4))
+            cam[0] = np.eye(4)
+            cam[0, :3, 3] = -pos                  # world -> camera: x_cam = x - pos
+            cam[1, :3, :3] = K
+            cam[1, 3] = [1500.0, 1000 / 7, 8, 2500.0]
+            cams.append(cam)
+    return depths, cams
+
+
+def sphere_quality(points, dev):
+    """`tests/test_fusion_quality.py:79-103`'s gates on a fused cloud:
+    (ok, text). Nearest distances of the 800 cap samples on the card, in
+    chunks of the cloud."""
+    dist_sphere = np.abs(np.linalg.norm(points - SPHERE_CENTER, axis=1) - SPHERE_RADIUS)
+    dist_bg = np.abs(points[:, 2] - SPHERE_BG)
+    on_sphere = dist_sphere < dist_bg
+    acc = dist_sphere[on_sphere]
+    rng = np.random.default_rng(0)
+    zs = rng.uniform(-SPHERE_RADIUS, -0.6 * SPHERE_RADIUS, 800)
+    phis = rng.uniform(0, 2 * np.pi, 800)
+    rr = np.sqrt(SPHERE_RADIUS ** 2 - zs ** 2)
+    gt = torch.as_tensor(SPHERE_CENTER + np.stack([rr * np.cos(phis), rr * np.sin(phis), zs],
+                                                  axis=1), dtype=torch.float32, device=dev)
+    sphere = torch.as_tensor(points[on_sphere], device=dev)
+    nearest = torch.full((800,), float("inf"), device=dev)
+    for c0 in range(0, len(sphere), 1 << 20):
+        nearest = torch.minimum(nearest, torch.cdist(gt, sphere[c0:c0 + (1 << 20)]).amin(dim=1))
+    completeness = float((nearest < 20.0).float().mean())
+    median = float(np.median(acc)) if len(acc) else float("inf")
+    p90 = float(np.percentile(acc, 90)) if len(acc) else float("inf")
+    bg_share = float(np.mean(dist_bg[~on_sphere] < 10.0)) if (~on_sphere).any() else 0.0
+    ok = (on_sphere.sum() > 300 and median < 0.5 and p90 < 2.0 and bg_share > 0.95
+          and completeness > 0.9)
+    return ok, (f"{len(points)} points, {int(on_sphere.sum())} on the sphere: accuracy median "
+                f"{median:.4f} mm (gate 0.5), p90 {p90:.4f} mm (gate 2.0); background within "
+                f"10 mm {bg_share:.4f} (gate 0.95); completeness@20mm {completeness:.4f} "
+                f"(gate 0.9) {'ok' if ok else 'FAIL'}")
+
+
+def _sorted_cloud(points, colors=None):
+    order = np.lexsort(points.T[::-1])
+    return points[order], (None if colors is None else colors[order])
+
+
+def phase15_import(smi, dev, request, gru_point=(256, 320, 32)):
+    """15a: Saver V2 bundles in the reference's naming from seeded models
+    (3D-CNN `normal` with the refinement U-Net, and the GRU), imported into
+    model dirs; the restored weights and `Predictor(mcfg, model_dir,
+    ckpt_step)`'s answers equal the seeded model's bit for bit, the 3D-CNN
+    at `request`'s point, the GRU at `gru_point` (height, width, D). 15d's
+    trace of one `Predictor` call. Returns (ok, the 3D-CNN's model dir,
+    step, its checkpoint root)."""
+    import os
+    import tempfile
+
+    from mvsnet_tpu_torch import checkpoint, tf_import
+    from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch.io import tf_bundle
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.predict import Predictor, depth_params_from_cams
+    from mvsnet_tpu_torch.utils import profiling
+
+    images = request[0]
+    H, W, D = images.shape[2], images.shape[3], int(request[1][0, 0, 1, 3, 2])
+    gh, gw, gd = gru_point
+    g_images, g_cams = scene(1, 3, gh, gw, gd, seed=15)
+    gds, gdi, _, gde = depth_params_from_cams(g_cams)
+    points = {"3DCNN": (ModelConfig(view_num=3, max_d=D, width=W, height=H, network_mode="normal",
+                                    compute_dtype="bfloat16", **REFINE_ARGS), REFINE_ARGS,
+                        request),
+              "GRU": (ModelConfig(view_num=3, max_d=gd, width=gw, height=gh, network_mode="normal",
+                                  regularization="GRU", compute_dtype="bfloat16"), {},
+                      (g_images, g_cams, gds, gdi, gde))}
+    print(f"phase 15a: TF-checkpoint import (mvsnet_tpu_torch.tf_import): Saver V2 bundles in "
+          f"the reference's TF names and layouts (transposed-conv kernels (..., out, in), the "
+          f"GRU norms as LayerNorm) written by io/tf_bundle.write_bundle from seeded models "
+          f"with perturbed norms, imported with import_checkpoint, served by Predictor(mcfg, "
+          f"model_dir, ckpt_step) against a Predictor of the seeded state dict: 3D-CNN normal "
+          f"with the refinement U-Net at {W}x{H}, D={D}; GRU normal at {gw}x{gh}, D={gd}; "
+          f"bf16 [{smi}]")
+    root = tempfile.mkdtemp(prefix="mvsnet_import_")
+    ok, step = True, 150000
+    for reg, (cfg, options, inputs) in points.items():
+        model = MVSNet(cfg, seed=20)
+        perturb_norms(model, 21)
+        seeded = model.state_dict()
+        prefix = os.path.join(root, reg, f"tf_model_{step}.ckpt")
+        t0 = time.perf_counter()
+        tf_vars = tf_import.export_tf_vars(model)
+        tf_bundle.write_bundle(prefix, tf_vars)
+        write_ms = (time.perf_counter() - t0) * 1e3
+        size = sum(os.path.getsize(os.path.join(root, reg, f)) for f in os.listdir(
+            os.path.join(root, reg)))
+        t0 = time.perf_counter()
+        var_dict = tf_import.load_tf_checkpoint(prefix)
+        read_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        mapped = tf_import.import_tf_vars(var_dict, MVSNet(cfg))
+        map_ms = (time.perf_counter() - t0) * 1e3
+        model_dir = os.path.join(root, "models")
+        t0 = time.perf_counter()
+        out = tf_import.import_checkpoint(prefix, model_dir, reg, "normal", **options)
+        import_ms = (time.perf_counter() - t0) * 1e3
+        restored = checkpoint.restore_tree(model_dir, reg, "normal", step)["model"]
+        same = (sorted(restored) == sorted(seeded) == sorted(mapped)
+                and all(torch.equal(restored[k], seeded[k]) and torch.equal(mapped[k], seeded[k])
+                        for k in seeded))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        served = Predictor(cfg, model_dir, step, device=dev)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        got = served.predict(*inputs)
+        want = Predictor(cfg, state_dict=seeded, device=dev).predict(*inputs)
+        equal = all(np.array_equal(a, b) for a, b in zip(got, want))
+        finite = all(np.isfinite(a).all() for a in got)
+        good = same and equal and finite and out == os.path.join(model_dir, reg, "normal",
+                                                                 str(step))
+        ok = ok and good
+        print(f"  {reg}: {len(tf_vars)} TF variables, bundle {size} bytes (write {write_ms:.1f} "
+              f"ms); bundle read {read_ms:.1f} ms, mapping {map_ms:.1f} ms, import_checkpoint "
+              f"(read, map, save) {import_ms:.1f} ms, restore into a Predictor on the card "
+              f"{restore_ms:.1f} ms; restored == seeded bit for bit: {same}; depth, prob, "
+              f"residual == the seeded Predictor's bit for bit: {equal} "
+              f"{'ok' if good else 'FAIL'} [{smi}]")
+        if reg == "3DCNN":
+            trace_dir = os.path.join(root, "trace")
+            with profiling.trace(trace_dir):
+                served.predict(*inputs)
+            traces = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+            stats = profiling.device_memory_stats()
+            good = (len(traces) == 1 and os.path.getsize(os.path.join(trace_dir, traces[0])) > 0
+                    and stats is not None and stats.get("allocated_bytes.all.current", 0) > 0)
+            ok = ok and good
+            print(f"  15d: utils.profiling.trace around one Predictor call wrote {traces} "
+                  f"({sum(os.path.getsize(os.path.join(trace_dir, f)) for f in traces)} bytes); "
+                  f"device_memory_stats(): {len(stats or {})} counters, allocated "
+                  f"{(stats or {}).get('allocated_bytes.all.current', 0) / 2 ** 20:.1f} MiB "
+                  f"{'ok' if good else 'FAIL'}")
+        del model, served, mapped, restored
+        torch.cuda.empty_cache()
+    return ok, model_dir, step, root
+
+
+def phase15_chain(smi, dev, model_dir, step, point=(384, 512, 4, 192), clusters=5):
+    """15b and 15d: `infer.main` with refinement from the imported model dir
+    at `point` (height, width, views, D), then `fusion.main` on the card:
+    default thresholds, shards merged, the native consolidation, the gipuma
+    export; every file read back, `visualize.load_depth_any` included.
+    Returns whether every check held."""
+    import os
+    import tempfile
+
+    from mvsnet_tpu_torch import fusion, infer, predict, visualize
+    from mvsnet_tpu_torch.data import cluster
+    from mvsnet_tpu_torch.io import images as imio
+    from mvsnet_tpu_torch.io.cams import load_cam_txt, projection_matrix
+    from mvsnet_tpu_torch.io.dmb import read_dmb
+    from mvsnet_tpu_torch.io.pfm import load_pfm
+    from mvsnet_tpu_torch.io.ply import read_ply
+    from mvsnet_tpu_torch.ops import kernels
+
+    (H, W, V, D), N = point, clusters
+    print(f"phase 15b: the user's chain from the imported checkpoint: infer.main --model_dir "
+          f"<imported> --ckpt_step {step} --refinement (the U-Net, upsampled, with confidence) "
+          f"at {W}x{H}, V={V}, D={D}, normal, bf16, {N} clusters of a rendered session, then "
+          f"fusion.main --dense_folder on the card (default device): the reference's "
+          f"thresholds, 2 shards + merge-shards, --voxel_size/--min_neighbors, gipuma-export. "
+          f"Substituted as in phase 14: the JPEG decode of the session images, the JPEG write "
+          f"of each <index>.jpg (a PNG by the port's encoder under that name) and fusion's read "
+          f"of it (fusion.load_image -> the port's PNG decoder). Seeded weights: the gates are "
+          f"on well-formed output, not on the point count [{smi}]")
+    arrays, ok = {}, True
+    with tempfile.TemporaryDirectory(prefix="mvsnet_chain_") as root:
+        session = os.path.join(root, "session")
+        write_rendered_session(session, W, H, N, 2, arrays)
+        real = cluster.load_image, predict.write_image, fusion.load_image
+        cluster.load_image = arrays.__getitem__
+        predict.write_image = lambda path, image: imio.write_png(
+            path, np.asarray(image).astype(np.uint8))
+        fusion.load_image = imio.read_png
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = infer.main(["--input_dir", session, "--view_num", str(V), "--max_d", str(D),
+                             "--width", str(W), "--height", str(H), "--network_mode", "normal",
+                             "--compute_dtype", "bfloat16", "--refinement",
+                             "--refinement_network", "unet", "--refine_with_confidence",
+                             "--upsample_before_refinement", "--visualize", "--model_dir",
+                             model_dir, "--ckpt_step", str(step), "--device", str(dev)])
+            torch.cuda.synchronize()
+            infer_ms = (time.perf_counter() - t0) * 1e3
+            counts = kernels.launch_counts()
+            idle = [k for k in ("cost_volume", "conv", "deconv") if counts[k] == 0]
+            good = rc == 0 and not idle
+            ok = ok and good
+            print(f"  infer.main: rc {rc}, {infer_ms:.1f} ms for {N} clusters; launches "
+                  f"{ {k: counts[k] for k in ('cost_volume', 'conv', 'deconv')} } "
+                  f"{'ok' if good else 'FAIL'}")
+            depth_dir = os.path.join(session, "depths_mvsnet")
+            ply_path = os.path.join(session, "points_mvsnet", "consistencyCheck",
+                                    "final3d_model.ply")
+
+            def fuse(*extra):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = fusion.main(["--dense_folder", session, *extra])
+                torch.cuda.synchronize()
+                return rc, (time.perf_counter() - t0) * 1e3
+
+            def cloud_ok(points, colors):
+                return (points.ndim == 2 and points.shape[1] == 3 and np.isfinite(points).all()
+                        and colors is not None and colors.shape == points.shape)
+
+            rc, ms = fuse()
+            whole = read_ply(ply_path)
+            good = rc == 0 and cloud_ok(*whole)
+            rcs = [fuse("--shard_count", "2", "--shard_index", str(k))[0] for k in (0, 1)]
+            rcs.append(fuse("--mode", "merge-shards")[0])
+            merged = read_ply(ply_path)
+            a, b = _sorted_cloud(*whole), _sorted_cloud(*merged)
+            same = (rcs == [0, 0, 0] and np.array_equal(a[0], b[0])
+                    and np.array_equal(a[1], b[1]))
+            ok = ok and good and same
+            print(f"  fusion.main (defaults: prob 0.8, disp 0.25, num_consistent 3, rel 0.01): "
+                  f"rc {rc}, {ms:.1f} ms, {len(whole[0])} points, the PLY read back "
+                  f"{'ok' if good else 'FAIL'}; --shard_count 2 then --mode merge-shards: rcs "
+                  f"{rcs}, the same {len(merged[0])} points and colours as unsharded "
+                  f"{'ok' if same else 'FAIL'}")
+            rc, ms = fuse("--prob_threshold", "0", "--num_consistent", "1", "--voxel_size",
+                          "4.0", "--min_neighbors", "2")
+            merged_cloud = read_ply(ply_path)
+            good = rc == 0 and cloud_ok(*merged_cloud)
+            ok = ok and good
+            print(f"  fusion.main --prob_threshold 0 --num_consistent 1 --voxel_size 4.0 "
+                  f"--min_neighbors 2 (the native consolidation on every consistent pixel): rc "
+                  f"{rc}, {ms:.1f} ms, {len(merged_cloud[0])} points, read back "
+                  f"{'ok' if good else 'FAIL'}")
+            rc, ms = fuse("--mode", "gipuma-export")
+            point_dir = os.path.join(session, "points_mvsnet")
+            bad = []
+            for i in range(N):
+                cam = load_cam_txt(os.path.join(depth_dir, f"{i}.txt"))
+                with open(os.path.join(point_dir, "cams", f"{i}.jpg.P")) as f:
+                    P = np.array([[float(x) for x in line.split()] for line in f
+                                  if line.strip()])
+                depth = load_pfm(os.path.join(depth_dir, f"{i}_prob_filtered.pfm"))
+                disp = read_dmb(os.path.join(point_dir, f"2333__{i}", "disp.dmb"))
+                normals = read_dmb(os.path.join(point_dir, f"2333__{i}", "normals.dmb"))
+                if not np.allclose(P, projection_matrix(cam), rtol=1e-12, atol=0):
+                    bad.append(f"{i}.jpg.P")
+                if not np.array_equal(disp, depth) or normals.shape != depth.shape + (3,):
+                    bad.append(f"2333__{i}")
+                if not os.path.isfile(os.path.join(point_dir, "images", f"{i}.jpg")):
+                    bad.append(f"images/{i}.jpg")
+            good = rc == 0 and not bad
+            ok = ok and good
+            print(f"  fusion.main --mode gipuma-export: rc {rc}, {ms:.1f} ms; {N} .P files, "
+                  f"disp.dmb (== the filtered depth) and normals.dmb read back: "
+                  f"{'ok' if not bad else bad}")
+            # 15d: the depth-map viewer's reader on the files of phase 14's writers
+            shapes = {f: visualize.load_depth_any(os.path.join(depth_dir, f)).shape
+                      for f in ("0_init.pfm", "0_depth.png", "0_prob.pfm")}
+            shapes["2333__0/disp.dmb"] = visualize.load_depth_any(
+                os.path.join(point_dir, "2333__0", "disp.dmb")).shape
+            good = all(tuple(x for x in s if x != 1) == (H, W) for s in shapes.values())
+            ok = ok and good
+            print(f"  15d: visualize.load_depth_any read {shapes} {'ok' if good else 'FAIL'}")
+        finally:
+            cluster.load_image, predict.write_image, fusion.load_image = real
+    return ok
+
+
+def phase15_fusion(smi, dev, full=(864, 1152), grid=(7, 7), small=(256, 320),
+                   small_grid=(2, 4)):
+    """15c: `fusion.fuse_reference` over every reference view of the sphere
+    scene, `grid` cameras at `full` (height, width) on the card, gated by
+    the quality test's accuracy and completeness, timed and profiled; the
+    same scene at `small` with `small_grid` cameras on the card and on the
+    CPU; the native consolidation against its numpy plain versions on the
+    small cloud. Returns whether every check held."""
+    from mvsnet_tpu_torch import fusion, native
+
+    (H, W), n = full, grid[0] * grid[1]
+    print(f"phase 15c: fusion (mvsnet_tpu_torch.fusion, PyTorch ops on the card) of the "
+          f"analytic sphere-cap scene of tests/test_fusion_quality.py seen by {n} translated "
+          f"cameras ({grid[0]}x{grid[1]} grid, 60 mm apart) at {W}x{H}, prob 1, the reference's "
+          f"thresholds {FUSION_ARGS} [{smi}]")
+    t0 = time.perf_counter()
+    depths, cams = sphere_scene(H, W, grid)
+    scene_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    views = fusion.prepare_views(depths, cams, dev)
+    clouds = [fusion.fuse_reference(views, i, **FUSION_ARGS)[1] for i in range(n)]
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    points = np.concatenate(clouds)
+    pairs = n * (n - 1)
+    # a pair reads the reference's points (12 B a pixel) and the source's
+    # depth (4 B) and gathered points (12 B); it writes its mask (1 B) and
+    # hits (12 B)
+    pair_bytes = H * W * (12 + 4 + 12 + 1 + 12)
+    bound_ms = pair_bytes / HBM_BYTES_PER_S * 1e3
+    quality_ok, text = sphere_quality(points, dev)
+    print(f"  scene built in {scene_s:.1f} s (numpy); fused {n} reference views in "
+          f"{wall_ms:.1f} ms wall ({wall_ms / n:.3f} ms a reference view, {wall_ms / pairs:.4f} "
+          f"ms a pair over {pairs} pairs; the views' upload and world points, the masks' and "
+          f"points' copies to the host included); bound {bound_ms:.4f} ms a pair "
+          f"({pair_bytes / 1e6:.1f} MB at 3.35 TB/s, bytes), {bound_ms * pairs:.2f} ms the "
+          f"scene; peak {peak:.3f} GiB [{smi}]")
+    print(f"  quality (tests/test_fusion_quality.py's gates): {text}")
+    print_profile(f"one reference view ({n - 1} pairs, view {n // 2})", *profile_device(
+        lambda: fusion.fuse_reference(views, n // 2, **FUSION_ARGS)))
+    t0 = time.perf_counter()
+    merged, _ = native.voxel_downsample(points, None, 2.0)
+    merge_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  the native voxel merge (2 mm) of the {len(points)} points: {len(merged)} points "
+          f"in {merge_ms:.1f} ms (host C++, OpenMP build)")
+    del views, clouds, points, merged
+    torch.cuda.empty_cache()
+
+    (h, w), m = small, small_grid[0] * small_grid[1]
+    depths, cams = sphere_scene(h, w, small_grid)
+    runs = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        views = fusion.prepare_views(depths, cams, d)
+        out = []
+        for i in range(m):
+            count, accum = fusion.consistency(views, i, FUSION_ARGS["disp_threshold"],
+                                              FUSION_ARGS["depth_rel_threshold"])
+            keep = views[i]["valid"] & (count >= FUSION_ARGS["num_consistent"])
+            out.append((keep.cpu().numpy(), count.cpu().numpy(),
+                        (accum / (count[..., None] + 1.0)).cpu().numpy()))
+        runs[label] = out
+    mask_diff = sum(int((g[0] != c[0]).sum()) for g, c in zip(runs["card"], runs["cpu"]))
+    share = mask_diff / (m * h * w)
+    point_err = max(float(np.abs(g[2] - c[2])[g[0] & c[0] & (g[1] == c[1])].max(initial=0))
+                    for g, c in zip(runs["card"], runs["cpu"]))
+    kept = sum(int(c[0].sum()) for c in runs["cpu"])
+    good = share <= FUSION_MASK_TOL and point_err <= FUSION_POINT_TOL and kept > 0
+    print(f"  card vs CPU, {m} views ({small_grid[0]}x{small_grid[1]}) at {w}x{h}: keep masks "
+          f"differ at {mask_diff} of {m * h * w} pixels ({share:.2e}, bound {FUSION_MASK_TOL:g}; "
+          f"{kept} kept on the CPU); fused points where both keep a pixel with the same count: "
+          f"max abs err {point_err:.3e} mm (bound {FUSION_POINT_TOL:g}) {'ok' if good else 'FAIL'}")
+    cloud = np.concatenate([c[2][c[0]] for c in runs["cpu"]]).astype(np.float32)
+    t0 = time.perf_counter()
+    got_v = _sorted_cloud(*native.voxel_downsample(cloud, None, 4.0))[0]
+    got_m = native.radius_outlier_removal(cloud, 12.0, 4)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    want_v = _sorted_cloud(*native.voxel_downsample_plain(cloud, None, 4.0))[0]
+    want_m = native.radius_outlier_removal_plain(cloud, 12.0, 4)
+    native_ok = np.array_equal(got_v, want_v) and np.array_equal(got_m, want_m)
+    print(f"  native consolidation (built from mvsnet_tpu_torch/native/pointcloud.cpp by "
+          f"{native.compiler()} into {native.build().name}) on the CPU's {len(cloud)} fused "
+          f"points: voxel merge (4 mm) -> {len(got_v)} points, outlier mask (radius 12 mm, 4 "
+          f"neighbours) keeps {int(got_m.sum())}, {native_ms:.1f} ms; equal to the numpy plain "
+          f"versions after sorting: {native_ok} {'ok' if native_ok else 'FAIL'}")
+    return quality_ok and good and native_ok
+
+
+def phase15(smi, dev, request):
+    """Phase 15: import (a, with d's trace), the chain (b, d), fusion (c)."""
+    ok, model_dir, step, root = phase15_import(smi, dev, request)
+    try:
+        ok = phase15_chain(smi, dev, model_dir, step) and ok
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    ok = phase15_fusion(smi, dev) and ok
+    if not ok:
+        print("phase 15 FAILED")
     return ok
 
 
@@ -2526,6 +2976,10 @@ def main() -> int:
 
     # ---- 14. the serving drivers with refinement
     if not phase14_drivers(smi, dev):
+        return 1
+
+    # ---- 15. TF-checkpoint import, the chain to a PLY, fusion at full size
+    if not phase15(smi, dev, request):
         return 1
 
     # ---- records: launches from the training run of phase 6, the GRU rows'

@@ -56,6 +56,14 @@ def save_checkpoint(base_dir: str, regularization: str, network_mode: str,
     driver counts in samples, as JAX's does). Returns the directory."""
     tree = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
             "step": int(state.step)}
+    return save_tree(base_dir, regularization, network_mode, step, tree)
+
+
+def save_tree(base_dir: str, regularization: str, network_mode: str, step: int,
+              tree: dict) -> str:
+    """Save `tree` as checkpoint `step`; returns the directory. A tree
+    without "optimizer" (`tf_import.import_checkpoint`'s) serves but does
+    not resume training."""
     path = ckpt_dir(base_dir, regularization, network_mode, build=True)
     if fs.is_remote(path):
         with tempfile.TemporaryDirectory() as tmp:
@@ -94,6 +102,9 @@ def restore_checkpoint(base_dir: str, regularization: str, network_mode: str, st
     """Load a checkpoint into `state` (a `train_lib.TrainState` built for
     the same model and optimizer) in place and return it."""
     tree = restore_tree(base_dir, regularization, network_mode, step)
+    if "optimizer" not in tree:
+        raise ValueError(f"checkpoint {step} under {base_dir} holds model weights only (an "
+                         "imported TF checkpoint): it serves, but training cannot resume from it")
     state.model.load_state_dict(tree["model"])
     state.optimizer.load_state_dict(tree["optimizer"])
     state.step = int(tree["step"])

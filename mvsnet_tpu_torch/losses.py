@@ -4,10 +4,11 @@ of mvsnet_tpu/losses.py:29-195).
   * non_zero_mean_absolute_diff / original_loss: masked MAE in
     depth-interval units;
   * power_loss: N*(|dy| + 0.005 y)^alpha / y^beta with the 10 * mean^beta /
-    interval^alpha normalisation;
+    interval^alpha normalisation (mean^beta alone with no_interval_norm);
   * gaussian_loss: -exp(-dy^2 / 2 (eta y)^2);
   * gradient_loss: log-gradient difference over the spatial axes (the JAX
-    package's intended form, not the reference's batch-axis slice);
+    package's intended form, not the reference's batch-axis slice), or
+    without the log;
   * <1 and <3 interval metrics;
   * mvsnet_regression_loss with the fixed (end - start) / 191 interval;
   * mvsnet_classification_loss: R-MVSNet's cross entropy at the
@@ -55,8 +56,10 @@ def _total(batch_sum, t):
     return t if batch_sum is None else batch_sum(t)
 
 
-def power_loss(y_true, y_pred, interval, alpha: float, beta: float, batch_sum=None):
-    """(reference: loss.py:31-90)"""
+def power_loss(y_true, y_pred, interval, alpha: float, beta: float,
+               no_interval_norm: bool = False, batch_sum=None):
+    """(reference: loss.py:31-90); `no_interval_norm` drops the
+    10 / interval^alpha factor of the normalisation."""
     interval = interval.reshape(y_pred.shape[0])
     mask, count = _mask_and_count(y_true)
     if beta == 0.0:
@@ -69,7 +72,10 @@ def power_loss(y_true, y_pred, interval, alpha: float, beta: float, batch_sum=No
     numerator = numerator * mask
     loss = torch.sum(numerator / denominator, dim=(1, 2, 3))
     mean_true_depth = _total(batch_sum, torch.sum(y_true * mask)) / count
-    normalization = 10.0 * torch.pow(mean_true_depth, beta) / torch.pow(interval, alpha)
+    if no_interval_norm:
+        normalization = torch.pow(mean_true_depth, beta)
+    else:
+        normalization = 10.0 * torch.pow(mean_true_depth, beta) / torch.pow(interval, alpha)
     return torch.sum(loss * normalization)
 
 
@@ -84,15 +90,18 @@ def gaussian_loss(y_true, y_pred, interval, eta: float, batch_sum=None):
     return torch.sum(loss) * _total(batch_sum, torch.sum(1.0 / count))
 
 
-def gradient_loss(y_true, y_pred, batch_sum=None):
+def gradient_loss(y_true, y_pred, log: bool = True, batch_sum=None):
     """Log-gradient difference over the spatial axes of (B, H, W, 1) maps,
-    over the valid pixels of the whole batch."""
+    over the valid pixels of the whole batch; `log=False` sums the absolute
+    gradient differences themselves."""
     mask = (y_true != 0.0).to(torch.float32)
     num_valid = _total(batch_sum, mask.sum())
     diff = y_true - y_pred
     v_grad = torch.abs((diff[:, :-2, :] - diff[:, 2:, :]) * (mask[:, :-2, :] * mask[:, 2:, :]))
     h_grad = torch.abs((diff[:, :, :-2] - diff[:, :, 2:]) * (mask[:, :, :-2] * mask[:, :, 2:]))
-    return (torch.log(1.0 + v_grad).sum() + torch.log(1.0 + h_grad).sum()) / num_valid
+    if log:
+        v_grad, h_grad = torch.log(1.0 + v_grad), torch.log(1.0 + h_grad)
+    return (v_grad.sum() + h_grad.sum()) / num_valid
 
 
 def _less_x_percentage(y_true, y_pred, interval, x: float, batch_sum=None):
@@ -128,14 +137,14 @@ def mvsnet_regression_loss(estimated_depth, depth_image, depth_start, depth_end,
         loss = original_loss(depth_image, estimated_depth, depth_interval)
     elif loss_type == "power":
         loss = power_loss(depth_image, estimated_depth, depth_interval, alpha, beta,
-                          batch_sum)
+                          batch_sum=batch_sum)
     elif loss_type == "gaussian":
         loss = gaussian_loss(depth_image, estimated_depth, depth_interval, eta, batch_sum)
     else:
         raise NotImplementedError(loss_type)
     debug = torch.zeros((), dtype=torch.float32, device=estimated_depth.device)
     if grad_loss:
-        debug = gradient_loss(depth_image, estimated_depth, batch_sum)
+        debug = gradient_loss(depth_image, estimated_depth, batch_sum=batch_sum)
         loss = loss + 0.5 * debug
     with torch.no_grad():
         less_one = less_one_percentage(depth_image, estimated_depth, depth_interval,

@@ -1,9 +1,12 @@
-"""UNetDS2GN, the 2D feature tower (counterpart of
-mvsnet_tpu/models/feature_net.py:68-171).
+"""2D feature towers (counterpart of mvsnet_tpu/models/feature_net.py).
 
-A 2D U-Net (4 stride-2 levels, skip concats on the channel axis, group
-norms) then two stride-2 group-norm conv blocks: (B, H, W, 3) ->
-(B, H/4, W/4, 4 * base) in the compute dtype, base = max(1, int(8 / div)).
+  * UNetDS2GN, the production tower every graph uses: a 2D U-Net (4
+    stride-2 levels, skip concats on the channel axis, group norms) then
+    two stride-2 group-norm conv blocks: (B, H, W, 3) -> (B, H/4, W/4,
+    4 * base) in the compute dtype, base = max(1, int(8 / div)).
+  * UniNetDS2 / UniNetDS2GN, the reference's simpler 8-layer towers with
+    batch or group norm (mvsnetworks.py:17-50): exported, no graph builds
+    them.
 """
 
 from __future__ import annotations
@@ -14,7 +17,50 @@ import torch
 from torch import nn
 
 from mvsnet_tpu_torch.config import scaled_filters
-from mvsnet_tpu_torch.models.layers import Conv, ConvGN, DeconvGN
+from mvsnet_tpu_torch.models.layers import Conv, ConvBN, ConvGN, DeconvGN
+
+
+class _UniNetDS2Body(nn.Module):
+    """conv0_0 .. conv2_1 (norm + ReLU), then conv2_2 without norm or bias:
+    (B, H, W, 3) -> (B, H/4, W/4, 4 * base)."""
+
+    def __init__(self, block, network_mode: str = "normal",
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        b = scaled_filters(8, network_mode)
+        self.dtype = dtype
+        # (name, in, out, kernel, stride), flax's names (feature_net.py:26-65)
+        for name, cin, f, k, s in (("conv0_0", 3, b, 3, 1), ("conv0_1", b, b, 3, 1),
+                                   ("conv1_0", b, b * 2, 5, 2), ("conv1_1", b * 2, b * 2, 3, 1),
+                                   ("conv1_2", b * 2, b * 2, 3, 1),
+                                   ("conv2_0", b * 2, b * 4, 5, 2),
+                                   ("conv2_1", b * 4, b * 4, 3, 1)):
+            self.add_module(name, block(cin, f, k, s, rank=2, dtype=dtype))
+        self.conv2_2 = Conv(b * 4, b * 4, 3, 1, relu=False, use_bias=False, dtype=dtype)
+
+    def forward(self, x):
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        for m in self.children():
+            x = m(x)
+        return x
+
+
+class UniNetDS2(_UniNetDS2Body):
+    """The 8-layer downsample-by-4 tower with batch norm (feature_net.py:26;
+    reference: mvsnetworks.py:17-32); the norms use batch statistics in
+    train mode, as JAX's with training=True."""
+
+    def __init__(self, network_mode: str = "normal", dtype: Optional[torch.dtype] = None):
+        super().__init__(ConvBN, network_mode, dtype)
+
+
+class UniNetDS2GN(_UniNetDS2Body):
+    """UniNetDS2 with group norm (feature_net.py:47; reference:
+    mvsnetworks.py:35-50)."""
+
+    def __init__(self, network_mode: str = "normal", dtype: Optional[torch.dtype] = None):
+        super().__init__(ConvGN, network_mode, dtype)
 
 
 class UNetDS2GN(nn.Module):

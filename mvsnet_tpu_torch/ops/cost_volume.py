@@ -18,6 +18,8 @@ gradient (cameras are data), as in the JAX VJP.
 
 `sweep_cost_volume_sharded` is the multi-device edition (kernel K1s): each
 rank computes its 'space' rows and its 'depth' slab of the volume.
+`cost_slice` is one plane of the volume in plain PyTorch, with either fill
+mode (ops/cost_volume.py:241 of the JAX package, which no graph calls).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from mvsnet_tpu_torch.ops.kernels import sweep, warp
+from mvsnet_tpu_torch.ops.warp import homography_warp
 
 ACC_LIMIT_BYTES = 2 * 1024 ** 3
 
@@ -134,3 +137,19 @@ def sweep_cost_volume_sharded(ref_l, views_l, homographies, mesh):
     homs = homographies[:, :, d * Dl:(d + 1) * Dl]
     return torch.stack([sweep.cost_volume(ref_l[b], views[:, b], homs[:, b],
                                           row_offset=s * hl) for b in range(B)], dim=0)
+
+
+def cost_slice(ref_feature, view_features, homographies_d, fill_mode: str = "zeros"):
+    """Single-depth-plane variance cost: ref_feature (B, h, w, C),
+    view_features (V-1, B, h, w, C), homographies_d (V-1, B, 3, 3) at one
+    depth -> (B, h, w, C) float32; each view warped in its dtype
+    (`homography_warp`), then the sums in float32 with the reference view
+    included."""
+    ref32 = ref_feature.to(torch.float32)
+    s, s2 = ref32, ref32 * ref32
+    for feat, homs in zip(view_features, homographies_d):
+        warped = homography_warp(feat, homs, fill_mode).to(torch.float32)
+        s, s2 = s + warped, s2 + warped * warped
+    view_num = view_features.shape[0] + 1
+    mean = s / view_num
+    return s2 / view_num - mean * mean

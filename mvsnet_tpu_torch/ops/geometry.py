@@ -108,3 +108,15 @@ def homographies_for_views(cams, depth_num: int, depth_start,
             out.append(get_homographies(ref_cam, cams[:, v], depth_num,
                                         depth_start, depth_interval))
     return torch.stack(out, dim=0)
+
+
+def scale_camera(cam, scale: float) -> torch.Tensor:
+    """Cam tensor(s) (..., 2, 4, 4) with fx, fy, px, py scaled for an image
+    resized by `scale` (geometry.py:144; reference:
+    mvs_data_generation/utils.py:64-73)."""
+    cam = torch.as_tensor(cam)
+    scale_mat = torch.tensor([[scale, 1.0, scale], [1.0, scale, scale], [1.0, 1.0, 1.0]],
+                             dtype=cam.dtype, device=cam.device)
+    out = cam.clone()
+    out[..., 1, :3, :3] = cam[..., 1, :3, :3] * scale_mat
+    return out

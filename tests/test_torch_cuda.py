@@ -933,3 +933,111 @@ def test_refined_train_step_card_matches_cpu_and_repeats(dev):
         assert (got - want).abs().max() <= 2e-2 * max(want.abs().max().item(), 1e-12), name
         num, den = num + ((got - want) ** 2).sum().item(), den + (want ** 2).sum().item()
     assert (num / den) ** 0.5 <= 5e-3
+
+
+# ---------------------------------------------------------------- fusion (slice 5b)
+
+
+def _sphere_views(H=96, W=96, grid=(2, 2), baseline=60.0):
+    """tests/test_fusion_quality.py's scene (a sphere cap of radius 400 at
+    z = 2000 before a plane at 2400) from translated cameras, in numpy:
+    (depths, cams)."""
+    center, radius, bg = np.array([0.0, 0.0, 2000.0]), 400.0, 2400.0
+    f = W * 1.2
+    us, vs = np.meshgrid(np.arange(W) + 0.5, np.arange(H) + 0.5)
+    d = np.stack([(us - W / 2.0) / f, (vs - H / 2.0) / f, np.ones_like(us)], axis=-1)
+    a = (d * d).sum(-1)
+    depths, cams = [], []
+    for r in range(grid[0]):
+        for c in range(grid[1]):
+            pos = np.array([baseline * (c - 0.5 * (grid[1] - 1)),
+                            baseline * (r - 0.5 * (grid[0] - 1)), 0.0])
+            oc = pos - center
+            b = 2.0 * (d @ oc)
+            disc = b * b - 4 * a * ((oc * oc).sum() - radius ** 2)
+            t = np.where(disc > 0, (-b - np.sqrt(np.maximum(disc, 0.0))) / (2 * a), 0.0)
+            depths.append(np.where((disc > 0) & (t > 0), t * d[..., 2], bg).astype(np.float32))
+            cam = np.zeros((2, 4, 4))
+            cam[0] = np.eye(4)
+            cam[0, :3, 3] = -pos
+            cam[1, :3, :3] = [[f, 0, W / 2.0], [0, f, H / 2.0], [0, 0, 1.0]]
+            cam[1, 3] = [1500.0, 1000 / 7, 8, 2500.0]
+            cams.append(cam)
+    return depths, cams
+
+
+@pytest.mark.parametrize("thresholds", [(0.25, 3), (1.0, 2)])
+def test_fusion_on_card_matches_cpu(dev, thresholds):
+    """Each reference view of the 4-view sphere scene at 96x96: the keep
+    masks on the card and on the CPU differ at no more than 1e-3 of the
+    pixels; where both keep a pixel with the same count, the fused points
+    agree within 1e-4 of the background's depth (2400 mm)."""
+    from mvsnet_tpu_torch import fusion
+
+    disp, n = thresholds
+    depths, cams = _sphere_views()
+    runs = []
+    for d in (dev, "cpu"):
+        views = fusion.prepare_views(depths, cams, d)
+        runs.append([tuple(x.cpu() for x in fusion.consistency(views, i, disp, 0.01))
+                     for i in range(4)])
+    differ = kept = 0
+    for depth, (cg, ag), (cc, ac) in zip(depths, *runs):
+        valid = torch.as_tensor(depth) > 0
+        kg, kc = valid & (cg >= n), valid & (cc >= n)
+        differ += int((kg != kc).sum())
+        kept += int(kc.sum())
+        both = kg & kc & (cg == cc)
+        pg, pc = ag / (cg[..., None] + 1.0), ac / (cc[..., None] + 1.0)
+        assert float((pg - pc).abs()[both].max()) <= 1e-4 * 2400
+    assert kept > 3000 and differ <= 1e-3 * 4 * 96 * 96
+
+
+def test_fuse_session_on_card_writes_the_cpu_cloud(dev, tmp_path):
+    """`fusion.fuse_session` on the card against `device="cpu"`, through the
+    files (prob-filtered PFMs, cams, PLY): equal point counts and colours,
+    points within 1e-4 of 2400 mm. The reference image is read by a
+    substituted loader (the card machine has no JPEG codec)."""
+    from mvsnet_tpu_torch import fusion
+    from mvsnet_tpu_torch.io.cams import write_cam_txt
+    from mvsnet_tpu_torch.io.pfm import write_pfm
+    from mvsnet_tpu_torch.io.ply import read_ply
+
+    depths, cams = _sphere_views()
+    out = tmp_path / "depths_mvsnet"
+    out.mkdir()
+    for i, (depth, cam) in enumerate(zip(depths, cams)):
+        write_pfm(str(out / f"{i}_init.pfm"), depth)
+        write_pfm(str(out / f"{i}_prob.pfm"), np.ones_like(depth))
+        write_cam_txt(str(out / f"{i}.txt"), cam)
+        (out / f"{i}.jpg").write_bytes(b"")
+    real = fusion.load_image
+    fusion.load_image = lambda path: np.full((96, 96, 3), 7 * int(path[-5]), np.uint8)
+    try:
+        clouds = [read_ply(fusion.fuse_session(str(tmp_path), 0.5, 1.0, 2, 0.01,
+                                               output_path=str(tmp_path / f"{d}.ply"),
+                                               device=d)) for d in (dev, "cpu")]
+    finally:
+        fusion.load_image = real
+    (pg, cg), (pc, cc) = clouds
+    assert len(pg) == len(pc) > 3000
+    np.testing.assert_array_equal(cg, cc)
+    np.testing.assert_allclose(pg, pc, atol=1e-4 * 2400, rtol=0)
+
+
+def test_native_library_builds_and_matches_plain(dev):
+    """The card machine builds `native/pointcloud.cpp` with its g++ into
+    `_build/`; the library equals the numpy plain versions."""
+    from mvsnet_tpu_torch import native
+
+    assert native.load().native_pointcloud_abi_version() == 1
+    rng = np.random.default_rng(0)
+    pts = (rng.standard_normal((20000, 3)) * 10).astype(np.float32)
+    cols = rng.integers(0, 255, (20000, 3), dtype=np.uint8)
+    got, want = (native.voxel_downsample(pts, cols, 0.7),
+                 native.voxel_downsample_plain(pts, cols, 0.7))
+    og, ow = np.lexsort(got[0].T[::-1]), np.lexsort(want[0].T[::-1])
+    np.testing.assert_array_equal(got[0][og], want[0][ow])
+    np.testing.assert_array_equal(got[1][og], want[1][ow])
+    np.testing.assert_array_equal(native.radius_outlier_removal(pts, 0.7, 5),
+                                  native.radius_outlier_removal_plain(pts, 0.7, 5))

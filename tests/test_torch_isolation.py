@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, nor
-(at module level) an image codec, fsspec or orbax, which the card machine
-lacks; its PNG writers and serving drivers run without a codec; and it
+(at module level) an image codec, fsspec, orbax, matplotlib or
+tensorflow, which the card machine lacks; its PNG writers, serving
+drivers, TF-checkpoint import, fusion and tools run without them; and it
 does not quietly leave the card for the CPU."""
 
 import ast
@@ -20,7 +21,7 @@ from mvsnet_tpu_torch.predict import Predictor
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mvsnet_tpu"}
 # not on the card machine: imported only inside the functions that need them
-LAZY = {"cv2", "imageio", "PIL", "fsspec", "orbax"}
+LAZY = {"cv2", "imageio", "PIL", "fsspec", "orbax", "matplotlib", "tensorflow"}
 PORT_FILES = sorted([p.relative_to(ROOT) for p in (ROOT / "mvsnet_tpu_torch").rglob("*.py")]
                     + [Path("chip_smoke.py")])
 
@@ -96,6 +97,76 @@ def test_writers_and_serving_drivers_run_without_a_codec(tmp_path):
     written = sorted(p.name for p in (tmp_path / "s" / "depths_mvsnet").iterdir())
     assert "0_depth.png" in written and "0.jpg.npy" in written and "0_residual.pfm" in written
     assert (tmp_path / "r.csv").read_text().count("\n") == 2
+
+
+_BLOCKED = """
+import sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "mvsnet_tpu", "cv2", "imageio", "PIL",
+           "matplotlib", "tensorflow")
+for name in BLOCKED:
+    sys.modules[name] = None                # any import of them raises ImportError
+import importlib, os, pkgutil
+import numpy as np
+import torch
+import mvsnet_tpu_torch
+for m in pkgutil.walk_packages(mvsnet_tpu_torch.__path__, "mvsnet_tpu_torch."):
+    importlib.import_module(m.name)
+from mvsnet_tpu_torch import fusion, native, tf_import, visualize
+from mvsnet_tpu_torch.config import ModelConfig
+from mvsnet_tpu_torch.io import dmb, tf_bundle
+from mvsnet_tpu_torch.io.cams import write_cam_txt
+from mvsnet_tpu_torch.io.pfm import write_pfm
+from mvsnet_tpu_torch.io.ply import read_ply
+from mvsnet_tpu_torch.models import MVSNet
+from mvsnet_tpu_torch.predict import Predictor
+from mvsnet_tpu_torch.utils import profiling
+
+root = sys.argv[1]
+# TF import: a bundle in the reference's naming -> a model dir -> Predictor
+cfg = ModelConfig(view_num=3, max_d=8, width=64, height=64, network_mode="ultralite",
+                  compute_dtype="float32")
+tf_bundle.write_bundle(root + "/tf_model_7.ckpt", tf_import.export_tf_vars(MVSNet(cfg, seed=3)))
+tf_import.import_checkpoint(root + "/tf_model_7.ckpt", root + "/model", "3DCNN", "ultralite")
+cam = np.zeros((2, 4, 4)); cam[0] = np.eye(4)
+cam[1, :3, :3] = [[15, 0, 8], [0, 15, 8], [0, 0, 1]]
+with profiling.trace(root + "/trace"):
+    depth, prob, _ = Predictor(cfg, root + "/model", 7, device="cpu").predict(
+        np.random.default_rng(0).standard_normal((1, 3, 64, 64, 3)), np.stack([cam] * 3)[None],
+        [5.0], [0.5], [8.5])
+assert np.isfinite(depth).all() and os.listdir(root + "/trace")
+# fusion of a fronto-parallel plane seen by three cameras, consolidated natively
+out = os.path.join(root, "s", "depths_mvsnet")
+os.makedirs(out)
+for i in range(3):
+    c = np.zeros((2, 4, 4)); c[0] = np.eye(4); c[0, 0, 3] = 25.0 * i  # shifts of whole pixels
+    c[1, :3, :3] = [[40, 0, 16], [0, 40, 16], [0, 0, 1]]
+    write_cam_txt(f"{out}/{i}.txt", c)
+    write_pfm(f"{out}/{i}_init.pfm", np.full((32, 32), 1000.0, np.float32))
+    write_pfm(f"{out}/{i}_prob.pfm", np.ones((32, 32), np.float32))
+    open(f"{out}/{i}.jpg", "wb").write(b"not decoded here")
+    np.save(f"{out}/{i}.jpg.npy", np.full((32, 32, 3), 200, np.uint8))
+fusion.load_image = lambda path: np.load(path + ".npy")
+ply = fusion.fuse_session(os.path.join(root, "s"), num_consistent=2, voxel_size=2.0,
+                          min_neighbors=2, device="cpu")
+points, colors = read_ply(ply)
+assert len(points) > 100 and (colors == 200).all(), len(points)
+assert fusion.main(["--dense_folder", os.path.join(root, "s"), "--mode", "gipuma-export"]) == 0
+assert visualize.load_depth_any(f"{out}/0_init.pfm").shape == (32, 32)
+assert visualize.load_depth_any(root + "/s/points_mvsnet/2333__0/disp.dmb").shape == (32, 32)
+print(sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None))
+"""
+
+
+def test_new_modules_run_with_jax_codecs_matplotlib_and_tensorflow_blocked(tmp_path):
+    """Slice 5b's modules (TF import, fusion with its native library,
+    visualize, profiling) import and run with jax, the JAX package, cv2,
+    imageio, PIL, matplotlib and tensorflow blocked. Stubbed here only:
+    the decode of the reference JPEGs (read from arrays saved beside them)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", _BLOCKED, str(tmp_path)], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_import_and_cpu_forward_load_no_jax():
