@@ -5,7 +5,7 @@ Run from the repository root, on a machine with one H100:
     python3 chip_smoke.py
     python3 chip_smoke.py --multi    # phases 1, 2 and 8 only (several cards)
 
-Phases run in the order 1-7, 10-13, 8, 9, 14, 15.
+Phases run in the order 1-7, 10-13, 8, 9, 14, 15, 16.
 
 Phases, each of which fails the script (non-zero exit, no result line):
   1. the card's name and power limit; exits at once without CUDA;
@@ -89,10 +89,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
   9. the training driver (`python -m mvsnet_tpu_torch.train`'s `main`):
      a. at the bench train point (640x480, D=192, 3 views, "lite", bf16,
         RMSprop, power + gradient loss), 6 steps with a validation round,
-        as a user runs it, except that the data plane's JPEG decode is
-        replaced (the card machine has no image codec): `train.make_loader`
-        serves samples of plane scenes rendered in memory
-        (`data/synthetic.py`) through `ClusterGenerator`'s transforms.
+        as a user runs it, on plane scenes rendered by `data/synthetic.py`
+        and written to disk as sessions (JPEGs by the port's encoder), read
+        by `train.make_loader`'s `ClusterGenerator` with the port's
+        decoders; the host time a sample takes to decode and transform.
         Launches per step and the conv, transposed-conv and weight-gradient
         editions are asserted against counts derived from the model, and
         every kernel of the path must have launched;
@@ -153,13 +153,14 @@ Phases, each of which fails the script (non-zero exit, no result line):
      `test.main` (at the cost volume's resolution, its depth resized to the
      ground truth) at the test driver's point (512x384, V=4, D=192,
      "normal", bf16, the U-Net with confidence) on sessions rendered by
-     `data/synthetic.py` and written to disk, the weights restored from a
-     checkpoint this phase saved through `--model_dir --ckpt_step`; only the
-     JPEG decode of the session images and the JPEG write of the reference
-     images are substituted (the card machine has no codec); every PFM, PNG
-     (the port's decoder), reference image and cam file read back, the
-     results CSV's row checked, and K1, the conv and the transposed conv
-     launched;
+     `data/synthetic.py` and written to disk (the images as JPEGs by the
+     port's encoder), the weights restored from a checkpoint this phase
+     saved through `--model_dir --ckpt_step`; the drivers read the JPEGs
+     with the port's decoder and write each reference image `<index>.jpg`
+     with its encoder; every PFM, PNG, reference JPEG (the port's decoders)
+     and cam file read back, the results CSV's row checked, the writer
+     thread's time and its JPEG writes', and K1, the conv and the
+     transposed conv launched;
  15. TF-checkpoint import, the user's chain to a point cloud, and fusion
      (`tf_import`, `fusion`, `native/`, `visualize`, `utils/profiling`):
      a. Saver V2 bundles in the reference's TF names and layouts, written
@@ -174,9 +175,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
         phase 14's point, then `fusion.main --dense_folder` on the card:
         the reference's thresholds, 2 shards merged (the same points as
         unsharded), the native consolidation, `--mode gipuma-export`
-        (.P and .dmb files read back); phase 14's JPEG substitutions, and
-        fusion's read of the reference image by the port's PNG decoder;
-        K1, the conv and the transposed conv launched;
+        (.P and .dmb files read back); the session's JPEGs and the
+        reference images `<index>.jpg` fusion colours its points from go
+        through the port's codec; K1, the conv and the transposed conv
+        launched;
      c. `fusion.fuse_reference` over the 49 views (a 7x7 grid of cameras,
         a DTU evaluation scan's count) of tests/test_fusion_quality.py's
         analytic sphere-cap scene at 1152x864 with the reference's
@@ -189,7 +191,31 @@ Phases, each of which fails the script (non-zero exit, no result line):
         versions on that cloud, after sorting;
      d. `visualize.load_depth_any` on 15b's .pfm, .png and .dmb files,
         `utils.profiling.trace` around one `Predictor` call, and
-        `device_memory_stats()`.
+        `device_memory_stats()`;
+ 16. from a DTU-layout scan to a scored cloud, with no image codec
+     installed (`tools/`, `scripts/`, `io/jpeg.py`, `native/jpeg.cpp`):
+     a. `data.synthetic.write_dtu_scan` writes one scan in DTU's training
+        layout (49 views, 7 lightings, 640x512 RGB PNGs, 160x128 depth
+        PFMs, cams and pair.txt); `tools.convert_dtu`, `tools.dtu_fixer`
+        and `tools.split_data` turn it into sessions as a user runs them,
+        timed; every file of the test session reads back (the JPEGs by the
+        port's decoder);
+     b. `scripts.test_and_fuse --device cuda:0 --prob_threshold 0
+        --num_consistent 1` over the test split's session (640x512, V=3,
+        D=192, "normal", bf16, seeded weights, whose prob stays under the
+        0.8 default): a non-empty PLY collected into `--ply_folder`, the
+        results CSV's rows, and K1, the conv and the transposed conv
+        launched;
+     c. `tools.eval_pointcloud` on phase 15c's fused cloud (a PLY) against
+        2M points spread over the analytic sphere cap: its accuracy median
+        and p90 and its completeness (recall at 20 mm) within 15c's gates;
+        on 16b's PLY against the rendered plane: its JSON line;
+     d. the native codec against its plain version (`io/jpeg.py`,
+        `io/images._unfilter`): a small image in each sampling, encoded to
+        the same bytes and decoded to the same samples; PNG rows filtered
+        with each of the five filter types by a numpy forward filter; and
+        the native codec's ms per image at 640x512, 1152x864 and 1600x1200
+        on the host CPU.
 The last lines are the kernels' JSON record (launches from the training
 run of phase 6, the GRU rows' from the requests of phase 10 and the
 training steps of phase 11, the refinement rows' from the requests of
@@ -199,6 +225,7 @@ power limit, and {"ok": true, "device": {...}}.
 """
 
 import dataclasses
+import os
 import json
 import subprocess
 import sys
@@ -1143,17 +1170,15 @@ def phase9_driver(smi, dev):
     from mvsnet_tpu_torch import checkpoint, train_lib
     from mvsnet_tpu_torch import train as driver
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
-    from mvsnet_tpu_torch.data.synthetic import SyntheticGenerator, render_session
     from mvsnet_tpu_torch.models import MVSNet
     from mvsnet_tpu_torch.ops import kernels
 
     print("phase 9a: the training driver (mvsnet_tpu_torch.train.main) at 640x480, D=192, V=3, "
-          "lite, bf16, rmsprop, power+grad loss. Substituted: the data plane's JPEG decode. No "
-          "image codec is installed here (no cv2, imageio or PIL), so train.make_loader serves "
-          "plane scenes rendered in memory (mvsnet_tpu_torch/data/synthetic.py) through "
-          "ClusterGenerator's transforms; arguments, configs, the step, snapshots, validation "
-          f"and metrics run as a user runs them [{smi}]")
-    sessions = [render_session(640, 480, n_images=5, seed=s) for s in (0, 1)]
+          "lite, bf16, rmsprop, power+grad loss, on plane scenes rendered by mvsnet_tpu_torch/"
+          "data/synthetic.py and written to disk as sessions (JPEGs by the port's encoder); "
+          "train.make_loader's ClusterGenerator reads them with the port's decoders; arguments, "
+          "configs, the step, snapshots, validation and metrics run as a user runs them "
+          f"[{smi}]")
     cfg = ModelConfig(view_num=3, max_d=192, width=640, height=480, network_mode="lite",
                       compute_dtype="bfloat16")
     ref = MVSNet(cfg)
@@ -1161,26 +1186,33 @@ def phase9_driver(smi, dev):
     want_editions = expected_train_editions(ref, torch.bfloat16)
     del ref
 
+    steps, saved, sample_ms = [], {}, []
+    real = train_lib.make_train_step, driver.make_loader, checkpoint.save_checkpoint
+
     def loader_from(start):
-        """train.make_loader over the rendered sessions; the train clusters
+        """train.make_loader over the sessions on disk; the train clusters
         start at the `start`-th. The driver restarts the data on resume (as
         JAX's does); this rotation makes the resumed run read the batches
-        the straight run read next, so that the two runs can be compared."""
+        the straight run read next, so that the two runs can be compared.
+        Each cluster's host time (decode and transforms) a sample is kept."""
         def make_loader(dcfg, tcfg, mode):
+            inner = real[1](dcfg, tcfg, mode)
+
             def factory():
-                gen = SyntheticGenerator(
-                    sessions, view_num=dcfg.view_num, image_width=dcfg.image_width,
-                    image_height=dcfg.image_height, depth_num=dcfg.depth_num,
-                    interval_scale=dcfg.interval_scale, base_image_size=dcfg.base_image_size,
-                    mode=mode, flip_cams=dcfg.flip_cams, seed=tcfg.seed)
+                gen = inner()
                 k = start if mode == "train" else 0
                 gen.clusters = gen.clusters[k:] + gen.clusters[:k]
+                samples = gen.cluster_samples
+
+                def timed(c):
+                    t0 = time.perf_counter()
+                    out = samples(c)
+                    sample_ms.append((time.perf_counter() - t0) * 1e3 / max(1, len(out)))
+                    return out
+                gen.cluster_samples = timed
                 return gen
             return factory
         return make_loader
-
-    steps, saved = [], {}
-    real = train_lib.make_train_step, driver.make_loader, checkpoint.save_checkpoint
 
     def counting_make_train_step(*args, **kwargs):
         step = real[0](*args, **kwargs)
@@ -1207,7 +1239,12 @@ def phase9_driver(smi, dev):
     ok = True
     with tempfile.TemporaryDirectory(prefix="mvsnet_driver_") as root:
         data = os.path.join(root, "data")
-        os.makedirs(os.path.join(data, "val"))        # a validation split: val rounds run
+        t0 = time.perf_counter()
+        for split in ("train", "val"):                # a validation split: val rounds run
+            for k in (0, 1):
+                write_rendered_session(os.path.join(data, split, f"session_{k}"), 640, 480, 5, k)
+        print(f"  wrote 2 train and 2 val sessions of 5 images at 640x480 in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
         straight, resumed = os.path.join(root, "straight"), os.path.join(root, "resumed")
 
         def run(model_dir, start, *extra):
@@ -1221,7 +1258,7 @@ def phase9_driver(smi, dev):
             kernels.reset_launch_counts()
             rcs = [run(straight, 0, "--max_steps_per_epoch", "6")]
             path_counts = kernels.launch_counts()
-            straight_steps = list(steps)
+            straight_steps, straight_samples = list(steps), list(sample_ms)
             rcs.append(run(resumed, 0, "--max_steps_per_epoch", "4"))
             rcs.append(run(resumed, 4, "--max_steps_per_epoch", "2", "--ckpt_step", "4"))
         finally:
@@ -1235,6 +1272,11 @@ def phase9_driver(smi, dev):
         print(f"  launches per step {straight_steps[-1]['launches']} (expected {want_launches}); "
               f"editions per step {straight_steps[-1]['editions']} (expected {want_editions})")
         print(f"  launches over the driver's run (6 steps and a validation round): {path_counts}")
+        print(f"  the data plane (one producer thread, --loader_workers 1): host ms a sample "
+              f"(JPEG decode of 3 views, depth PNG, transforms) median "
+              f"{np.median(straight_samples):.2f}, max {max(straight_samples):.2f} over "
+              f"{len(straight_samples)} clusters of the straight run; a batch of 1 against the "
+              f"steady step's {np.median(walls[1:]):.2f} ms")
         print(f"  metrics.jsonl: {records}")
         bad_steps = [i for i, st in enumerate(steps) if st["launches"] != want_launches
                      or st["editions"] != want_editions]
@@ -1843,11 +1885,10 @@ def phase13_refined_training(smi, dev, point=(480, 640, 192), small=(128, 128, 1
     return counts if good and repeat == 0 else None
 
 
-def write_rendered_session(path, W, H, N, seed, arrays):
+def write_rendered_session(path, W, H, N, seed):
     """A session of `data/synthetic.py`'s rendered plane scene, N images of
-    WxH, on disk as the data plane reads it: cameras, covisibility and
-    depth PNGs as files; the images' JPEG paths mapped to their arrays in
-    `arrays` (the card machine has no codec to write or read JPEGs)."""
+    WxH, on disk as the data plane reads it: `images/<i>.jpg` (the port's
+    JPEG encoder), cameras, covisibility and depth PNGs."""
     import os
 
     from mvsnet_tpu_torch.data.synthetic import render_session
@@ -1858,7 +1899,7 @@ def write_rendered_session(path, W, H, N, seed, arrays):
         os.makedirs(os.path.join(path, sub))
     for i, (img, cam, depth) in enumerate(zip(session["images"], session["cameras"],
                                               session["depths"])):
-        arrays[os.path.join(path, "images", f"{i}.jpg")] = img
+        imio.write_image(os.path.join(path, "images", f"{i}.jpg"), img)
         with open(os.path.join(path, "cameras", f"{i}.json"), "w") as f:
             json.dump(cam, f)
         imio.write_depth_png(os.path.join(path, "depths", f"{i}.png"), depth)
@@ -1876,7 +1917,6 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
     from mvsnet_tpu_torch import checkpoint, infer, predict, train_lib
     from mvsnet_tpu_torch import test as bench_driver
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
-    from mvsnet_tpu_torch.data import cluster
     from mvsnet_tpu_torch.io import images as imio
     from mvsnet_tpu_torch.io.cams import load_cam_txt
     from mvsnet_tpu_torch.io.pfm import load_pfm
@@ -1887,18 +1927,15 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
     print(f"phase 14: the serving drivers (mvsnet_tpu_torch.infer.main, mvsnet_tpu_torch.test."
           f"main) with --refinement at the test driver's point, {W}x{H}, V={V}, D={D}, normal, "
           f"bf16, the refinement U-Net with confidence, on plane scenes rendered by "
-          f"data/synthetic.py ({N} clusters a session). Substituted: the JPEG decode of the "
-          f"session images (served from the rendered arrays) and the JPEG write of each "
-          f"reference image <index>.jpg (written as a PNG by the port's encoder under that "
-          f"name). No image codec is installed here (no cv2, imageio or PIL); cameras, "
-          f"covisibility and depth PNGs are files, and the drivers, Predictor, writers and "
-          f"results CSV run as a user runs them [{smi}]")
-    arrays = {}
+          f"data/synthetic.py and written to disk ({N} clusters a session; the images as JPEGs "
+          f"by the port's encoder); the drivers read them and write each reference image "
+          f"<index>.jpg with the port's codec, and the drivers, Predictor, writers and results "
+          f"CSV run as a user runs them [{smi}]")
     ok = True
     with tempfile.TemporaryDirectory(prefix="mvsnet_serving_") as root:
         infer_dir, bench_dir = os.path.join(root, "session"), os.path.join(root, "bench")
-        write_rendered_session(infer_dir, W, H, N, 0, arrays)
-        write_rendered_session(os.path.join(bench_dir, "test", "session_0"), W, H, N, 1, arrays)
+        write_rendered_session(infer_dir, W, H, N, 0)
+        write_rendered_session(os.path.join(bench_dir, "test", "session_0"), W, H, N, 1)
         model_dir, results = os.path.join(root, "models"), os.path.join(root, "results.csv")
         cfg = ModelConfig(view_num=V, max_d=D, width=W, height=H, network_mode="normal",
                           compute_dtype="bfloat16", **REFINE_ARGS)
@@ -1913,21 +1950,32 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
                                        "--upsample_before_refinement"]),
                 "test": (bench_driver.main, ["--input_dir", bench_dir, "--results_path",
                                              results, "--write_output"])}
-        real = cluster.load_image, predict.write_image
-        cluster.load_image = arrays.__getitem__
-        predict.write_image = lambda path, image: imio.write_png(
-            path, np.asarray(image).astype(np.uint8))
+        # timed, not replaced: the writer thread's batches and its JPEG writes
+        real = predict.write_output, predict.write_image
+        writer_ms, jpeg_ms = [], []
+
+        def timed(fn, into):
+            def run(*args, **kwargs):
+                t0 = time.perf_counter()
+                fn(*args, **kwargs)
+                into.append((time.perf_counter() - t0) * 1e3)
+            return run
+
+        predict.write_output = timed(real[0], writer_ms)
+        predict.write_image = timed(real[1], jpeg_ms)
         out = {}
         try:
             for name, (main_fn, args) in runs.items():
                 kernels.reset_launch_counts()
+                del writer_ms[:], jpeg_ms[:]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 rc = main_fn(args + common)
                 torch.cuda.synchronize()
-                out[name] = (rc, (time.perf_counter() - t0) * 1e3, kernels.launch_counts())
+                out[name] = (rc, (time.perf_counter() - t0) * 1e3, kernels.launch_counts(),
+                             list(writer_ms), list(jpeg_ms))
         finally:
-            cluster.load_image, predict.write_image = real
+            predict.write_output, predict.write_image = real
         # read every file back: (full resolution with the net upsampled, the
         # cost volume's without; the test driver resizes its depth to the
         # ground truth before writing it)
@@ -1939,7 +1987,7 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
         for name, out_dir in (("infer", os.path.join(infer_dir, "depths_mvsnet")),
                               ("test", os.path.join(bench_dir, "test", "session_0",
                                                     "depths_mvsnet"))):
-            rc, wall, counts = out[name]
+            rc, wall, counts, writes, jpegs = out[name]
             bad, seen = [], 0
             for i in range(N):
                 def path(suffix):
@@ -1947,7 +1995,7 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
                 maps = {k: load_pfm(path(f"_{k}.pfm")) for k in ("init", "prob", "residual")}
                 pngs = {k: imio.read_png(path(f"_{k}.png"))
                         for k in ("depth", "prob", "depth_inverse")}
-                ref_image = imio.read_png(path(".jpg"))
+                ref_image = imio.load_image(path(".jpg"))
                 cam = load_cam_txt(path(".txt"))
                 seen += 8
                 for k, m in maps.items():
@@ -1967,8 +2015,10 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
             ok = ok and good
             print(f"  {name}.main: rc {rc}, {wall:.1f} ms for {N} clusters "
                   f"({wall / N:.1f} ms a cluster, the first's set-up and restore included); "
-                  f"read back {len(os.listdir(out_dir))} files (PFMs, PNGs by the port's "
-                  f"decoder, reference images, cams): {'ok' if not bad else bad}; launches "
+                  f"writer thread {sum(writes):.1f} ms ({np.median(writes):.2f} ms a cluster), of "
+                  f"which the reference JPEG writes {sum(jpegs):.1f} ms ({np.median(jpegs):.2f} ms "
+                  f"each); read back {len(os.listdir(out_dir))} files (PFMs, PNGs and reference "
+                  f"JPEGs by the port's decoders, cams): {'ok' if not bad else bad}; launches "
                   f"{ {k: counts[k] for k in ('cost_volume', 'conv', 'deconv')} } "
                   f"{'ok' if good else 'FAIL'} [{smi}]")
         with open(results) as f:
@@ -2172,9 +2222,7 @@ def phase15_chain(smi, dev, model_dir, step, point=(384, 512, 4, 192), clusters=
     import os
     import tempfile
 
-    from mvsnet_tpu_torch import fusion, infer, predict, visualize
-    from mvsnet_tpu_torch.data import cluster
-    from mvsnet_tpu_torch.io import images as imio
+    from mvsnet_tpu_torch import fusion, infer, visualize
     from mvsnet_tpu_torch.io.cams import load_cam_txt, projection_matrix
     from mvsnet_tpu_torch.io.dmb import read_dmb
     from mvsnet_tpu_torch.io.pfm import load_pfm
@@ -2186,109 +2234,100 @@ def phase15_chain(smi, dev, model_dir, step, point=(384, 512, 4, 192), clusters=
           f"<imported> --ckpt_step {step} --refinement (the U-Net, upsampled, with confidence) "
           f"at {W}x{H}, V={V}, D={D}, normal, bf16, {N} clusters of a rendered session, then "
           f"fusion.main --dense_folder on the card (default device): the reference's "
-          f"thresholds, 2 shards + merge-shards, --voxel_size/--min_neighbors, gipuma-export. "
-          f"Substituted as in phase 14: the JPEG decode of the session images, the JPEG write "
-          f"of each <index>.jpg (a PNG by the port's encoder under that name) and fusion's read "
-          f"of it (fusion.load_image -> the port's PNG decoder). Seeded weights: the gates are "
-          f"on well-formed output, not on the point count [{smi}]")
-    arrays, ok = {}, True
+          f"thresholds, 2 shards + merge-shards, --voxel_size/--min_neighbors, gipuma-export; "
+          f"every JPEG (the session's, each <index>.jpg and fusion's read of it) through the "
+          f"port's codec. Seeded weights: the gates are on well-formed output, not on the "
+          f"point count [{smi}]")
+    ok = True
     with tempfile.TemporaryDirectory(prefix="mvsnet_chain_") as root:
         session = os.path.join(root, "session")
-        write_rendered_session(session, W, H, N, 2, arrays)
-        real = cluster.load_image, predict.write_image, fusion.load_image
-        cluster.load_image = arrays.__getitem__
-        predict.write_image = lambda path, image: imio.write_png(
-            path, np.asarray(image).astype(np.uint8))
-        fusion.load_image = imio.read_png
-        try:
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            rc = infer.main(["--input_dir", session, "--view_num", str(V), "--max_d", str(D),
-                             "--width", str(W), "--height", str(H), "--network_mode", "normal",
-                             "--compute_dtype", "bfloat16", "--refinement",
-                             "--refinement_network", "unet", "--refine_with_confidence",
-                             "--upsample_before_refinement", "--visualize", "--model_dir",
-                             model_dir, "--ckpt_step", str(step), "--device", str(dev)])
+        write_rendered_session(session, W, H, N, 2)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = infer.main(["--input_dir", session, "--view_num", str(V), "--max_d", str(D),
+                         "--width", str(W), "--height", str(H), "--network_mode", "normal",
+                         "--compute_dtype", "bfloat16", "--refinement",
+                         "--refinement_network", "unet", "--refine_with_confidence",
+                         "--upsample_before_refinement", "--visualize", "--model_dir",
+                         model_dir, "--ckpt_step", str(step), "--device", str(dev)])
+        torch.cuda.synchronize()
+        infer_ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        idle = [k for k in ("cost_volume", "conv", "deconv") if counts[k] == 0]
+        good = rc == 0 and not idle
+        ok = ok and good
+        print(f"  infer.main: rc {rc}, {infer_ms:.1f} ms for {N} clusters; launches "
+              f"{ {k: counts[k] for k in ('cost_volume', 'conv', 'deconv')} } "
+              f"{'ok' if good else 'FAIL'}")
+        depth_dir = os.path.join(session, "depths_mvsnet")
+        ply_path = os.path.join(session, "points_mvsnet", "consistencyCheck",
+                                "final3d_model.ply")
+
+        def fuse(*extra):
             torch.cuda.synchronize()
-            infer_ms = (time.perf_counter() - t0) * 1e3
-            counts = kernels.launch_counts()
-            idle = [k for k in ("cost_volume", "conv", "deconv") if counts[k] == 0]
-            good = rc == 0 and not idle
-            ok = ok and good
-            print(f"  infer.main: rc {rc}, {infer_ms:.1f} ms for {N} clusters; launches "
-                  f"{ {k: counts[k] for k in ('cost_volume', 'conv', 'deconv')} } "
-                  f"{'ok' if good else 'FAIL'}")
-            depth_dir = os.path.join(session, "depths_mvsnet")
-            ply_path = os.path.join(session, "points_mvsnet", "consistencyCheck",
-                                    "final3d_model.ply")
+            t0 = time.perf_counter()
+            rc = fusion.main(["--dense_folder", session, *extra])
+            torch.cuda.synchronize()
+            return rc, (time.perf_counter() - t0) * 1e3
 
-            def fuse(*extra):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                rc = fusion.main(["--dense_folder", session, *extra])
-                torch.cuda.synchronize()
-                return rc, (time.perf_counter() - t0) * 1e3
+        def cloud_ok(points, colors):
+            return (points.ndim == 2 and points.shape[1] == 3 and np.isfinite(points).all()
+                    and colors is not None and colors.shape == points.shape)
 
-            def cloud_ok(points, colors):
-                return (points.ndim == 2 and points.shape[1] == 3 and np.isfinite(points).all()
-                        and colors is not None and colors.shape == points.shape)
-
-            rc, ms = fuse()
-            whole = read_ply(ply_path)
-            good = rc == 0 and cloud_ok(*whole)
-            rcs = [fuse("--shard_count", "2", "--shard_index", str(k))[0] for k in (0, 1)]
-            rcs.append(fuse("--mode", "merge-shards")[0])
-            merged = read_ply(ply_path)
-            a, b = _sorted_cloud(*whole), _sorted_cloud(*merged)
-            same = (rcs == [0, 0, 0] and np.array_equal(a[0], b[0])
-                    and np.array_equal(a[1], b[1]))
-            ok = ok and good and same
-            print(f"  fusion.main (defaults: prob 0.8, disp 0.25, num_consistent 3, rel 0.01): "
-                  f"rc {rc}, {ms:.1f} ms, {len(whole[0])} points, the PLY read back "
-                  f"{'ok' if good else 'FAIL'}; --shard_count 2 then --mode merge-shards: rcs "
-                  f"{rcs}, the same {len(merged[0])} points and colours as unsharded "
-                  f"{'ok' if same else 'FAIL'}")
-            rc, ms = fuse("--prob_threshold", "0", "--num_consistent", "1", "--voxel_size",
-                          "4.0", "--min_neighbors", "2")
-            merged_cloud = read_ply(ply_path)
-            good = rc == 0 and cloud_ok(*merged_cloud)
-            ok = ok and good
-            print(f"  fusion.main --prob_threshold 0 --num_consistent 1 --voxel_size 4.0 "
-                  f"--min_neighbors 2 (the native consolidation on every consistent pixel): rc "
-                  f"{rc}, {ms:.1f} ms, {len(merged_cloud[0])} points, read back "
-                  f"{'ok' if good else 'FAIL'}")
-            rc, ms = fuse("--mode", "gipuma-export")
-            point_dir = os.path.join(session, "points_mvsnet")
-            bad = []
-            for i in range(N):
-                cam = load_cam_txt(os.path.join(depth_dir, f"{i}.txt"))
-                with open(os.path.join(point_dir, "cams", f"{i}.jpg.P")) as f:
-                    P = np.array([[float(x) for x in line.split()] for line in f
-                                  if line.strip()])
-                depth = load_pfm(os.path.join(depth_dir, f"{i}_prob_filtered.pfm"))
-                disp = read_dmb(os.path.join(point_dir, f"2333__{i}", "disp.dmb"))
-                normals = read_dmb(os.path.join(point_dir, f"2333__{i}", "normals.dmb"))
-                if not np.allclose(P, projection_matrix(cam), rtol=1e-12, atol=0):
-                    bad.append(f"{i}.jpg.P")
-                if not np.array_equal(disp, depth) or normals.shape != depth.shape + (3,):
-                    bad.append(f"2333__{i}")
-                if not os.path.isfile(os.path.join(point_dir, "images", f"{i}.jpg")):
-                    bad.append(f"images/{i}.jpg")
-            good = rc == 0 and not bad
-            ok = ok and good
-            print(f"  fusion.main --mode gipuma-export: rc {rc}, {ms:.1f} ms; {N} .P files, "
-                  f"disp.dmb (== the filtered depth) and normals.dmb read back: "
-                  f"{'ok' if not bad else bad}")
-            # 15d: the depth-map viewer's reader on the files of phase 14's writers
-            shapes = {f: visualize.load_depth_any(os.path.join(depth_dir, f)).shape
-                      for f in ("0_init.pfm", "0_depth.png", "0_prob.pfm")}
-            shapes["2333__0/disp.dmb"] = visualize.load_depth_any(
-                os.path.join(point_dir, "2333__0", "disp.dmb")).shape
-            good = all(tuple(x for x in s if x != 1) == (H, W) for s in shapes.values())
-            ok = ok and good
-            print(f"  15d: visualize.load_depth_any read {shapes} {'ok' if good else 'FAIL'}")
-        finally:
-            cluster.load_image, predict.write_image, fusion.load_image = real
+        rc, ms = fuse()
+        whole = read_ply(ply_path)
+        good = rc == 0 and cloud_ok(*whole)
+        rcs = [fuse("--shard_count", "2", "--shard_index", str(k))[0] for k in (0, 1)]
+        rcs.append(fuse("--mode", "merge-shards")[0])
+        merged = read_ply(ply_path)
+        a, b = _sorted_cloud(*whole), _sorted_cloud(*merged)
+        same = (rcs == [0, 0, 0] and np.array_equal(a[0], b[0])
+                and np.array_equal(a[1], b[1]))
+        ok = ok and good and same
+        print(f"  fusion.main (defaults: prob 0.8, disp 0.25, num_consistent 3, rel 0.01): "
+              f"rc {rc}, {ms:.1f} ms, {len(whole[0])} points, the PLY read back "
+              f"{'ok' if good else 'FAIL'}; --shard_count 2 then --mode merge-shards: rcs "
+              f"{rcs}, the same {len(merged[0])} points and colours as unsharded "
+              f"{'ok' if same else 'FAIL'}")
+        rc, ms = fuse("--prob_threshold", "0", "--num_consistent", "1", "--voxel_size",
+                      "4.0", "--min_neighbors", "2")
+        merged_cloud = read_ply(ply_path)
+        good = rc == 0 and cloud_ok(*merged_cloud)
+        ok = ok and good
+        print(f"  fusion.main --prob_threshold 0 --num_consistent 1 --voxel_size 4.0 "
+              f"--min_neighbors 2 (the native consolidation on every consistent pixel): rc "
+              f"{rc}, {ms:.1f} ms, {len(merged_cloud[0])} points, read back "
+              f"{'ok' if good else 'FAIL'}")
+        rc, ms = fuse("--mode", "gipuma-export")
+        point_dir = os.path.join(session, "points_mvsnet")
+        bad = []
+        for i in range(N):
+            cam = load_cam_txt(os.path.join(depth_dir, f"{i}.txt"))
+            with open(os.path.join(point_dir, "cams", f"{i}.jpg.P")) as f:
+                P = np.array([[float(x) for x in line.split()] for line in f
+                              if line.strip()])
+            depth = load_pfm(os.path.join(depth_dir, f"{i}_prob_filtered.pfm"))
+            disp = read_dmb(os.path.join(point_dir, f"2333__{i}", "disp.dmb"))
+            normals = read_dmb(os.path.join(point_dir, f"2333__{i}", "normals.dmb"))
+            if not np.allclose(P, projection_matrix(cam), rtol=1e-12, atol=0):
+                bad.append(f"{i}.jpg.P")
+            if not np.array_equal(disp, depth) or normals.shape != depth.shape + (3,):
+                bad.append(f"2333__{i}")
+            if not os.path.isfile(os.path.join(point_dir, "images", f"{i}.jpg")):
+                bad.append(f"images/{i}.jpg")
+        good = rc == 0 and not bad
+        ok = ok and good
+        print(f"  fusion.main --mode gipuma-export: rc {rc}, {ms:.1f} ms; {N} .P files, "
+              f"disp.dmb (== the filtered depth) and normals.dmb read back: "
+              f"{'ok' if not bad else bad}")
+        # 15d: the depth-map viewer's reader on the files of phase 14's writers
+        shapes = {f: visualize.load_depth_any(os.path.join(depth_dir, f)).shape
+                  for f in ("0_init.pfm", "0_depth.png", "0_prob.pfm")}
+        shapes["2333__0/disp.dmb"] = visualize.load_depth_any(
+            os.path.join(point_dir, "2333__0", "disp.dmb")).shape
+        good = all(tuple(x for x in s if x != 1) == (H, W) for s in shapes.values())
+        ok = ok and good
+        print(f"  15d: visualize.load_depth_any read {shapes} {'ok' if good else 'FAIL'}")
     return ok
 
 
@@ -2299,7 +2338,7 @@ def phase15_fusion(smi, dev, full=(864, 1152), grid=(7, 7), small=(256, 320),
     the quality test's accuracy and completeness, timed and profiled; the
     same scene at `small` with `small_grid` cameras on the card and on the
     CPU; the native consolidation against its numpy plain versions on the
-    small cloud. Returns whether every check held."""
+    small cloud. Returns whether every check held, and the full cloud."""
     from mvsnet_tpu_torch import fusion, native
 
     (H, W), n = full, grid[0] * grid[1]
@@ -2340,7 +2379,7 @@ def phase15_fusion(smi, dev, full=(864, 1152), grid=(7, 7), small=(256, 320),
     merge_ms = (time.perf_counter() - t0) * 1e3
     print(f"  the native voxel merge (2 mm) of the {len(points)} points: {len(merged)} points "
           f"in {merge_ms:.1f} ms (host C++, OpenMP build)")
-    del views, clouds, points, merged
+    del views, clouds, merged
     torch.cuda.empty_cache()
 
     (h, w), m = small, small_grid[0] * small_grid[1]
@@ -2379,20 +2418,293 @@ def phase15_fusion(smi, dev, full=(864, 1152), grid=(7, 7), small=(256, 320),
           f"points: voxel merge (4 mm) -> {len(got_v)} points, outlier mask (radius 12 mm, 4 "
           f"neighbours) keeps {int(got_m.sum())}, {native_ms:.1f} ms; equal to the numpy plain "
           f"versions after sorting: {native_ok} {'ok' if native_ok else 'FAIL'}")
-    return quality_ok and good and native_ok
+    return quality_ok and good and native_ok, points
 
 
 def phase15(smi, dev, request):
-    """Phase 15: import (a, with d's trace), the chain (b, d), fusion (c)."""
+    """Phase 15: import (a, with d's trace), the chain (b, d), fusion (c).
+    Returns 15c's fused cloud, or None on failure."""
     ok, model_dir, step, root = phase15_import(smi, dev, request)
     try:
         ok = phase15_chain(smi, dev, model_dir, step) and ok
     finally:
         import shutil
         shutil.rmtree(root, ignore_errors=True)
-    ok = phase15_fusion(smi, dev) and ok
-    if not ok:
+    fused, cloud = phase15_fusion(smi, dev)
+    if not (ok and fused):
         print("phase 15 FAILED")
+        return None
+    return cloud
+
+
+# phase 16: the DTU chain's inference point, and the ground truth of 15c's
+# cloud: points spread evenly over the cap of the sphere that 15c's
+# completeness gate samples (z from -R to -0.6 R about the centre)
+DTU_INFER_ARGS = ["--view_num", "3", "--max_d", "192", "--width", "640", "--height", "512",
+                  "--network_mode", "normal", "--compute_dtype", "bfloat16"]
+SPHERE_GT_POINTS = 2_000_000
+
+
+def sphere_cap_samples(n):
+    """n points on the cap on a golden-angle spiral: even in area, since a
+    sphere's zones of equal height have equal areas."""
+    i = np.arange(n) + 0.5
+    z = -SPHERE_RADIUS + 0.4 * SPHERE_RADIUS * i / n
+    phi = i * np.pi * (3.0 - np.sqrt(5.0))
+    r = np.sqrt(SPHERE_RADIUS ** 2 - z ** 2)
+    return SPHERE_CENTER + np.stack([r * np.cos(phi), r * np.sin(phi), z], axis=1)
+
+
+def host_cpu() -> str:
+    import platform
+
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return f"{line.split(':', 1)[1].strip()}, {os.cpu_count()} cores"
+    except OSError:
+        pass
+    return f"{platform.processor() or platform.machine()}, {os.cpu_count()} cores"
+
+
+def phase16_chain(smi, dev, root):
+    """16a and 16b; returns (ok, the collected PLY's path or None)."""
+    from mvsnet_tpu_torch.data.synthetic import write_dtu_scan
+    from mvsnet_tpu_torch.io import images as imio
+    from mvsnet_tpu_torch.io.cams import load_cam_txt
+    from mvsnet_tpu_torch.io.pfm import load_pfm
+    from mvsnet_tpu_torch.io.ply import read_ply
+    from mvsnet_tpu_torch.ops import kernels
+    from mvsnet_tpu_torch.scripts import test_and_fuse
+    from mvsnet_tpu_torch.tools import convert_dtu, dtu_fixer, split_data
+
+    views, lightings = 49, 7
+    print(f"phase 16a: a DTU-layout scan ({views} views, {lightings} lightings, 640x512 RGB "
+          f"PNGs, 160x128 depth PFMs) rendered by data.synthetic.write_dtu_scan, then "
+          f"python -m mvsnet_tpu_torch.tools.convert_dtu, .dtu_fixer and .split_data as a user "
+          f"runs them; no image codec is installed here [{smi}; host {host_cpu()}]")
+    dtu, data = os.path.join(root, "dtu"), os.path.join(root, "sessions")
+    times = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    timed("scan", write_dtu_scan, dtu)
+    rcs = [timed("convert", convert_dtu.main, [dtu, data]),
+           timed("fix", dtu_fixer.main, [data]),
+           timed("split", split_data.main, [data])]
+    test_root = os.path.join(data, "test")
+    sessions = sorted(os.listdir(test_root))
+    print(f"  scan written in {times['scan']:.1f} ms (threads); convert_dtu {times['convert']:.1f} "
+          f"ms ({times['convert'] / (views * lightings):.2f} ms a view: PNG decode, JPEG encode, "
+          f"depth PFM -> PNG, cam -> JSON); dtu_fixer {times['fix']:.1f} ms "
+          f"({times['fix'] / lightings:.1f} ms a session of {views} depth maps and cameras); "
+          f"split_data {times['split']:.1f} ms; rcs {rcs}; test split {sessions} (host times)")
+    ok = rcs == [0, 0, 0] and len(sessions) == 1
+    if not ok:
+        print("phase 16a FAILED")
+        return False, None
+    session = os.path.join(test_root, sessions[0])
+    bad = []
+    for i in range(views):
+        img = imio.load_image(os.path.join(session, "images", f"{i}.jpg"))
+        depth = imio.read_png(os.path.join(session, "depths", f"{i}.png"))
+        with open(os.path.join(session, "cameras", f"{i}.json")) as f:
+            cam = json.load(f)
+        if img.shape != (512, 640, 3) or depth.shape != (512, 640) or depth.dtype != np.uint16:
+            bad.append(f"{i}: {img.shape} {depth.shape} {depth.dtype}")
+        if not np.isfinite([cam["intrinsics"][k] for k in ("fx", "fy", "px", "py")]).all():
+            bad.append(f"{i}.json")
+    with open(os.path.join(session, "covisibility.json")) as f:
+        covis = json.load(f)
+    if sorted(covis, key=int) != [str(i) for i in range(views)]:
+        bad.append("covisibility.json")
+    ok = not bad
+    print(f"  the test session's {views} JPEGs (the port's decoder), depth PNGs, cameras and "
+          f"covisibility read back: {'ok' if ok else bad}")
+
+    plys, results = os.path.join(root, "plys"), os.path.join(root, "fusion_results.csv")
+    args = ["--test_folder_root", test_root, "--device", str(dev), "--prob_threshold", "0",
+            "--num_consistent", "1", "--ply_folder", plys, "--results_path", results,
+            "--infer_args", *DTU_INFER_ARGS]
+    print(f"phase 16b: python -m mvsnet_tpu_torch.scripts.test_and_fuse {' '.join(args)} "
+          f"(seeded weights: prob stays under the 0.8 default) [{smi}]")
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rc = test_and_fuse.main(args)
+    torch.cuda.synchronize()
+    taf_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    idle = [k for k in ("cost_volume", "conv", "deconv") if counts[k] == 0]
+    runs = os.listdir(plys) if os.path.isdir(plys) else []
+    collected = (os.listdir(os.path.join(plys, runs[0])) if len(runs) == 1 else [])
+    ply = os.path.join(plys, runs[0], collected[0]) if len(collected) == 1 else None
+    points = read_ply(ply)[0] if ply else np.zeros((0, 3))
+    with open(results) as f:
+        rows = f.readlines()
+    rows_ok = rows == ["None, None, [], 0.0, 0.25, 1 \n", "None, None, [[]], 0.0, 0.25, 1 \n"]
+    out_dir = os.path.join(session, "depths_mvsnet")
+    ref = imio.load_image(os.path.join(out_dir, "0.jpg"))
+    h, w = (int(DTU_INFER_ARGS[DTU_INFER_ARGS.index(k) + 1]) // 4 for k in ("--height", "--width"))
+    maps_ok = (load_pfm(os.path.join(out_dir, "0_init.pfm")).shape == (h, w)
+               and ref.shape == (h, w, 3)
+               and np.isfinite(load_cam_txt(os.path.join(out_dir, "0.txt"))).all())
+    good = (rc == 0 and not idle and len(points) > 0 and np.isfinite(points).all() and rows_ok
+            and maps_ok)
+    print(f"  rc {rc}, {taf_ms:.1f} ms for the session ({views} clusters of inference, "
+          f"{views}-view fusion, PLY collection; set-up included); launches "
+          f"{ {k: counts[k] for k in ('cost_volume', 'conv', 'deconv')} }; collected "
+          f"{collected} with {len(points)} points; results CSV {rows!r}; 0_init.pfm, 0.jpg (the "
+          f"port's decoder) and 0.txt read back: {maps_ok} {'ok' if good else 'FAIL'}")
+    return ok and good, ply
+
+
+def phase16_scores(smi, root, cloud, dtu_ply):
+    """16c: `tools.eval_pointcloud` on 15c's cloud against the sphere cap,
+    gated by 15c's own thresholds, and on 16b's PLY; returns whether every
+    check held."""
+    import contextlib
+    import io
+
+    from mvsnet_tpu_torch.io.ply import write_ply
+    from mvsnet_tpu_torch.tools import eval_pointcloud
+
+    pred, gt = os.path.join(root, "fused_15c.ply"), os.path.join(root, "sphere_cap.ply")
+    t0 = time.perf_counter()
+    write_ply(pred, cloud)
+    write_ply(gt, sphere_cap_samples(SPHERE_GT_POINTS))
+    write_ms = (time.perf_counter() - t0) * 1e3
+
+    def score(args):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = eval_pointcloud.main(args)
+        ms = (time.perf_counter() - t0) * 1e3
+        return rc, json.loads(buf.getvalue().strip().splitlines()[-1]), ms
+
+    args = ["--pred", pred, "--gt", gt, "--threshold", "20", "--bbox_margin", "2"]
+    rc, m, ms = score(args)
+    good = (rc == 0 and m["accuracy_median"] < 0.5 and m["accuracy_p90"] < 2.0
+            and m["recall"] > 0.9)
+    print(f"phase 16c: python -m mvsnet_tpu_torch.tools.eval_pointcloud {' '.join(args)} on "
+          f"15c's {len(cloud)} fused points (subsampled to its default 2M) against "
+          f"{SPHERE_GT_POINTS} points spread over the sphere cap (PLYs written in "
+          f"{write_ms:.1f} ms): rc {rc}, {ms:.1f} ms (host, scipy cKDTree); accuracy median "
+          f"{m.get('accuracy_median', float('nan')):.4f} mm (gate 0.5), p90 "
+          f"{m.get('accuracy_p90', float('nan')):.4f} mm (gate 2.0), completeness@20mm "
+          f"(recall) {m.get('recall', float('nan')):.4f} (gate 0.9); {m} "
+          f"{'ok' if good else 'FAIL'} [host {host_cpu()}]")
+    plane = os.path.join(root, "plane.ply")
+    xs = np.arange(-300.0, 300.0, 2.0)
+    grid = np.stack(np.meshgrid(xs, xs), axis=-1).reshape(-1, 2)
+    write_ply(plane, np.concatenate([grid, np.full((len(grid), 1), 700.0)], axis=1))
+    line_ok = False
+    if dtu_ply:
+        rc2, m2, ms2 = score(["--pred", dtu_ply, "--gt", plane])
+        line_ok = "pred_points" in m2 and "gt_points" in m2
+        print(f"  on 16b's PLY against the rendered plane (seeded weights: no gate on the "
+              f"numbers): rc {rc2}, {ms2:.1f} ms, {m2} {'ok' if line_ok else 'FAIL'}")
+    return good and line_ok
+
+
+def _forward_filter(rows, bpp, kind):
+    """PNG filter `kind` (0-4) applied to every row of (H, stride) uint8
+    scanlines, as the PNG specification (section 9) defines it: (H,
+    stride + 1) raw rows with their filter bytes."""
+    rows = rows.astype(np.int64)
+    out = []
+    for y in range(rows.shape[0]):
+        cur, up = rows[y], rows[y - 1] if y else np.zeros_like(rows[y])
+        left = np.concatenate([np.zeros(bpp, np.int64), cur[:-bpp]])
+        ul = np.concatenate([np.zeros(bpp, np.int64), up[:-bpp]])
+        p = left + up - ul
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+        pred = [0, left, up, (left + up) // 2, paeth][kind]
+        out.append(np.concatenate([[kind], (cur - pred) % 256]))
+    return np.asarray(out, np.uint8)
+
+
+def photo(h, w, seed, gray=False):
+    """A smooth image with noise, made with numpy alone."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(0, 255, (h // 8 + 1, w // 8 + 1, 1 if gray else 3))
+    img = np.repeat(np.repeat(coarse, 8, axis=0), 8, axis=1)[:h, :w]
+    img = np.clip(img + rng.normal(0, 12, img.shape), 0, 255).astype(np.uint8)
+    return img[..., 0] if gray else img
+
+
+def phase16_codec(smi):
+    """16d: the native codec against its plain version, and its times;
+    returns whether every check held."""
+    from mvsnet_tpu_torch import native
+    from mvsnet_tpu_torch.io import images as imio
+    from mvsnet_tpu_torch.io import jpeg
+    from mvsnet_tpu_torch.native import codec
+
+    cases, bad = 0, []
+    for h, w in ((8, 8), (37, 53), (64, 48)):
+        for sampling in ("4:4:4", "4:2:2", "4:2:0", "gray"):
+            img = photo(h, w, seed=h + w, gray=sampling == "gray")
+            for quality in (75, 95):
+                name = "4:2:0" if sampling == "gray" else sampling
+                data = jpeg.encode(img, quality, name)
+                cases += 1
+                if codec.encode_jpeg(img, quality, name) != data:
+                    bad.append(f"encode {h}x{w} {sampling} q{quality}")
+                if not np.array_equal(codec.decode_jpeg(data), jpeg.decode(data)):
+                    bad.append(f"decode {h}x{w} {sampling} q{quality}")
+    rng = np.random.default_rng(16)
+    for bpp in (1, 2, 3, 4, 6, 8):
+        rows = rng.integers(0, 256, (9, 11 * bpp)).astype(np.uint8)
+        rows[3:6] = np.arange(11 * bpp, dtype=np.uint8)            # smooth rows too
+        for kind in range(5):
+            raw = _forward_filter(rows, bpp, kind).reshape(-1)
+            cases += 1
+            got = codec.png_unfilter(raw, 9, 11 * bpp, bpp)
+            if not (np.array_equal(got, rows)
+                    and np.array_equal(imio._unfilter(raw, 9, 11 * bpp, bpp), rows)):
+                bad.append(f"unfilter bpp {bpp} filter {kind}")
+    ok = not bad
+    print(f"phase 16d: the native codec (built from mvsnet_tpu_torch/native/jpeg.cpp by "
+          f"{native.compiler('jpeg')} into {native.build('jpeg').name}) against its plain "
+          f"version (io/jpeg.py, io/images._unfilter): {cases} cases (JPEG encode and decode at "
+          f"8x8, 37x53 and 64x48 in 4:4:4, 4:2:2, 4:2:0 and grayscale, qualities 75 and 95; "
+          f"PNG rows forward-filtered with each of the five filter types at 1-8 bytes a pixel) "
+          f"bit for bit: {'ok' if ok else bad}")
+    for h, w in ((512, 640), (864, 1152), (1200, 1600)):
+        img = photo(h, w, seed=w)
+        enc, dec = [], []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            data = codec.encode_jpeg(img)
+            enc.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            codec.decode_jpeg(data)
+            dec.append((time.perf_counter() - t0) * 1e3)
+        print(f"  native JPEG at {w}x{h} (quality 75, 4:2:0, {len(data)} bytes): encode "
+              f"{np.median(enc):.2f} ms, decode {np.median(dec):.2f} ms "
+              f"({h * w / np.median(dec) / 1e3:.1f} Mpixel/s) median of 5, one thread "
+              f"[host {host_cpu()}]")
+    return ok
+
+
+def phase16(smi, dev, cloud):
+    """Phase 16: the DTU chain (a, b), the scorer (c), the codec (d)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="mvsnet_dtu_") as root:
+        ok, ply = phase16_chain(smi, dev, root)
+        ok = phase16_scores(smi, root, cloud, ply) and ok
+    ok = phase16_codec(smi) and ok
+    if not ok:
+        print("phase 16 FAILED")
     return ok
 
 
@@ -2979,8 +3291,14 @@ def main() -> int:
         return 1
 
     # ---- 15. TF-checkpoint import, the chain to a PLY, fusion at full size
-    if not phase15(smi, dev, request):
+    cloud = phase15(smi, dev, request)
+    if cloud is None:
         return 1
+
+    # ---- 16. from a DTU-layout scan to a scored cloud; the native codec
+    if not phase16(smi, dev, cloud):
+        return 1
+    del cloud
 
     # ---- records: launches from the training run of phase 6, the GRU rows'
     # from the requests of phase 10 and the steps of phase 11; K1s's from

@@ -85,6 +85,10 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"   # conv compute dtype; params stay f32
 
     @property
+    def base_divisor(self) -> float:
+        return base_divisor(self.network_mode)
+
+    @property
     def feature_channels(self) -> int:
         """Output channels of the feature tower = 4 * scaled base filter 8."""
         return scaled_filters(8, self.network_mode) * 4
@@ -92,6 +96,14 @@ class ModelConfig:
     @property
     def dtype(self) -> torch.dtype:
         return torch_dtype(self.compute_dtype)
+
+    @property
+    def feature_height(self) -> int:
+        return int(self.height * self.sample_scale)
+
+    @property
+    def feature_width(self) -> int:
+        return int(self.width * self.sample_scale)
 
 
 @dataclasses.dataclass(frozen=True)

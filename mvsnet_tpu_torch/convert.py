@@ -3,8 +3,9 @@
 The input is what `MVSNet.init` returns in the JAX package, as nested dicts
 of numpy arrays: {"params": ..., "batch_stats": ...}. The port keeps flax's
 names and layouts (HWIO/DHWIO conv kernels, flax-oriented transposed-conv
-kernels), so conversion drops the flax wrapper levels `Conv_0`,
-`ConvTranspose_0` and `BatchNorm_0` and joins the path with dots, e.g.
+kernels, (in, out) dense kernels), so conversion drops the flax wrapper
+levels `Conv_0`, `ConvTranspose_0`, `BatchNorm_0` and `Dense_0` (an `Fc`'s)
+and joins the path with dots, e.g.
   params/feature_net/2dconv1_0/conv/Conv_0/kernel -> feature_net.2dconv1_0.conv.kernel
   batch_stats/regnet/3dconv1_0/bn/BatchNorm_0/mean -> regnet.3dconv1_0.bn.mean
 """
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_FLAX_WRAPPERS = {"Conv_0", "ConvTranspose_0", "BatchNorm_0"}
+_FLAX_WRAPPERS = {"Conv_0", "ConvTranspose_0", "BatchNorm_0", "Dense_0"}
 
 
 def _flatten(tree, prefix=()):

@@ -9,19 +9,25 @@ size and reflect-101 border in place of `cv2.GaussianBlur`, a bilinear
 zero-fill warp in place of `cv2.warpPerspective`) and never JPEG-coded.
 `SyntheticGenerator` is a `ClusterGenerator` over such sessions: every
 sample goes through the same transforms (rescale, crop, centering, camera
-and depth scaling) as a session read from disk.
+and depth scaling) as a session read from disk. `write_dtu_scan` writes
+the scene to disk in the DTU training layout that `tools.convert_dtu`
+reads.
 """
 
 from __future__ import annotations
 
+import os
 import random
+from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
 import numpy as np
 
 from mvsnet_tpu_torch.data.cluster import Cluster
 from mvsnet_tpu_torch.data.generator import ClusterGenerator
-from mvsnet_tpu_torch.io.cams import cam_from_camera_json
+from mvsnet_tpu_torch.io import images as imio
+from mvsnet_tpu_torch.io.cams import cam_from_camera_json, write_cam_txt
+from mvsnet_tpu_torch.io.pfm import write_pfm
 
 
 def _plane_homography(K, t_ref, t_src, depth):
@@ -152,3 +158,69 @@ class SyntheticGenerator(ClusterGenerator):
             clusters = clusters[self.shard_index::self.shard_count]
         self.clusters = clusters
         return clusters
+
+
+# convert_dtu scales a DTU camera by 512/1200 (px also by 0.94) and
+# dtu_fixer its focal lengths by 1.171875: the inverse puts the rendered
+# camera back after both
+_DTU_RESCALE = 512.0 / 1200.0
+_DTU_FOCAL = 1.171875
+# the scan's directory name in DTU's training layout; its plane lies inside
+# the depth range `convert_utils.pair_to_covisibility` gives DTU sessions
+# (400-1000 mm), its cameras 5 mm apart
+DTU_SCAN = "scan1_train"
+DTU_PLANE_MM = 700.0
+DTU_BASELINE_MM = 5.0
+
+
+def write_dtu_scan(root: str, width: int = 640, height: int = 512, n_views: int = 49,
+                   n_lightings: int = 7, workers: int = 8) -> None:
+    """The rendered plane scene as one scan of DTU's training layout under
+    `root` (scan `DTU_SCAN`), written by the port's writers: `Cameras/pair.txt` (each view's
+    10 nearest views) and `Cameras/<i:08d>_cam.txt` (the camera that
+    `tools.convert_dtu` and `tools.dtu_fixer` turn back into the rendered
+    one; translations in mm), `Rectified/<scan>/rect_<i+1:03d>_<l>_r5000.png`
+    (8-bit RGB; lighting l scales the brightness by 0.7 + 0.1 l) and
+    `Depths/<scan>/depth_map_<i:04d>.pfm` (at a quarter of the image size,
+    as DTU's are)."""
+    session = render_session(width, height, n_images=n_views, plane_depth_mm=DTU_PLANE_MM,
+                             baseline_mm=DTU_BASELINE_MM)
+    cams_dir = os.path.join(root, "Cameras")
+    images_dir = os.path.join(root, "Rectified", DTU_SCAN)
+    depths_dir = os.path.join(root, "Depths", DTU_SCAN)
+    for d in (cams_dir, images_dir, depths_dir):
+        os.makedirs(d, exist_ok=True)
+    centers = []
+    for i, (camera, depth) in enumerate(zip(session["cameras"], session["depths"])):
+        pose = camera["pose"]["matrix"]
+        cam = np.zeros((2, 4, 4))
+        cam[0] = [[pose[f"{r},{c}"] for c in range(4)] for r in range(4)]
+        cam[0, :3, 3] *= 1000.0
+        k = camera["intrinsics"]
+        cam[1, :3, :3] = [[k["fx"] / (_DTU_RESCALE * _DTU_FOCAL), 0,
+                           k["px"] / (_DTU_RESCALE * 0.94)],
+                          [0, k["fy"] / (_DTU_RESCALE * _DTU_FOCAL), k["py"] / _DTU_RESCALE],
+                          [0, 0, 1]]
+        cam[1, 3, :2] = [425.0, 2.5]
+        write_cam_txt(os.path.join(cams_dir, f"{i:08d}_cam.txt"), cam)
+        write_pfm(os.path.join(depths_dir, f"depth_map_{i:04d}.pfm"),
+                  depth[::4, ::4].astype(np.float32))
+        centers.append(cam[0, :3, 3])
+    centers = np.asarray(centers)
+    lines = [str(n_views)]
+    for i in range(n_views):
+        dist = np.linalg.norm(centers - centers[i], axis=1)
+        near = [j for j in np.argsort(dist, kind="stable") if j != i][:10]
+        lines += [str(i), f"{len(near)} " + " ".join(f"{j} {1000.0 / dist[j]:.2f}" for j in near)]
+    with open(os.path.join(cams_dir, "pair.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+    def write(job):
+        i, light = job
+        image = np.clip(np.rint(session["images"][i] * (0.7 + 0.1 * light)), 0, 255)
+        imio.write_png(os.path.join(images_dir, f"rect_{i + 1:03d}_{light}_r5000.png"),
+                       image.astype(np.uint8))
+
+    jobs = [(i, light) for i in range(n_views) for light in range(n_lightings)]
+    with ThreadPoolExecutor(max(1, workers)) as pool:
+        list(pool.map(write, jobs))

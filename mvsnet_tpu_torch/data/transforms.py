@@ -133,6 +133,16 @@ def _nearest(image, s: float):
     return image[ys][:, xs]
 
 
+def resize_nearest(image, width: int, height: int):
+    """`cv2.resize(image, (width, height), interpolation=cv2.INTER_NEAREST)`
+    in numpy: cv2's taps floor(x * (1 / (width / W))), clamped to the image."""
+    image = np.asarray(image)
+    H, W = image.shape[:2]
+    ys = np.minimum(np.floor(np.arange(height) * (1.0 / (height / H))).astype(np.int64), H - 1)
+    xs = np.minimum(np.floor(np.arange(width) * (1.0 / (width / W))).astype(np.int64), W - 1)
+    return image[ys][:, xs]
+
+
 def scale_image(image, scale: float = 1.0, interpolation: str = "linear"):
     """`cv2.resize(image, None, fx=scale, fy=scale, interpolation=...)` in
     numpy (reference: utils.py:83-88); see the module docstring."""

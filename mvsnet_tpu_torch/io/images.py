@@ -2,13 +2,15 @@
 mvs_cluster.py:72-89, mvs_data_generation/utils.py:197-219,
 preprocess.py:182-270).
 
-PNGs are written by the port's own encoder (`encode_png`: numpy and
-zlib, 8- or 16-bit grayscale, RGB or RGBA, no filter), always, so the
-depth, confidence and image PNGs come out the same on a machine without an
-image codec; `decode_png` reads them back, and any non-interlaced 8- or
-16-bit PNG. JPEGs go through `imageio`, imported inside `_imread` and
-`_imwrite`, never with the module: a machine without it (the card machine
-has no image codec) can still import the data plane and write PNGs.
+The port reads and writes its images with its own codecs, on every machine
+alike, so that no result depends on what is installed: PNGs by
+`encode_png` (numpy and zlib, 8- or 16-bit grayscale, RGB or RGBA, no
+filter) and `decode_png` (any non-interlaced 8- or 16-bit PNG; rows are
+unfiltered by the native library), JPEGs by the native baseline codec
+(`native/codec.py`: the decode equals PIL's and imageio's bit for bit, the
+write is imageio's default, quality 75 at 4:2:0). The plain versions, held
+equal to the native ones by the tests, are `io/jpeg.py` and `_unfilter`.
+Remote paths go through `io/filesystem`.
 """
 
 from __future__ import annotations
@@ -19,43 +21,13 @@ import zlib
 import numpy as np
 
 from mvsnet_tpu_torch.io import filesystem as fs
-from mvsnet_tpu_torch.io.filesystem import is_remote, open_file
+from mvsnet_tpu_torch.native import codec
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # PNG colour type -> channels (grayscale, RGB, grayscale + alpha, RGBA)
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-
-
-def _imageio():
-    try:
-        import imageio.v2 as imageio
-    except ImportError:
-        try:
-            import imageio
-        except ImportError:
-            raise ImportError("reading and writing JPEG images needs the 'imageio' package, "
-                              "which is not installed") from None
-    return imageio
-
-
-def _imread(path):
-    imageio = _imageio()
-    if is_remote(path):
-        with open_file(path, "rb") as f:
-            ext = "." + str(path).rsplit(".", 1)[-1]
-            return imageio.imread(f.read(), format=ext)
-    return imageio.imread(path)
-
-
-def _imwrite(path, arr):
-    imageio = _imageio()
-    if is_remote(path):
-        ext = "." + str(path).rsplit(".", 1)[-1]
-        data = imageio.imwrite("<bytes>", arr, format=ext)
-        with open_file(path, "wb") as f:
-            f.write(data)
-    else:
-        imageio.imwrite(path, arr)
+JPEG_QUALITY = 75                 # imageio's (PIL's) default JPEG write
+JPEG_SUBSAMPLING = "4:2:0"
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -95,8 +67,9 @@ def _paeth(a: int, b: int, c: int) -> int:
 
 def _unfilter(raw: np.ndarray, H: int, stride: int, bpp: int) -> np.ndarray:
     """The (H, stride) scanlines of a decompressed PNG with each row's
-    filter undone (PNG spec section 9). None, Sub and Up are vectorised;
-    Average and Paeth run byte by byte."""
+    filter undone (PNG spec section 9): the plain version of
+    `native.codec.png_unfilter`. None, Sub and Up are vectorised; Average
+    and Paeth run byte by byte."""
     raw = raw.reshape(H, stride + 1)
     out = np.zeros((H, stride), np.uint8)
     prev = np.zeros(stride, np.uint8)
@@ -146,7 +119,8 @@ def decode_png(data: bytes) -> np.ndarray:
                          f"interlace {interlace}")
     channels, itemsize = _PNG_CHANNELS[color_type], depth // 8
     bpp = channels * itemsize
-    rows = _unfilter(np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8), H, W * bpp, bpp)
+    rows = codec.png_unfilter(np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8), H,
+                              W * bpp, bpp)
     image = rows.view(">u2").astype(np.uint16) if itemsize == 2 else rows
     return image.reshape(H, W) if channels == 1 else image.reshape(H, W, channels)
 
@@ -159,23 +133,26 @@ def read_png(path) -> np.ndarray:
     return decode_png(fs.read_bytes(path))
 
 
+def decode_image(data: bytes) -> np.ndarray:
+    """A PNG or baseline JPEG file's samples, by its signature."""
+    if data[:8] == _PNG_SIGNATURE:
+        return decode_png(data)
+    if data[:2] == b"\xff\xd8":
+        return codec.decode_jpeg(data)
+    raise ValueError("not a PNG or JPEG file")
+
+
 def load_image(path):
     """Load an RGB image as uint8 (H, W, 3)."""
-    img = np.asarray(_imread(path))
+    img = decode_image(fs.read_bytes(path))
     if img.ndim == 2:
         img = np.stack([img] * 3, axis=-1)
     return img[..., :3]
 
 
 def load_depth_png(path):
-    """Load a uint16 depth PNG (millimeters) (reference: mvs_cluster.py:78-89):
-    through `imageio` where it is installed, else the port's decoder (the
-    same array; Average- and Paeth-filtered rows decode byte by byte)."""
-    try:
-        _imageio()
-    except ImportError:
-        return read_png(path).astype(np.uint16)
-    return np.asarray(_imread(path)).astype(np.uint16)
+    """Load a uint16 depth PNG (millimeters) (reference: mvs_cluster.py:78-89)."""
+    return read_png(path).astype(np.uint16)
 
 
 def write_depth_png(path, depth) -> None:
@@ -189,13 +166,16 @@ def write_confidence_png(path, prob) -> None:
 
 
 def write_image(path, image) -> None:
-    """A uint8 image: a PNG by the port's encoder, any other format (JPEG)
-    through `imageio`."""
+    """A uint8 image: a PNG by the port's encoder, a JPEG (.jpg, .jpeg) by
+    the native one at imageio's default settings."""
     image = np.asarray(image).astype(np.uint8)
-    if str(path).lower().endswith(".png"):
+    ext = str(path).lower().rsplit(".", 1)[-1]
+    if ext == "png":
         write_png(path, image)
+    elif ext in ("jpg", "jpeg"):
+        fs.write_bytes(path, codec.encode_jpeg(image, JPEG_QUALITY, JPEG_SUBSAMPLING))
     else:
-        _imwrite(path, image)
+        raise ValueError(f"cannot write {path}: images are written as .png, .jpg or .jpeg")
 
 
 def write_inverse_depth_png(path, depth, exp: float = 2.0) -> None:

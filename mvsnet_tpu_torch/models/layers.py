@@ -1,7 +1,8 @@
 """Layer primitives (counterpart of mvsnet_tpu/models/layers.py: `Conv`,
 `Deconv`, `group_norm_core`, `GroupNormRef`, `GroupNormFlexible`,
 `BatchNormRef`, `ConvGN`, `DeconvGN`, `ConvBN`, `DeconvBN`, `_fold_affine`
-and `_bn_affine_probe`).
+and `_bn_affine_probe`, and the reference's `network.py` extras `Fc`,
+`Dropout`, `max_pool`, `avg_pool` and `l2_pool`, which no graph uses).
 
 Parameters are float32 and keep flax's names and layouts: conv kernels are
 HWIO/DHWIO, transposed-conv kernels flax-oriented, group and batch norms
@@ -23,6 +24,8 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+import torch.nn.functional as F
 
 from mvsnet_tpu_torch.ops import autograd
 from mvsnet_tpu_torch.ops.kernels import conv as conv_k
@@ -324,3 +327,86 @@ def reset_parameters(module: nn.Module, seed: int) -> None:
     for m in module.modules():
         if isinstance(m, _ConvBase):
             m.reset_parameters(g)
+
+
+class Fc(nn.Module):
+    """Dense layer with optional flatten (layers.py:905-918; reference:
+    network.py:462-476): flax's (in, out) `kernel` and `bias`, the product
+    in `dtype` (else the promotion of the input's and float32), then ReLU."""
+
+    def __init__(self, num_in: int, num_out: int, relu: bool = True, use_bias: bool = True,
+                 flatten: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros((num_in, num_out), dtype=torch.float32))
+        self.bias = (nn.Parameter(torch.zeros(num_out, dtype=torch.float32))
+                     if use_bias else None)
+        self.relu, self.flatten, self.dtype = relu, flatten, dtype
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Lecun-normal kernel (std 1/sqrt(fan_in)), zero bias."""
+        with torch.no_grad():
+            self.kernel.copy_(torch.randn(self.kernel.shape, generator=generator)
+                              / math.sqrt(self.kernel.shape[0]))
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        if self.flatten:
+            x = x.reshape(x.shape[0], -1)
+        dtype = self.dtype or torch.promote_types(x.dtype, self.kernel.dtype)
+        y = x.to(dtype) @ self.kernel.to(dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(dtype)
+        return torch.relu(y) if self.relu else y
+
+
+class Dropout(nn.Module):
+    """(layers.py:944-951; reference: network.py:511-517) The identity
+    unless called with `training=True`, as flax's is."""
+
+    def __init__(self, rate: float = 0.5):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, training: bool = False):
+        return F.dropout(x, self.rate, training=training)
+
+
+def _pool_window(x, pool_size: int, strides: int, padding: str, value: float):
+    """NHWC x padded for a `padding` ("SAME" or "VALID") window as XLA's
+    reduce_window pads it, as NCHW for torch's pools."""
+    x = x.permute(0, 3, 1, 2)
+    if padding == "SAME":
+        pads = []
+        for n in (x.shape[3], x.shape[2]):
+            out = -(-n // strides)
+            total = max((out - 1) * strides + pool_size - n, 0)
+            pads += [total // 2, total - total // 2]
+        x = F.pad(x, pads, value=value)
+    elif padding != "VALID":
+        raise ValueError(f"unknown padding {padding!r} (SAME or VALID)")
+    return x
+
+
+def max_pool(x, pool_size: int = 2, strides: int = 2, padding: str = "SAME"):
+    """(layers.py:921-925; reference: network.py:417-423) NHWC, the padding
+    never wins."""
+    y = F.max_pool2d(_pool_window(x, pool_size, strides, padding, -math.inf), pool_size,
+                     strides)
+    return y.permute(0, 2, 3, 1)
+
+
+def avg_pool(x, pool_size: int = 2, strides: int = 2, padding: str = "SAME"):
+    """(layers.py:928-934; reference: network.py:426-432) NHWC, each window's
+    sum over the count of its taps inside the image."""
+    summed = F.avg_pool2d(_pool_window(x, pool_size, strides, padding, 0.0), pool_size, strides,
+                          divisor_override=1)
+    counts = F.avg_pool2d(_pool_window(torch.ones_like(x), pool_size, strides, padding, 0.0),
+                          pool_size, strides, divisor_override=1)
+    return (summed / counts).permute(0, 2, 3, 1)
+
+
+def l2_pool(x, pool_size: int = 2, strides: int = 2, padding: str = "SAME"):
+    """sqrt(avg_pool(x^2)) + eps (layers.py:937-939; reference: network.py:435-442)"""
+    return torch.sqrt(avg_pool(torch.square(x), pool_size, strides, padding) + 1e-6)
+

@@ -1,14 +1,15 @@
-"""Native (C++) point-cloud consolidation, loaded with ctypes (counterpart
-of mvsnet_tpu/native/__init__.py).
+"""Native (C++) libraries, loaded with ctypes: the point-cloud
+consolidation (counterpart of mvsnet_tpu/native/__init__.py) and the image
+codec (`jpeg.cpp`, wrapped by `native/codec.py`).
 
-`pointcloud.cpp` builds at first use with `g++ -O3 -fopenmp -shared -fPIC`
+Each source builds at first use with `g++ -O3 -fopenmp -shared -fPIC`
 into `mvsnet_tpu_torch/_build/` (git-ignored), named by a hash of the
-source and the flags; nothing is built next to the source. Where the
-library cannot be built or loaded, `voxel_downsample` and
-`radius_outlier_removal` raise, naming the compiler: they never fall back
-to numpy quietly. The numpy versions (`voxel_downsample_plain`,
-`radius_outlier_removal_plain`) are the plain versions the tests and
-`chip_smoke.py` hold the library against.
+source and the flags; nothing is built next to the source. Where a
+library cannot be built or loaded, its functions raise, naming the
+compiler: they never fall back to numpy quietly. The numpy versions
+(`voxel_downsample_plain`, `radius_outlier_removal_plain`, and the codec's
+in `io/jpeg.py` and `io/images.py`) are the plain versions the tests and
+`chip_smoke.py` hold the libraries against.
 """
 
 from __future__ import annotations
@@ -25,75 +26,107 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parent / "pointcloud.cpp"
-BUILD_DIR = SRC.parents[1] / "_build"
+DIR = Path(__file__).resolve().parent
+SOURCES = {"pointcloud": DIR / "pointcloud.cpp", "jpeg": DIR / "jpeg.cpp"}
+SRC = SOURCES["pointcloud"]
+BUILD_DIR = DIR.parent / "_build"
 CXX_FLAGS = ("-O3", "-fopenmp", "-shared", "-fPIC")
 
 _LOCK = threading.Lock()
-_LIB: Optional[ctypes.CDLL] = None
+_LIBS = {}
 
 
-def compiler() -> str:
+def compiler(name: str = "pointcloud") -> str:
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError("the native point-cloud library is built from "
-                           f"{SRC.name} with g++, which is not installed")
+        raise RuntimeError(f"the native library is built from {SOURCES[name].name} with g++, "
+                           "which is not installed")
     return cxx
 
 
-def _target() -> Path:
+def _target(name: str) -> Path:
     h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_DIR / f"pointcloud-{h.hexdigest()[:16]}.so"
+    h.update(SOURCES[name].read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile `pointcloud.cpp` unless it is built; returns the library's
+def build(name: str = "pointcloud") -> Path:
+    """Compile `SOURCES[name]` unless it is built; returns the library's
     path. Raises with the compiler's output on failure."""
-    target = _target()
+    src, target = SOURCES[name], _target(name)
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cxx = compiler()
+    cxx = compiler(name)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [cxx, *CXX_FLAGS, str(SRC), "-o", tmp]
+    cmd = [cxx, *CXX_FLAGS, str(src), "-o", tmp]
     try:
         out = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except (OSError, subprocess.TimeoutExpired) as e:
         Path(tmp).unlink(missing_ok=True)
-        raise RuntimeError(f"building {SRC.name} with {cxx} failed: {e}") from e
+        raise RuntimeError(f"building {src.name} with {cxx} failed: {e}") from e
     if out.returncode != 0:
         Path(tmp).unlink(missing_ok=True)
-        raise RuntimeError(f"building {SRC.name} with {' '.join(cmd)} failed "
+        raise RuntimeError(f"building {src.name} with {' '.join(cmd)} failed "
                            f"(exit {out.returncode}):\n{out.stderr[-2000:]}")
     os.replace(tmp, target)
     return target
 
 
-def load() -> ctypes.CDLL:
-    """The library, built first where it is missing."""
-    global _LIB
+_SIGNATURES = {
+    "pointcloud": {
+        "voxel_downsample": (ctypes.c_int64, [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                                              ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]),
+        "radius_outlier_mask": (ctypes.c_int64, [ctypes.c_void_p, ctypes.c_int64,
+                                                 ctypes.c_double, ctypes.c_int64,
+                                                 ctypes.c_void_p]),
+        "native_pointcloud_abi_version": (ctypes.c_int, []),
+    },
+    "jpeg": {
+        "jpeg_header": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                                       ctypes.c_char_p, ctypes.c_int64]),
+        "jpeg_decode": (ctypes.c_int, [ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                                       ctypes.c_char_p, ctypes.c_int64]),
+        "jpeg_encode": (ctypes.c_int64, [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                                         ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p,
+                                         ctypes.c_int64]),
+        "png_unfilter": (ctypes.c_int64, [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                          ctypes.c_int64, ctypes.c_void_p]),
+        "native_codec_abi_version": (ctypes.c_int, []),
+    },
+}
+
+
+def load(name: str = "pointcloud") -> ctypes.CDLL:
+    """The library built from `SOURCES[name]`, built first where it is
+    missing. Its calls release the GIL (ctypes.CDLL), so threads run them
+    in parallel."""
     with _LOCK:
-        if _LIB is None:
-            path = build()
+        if name not in _LIBS:
+            path = build(name)
             try:
                 lib = ctypes.CDLL(str(path))
             except OSError as e:
-                raise RuntimeError(f"loading the native point-cloud library {path} "
-                                   f"(built by {compiler()}) failed: {e}") from e
-            lib.voxel_downsample.restype = ctypes.c_int64
-            lib.voxel_downsample.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]
-            lib.radius_outlier_mask.restype = ctypes.c_int64
-            lib.radius_outlier_mask.argtypes = [
-                ctypes.c_void_p, ctypes.c_int64, ctypes.c_double,
-                ctypes.c_int64, ctypes.c_void_p]
-            lib.native_pointcloud_abi_version.restype = ctypes.c_int
-            lib.native_pointcloud_abi_version.argtypes = []
-            _LIB = lib
-        return _LIB
+                raise RuntimeError(f"loading the native library {path} "
+                                   f"(built by {compiler(name)}) failed: {e}") from e
+            for fn, (restype, argtypes) in _SIGNATURES[name].items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
+            _LIBS[name] = lib
+        return _LIBS[name]
+
+
+def has_native() -> bool:
+    """Whether every native library builds and loads here (the JAX
+    package's `has_native`); the port's functions raise where they do not."""
+    try:
+        for name in SOURCES:
+            load(name)
+    except RuntimeError:
+        return False
+    return True
 
 
 def _ptr(a: Optional[np.ndarray]):

@@ -19,7 +19,8 @@ gradient (cameras are data), as in the JAX VJP.
 `sweep_cost_volume_sharded` is the multi-device edition (kernel K1s): each
 rank computes its 'space' rows and its 'depth' slab of the volume.
 `cost_slice` is one plane of the volume in plain PyTorch, with either fill
-mode (ops/cost_volume.py:241 of the JAX package, which no graph calls).
+mode (ops/cost_volume.py:241 of the JAX package, which no graph calls);
+`plane_sweep_cost_volume(..., fill_mode="edge")` stacks it over the planes.
 """
 
 from __future__ import annotations
@@ -96,17 +97,37 @@ class CostVolumeFn(torch.autograd.Function):
         return d_ref, d_views, None
 
 
-def plane_sweep_cost_volume(ref_feature, view_features, homographies,
-                            differentiable: bool = False):
+def plane_sweep_cost_volume(ref_feature, view_features, homographies, depth_chunk: int = 0,
+                            fill_mode: str = "zeros", out_dtype=None, use_pallas: bool = True,
+                            differentiable: bool = False, cw_out: bool = False):
     """ref_feature (B, h, w, C), view_features (V-1, B, h, w, C),
-    homographies (V-1, B, D, 3, 3) -> (B, D, h, w, C) in the features'
-    dtype. `differentiable` makes the volume a `CostVolumeFn`."""
-    if differentiable:
-        return CostVolumeFn.apply(ref_feature, view_features, homographies)
-    B = ref_feature.shape[0]
-    outs = [_cost_one(ref_feature[b], view_features[:, b], homographies[:, b])
-            for b in range(B)]
-    return outs[0][None] if B == 1 else torch.stack(outs, dim=0)
+    homographies (V-1, B, D, 3, 3) -> (B, D, h, w, C), with JAX's
+    parameters in JAX's order (mvsnet_tpu/ops/cost_volume.py:95).
+
+    `depth_chunk` and `use_pallas` are accepted and have no effect: the
+    port picks its chunks and its kernel by the tensors' device.
+    `fill_mode="zeros"` is K1 on CUDA tensors (a `CostVolumeFn` when
+    `differentiable`); "edge" is the plain edge-clamped warp plane by plane
+    (`cost_slice`, autograd through PyTorch), as JAX's Pallas path too is
+    for zeros only. The volume comes in the features' dtype unless
+    `out_dtype` is given; `cw_out` returns the (B, D, h, C, w) permutation."""
+    del depth_chunk, use_pallas
+    if fill_mode == "edge":
+        D = homographies.shape[2]
+        out = torch.stack([cost_slice(ref_feature, view_features, homographies[:, :, d], "edge")
+                           for d in range(D)], dim=1).to(out_dtype or ref_feature.dtype)
+    elif fill_mode != "zeros":
+        raise ValueError(f"unknown fill_mode {fill_mode!r} (zeros or edge)")
+    elif differentiable:
+        out = CostVolumeFn.apply(ref_feature, view_features, homographies)
+    else:
+        B = ref_feature.shape[0]
+        outs = [_cost_one(ref_feature[b], view_features[:, b], homographies[:, b])
+                for b in range(B)]
+        out = outs[0][None] if B == 1 else torch.stack(outs, dim=0)
+    if out_dtype is not None:
+        out = out.to(out_dtype)
+    return out.transpose(-1, -2) if cw_out else out
 
 
 def sweep_cost_volume_sharded(ref_l, views_l, homographies, mesh):

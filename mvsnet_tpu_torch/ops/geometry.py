@@ -19,22 +19,24 @@ def _f32(x, device=None) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def depth_values(depth_start, depth_interval, depth_num: int) -> torch.Tensor:
-    """start + i * interval for i in [0, D): (D,) or (B, D)."""
-    depth_start = _f32(depth_start)
-    depth_interval = _f32(depth_interval, depth_start.device)
-    i = torch.arange(depth_num, dtype=torch.float32, device=depth_start.device)
+def depth_values(depth_start, depth_interval, depth_num: int, *,
+                 dtype=torch.float32) -> torch.Tensor:
+    """start + i * interval for i in [0, D): (D,) or (B, D), in `dtype`."""
+    depth_start = torch.as_tensor(depth_start, dtype=dtype)
+    depth_interval = torch.as_tensor(depth_interval, dtype=dtype, device=depth_start.device)
+    i = torch.arange(depth_num, dtype=dtype, device=depth_start.device)
     if depth_start.ndim == 0:
         return depth_start + i * depth_interval
     return depth_start[:, None] + i[None, :] * depth_interval[:, None]
 
 
-def inv_depth_values(depth_start, depth_end, depth_num: int) -> torch.Tensor:
-    """1 / linspace(1/start, 1/end, D) (reference: homography_warping.py:74-77)."""
-    depth_start = _f32(depth_start)
-    depth_end = _f32(depth_end, depth_start.device)
-    t = torch.linspace(0.0, 1.0, depth_num, dtype=torch.float32,
-                       device=depth_start.device)
+def inv_depth_values(depth_start, depth_end, depth_num: int, *,
+                     dtype=torch.float32) -> torch.Tensor:
+    """1 / linspace(1/start, 1/end, D) in `dtype` (reference:
+    homography_warping.py:74-77)."""
+    depth_start = torch.as_tensor(depth_start, dtype=dtype)
+    depth_end = torch.as_tensor(depth_end, dtype=dtype, device=depth_start.device)
+    t = torch.linspace(0.0, 1.0, depth_num, dtype=dtype, device=depth_start.device)
     if depth_start.ndim == 0:
         inv = (1.0 / depth_start) * (1 - t) + (1.0 / depth_end) * t
         return 1.0 / inv

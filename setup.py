@@ -8,8 +8,10 @@ setup(
     description="TPU-native multi-view stereo framework (MVSNet / R-MVSNet)",
     packages=find_packages(include=["mvsnet_tpu", "mvsnet_tpu.*",
                                     "mvsnet_tpu_torch", "mvsnet_tpu_torch.*"]),
-    # the PyTorch/CUDA port builds its kernels from these sources at first use
-    package_data={"mvsnet_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+    # the PyTorch/CUDA port builds its kernels and native libraries from these
+    # sources at first use; its scripts/ holds two shell drivers
+    package_data={"mvsnet_tpu_torch": ["csrc/*.cu", "csrc/*.cuh", "native/*.cpp",
+                                       "scripts/*.sh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -205,11 +205,15 @@ def test_images_io_and_lazy_codec(tmp_path, monkeypatch):
     rgb = _image((8, 8, 3), np.uint8)
     images.write_image(str(tmp_path / "rgb.png"), rgb)
     np.testing.assert_array_equal(images.load_image(str(tmp_path / "rgb.png")), rgb)
-    # without imageio: importable, and a read names the missing package
+    images.write_image(str(tmp_path / "rgb.jpg"), rgb)
+    want = jax_images.load_image(str(tmp_path / "rgb.jpg"))
+    # without imageio the port's own codecs read and write both formats
     monkeypatch.setitem(sys.modules, "imageio", None)
     monkeypatch.setitem(sys.modules, "imageio.v2", None)
-    with pytest.raises(ImportError, match="imageio"):
-        images.load_image(str(tmp_path / "rgb.png"))
+    np.testing.assert_array_equal(images.load_image(str(tmp_path / "rgb.png")), rgb)
+    np.testing.assert_array_equal(images.load_image(str(tmp_path / "rgb.jpg")), want)
+    with pytest.raises(ValueError, match="png, .jpg or .jpeg"):
+        images.write_image(str(tmp_path / "rgb.bmp"), rgb)
 
 
 def _filtered_png(image, kind):

@@ -187,12 +187,12 @@ def test_native_builds_into_the_build_dir_and_raises_without_a_compiler(tmp_path
     assert lib.native_pointcloud_abi_version() == 1
     assert native.build().parent == native.BUILD_DIR
     assert not any(p.suffix == ".so" for p in native.SRC.parent.iterdir())
-    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_LIBS", {})
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
-    monkeypatch.setattr(native, "_target", lambda: tmp_path / "_build" / "pc.so")
+    monkeypatch.setattr(native, "_target", lambda name: tmp_path / "_build" / f"{name}.so")
     monkeypatch.setattr(native.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="g\\+\\+"):
         native.voxel_downsample(np.zeros((3, 3), np.float32), None, 1.0)
-    monkeypatch.setattr(native, "compiler", lambda: "false")     # a compiler that fails
+    monkeypatch.setattr(native, "compiler", lambda name="pointcloud": "false")  # fails
     with pytest.raises(RuntimeError, match="failed"):
         native.radius_outlier_removal(np.zeros((3, 3), np.float32), 1.0, 1)

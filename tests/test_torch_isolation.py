@@ -50,8 +50,7 @@ import sys
 for name in ("imageio", "cv2", "PIL"):
     sys.modules[name] = None                # any import of them raises ImportError
 import numpy as np
-from mvsnet_tpu_torch import infer, predict, test
-from mvsnet_tpu_torch.data import cluster
+from mvsnet_tpu_torch import infer, test
 from mvsnet_tpu_torch.io import images
 
 root, session, data = sys.argv[1:4]
@@ -62,15 +61,14 @@ images.write_confidence_png(root + "/c.png", depth / 70000)
 images.write_inverse_depth_png(root + "/i.png", depth)
 assert (images.read_png(root + "/d.png") == np.clip(depth, 0, 65535).astype(np.uint16)).all()
 assert (images.load_depth_png(root + "/d.png") == images.read_png(root + "/d.png")).all()
-# the sessions' JPEGs come decoded (.npy beside them), and <index>.jpg goes to .npy
-cluster.load_image = lambda path: np.load(path + ".npy")
-predict.write_image = lambda path, image: np.save(path + ".npy", image)
 argv = ["--view_num", "3", "--max_d", "8", "--width", "64", "--height", "64",
         "--network_mode", "ultralite", "--compute_dtype", "float32", "--device", "cpu",
         "--refinement", "--visualize"]
 assert infer.main(["--input_dir", session] + argv) == 0
 assert test.main(["--input_dir", data, "--results_path", root + "/r.csv", "--write_output"]
                  + argv) == 0
+ref = images.load_image(session + "/depths_mvsnet/0.jpg")
+assert ref.ndim == 3 and ref.shape[2] == 3 and ref.dtype == np.uint8
 print(sorted(m for m in sys.modules if m.split(".")[0] in ("imageio", "cv2", "PIL")
              and sys.modules[m] is not None))
 """
@@ -78,25 +76,28 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in ("imageio", "cv2", "PI
 
 def test_writers_and_serving_drivers_run_without_a_codec(tmp_path):
     """With imageio, cv2 and PIL blocked, as on the card machine: the PNG
-    writers, the port's decoder (the data plane's depth PNGs, written by
-    cv2 with filtered rows), `infer.main` and `test.main` with refinement.
-    Stubbed in this test only: the decode of the sessions' JPEGs (read
-    from arrays saved beside them) and the write of the reference JPEG."""
-    import imageio.v2 as imageio
+    writers, the port's PNG decoder (the data plane's depth PNGs, written
+    by cv2 with filtered rows), and `infer.main` and `test.main` with
+    refinement reading the sessions' JPEGs (written by cv2) with the
+    port's decoder and writing each reference image `<index>.jpg` with its
+    encoder; that JPEG equals what JAX's `load_image` reads."""
     from synthetic_session import make_dataset, make_session
+
+    from mvsnet_tpu.io.images import load_image as jax_load_image
 
     session = make_session(str(tmp_path / "s"), n_images=3, with_depths=False)
     data = make_dataset(str(tmp_path / "d"), n_sessions=1, split="test", n_images=3)
-    for jpg in list(tmp_path.rglob("*.jpg")):
-        np.save(str(jpg) + ".npy", imageio.imread(jpg))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(ROOT), str(ROOT / "tests")]))
     out = subprocess.run([sys.executable, "-c", _NO_CODEC, str(tmp_path), session, data],
                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
     written = sorted(p.name for p in (tmp_path / "s" / "depths_mvsnet").iterdir())
-    assert "0_depth.png" in written and "0.jpg.npy" in written and "0_residual.pfm" in written
+    assert "0_depth.png" in written and "0.jpg" in written and "0_residual.pfm" in written
     assert (tmp_path / "r.csv").read_text().count("\n") == 2
+    from mvsnet_tpu_torch.io.images import load_image
+    ref = str(tmp_path / "s" / "depths_mvsnet" / "0.jpg")
+    np.testing.assert_array_equal(load_image(ref), jax_load_image(ref))
 
 
 _BLOCKED = """
@@ -113,7 +114,7 @@ for m in pkgutil.walk_packages(mvsnet_tpu_torch.__path__, "mvsnet_tpu_torch."):
     importlib.import_module(m.name)
 from mvsnet_tpu_torch import fusion, native, tf_import, visualize
 from mvsnet_tpu_torch.config import ModelConfig
-from mvsnet_tpu_torch.io import dmb, tf_bundle
+from mvsnet_tpu_torch.io import dmb, images, tf_bundle
 from mvsnet_tpu_torch.io.cams import write_cam_txt
 from mvsnet_tpu_torch.io.pfm import write_pfm
 from mvsnet_tpu_torch.io.ply import read_ply
@@ -143,9 +144,7 @@ for i in range(3):
     write_cam_txt(f"{out}/{i}.txt", c)
     write_pfm(f"{out}/{i}_init.pfm", np.full((32, 32), 1000.0, np.float32))
     write_pfm(f"{out}/{i}_prob.pfm", np.ones((32, 32), np.float32))
-    open(f"{out}/{i}.jpg", "wb").write(b"not decoded here")
-    np.save(f"{out}/{i}.jpg.npy", np.full((32, 32, 3), 200, np.uint8))
-fusion.load_image = lambda path: np.load(path + ".npy")
+    images.write_image(f"{out}/{i}.jpg", np.full((32, 32, 3), 200, np.uint8))
 ply = fusion.fuse_session(os.path.join(root, "s"), num_consistent=2, voxel_size=2.0,
                           min_neighbors=2, device="cpu")
 points, colors = read_ply(ply)
@@ -153,15 +152,36 @@ assert len(points) > 100 and (colors == 200).all(), len(points)
 assert fusion.main(["--dense_folder", os.path.join(root, "s"), "--mode", "gipuma-export"]) == 0
 assert visualize.load_depth_any(f"{out}/0_init.pfm").shape == (32, 32)
 assert visualize.load_depth_any(root + "/s/points_mvsnet/2333__0/disp.dmb").shape == (32, 32)
+# the data tools and the test-and-fuse chain, from a DTU-layout scan to a scored PLY
+from mvsnet_tpu_torch.data.synthetic import write_dtu_scan
+from mvsnet_tpu_torch.scripts import test_and_fuse
+from mvsnet_tpu_torch.tools import convert_dtu, dtu_fixer, eval_pointcloud, split_data
+write_dtu_scan(root + "/dtu", width=64, height=64, n_views=4, n_lightings=2, workers=2)
+convert_dtu.convert_dtu(root + "/dtu", root + "/sessions", num_views=4, num_lightings=2)
+assert dtu_fixer.main([root + "/sessions"]) == 0
+assert split_data.main([root + "/sessions", "--train", "0.5", "--val", "0", "--test", "0.5"]) == 0
+assert test_and_fuse.main(["--test_folder_root", root + "/sessions/test", "--device", "cpu",
+                           "--prob_threshold", "0", "--num_consistent", "1",
+                           "--ply_folder", root + "/plys", "--results_path", root + "/f.csv",
+                           "--infer_args", "--view_num", "3", "--max_d", "8", "--width", "64",
+                           "--height", "64", "--network_mode", "ultralite",
+                           "--compute_dtype", "float32"]) == 0
+(run,) = os.listdir(root + "/plys")
+(ply,) = os.listdir(os.path.join(root, "plys", run))
+ply = os.path.join(root, "plys", run, ply)
+assert len(read_ply(ply)[0]) > 0
+assert eval_pointcloud.main(["--pred", ply, "--gt", ply]) == 0
 print(sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED and sys.modules[m] is not None))
 """
 
 
 def test_new_modules_run_with_jax_codecs_matplotlib_and_tensorflow_blocked(tmp_path):
     """Slice 5b's modules (TF import, fusion with its native library,
-    visualize, profiling) import and run with jax, the JAX package, cv2,
-    imageio, PIL, matplotlib and tensorflow blocked. Stubbed here only:
-    the decode of the reference JPEGs (read from arrays saved beside them)."""
+    visualize, profiling) and the data tools and test-and-fuse chain (a
+    DTU-layout scan converted, fixed, split, served, fused and scored)
+    import and run with jax, the JAX package, cv2, imageio, PIL,
+    matplotlib and tensorflow blocked; every JPEG goes through the port's
+    codec."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", _BLOCKED, str(tmp_path)], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)

@@ -180,3 +180,104 @@ def test_uninet_towers(cls, training):
     buffers = dict(port.named_buffers())
     for name, stat in state_dict_from_jax(dict(new)).items():
         np.testing.assert_allclose(buffers[name].numpy(), stat.numpy(), atol=1e-5, rtol=1e-5)
+
+
+def test_plane_sweep_cost_volume_takes_jax_arguments(monkeypatch):
+    """JAX's parameters in JAX's order: a fourth positional argument is
+    `depth_chunk` (it used to bind to `differentiable` and select the
+    autograd path), `fill_mode="edge"` warps edge-clamped, `out_dtype`
+    casts, `cw_out` permutes to (B, D, h, C, w); all against JAX."""
+    rng = np.random.default_rng(6)
+    ref = rng.standard_normal((2, 16, 24, 8)).astype(np.float32)
+    views = rng.standard_normal((2, 2, 16, 24, 8)).astype(np.float32)
+    homs = np.stack([_homs(rng, 2, 4) for _ in range(2)])             # (V-1, B, D, 3, 3)
+    j = [jnp.asarray(a) for a in (ref, views, homs)]
+    t = [_t(a) for a in (ref, views, homs)]
+
+    def no_autograd(*args):
+        raise AssertionError("the autograd path was selected")
+
+    monkeypatch.setattr(tcv.CostVolumeFn, "apply", no_autograd)
+    got = tcv.plane_sweep_cost_volume(*t, 4)
+    want = np.asarray(jcv.plane_sweep_cost_volume(*j, 4))
+    np.testing.assert_allclose(got.numpy(), want, **SAMPLE)
+    for kwargs in (dict(fill_mode="edge", cw_out=True),
+                   dict(out_dtype=jnp.bfloat16, cw_out=True, depth_chunk=2, use_pallas=False)):
+        want = np.asarray(jcv.plane_sweep_cost_volume(*j, **kwargs).astype(jnp.float32))
+        bf16 = "out_dtype" in kwargs
+        got = tcv.plane_sweep_cost_volume(*t, **dict(kwargs, out_dtype=torch.bfloat16)
+                                          if bf16 else kwargs)
+        assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert got.shape == want.shape == (2, 4, 16, 8, 24), kwargs
+        tol = dict(atol=1e-4, rtol=2 ** -7) if bf16 else SAMPLE
+        np.testing.assert_allclose(got.float().numpy(), want, **tol, err_msg=str(kwargs))
+        if not bf16:          # and without the permutation: the (B, D, h, w, C) volume
+            got = tcv.plane_sweep_cost_volume(*t, fill_mode="edge")
+            np.testing.assert_allclose(got.numpy(), np.swapaxes(want, -1, -2), **SAMPLE)
+    with pytest.raises(ValueError, match="fill_mode"):
+        tcv.plane_sweep_cost_volume(*t, fill_mode="wrap")
+
+
+def test_dense_dropout_and_pools():
+    """`Fc` with JAX's variables carried across by `state_dict_from_jax`,
+    `Dropout`, and `max_pool`, `avg_pool` (divided by the taps inside the
+    image) and `l2_pool` with SAME and VALID windows, against JAX."""
+    from mvsnet_tpu.models import layers as jlayers
+    from mvsnet_tpu_torch.models import layers
+
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2, 7, 9, 3)).astype(np.float32)
+    for relu, use_bias in ((True, True), (False, False)):
+        jfc = jlayers.Fc(num_out=5, relu=relu, use_bias=use_bias)
+        variables = jax.tree_util.tree_map(np.asarray,
+                                           jfc.init(jax.random.PRNGKey(1), jnp.asarray(x)))
+        if use_bias:
+            variables["params"]["Dense_0"]["bias"] = rng.standard_normal(5).astype(np.float32)
+        fc = layers.Fc(7 * 9 * 3, 5, relu=relu, use_bias=use_bias)
+        fc.load_state_dict(state_dict_from_jax(variables))
+        want = np.asarray(jfc.apply(variables, jnp.asarray(x)))
+        np.testing.assert_allclose(fc(_t(x)).detach().numpy(), want, **NET)
+    drop = layers.Dropout(0.25)
+    np.testing.assert_array_equal(drop(_t(x)).numpy(), x)
+    y = drop(_t(x), training=True).numpy()
+    assert np.all((y == 0) | np.isclose(y, x / 0.75, rtol=1e-6))
+    for size, stride, padding in ((2, 2, "SAME"), (3, 2, "SAME"), (3, 1, "SAME"),
+                                  (2, 2, "VALID"), (3, 2, "VALID")):
+        for name in ("max_pool", "avg_pool", "l2_pool"):
+            want = np.asarray(getattr(jlayers, name)(jnp.asarray(x), size, stride, padding))
+            got = getattr(layers, name)(_t(x), size, stride, padding).numpy()
+            assert got.shape == want.shape, (name, size, stride, padding)
+            np.testing.assert_allclose(got, want, atol=1e-6, rtol=1e-6,
+                                       err_msg=f"{name} {size} {stride} {padding}")
+
+
+def test_config_properties_native_flag_and_depth_dtypes():
+    """`ModelConfig.base_divisor`, `feature_height`, `feature_width`;
+    `native.has_native()`; the `dtype=` keyword of `depth_values` and
+    `inv_depth_values`: against JAX."""
+    from mvsnet_tpu import native as jnative
+    from mvsnet_tpu.config import ModelConfig as JaxConfig
+    from mvsnet_tpu_torch import native
+    from mvsnet_tpu_torch.config import ModelConfig
+
+    for mode in ("normal", "lite", "ultralite"):
+        for w, h, scale in ((640, 512, 0.25), (1152, 864, 0.25), (330, 250, 0.5)):
+            kw = dict(network_mode=mode, width=w, height=h, sample_scale=scale)
+            a, b = JaxConfig(**kw), ModelConfig(**kw)
+            assert (b.base_divisor, b.feature_height, b.feature_width) == (
+                a.base_divisor, a.feature_height, a.feature_width)
+    assert native.has_native() == jnative.has_native() is True
+    ulp = {torch.float32: 2 ** -23, torch.float16: 2 ** -10, torch.bfloat16: 2 ** -7}
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.float16, torch.float16),
+                     (jnp.bfloat16, torch.bfloat16)):
+        for start, second in ((425.0, 2.5), (np.array([400.0, 510.0]), np.array([2.0, 1.25]))):
+            want = np.asarray(jgeo.depth_values(start, second, 12, dtype=jdt).astype(jnp.float32))
+            got = tgeo.depth_values(start, second, 12, dtype=tdt)
+            assert got.dtype == tdt
+            np.testing.assert_array_equal(got.float().numpy(), want)
+            end = np.asarray(start) + 300.0
+            want = np.asarray(jgeo.inv_depth_values(start, end, 12, dtype=jdt)
+                              .astype(jnp.float32))
+            got = tgeo.inv_depth_values(start, end, 12, dtype=tdt)
+            assert got.dtype == tdt
+            np.testing.assert_allclose(got.float().numpy(), want, rtol=2 * ulp[tdt], atol=0)
