@@ -35,7 +35,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
      8->32, `2dconv8_4_refine` 32->1, `2dconv5_1_refine` 128->64 at
      108x144, the transposed conv `2dconv5_0_refine` 128->64 from 54x72) and
      at the training point (640x480: the Cin = 5 conv's weight gradient and
-     input gradient);
+     input gradient); K2 and K3 with a row offset at 8g's block (a slab of
+     96 planes, rows whole), and on two row blocks of 60: K2's blocks
+     stitched equal one launch bit for bit, K3's blocks summed equal one
+     launch within float32's tolerance, each block its plain version;
   4. inference: `Predictor` at 1152x864, D=192, 3 views, "normal",
      bfloat16, seeded weights, answers 3 requests; launch counts per
      request are asserted (cost volume 1, conv 36, deconv 7), then one more
@@ -86,6 +89,21 @@ Phases, each of which fails the script (non-zero exit, no result line):
         phase 5's bounds and the residual within 1e-3 of max(1,
         max|residual|), the throughput regime (B = ranks) equal bit for
         bit, against the single-card refined `Predictor`, one call per map;
+     f-h. the volume in depth x space blocks: 4 ranks (one NCCL rank a
+        card with four cards, else four gloo-cuda ranks on the one card),
+        then 2 the same way:
+     f. latency serving on (1,2,2) at phase 4's point, 3 requests: depth
+        and prob against phase 4's single-card `Predictor` within 8b's
+        bounds, K1s once a request and rank, each rank's stages, halo
+        exchanges and peak memory beside phase 4's, and every tensor of one
+        request recorded: none a whole (D, h, w) volume;
+     g. one f32 blocked train step at 128x128, D=16, B=2 on (1,2,2) and on
+        (1,2,1) against 8c's single-card step (phase 7's bounds); 3 bf16
+        steps at phase 6's point on (1,2,1), timed, launches per step
+        asserted (K1s 1, K2 and K3 with a row offset 2 each, the convs as
+        phase 6's), each rank's peak beside phase 6's;
+     h. one R-MVSNet "ultralite" f32 train step at 128x128, D=16 with the
+        sweep's rows on (1,1,2) against the single-card step;
   9. the training driver (`python -m mvsnet_tpu_torch.train`'s `main`):
      a. at the bench train point (640x480, D=192, 3 views, "lite", bf16,
         RMSprop, power + gradient loss), 6 steps with a validation round,
@@ -220,7 +238,8 @@ The last lines are the kernels' JSON record (launches from the training
 run of phase 6, the GRU rows' from the requests of phase 10 and the
 training steps of phase 11, the refinement rows' from the requests of
 phase 12 and the steps of phase 13; K1s's from the latency requests of
-phase 8, summed over ranks), the card's name and
+8b, the row-offset K2 and K3's from 8g's bf16 steps, summed over ranks),
+the card's name and
 power limit, and {"ok": true, "device": {...}}.
 """
 
@@ -245,7 +264,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 E2E_DEPTH_ATOL = 0.05          # depth units; the plane interval is 15
 E2E_PROB_ATOL = 1e-3
 EXPECTED_LAUNCHES = {"cost_volume": 1, "cost_volume_sharded": 0, "conv": 36, "deconv": 7,
-                     "warp": 0, "warp_transpose": 0, "wgrad": 0}
+                     "warp": 0, "warp_transpose": 0, "warp_sharded": 0,
+                     "warp_transpose_sharded": 0, "wgrad": 0}
 # per bf16 request: every conv and deconv on the tensor cores but the two
 # convs on the 3-channel images (2dconv1_0, 2dconv0_1)
 EXPECTED_EDITIONS = {"conv": {"tc": 34, "simt": 2}, "deconv": {"tc": 7, "simt": 0},
@@ -404,7 +424,8 @@ def expected_train_launches(model, cfg, h, w):
     return {"cost_volume": 1, "cost_volume_sharded": 0,
             "conv": n_conv + dx_s1 + n_deconv,
             "deconv": n_deconv + dx_s2, "warp": (V - 1) * chunks,
-            "warp_transpose": (V - 1) * chunks, "wgrad": n_conv + n_deconv}
+            "warp_transpose": (V - 1) * chunks, "warp_sharded": 0,
+            "warp_transpose_sharded": 0, "wgrad": n_conv + n_deconv}
 
 
 def expected_wgrad_editions(model, dtype):
@@ -476,6 +497,7 @@ def expected_serving(model, dtype):
             kind = "conv" if isinstance(m, Conv) else "deconv"
             editions[kind][conv.pick_edition(dtype, cin, cout)] += calls(m)
     launches = {"cost_volume": 1, "cost_volume_sharded": 0, "warp": 0, "warp_transpose": 0,
+                "warp_sharded": 0, "warp_transpose_sharded": 0,
                 "wgrad": 0, "conv": sum(editions["conv"].values()),
                 "deconv": sum(editions["deconv"].values())}
     return launches, editions
@@ -701,6 +723,48 @@ def backward_repeat(smi, randn, homs, H=120, W=160, C=32):
     return [] if same else ["cost_volume_backward: two calls differ"]
 
 
+def warp_row_blocks(smi, randn, hm, H=120, W=160, C=32, rows=60):
+    """K2 and K3 with a row offset on the row blocks of 8g's (1,2,2) mesh
+    at the training point (a depth slab of 96 planes, rows [0, 60) and [60,
+    120)): K2's blocks stitched equal one whole launch bit for bit, K3's
+    blocks' gradients of the source map add up to one whole launch's, and
+    each block agrees with its plain version (tolerances as phase 3).
+    Returns failures."""
+    from mvsnet_tpu_torch.ops.kernels import warp
+
+    failures = []
+    D = hm.shape[0]
+    for dtype in (torch.float32, torch.bfloat16):
+        img, g = randn((H, W, C), dtype), randn((D, H, W, C), dtype)
+        whole = warp.warp_all_depths(img, hm)
+        blocks = [warp.warp_all_depths(img, hm, r, rows) for r in range(0, H, rows)]
+        stitched = torch.equal(torch.cat(blocks, dim=1), whole)
+        t_whole = warp.warp_transpose(g, hm)
+        t_sum = sum(warp.warp_transpose(g[:, r:r + rows], hm, r, H) for r in range(0, H, rows))
+        t_err = (t_sum - t_whole).abs().max().item()
+        t_ok = t_err <= TOL[torch.float32] * max(1.0, t_whole.abs().max().item())
+        errs = []
+        for r in range(0, H, rows):
+            got = warp.warp_all_depths(img, hm, r, rows).float()
+            want = warp.warp_all_depths_plain(img, hm, r, rows).float()
+            errs.append(((got - want).abs().max().item(), TOL[dtype] * max(1.0, want.abs().max().item())))
+            got = warp.warp_transpose(g[:, r:r + rows], hm, r, H)
+            want = warp.warp_transpose_plain(g[:, r:r + rows], hm, r, H)
+            errs.append(((got - want).abs().max().item(),
+                         TOL[torch.float32] * max(1.0, want.abs().max().item())))
+        plain_ok = all(e <= t for e, t in errs)
+        tag = str(dtype).replace("torch.", "")
+        print(f"  K2/K3 row blocks {tag}: {H // rows} blocks of {rows} rows x {D} planes: K2 "
+              f"stitched == one launch {stitched}; K3 blocks summed vs one launch max abs err "
+              f"{t_err:.3e} {'ok' if t_ok else 'FAIL'}; blocks vs plain max abs err "
+              f"{max(e for e, _ in errs):.3e} {'ok' if plain_ok else 'FAIL'} [{smi}]")
+        if not (stitched and t_ok and plain_ok):
+            failures.append(f"K2/K3 row blocks {tag}")
+        del img, g, whole, blocks, t_whole, t_sum
+    torch.cuda.empty_cache()
+    return failures
+
+
 def repeat_difference(a, b):
     """The largest absolute difference between two train steps' (loss,
     grads, buffers), and the first leaf (loss, then gradients and buffers
@@ -860,11 +924,14 @@ def batch_witness(smi, dev, cfg, batch_in, n):
     return ok
 
 
-def phase8_ranks(smi, dev, serve_in, backend, n):
+def phase8_ranks(smi, dev, serve_in, backend, n, two=None):
     """8b and 8c: serving in both regimes and one sharded train step on
     several ranks (`phase8_rank`), against the single-card `Predictor` and
     train step on the same inputs. Returns the K1s launches of the latency
-    requests summed over ranks, or None on failure."""
+    requests summed over ranks, the references (phase 4's latency answer,
+    8c's single-card step) and, when the world has two ranks and `two`
+    (8g's bf16 batch and point) is given, each rank's `blocks_two`
+    results; or None on failure."""
     from mvsnet_tpu_torch import train_lib
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.models import MVSNet
@@ -924,7 +991,7 @@ def phase8_ranks(smi, dev, serve_in, backend, n):
 
     t0 = time.perf_counter()
     results = spawn(phase8_rank, n, backend, backend, serve_in, batch_in, t_batch, gru_in,
-                    refine_in)
+                    refine_in, two if n == 2 else None)
     print(f"  ranks started, served, trained and joined in {time.perf_counter() - t0:.1f} s; "
           f"serving mesh {results[0]['mesh']}, devices {[r['device'] for r in results]}")
     expected = {"latency": {"cost_volume_sharded": 1, "cost_volume": 0},
@@ -1004,10 +1071,12 @@ def phase8_ranks(smi, dev, serve_in, backend, n):
     if not ok:
         print("phase 8 FAILED")
         return None
-    return sum(r["latency"]["total"]["cost_volume_sharded"] for r in results)
+    return (sum(r["latency"]["total"]["cost_volume_sharded"] for r in results),
+            {"latency": ref["latency"], "step": ref_step},
+            [r["blocks"] for r in results] if "blocks" in results[0] else None)
 
 
-def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in, refine_in):
+def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in, refine_in, two=None):
     """One rank of phase 8 (started by `parallel.launch.spawn`): serving in
     the latency (B=1) and throughput (B=n) regimes through the default
     multi-device `Predictor`, GRU throughput serving on each batch of
@@ -1070,10 +1139,10 @@ def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in, refine_in):
         # the halo exchanges of one request, each timed alone
         exchange, spent = halo.exchange, []
 
-        def timed_exchange(x, m):
+        def timed_exchange(*args):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            r = exchange(x, m)
+            r = exchange(*args)
             torch.cuda.synchronize()
             spent.append((time.perf_counter() - t0) * 1e3)
             return r
@@ -1132,6 +1201,339 @@ def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in, refine_in):
     out["train"] = dict(mesh=t_mesh.shape, loss=met["loss"].item(),
                         grads={n: p.grad.cpu().numpy() for n, p in m.named_parameters()},
                         buffers={n: b.cpu().numpy() for n, b in m.named_buffers()})
+    if two is not None:           # 8g and 8h's two-rank work, in this world
+        del m, state
+        torch.cuda.empty_cache()
+        out["blocks"] = blocks_two(backend, *two)
+    return out
+
+
+def blocks_backend(n):
+    """The backend of a blocked phase's world of n ranks: one NCCL rank per
+    card where there are n cards, else n gloo-cuda ranks on one card (the
+    `serving_setup` pattern)."""
+    return "nccl" if torch.cuda.device_count() >= n else "gloo-cuda"
+
+
+def small_train_setup(regularization="3DCNN"):
+    """8c's and 8g's float32 point (128x128, D=16, B=2, seeded weights,
+    norms perturbed; the GRU "ultralite" for 8h): config, model, batch."""
+    from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch.models import MVSNet
+
+    gru = regularization == "GRU"
+    cfg = ModelConfig(view_num=3, max_d=16, width=128, height=128,
+                      network_mode="ultralite" if gru else "normal",
+                      regularization=regularization, compute_dtype="float32")
+    batch = tuple(np.concatenate(parts, axis=0) for parts in
+                  zip(*[train_scene(128, 128, 16, seed) for seed in (3, 8)]))
+    m = MVSNet(cfg, seed=3)
+    perturb_norms(m, seed=4)
+    return cfg, m, batch
+
+
+def step_record(model, metrics):
+    return (metrics["loss"].item(), {k: p.grad.cpu().numpy() for k, p in model.named_parameters()},
+            {k: b.cpu().numpy() for k, b in model.named_buffers()})
+
+
+BIG_TRAIN_ARGS = dict(view_num=3, max_d=192, width=640, height=480, network_mode="normal",
+                      compute_dtype="bfloat16")
+BLOCK_SERVE_ARGS = dict(view_num=3, max_d=192, width=1152, height=864, network_mode="normal",
+                        compute_dtype="bfloat16")
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _reset_peak(dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak(dev):
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else float("nan")
+
+
+def gib(n_bytes) -> str:
+    """Bytes as GiB, or "not measured" where this run did not take them
+    (--multi skips phases 4 and 6)."""
+    return "not measured" if n_bytes is None or n_bytes != n_bytes else f"{n_bytes / 2 ** 30:.3f} GiB"
+
+
+# the ultralite GRU's leaves whose gradient vanishes analytically: the
+# biases before a one-channel layer norm (conv_gru3's gates and output, one
+# filter each) and prob_conv's before the softmax over depth
+GRU_ULTRALITE_VANISHING = ("gru_sweep.gru.prob_conv.bias",
+                           "gru_sweep.gru.conv_gru3.gates_conv.bias",
+                           "gru_sweep.gru.conv_gru3.output_conv.bias")
+
+
+def phase8_blocks(smi, dev, request, peaks, serve_args=BLOCK_SERVE_ARGS,
+                  big_args=BIG_TRAIN_ARGS, backend=None, refs=None, two=None):
+    """8f, 8g, 8h: the volume in depth x space blocks over ranks
+    (`parallel.infer_step.forward_3dcnn_blocks`, the blocked train step),
+    in a world of 4 ranks ((1,2,2): serving and the f32 step) and one of 2
+    ((1,2,1): the f32 and bf16 steps; (1,1,2): the GRU step), against the
+    single card. Returns the launch counts of 8g's bf16 steps summed over
+    the ranks, or None on failure. `serve_args` and `big_args` are the
+    points (small ones with backend "gloo" run the phase on CPU ranks); `refs`
+    8b's references (phase 4's latency answer, 8c's step), `two` the
+    two-rank work's results where 8b's world of two ran it."""
+    from mvsnet_tpu_torch import train_lib
+    from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.parallel.launch import spawn
+    from mvsnet_tpu_torch.predict import Predictor
+
+    refs = dict(refs or {})
+    if "latency" not in refs:
+        predictor = Predictor(ModelConfig(**serve_args), seed=0, device=dev)
+        refs["latency"] = predictor.predict(*request)[:2]
+        del predictor
+    ref = refs["latency"]
+    steps = {"3DCNN": refs.get("step"), "GRU": None}      # the single-card steps
+    for reg in [r for r, have in steps.items() if have is None]:
+        s_cfg, m, s_batch = small_train_setup(reg)
+        st = train_lib.create_train_state(m, s_cfg, TrainConfig(), device=dev)
+        _, met = train_lib.make_train_step(m, s_cfg, TrainConfig())(st, s_batch)
+        steps[reg] = step_record(m, met)
+        del m, st, met
+    b_cfg = ModelConfig(**big_args)
+    H, W, D = b_cfg.height, b_cfg.width, b_cfg.max_d
+    big_batch = train_scene(H, W, D, seed=2)
+    single = expected_train_launches(MVSNet(b_cfg, seed=0), b_cfg, H // 4, W // 4)
+    # the blocked step on (1,2,1): the same convs (halo-extended inputs),
+    # K1s forward and K2/K3 on the block backward, per depth slab of D / 2
+    chunks_block = max(1, -(-(3 * D // 2 * H // 4 * W // 4 * 32 * 4) // (2 * 1024 ** 3)))
+    want_big = dict(single, cost_volume=0, cost_volume_sharded=1, warp=0, warp_transpose=0,
+                    warp_sharded=2 * chunks_block, warp_transpose_sharded=2 * chunks_block)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    ok, counts = True, None
+    for n in (4, 2):
+        backend_n = backend or blocks_backend(n)
+        where = (f"{n} NCCL ranks, one per card" if backend_n == "nccl" else
+                 f"{n} ranks on one card over gloo, collectives staged through host memory")
+        t0 = time.perf_counter()
+        if n == 2 and two is not None:
+            results = two
+            where += ", 8b's world"
+        else:
+            results = spawn(phase8_blocks_rank, n, backend_n, backend_n, request, big_batch,
+                            serve_args, big_args)
+        print(f"phase 8{'f/8g' if n == 4 else 'g/8h'}: depth x space blocks, {where}: started, "
+              f"ran and joined in {time.perf_counter() - t0:.1f} s [{smi}]")
+        for key, r0 in results[0].items():
+            if key == "serve":
+                d_err = max(float(np.abs(r["serve"]["depth"] - ref[0]).max()) for r in results)
+                p_err = max(float(np.abs(r["serve"]["prob"] - ref[1]).max()) for r in results)
+                k1s = [[c["cost_volume_sharded"] for c in r["serve"]["counts"]] for r in results]
+                k1 = [[c["cost_volume"] for c in r["serve"]["counts"]] for r in results]
+                whole = [r["serve"]["whole"] for r in results]
+                good = (d_err <= E2E_DEPTH_ATOL and p_err <= E2E_PROB_ATOL
+                        and all(k == [1, 1, 1] for k in k1s) and all(k == [0, 0, 0] for k in k1)
+                        and not any(whole) and all(r["serve"]["finite"] for r in results))
+                ok = ok and good
+                print(f"  8f: latency serving on {r0['mesh']}, {serve_args['width']}x"
+                      f"{serve_args['height']}, D={serve_args['max_d']}, V=3, "
+                      f"{serve_args['network_mode']}, {serve_args['compute_dtype']}, 3 requests: "
+                      f"vs phase 4's single-card Predictor depth max "
+                      f"abs err {d_err:.3e} (bound {E2E_DEPTH_ATOL:g}), prob {p_err:.3e} "
+                      f"(bound {E2E_PROB_ATOL:g}); K1s launches per rank and request {k1s} "
+                      f"(expected 1), K1 {k1}; whole (D, h, w) tensors per rank {whole} "
+                      f"{'ok' if good else 'FAIL'} [{smi}]")
+                for i, r in enumerate(results):
+                    sv = r["serve"]
+                    print(f"    rank {i} {sv['coords']}: wall ms per request "
+                          f"{', '.join(f'{w:.2f}' for w in sv['walls'])} (the first includes "
+                          f"set-up); stages (ms, host clock after a synchronize) "
+                          + ", ".join(f"{k} {v:.3f}" for k, v in sv["stages"].items())
+                          + f"; halo exchanges {sv['halo_count']} taking {sv['halo_ms']:.3f} ms "
+                          f"(each timed alone); peak memory {gib(sv['peak'])} (phase 4's "
+                          f"single card: {gib(peaks.get('serve'))}); largest tensor "
+                          f"{sv['largest']} [{smi}]")
+            elif key.startswith("small"):
+                reg = "GRU" if key.endswith("gru") else "3DCNN"
+                for i, r in enumerate(results):
+                    t = r[key]
+                    good, text = step_errors(
+                        (t["loss"], t["grads"], t["buffers"]), steps[reg],
+                        vanishing=GRU_ULTRALITE_VANISHING if reg == "GRU" else ())
+                    ok = ok and good
+                    what = ("8h: R-MVSNet train step, ultralite" if reg == "GRU" else
+                            "8g: train step, normal")
+                    print(f"  {what} f32 128x128 D=16 B=2 on {t['mesh']}, rank {i}, vs the "
+                          f"single-card step: {text}")
+            elif key == "big":
+                per_step = [r["big"]["counts"] for r in results]
+                good = (all(c == want_big for st in per_step for c in st)
+                        and all(r["big"]["finite"] for r in results))
+                ok = ok and good
+                print(f"  8g: blocked train steps on {r0['mesh']}, {W}x{H}, D={D}, V=3, "
+                      f"{b_cfg.network_mode}, {b_cfg.compute_dtype}, rmsprop, power + gradient "
+                      f"loss: losses "
+                      f"{[round(v, 4) for v in r0['losses']]}; launches per step, rank "
+                      f"0: {per_step[0][0]}; expected per rank {want_big} "
+                      f"{'ok' if good else 'FAIL'} [{smi}]")
+                for i, r in enumerate(results):
+                    print(f"    rank {i}: step ms {', '.join(f'{w:.2f}' for w in r['big']['walls'])}"
+                          f" (the first includes set-up); peak memory {gib(r['big']['peak'])} "
+                          f"(phase 6's single card: {gib(peaks.get('train'))}) [{smi}]")
+                counts = {k: sum(r["big"]["total"][k] for r in results)
+                          for k in results[0]["big"]["total"]}
+    if not ok:
+        print("phase 8f-8h FAILED")
+        return None
+    return counts
+
+
+def blocked_small_step(backend, shape, reg="3DCNN"):
+    """One f32 blocked train step at `small_train_setup`'s point on a mesh
+    of `shape`, as a `step_errors` record with the mesh."""
+    from mvsnet_tpu_torch import train_lib
+    from mvsnet_tpu_torch.config import TrainConfig
+    from mvsnet_tpu_torch.parallel.mesh import make_mesh
+    from mvsnet_tpu_torch.parallel.train_step import make_sharded_train_step
+
+    mesh = make_mesh(shape=shape, backend=backend)
+    cfg, m, batch = small_train_setup(reg)
+    state = train_lib.create_train_state(m, cfg, TrainConfig(), device=mesh.device)
+    _, met = make_sharded_train_step(m, cfg, TrainConfig(), mesh)(state, batch)
+    loss, grads, buffers = step_record(m, met)
+    return dict(mesh=mesh.shape, loss=loss, grads=grads, buffers=buffers)
+
+
+def phase8_blocks_rank(backend, serve_in, big_batch, serve_args, big_args):
+    """One rank of 8f-8h (started by `parallel.launch.spawn`). In a world of
+    4: latency serving on (1,2,2) (3 requests, stages, halos, peak, the
+    tensors of one request audited) and the f32 step on (1,2,2); in a world
+    of 2: the f32 step on (1,2,1), 3 bf16 steps on (1,2,1), the GRU's f32
+    step on (1,1,2) (`blocks_two`). Returns numpy results, counts and
+    timings."""
+    from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch.ops import kernels
+    from mvsnet_tpu_torch.parallel import halo
+    from mvsnet_tpu_torch.parallel.infer_step import latency_forward
+    from mvsnet_tpu_torch.parallel.mesh import make_mesh
+    from mvsnet_tpu_torch.parallel.rank_checks import ShapeAudit, whole_volume_shapes
+    from mvsnet_tpu_torch.predict import Predictor
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = torch.distributed.get_world_size()
+    out = {}
+    dev = make_mesh(shape=(1, world, 1), backend=backend).device
+
+    if world == 4:
+        cfg = ModelConfig(**serve_args)
+        mesh = make_mesh(shape=(1, 2, 2), backend=backend)
+        predictor = Predictor(cfg, seed=0, mesh=mesh, device=dev)
+        walls, counts = [], []
+        _sync(dev)
+        _reset_peak(dev)
+        for _ in range(3):
+            before = kernels.launch_counts()
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            depth, prob, _ = predictor.predict(*serve_in, fetch=False)
+            _sync(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            after = kernels.launch_counts()
+            counts.append({k: after[k] - before[k] for k in after})
+        peak = _peak(dev)
+        serve = dict(mesh=mesh.shape, coords=mesh.coords, walls=walls, counts=counts, peak=peak,
+                     depth=depth.cpu().numpy(), prob=prob.cpu().numpy(),
+                     finite=bool(torch.isfinite(depth).all() and torch.isfinite(prob).all()))
+        model = predictor.model
+        args = tuple(torch.as_tensor(a, device=mesh.device) for a in serve_in[:4])
+        marks = []
+
+        def mark(name):
+            _sync(dev)
+            marks.append((name, time.perf_counter()))
+        exchange, spent = halo.exchange, []
+
+        def timed_exchange(*a):
+            _sync(dev)
+            t0 = time.perf_counter()
+            r = exchange(*a)
+            _sync(dev)
+            spent.append((time.perf_counter() - t0) * 1e3)
+            return r
+        with torch.inference_mode():
+            torch.distributed.barrier()
+            mark("start")
+            latency_forward(model, mesh, *args, on_stage=mark)
+            serve["stages"] = {name: (t - marks[i][1]) * 1e3
+                               for i, (name, t) in enumerate(marks[1:])}
+            halo.exchange = timed_exchange
+            try:
+                latency_forward(model, mesh, *args)
+            finally:
+                halo.exchange = exchange
+            serve["halo_ms"], serve["halo_count"] = sum(spent), len(spent)
+            with ShapeAudit() as seen:
+                latency_forward(model, mesh, *args)
+        serve["whole"] = whole_volume_shapes(seen.shapes, cfg.max_d, cfg.height // 4,
+                                             cfg.width // 4)
+        serve["largest"] = max(seen.shapes, key=lambda sh: int(np.prod(sh)))
+        out["serve"] = serve
+        del predictor, model, args
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        out["small_122"] = blocked_small_step(backend, (1, 2, 2))
+        return out
+
+    return blocks_two(backend, big_batch, big_args)
+
+
+def blocks_two(backend, big_batch, big_args):
+    """8g and 8h's work in a world of two ranks: the f32 step on (1,2,1), 3
+    bf16 steps at `big_args` on (1,2,1), the GRU's f32 step on (1,1,2)."""
+    from mvsnet_tpu_torch import train_lib
+    from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.ops import kernels
+    from mvsnet_tpu_torch.parallel.mesh import make_mesh
+    from mvsnet_tpu_torch.parallel.train_step import make_sharded_train_step
+
+    out = {}
+    dev = make_mesh(shape=(1, 2, 1), backend=backend).device
+
+    out["small_121"] = blocked_small_step(backend, (1, 2, 1))
+    # 8g's main path: 3 bf16 steps at the training point on (1,2,1)
+    cfg = ModelConfig(**big_args)
+    tcfg = TrainConfig()
+    mesh = make_mesh(shape=(1, 2, 1), backend=backend)
+    model = MVSNet(cfg, seed=0)
+    state = train_lib.create_train_state(model, cfg, tcfg, device=mesh.device)
+    step = make_sharded_train_step(model, cfg, tcfg, mesh)
+    _sync(dev)
+    _reset_peak(dev)
+    kernels.reset_launch_counts()
+    walls, per_step, losses, finite = [], [], [], True
+    for _ in range(3):
+        before = kernels.launch_counts()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        state, metrics = step(state, big_batch)
+        _sync(dev)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after = kernels.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(metrics["loss"].item())
+        finite = finite and np.isfinite(losses[-1]) and all(
+            bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    out["big"] = dict(mesh=mesh.shape, walls=walls, counts=per_step, losses=losses,
+                      total=kernels.launch_counts(), peak=_peak(dev), finite=finite)
+    del state, model, step
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["small_112_gru"] = blocked_small_step(backend, (1, 1, 2), "GRU")
     return out
 
 
@@ -2712,6 +3114,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     smi = smi_line()
     print(f"card: {smi}")
     torch.backends.cudnn.allow_tf32 = False          # float32 references stay float32
@@ -2733,6 +3136,7 @@ def main() -> int:
           f"(nvcc {' '.join(_lib.NVCC_FLAGS)})")
     summarize_build(_lib)
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 3 next]", flush=True)
     # ---- 3. kernels against their plain versions at the main paths' shapes
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -2757,8 +3161,9 @@ def main() -> int:
     t_homs = homs_of(t_batch[1], 192)
     if sys.argv[1:] == ["--multi"]:
         k1s = phase8(smi, dev, randn, homs, request)
-        return 1 if k1s is None else report([k1s])
+        return 1 if k1s is None else report([k1s[0]])
     cases = []     # one dict per kernel and shape
+    peaks = {}     # phase 4's and phase 6's peak memory, for phase 8
 
     def add_cost(name="cost_volume", hm=homs, h=216, w=288, path=None, C=32):
         D = hm.shape[1]
@@ -2856,46 +3261,55 @@ def main() -> int:
             ops=2 * cin * cout * taps * shape[0],
             source="mvsnet_tpu_torch/csrc/deconv.cu", replaces=replaces))
 
-    def add_warp(hm, replaces, C=32, path=None):
+    def add_warp(hm, replaces, C=32, path=None, rows=None):
+        """K2 and K3 on the training point's maps (120x160); with `rows`
+        (row_offset, Hr) their row-block editions, as the blocked train
+        step launches them (counters warp_sharded, warp_transpose_sharded)."""
         D, (H, W) = hm.shape[0], (120, 160)
         tag = "" if path is None else f":{path}"
+        r0, Hr = rows or (0, H)
+        block = () if rows is None else (r0, Hr)
+        t_block = () if rows is None else (r0, H)
         # F.grid_sample on (1, C, H, W) at the same taps (align_corners=False:
         # pixel x sits at (2x + 1) / W - 1): a yardstick, it rounds otherwise
         from mvsnet_tpu_torch.ops.warp import projected_coords
-        px, py = projected_coords(hm, H, W)
+        px, py = projected_coords(hm, Hr, W, row_offset=r0)
         grid = torch.stack([(2 * px + 1) / W - 1, (2 * py + 1) / H - 1], -1)
-        grid = grid.reshape(1, D * H, W, 2)
+        grid = grid.reshape(1, D * Hr, W, 2)
 
         def make(dtype):
             return randn((H, W, C), dtype), hm
 
         cases.append(dict(
-            name="warp" + tag, counter="warp", kernel=warp.warp_all_depths, path=path,
-            plain=warp.warp_all_depths_plain,
+            name="warp" + tag, counter="warp_sharded" if block else "warp",
+            kernel=lambda img, h: warp.warp_all_depths(img, h, *block), path=path,
+            plain=lambda img, h: warp.warp_all_depths_plain(img, h, *block),
             library=lambda img, _: F.grid_sample(img, grid.to(img.dtype), align_corners=False),
             library_inputs=lambda img, h: (img.movedim(-1, 0)[None].contiguous(), h),
-            make=make, bytes=lambda it: (H * W * C + D * H * W * C) * it + hm.numel() * 4,
-            ops=D * H * W * (C * 6 + 25), source="mvsnet_tpu_torch/csrc/warp.cu",
+            make=make, bytes=lambda it: (H * W * C + D * Hr * W * C) * it + hm.numel() * 4,
+            ops=D * Hr * W * (C * 6 + 25), source="mvsnet_tpu_torch/csrc/warp.cu",
             replaces=replaces))
 
         def lib_t_inputs(g, h):
             inp = torch.zeros((1, C, H, W), dtype=g.dtype, device=dev, requires_grad=True)
             out = F.grid_sample(inp, grid.to(g.dtype), align_corners=False)
-            gout = g.reshape(D, H, W, C).permute(3, 0, 1, 2).reshape(1, C, D * H, W)
+            gout = g.reshape(D, Hr, W, C).permute(3, 0, 1, 2).reshape(1, C, D * Hr, W)
             return out, inp, gout.contiguous()
 
         cases.append(dict(
-            name="warp_transpose" + tag, counter="warp_transpose", kernel=warp.warp_transpose,
-            path=path,
-            plain=warp.warp_transpose_plain, f32_out=True, deterministic=True,
+            name="warp_transpose" + tag,
+            counter="warp_transpose_sharded" if block else "warp_transpose",
+            kernel=lambda g, h: warp.warp_transpose(g, h, *t_block), path=path,
+            plain=lambda g, h: warp.warp_transpose_plain(g, h, *t_block), f32_out=True,
+            deterministic=True,
             # the train step's cotangents are float32 (ops/cost_volume.py)
             path_dtype=torch.float32,
             library=lambda out, inp, gout: torch.autograd.grad(out, inp, gout,
                                                                retain_graph=True),
             library_inputs=lib_t_inputs,
-            make=lambda dtype: (randn((D, H, W, C), dtype), hm),
-            bytes=lambda it: D * H * W * C * it + H * W * C * 4 + hm.numel() * 4,
-            ops=D * H * W * (C * 8 + 25), source="mvsnet_tpu_torch/csrc/warp.cu",
+            make=lambda dtype: (randn((D, Hr, W, C), dtype), hm),
+            bytes=lambda it: D * Hr * W * C * it + H * W * C * 4 + hm.numel() * 4,
+            ops=D * Hr * W * (C * 8 + 25), source="mvsnet_tpu_torch/csrc/warp.cu",
             replaces="mvsnet_tpu/ops/pallas/sweep.py:1701"))
 
     def add_wgrad(layer, x_shape, g_shape, k, stride, replaces, path=None):
@@ -3003,6 +3417,11 @@ def main() -> int:
     add_wgrad("2dconv0_1_refine", (1, 480, 640, 5), (1, 480, 640, 8), 3, 1, wg1,
               path="train_refine")
     add_conv("2dconv0_1_refine_dx", (1, 480, 640, 8), 3, 1, 5, False, c2s1, path="train_refine")
+    # K2 and K3 with a row offset at the blocked train step's shapes (8g's
+    # (1,2,1) mesh at the training point: a depth slab of 96 planes, rows
+    # whole, the second rank's slab)
+    add_warp(t_homs[0, 96:].contiguous(), "mvsnet_tpu/ops/pallas/sweep.py:1599",
+             path="blocks", rows=(0, 120))
 
     print("kernel phase: kernel vs plain version on the card "
           f"(pass: max abs err <= tol * max(1, max|plain|), tol {TOL[torch.float32]:g} "
@@ -3083,10 +3502,12 @@ def main() -> int:
             del inputs
             torch.cuda.empty_cache()
     failures += backward_repeat(smi, randn, t_homs)
+    failures += warp_row_blocks(smi, randn, t_homs[0, 96:].contiguous())
     if failures:
         print("kernel phase FAILED:\n  " + "\n  ".join(failures))
         return 1
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 4 next]", flush=True)
     # ---- 4. inference: 3 requests at the operating point
     cfg = ModelConfig(view_num=3, max_d=192, width=1152, height=864,
                       network_mode="normal", compute_dtype="bfloat16")
@@ -3098,7 +3519,7 @@ def main() -> int:
     if not finite:
         print("inference FAILED: non-finite depth or prob")
         return 1
-    peak = torch.cuda.max_memory_allocated()
+    peak = peaks["serve"] = torch.cuda.max_memory_allocated()
     print(f"inference: 3 requests at 1152x864, D=192, V=3, normal, bf16: wall ms "
           f"{', '.join(f'{w:.2f}' for w in walls)}; peak memory {peak / 2 ** 30:.3f} GiB; "
           f"depth {tuple(depth.shape)} in [{depth.min().item():.1f}, {depth.max().item():.1f}], "
@@ -3145,6 +3566,7 @@ def main() -> int:
     del predictor, model, depth, prob, ref_f, view_f, cost, reg
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 5 next]", flush=True)
     # ---- 5. inference end to end: card kernels vs CPU plain path, float32
     small = ModelConfig(view_num=3, max_d=32, width=320, height=256,
                         network_mode="normal", compute_dtype="float32")
@@ -3164,6 +3586,7 @@ def main() -> int:
     if not ok:
         return 1
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 6 next]", flush=True)
     # ---- 6. training: 3 steps at the reference training point
     t_cfg = ModelConfig(view_num=3, max_d=192, width=640, height=480,
                         network_mode="normal", compute_dtype="bfloat16")
@@ -3194,7 +3617,7 @@ def main() -> int:
             return 1
     train_launches = kernels.launch_counts()
     train_editions = kernels.edition_counts()
-    peak = torch.cuda.max_memory_allocated()
+    peak = peaks["train"] = torch.cuda.max_memory_allocated()
     print(f"training: 3 steps at 640x480, D=192, V=3, normal, bf16, rmsprop, power+grad "
           f"loss: step ms {', '.join(f'{w:.2f}' for w in walls)} (the first includes "
           f"set-up); peak memory {peak / 2 ** 30:.3f} GiB; losses "
@@ -3227,6 +3650,7 @@ def main() -> int:
     del state, t_model, train_step, params, batch, loss
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 7 next]", flush=True)
     # ---- 7. one train step: card kernels vs CPU plain path, float32
     s_cfg = ModelConfig(view_num=3, max_d=16, width=128, height=128,
                         network_mode="normal", compute_dtype="float32")
@@ -3249,6 +3673,7 @@ def main() -> int:
     if not ok or repeat != 0:
         return 1
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 10, 11 next]", flush=True)
     # ---- 10, 11. R-MVSNet serving and training
     g_de = g_cams[:, 0, 1, 3, 3]
     gru_counts = phase10_gru_serving(smi, dev, (g_images, g_cams, g_cams[:, 0, 1, 3, 0],
@@ -3259,6 +3684,7 @@ def main() -> int:
     if gru_train_counts is None:
         return 1
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 12, 13 next]", flush=True)
     # ---- 12, 13. refinement: serving and training
     refine_counts = phase12_refined_serving(smi, dev, request)
     if refine_counts is None:
@@ -3267,11 +3693,14 @@ def main() -> int:
     if refine_train_counts is None:
         return 1
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 8 next]", flush=True)
     # ---- 8. multi-GPU serving and training
-    k1s = phase8(smi, dev, randn, homs, request)
-    if k1s is None:
+    multi = phase8(smi, dev, randn, homs, request, peaks)
+    if multi is None:
         return 1
+    k1s, block_counts = multi
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 9 next]", flush=True)
     # ---- 9. the training driver, resuming, convergence, the bench script
     if not (phase9_driver(smi, dev) and phase9_convergence(smi, dev)):
         return 1
@@ -3286,26 +3715,31 @@ def main() -> int:
     del lite_step
     torch.cuda.empty_cache()
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 14 next]", flush=True)
     # ---- 14. the serving drivers with refinement
     if not phase14_drivers(smi, dev):
         return 1
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 15 next]", flush=True)
     # ---- 15. TF-checkpoint import, the chain to a PLY, fusion at full size
     cloud = phase15(smi, dev, request)
     if cloud is None:
         return 1
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 16 next]", flush=True)
     # ---- 16. from a DTU-layout scan to a scored cloud; the native codec
     if not phase16(smi, dev, cloud):
         return 1
     del cloud
 
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: the records next]", flush=True)
     # ---- records: launches from the training run of phase 6, the GRU rows'
     # from the requests of phase 10 and the steps of phase 11; K1s's from
     # the latency requests of phase 8 (all ranks); the refinement rows' from
     # the refined requests of phase 12 and the refined steps of phase 13
     path_counts = {None: train_launches, "gru": gru_counts, "train_gru": gru_train_counts,
-                   "refine": refine_counts, "train_refine": refine_train_counts}
+                   "refine": refine_counts, "train_refine": refine_train_counts,
+                   "blocks": block_counts}
     out = []
     for c in cases:
         r = records[(c["name"], str(c.get("path_dtype", torch.bfloat16)).replace("torch.", ""))]
@@ -3315,18 +3749,26 @@ def main() -> int:
     return report(out + [k1s])
 
 
-def phase8(smi, dev, randn, homs, request):
-    """Phase 8; returns K1s's kernel record, or None on failure."""
+def phase8(smi, dev, randn, homs, request, peaks=None):
+    """Phase 8; returns K1s's kernel record and the launch counts of 8g's
+    bf16 blocked steps summed over ranks, or None on failure. `peaks`:
+    phase 4's and phase 6's peak memory (bytes), printed beside the ranks'."""
     backend, n, serve_mesh = serving_setup()
     k1s = phase8_sharded_cost(smi, randn, homs, serve_mesh)
     if k1s is None:
         return None
-    launches = phase8_ranks(smi, dev, request, backend, n)
-    if launches is None:
+    big = (train_scene(480, 640, 192, seed=2), BIG_TRAIN_ARGS)
+    ranks = phase8_ranks(smi, dev, request, backend, n, big)
+    if ranks is None:
+        return None
+    launches, refs, two = ranks
+    block_counts = phase8_blocks(smi, dev, request, peaks or {}, refs=refs, two=two)
+    if block_counts is None:
         return None
     return dict(name="cost_volume_sharded", route="cuda",
                 source="mvsnet_tpu_torch/csrc/cost_volume.cu",
-                replaces="mvsnet_tpu/ops/pallas/sweep.py:2032", launches=launches, **k1s)
+                replaces="mvsnet_tpu/ops/pallas/sweep.py:2032", launches=launches,
+                **k1s), block_counts
 
 
 def report(kernel_records) -> int:

@@ -75,6 +75,14 @@
 //  device memory in the owner's loop, and stalled a memory latency per
 //  contributor; a second scanned each owner's candidate rows of the box's
 //  table. Both were slower than the scatter (PERF.md).
+//
+// Row blocks (multi-device training, `parallel/`): both kernels take the
+// reference rows [row_offset, row_offset + Hr) of an H-row map, as the
+// cost kernel's K1s does. K2 writes the block (D, Hr, W, C) and projects
+// its global rows; K3 reads the block's cotangents and writes the whole
+// source map, its boxes and windows clipped to the block's rows (the plan
+// bounds w over them). row_offset = 0, Hr = H is the whole map; a row
+// block of K2 is the same arithmetic per pixel as the whole launch.
 #include "common.cuh"
 
 namespace {
@@ -93,20 +101,20 @@ constexpr float kEpsRel = 0.01f;       // plus this share of its extent
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
 warp_kernel(const T* __restrict__ img, const float* __restrict__ homs, T* __restrict__ out,
-            int D, int H, int W, int C, int tiles_x) {
+            int D, int Hr, int H, int W, int C, int row_offset, int tiles_x) {
   // per warp, [kChunk][TX] taps (common.cuh's tap_record)
   extern __shared__ int4 table[];
   const int G = C >> 3, TX = 32 / G;
   const int tile_y = blockIdx.x / tiles_x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int y = tile_y * kRows + warp, tx0 = (blockIdx.x - tile_y * tiles_x) * TX;
-  if (y >= H) return;   // a warp owns its row: no barrier below is shared
+  if (y >= Hr) return;  // a warp owns its row: no barrier below is shared
   int4* wt = table + warp * kChunk * TX;
   const int d0 = blockIdx.y * kRun, d1 = min(D, d0 + kRun);
   const int px = lane / G, g = lane - px * G;
   const int x = tx0 + px;
   const bool mine = px < TX && x < W;
-  const int plane = H * W * C;
+  const int plane = Hr * W * C;
   const int off = (y * W + x) * C + g * 8;     // in a depth plane of out
   const uint64_t keep = mvs::l2_evict_last();
   const T* src = img + g * 8;
@@ -116,7 +124,8 @@ warp_kernel(const T* __restrict__ img, const float* __restrict__ homs, T* __rest
     __syncwarp();   // the previous chunk's table is consumed
     for (int q = lane; q < nd * TX; q += 32) {
       const int dd = q / TX, p = q - dd * TX;
-      wt[q] = tx0 + p < W ? mvs::tap_record(homs + (dc + dd) * 9, tx0 + p, y, H, W, C, 0)
+      wt[q] = tx0 + p < W ? mvs::tap_record(homs + (dc + dd) * 9, tx0 + p, row_offset + y,
+                                            H, W, C, 0)
                           : make_int4(0, 0, 0, 0);
     }
     __syncwarp();
@@ -152,21 +161,22 @@ __device__ __forceinline__ bool preimage(const float* __restrict__ inv, int wsig
 __device__ __forceinline__ int quot(int e, float rn) { return (int)((float)e * rn + 1e-3f); }
 
 // [lo, hi]: the integers within kEps (plus kEpsRel of the extent) of
-// [a, b], clipped to [0, n - 1]; the float bounds are clamped before the
+// [a, b], clipped to [first, last]; the float bounds are clamped before the
 // int conversions (far-off bounds leave the map anyway).
-__device__ __forceinline__ void span(float a, float b, int n, int& lo, int& hi) {
+__device__ __forceinline__ void span(float a, float b, int first, int last, int& lo, int& hi) {
   const float e = kEps + kEpsRel * (b - a);
-  lo = max(0, (int)ceilf(fmaxf(a - e, -8.f)));
-  hi = min(n - 1, (int)floorf(fminf(b + e, (float)n + 8.f)));
+  lo = max(first, (int)ceilf(fmaxf(a - e, (float)first - 8.f)));
+  hi = min(last, (int)floorf(fminf(b + e, (float)last + 9.f)));
 }
 
 // The reference pixels [x0, x1] x [y0, y1] (inclusive; empty when x1 < x0)
 // whose projections by H_d can lie in the source box of the tile at (u0,
 // v0): the span of its corners' preimages (grid points (0, 0) and (TX + 1,
-// kRows + 1) of the note's item 3), or the whole map.
+// kRows + 1) of the note's item 3), or the whole block of reference rows
+// [r0, r0 + Hr).
 __device__ __forceinline__ int4 tile_box(const float* __restrict__ inv, int wsign, int u0,
-                                         int v0, int TX, int H, int W) {
-  const int4 whole = make_int4(0, 0, W - 1, H - 1);
+                                         int v0, int TX, int Hr, int r0, int W) {
+  const int4 whole = make_int4(0, r0, W - 1, r0 + Hr - 1);
   if (wsign == 0) return whole;
   float xlo = INFINITY, xhi = -INFINITY, ylo = INFINITY, yhi = -INFINITY;
 #pragma unroll
@@ -181,8 +191,8 @@ __device__ __forceinline__ int4 tile_box(const float* __restrict__ inv, int wsig
     yhi = fmaxf(yhi, y);
   }
   int4 b;
-  span(xlo, xhi, W, b.x, b.z);
-  span(ylo, yhi, H, b.y, b.w);
+  span(xlo, xhi, 0, W - 1, b.x, b.z);
+  span(ylo, yhi, r0, r0 + Hr - 1, b.y, b.w);
   return b;
 }
 
@@ -249,14 +259,16 @@ struct Swizzle {
 
 // The block's asynchronous copy of a fill's cotangents into shared memory
 // at base, as Swizzle lays them out. Warp w copies rows w, w + 8, ...
-// (each a contiguous run of fw NC units in g), its lanes a unit at a time;
-// lg is log2 NC, or -1 where NC is no power of 2.
+// (each a contiguous run of fw NC units in g, whose Hr rows start at
+// reference row r0), its lanes a unit at a time; lg is log2 NC, or -1
+// where NC is no power of 2.
 template <typename T>
 __device__ __forceinline__ void stage(const T* __restrict__ g, const Fill& f, uint32_t base,
-                                      int H, int W, int C, int NC, int lg, Swizzle sw) {
+                                      int Hr, int r0, int W, int C, int NC, int lg,
+                                      Swizzle sw) {
   const int vpr = f.fw * NC;
   const char* src = reinterpret_cast<const char*>(
-      g + (((int64_t)f.d * H + f.b.y + f.r0) * W + f.b.x + f.c0) * C);
+      g + (((int64_t)f.d * Hr + f.b.y + f.r0 - r0) * W + f.b.x + f.c0) * C);
   const int64_t row_bytes = (int64_t)W * C * sizeof(T);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   for (int r = warp; r < f.nr; r += kRows) {
@@ -289,11 +301,12 @@ __device__ __forceinline__ void fma_unit_bf16(const uint4* p, float wgt, float* 
 // K3's plan of each plane (one thread a plane, float64), as the Python
 // reference `ops/kernels/warp.transpose_plan` computes it: inv = H_d^-1 by
 // the adjugate, cast to float32; wsign the sign of w = h6 (x + 0.5) + h7
-// (y + 0.5) + h8 at the map's four corner pixels when all four agree
-// beyond 1e-7 plus a float32 rounding margin (w is affine, so its corners
-// bound it over the map), else 0; 0 too where the inverse is not finite.
+// (y + 0.5) + h8 at the four corner pixels of the reference rows [r0, r0 +
+// H) when all four agree beyond 1e-7 plus a float32 rounding margin (w is
+// affine, so its corners bound it over the rows), else 0; 0 too where the
+// inverse is not finite.
 __global__ void plan_kernel(const float* __restrict__ homs, float* __restrict__ inv,
-                            int* __restrict__ wsign, int D, int H, int W) {
+                            int* __restrict__ wsign, int D, int H, int r0, int W) {
   const int d = blockIdx.x * blockDim.x + threadIdx.x;
   if (d >= D) return;
   double h[9];
@@ -315,7 +328,7 @@ __global__ void plan_kernel(const float* __restrict__ homs, float* __restrict__ 
   bool pos = true, neg = true;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const double px = (k & 1) ? W - 0.5 : 0.5, py = (k >> 1) ? H - 0.5 : 0.5;
+    const double px = (k & 1) ? W - 0.5 : 0.5, py = (k >> 1) ? r0 + H - 0.5 : r0 + 0.5;
     const double w = h[6] * px + h[7] * py + h[8];
     const double margin = 1e-7 + 1e-6 * (fabs(h[6]) * px + fabs(h[7]) * py + fabs(h[8]));
     pos = pos && w > margin;
@@ -325,14 +338,15 @@ __global__ void plan_kernel(const float* __restrict__ homs, float* __restrict__ 
 }
 
 // A lane owns CPL channels (8, 16 or 32) of one source pixel: G = C / CPL
-// lanes a pixel, 32 / G pixels a warp row. Output: out, or with several
+// lanes a pixel, 32 / G pixels a warp row. g holds the reference rows [r0,
+// r0 + Hr); the source map (out) is H x W. Output: out, or with several
 // depth segments (blockIdx.y) the segment's partial sums at out + s H W C.
 template <typename T, int CPL>
 __global__ void __launch_bounds__(kThreads, 2)
 warp_transpose_kernel(const T* __restrict__ g, const float* __restrict__ homs,
                       const float* __restrict__ inv, const int* __restrict__ wsign,
-                      float* __restrict__ out, int D, int H, int W, int C, int tiles_x, int P,
-                      int dseg) {
+                      float* __restrict__ out, int D, int Hr, int H, int W, int C, int r0,
+                      int tiles_x, int P, int dseg) {
   // two buffers each of: a fill's cotangents ([P][NC] units, Swizzle's
   // layout), its table (per pixel: tap column - u0 and tap row - v0 in 16
   // bits each, fx, fy) and its plane's grid of preimages; then the tile's
@@ -357,10 +371,10 @@ warp_transpose_kernel(const T* __restrict__ g, const float* __restrict__ homs,
   const bool mine = px < TX && u0 + px < W && v0 + warp < H;
   const float rgx = 1.f / (float)GX;
   const int d0 = blockIdx.y * dseg, nd = min(D, d0 + dseg) - d0;
-  const T* gd = g + (int64_t)d0 * H * W * C;
+  const T* gd = g + (int64_t)d0 * Hr * W * C;
 
   for (int d = threadIdx.x; d < nd; d += kThreads)
-    boxes[d] = tile_box(inv + (d0 + d) * 9, wsign[d0 + d], u0, v0, TX, H, W);
+    boxes[d] = tile_box(inv + (d0 + d) * 9, wsign[d0 + d], u0, v0, TX, Hr, r0, W);
   __syncthreads();
 
   // fill f's table and its plane's grid into buffer b
@@ -394,7 +408,7 @@ warp_transpose_kernel(const T* __restrict__ g, const float* __restrict__ homs,
   cur.d = -1;
   next_fill(cur, boxes, nd, P);
   if (cur.d < nd) {
-    stage(gd, cur, gs_base, H, W, C, NC, lg, sw);
+    stage(gd, cur, gs_base, Hr, r0, W, C, NC, lg, sw);
     mvs::cp_async_commit();
     build(cur, 0);
     mvs::cp_async_wait<0>();
@@ -406,7 +420,7 @@ warp_transpose_kernel(const T* __restrict__ g, const float* __restrict__ homs,
     Fill nxt = cur;
     next_fill(nxt, boxes, nd, P);
     if (nxt.d < nd) {
-      stage(gd, nxt, gs_base + 16u * ((buf ^ 1) * P * NC), H, W, C, NC, lg, sw);
+      stage(gd, nxt, gs_base + 16u * ((buf ^ 1) * P * NC), Hr, r0, W, C, NC, lg, sw);
       mvs::cp_async_commit();
       build(nxt, buf ^ 1);
     }
@@ -416,12 +430,12 @@ warp_transpose_kernel(const T* __restrict__ g, const float* __restrict__ homs,
       const float2* gr = grid + buf * grid_slots(TX);
       const float2 p00 = gr[warp * GX + px], p01 = gr[warp * GX + px + 2];
       const float2 p10 = gr[(warp + 2) * GX + px], p11 = gr[(warp + 2) * GX + px + 2];
-      int xlo = 0, xhi = W - 1, ylo = 0, yhi = H - 1;
+      int xlo = 0, xhi = W - 1, ylo = r0, yhi = r0 + Hr - 1;
       if (isfinite(p00.x) && isfinite(p01.x) && isfinite(p10.x) && isfinite(p11.x)) {
         span(fminf(fminf(p00.x, p01.x), fminf(p10.x, p11.x)),
-             fmaxf(fmaxf(p00.x, p01.x), fmaxf(p10.x, p11.x)), W, xlo, xhi);
+             fmaxf(fmaxf(p00.x, p01.x), fmaxf(p10.x, p11.x)), 0, W - 1, xlo, xhi);
         span(fminf(fminf(p00.y, p01.y), fminf(p10.y, p11.y)),
-             fmaxf(fmaxf(p00.y, p01.y), fmaxf(p10.y, p11.y)), H, ylo, yhi);
+             fmaxf(fmaxf(p00.y, p01.y), fmaxf(p10.y, p11.y)), r0, r0 + Hr - 1, ylo, yhi);
       }
       const int x0 = cur.b.x + cur.c0, y0 = cur.b.y + cur.r0;
       const int r1 = min(yhi, y0 + cur.nr - 1) - y0, c1 = min(xhi, x0 + cur.fw - 1) - x0;
@@ -473,25 +487,25 @@ __global__ void segment_sum_kernel(const float4* __restrict__ part, float4* __re
 }
 
 template <typename T>
-int launch_warp(const void* img, const void* homs, void* out, int D, int H, int W, int C,
-                cudaStream_t s) {
+int launch_warp(const void* img, const void* homs, void* out, int D, int Hr, int H, int W,
+                int C, int row_offset, cudaStream_t s) {
   auto kern = warp_kernel<T>;
   const int TX = 32 / (C / 8);
-  const int tiles_x = (W + TX - 1) / TX, tiles_y = (H + kRows - 1) / kRows;
+  const int tiles_x = (W + TX - 1) / TX, tiles_y = (Hr + kRows - 1) / kRows;
   const size_t smem = sizeof(int4) * kChunk * kRows * TX;   // 32 KB at most
   // a quarter of the SM's 256 KB as shared memory: the rest is L1 for the taps
   cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout, 25);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)(tiles_x * tiles_y), (unsigned)((D + kRun - 1) / kRun));
   kern<<<grid, kThreads, smem, s>>>(static_cast<const T*>(img), static_cast<const float*>(homs),
-                                    static_cast<T*>(out), D, H, W, C, tiles_x);
+                                    static_cast<T*>(out), D, Hr, H, W, C, row_offset, tiles_x);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int CPL>
 int launch_transpose(const void* g, const void* homs, const void* inv, const void* wsign,
-                     void* out, void* part, int segments, int D, int H, int W, int C,
-                     cudaStream_t s) {
+                     void* out, void* part, int segments, int D, int Hr, int H, int W, int C,
+                     int r0, cudaStream_t s) {
   auto kern = warp_transpose_kernel<T, CPL>;
   const int TX = 32 / (C / CPL), NC = C * (int)sizeof(T) / 16;
   const int tiles_x = (W + TX - 1) / TX, tiles_y = (H + kRows - 1) / kRows;
@@ -507,7 +521,7 @@ int launch_transpose(const void* g, const void* homs, const void* inv, const voi
   kern<<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(g), static_cast<const float*>(homs),
       static_cast<const float*>(inv), static_cast<const int*>(wsign),
-      static_cast<float*>(segments > 1 ? part : out), D, H, W, C, tiles_x, P, dseg);
+      static_cast<float*>(segments > 1 ? part : out), D, Hr, H, W, C, r0, tiles_x, P, dseg);
   if (segments == 1) return (int)cudaGetLastError();
   if (cudaError_t e2 = cudaGetLastError()) return (int)e2;
   const int n4 = H * W * C / 4;
@@ -518,65 +532,77 @@ int launch_transpose(const void* g, const void* homs, const void* inv, const voi
 
 template <typename T>
 int launch_transpose(const void* g, const void* homs, const void* inv, const void* wsign,
-                     void* out, void* part, int segments, int D, int H, int W, int C,
-                     cudaStream_t s) {
+                     void* out, void* part, int segments, int D, int Hr, int H, int W, int C,
+                     int r0, cudaStream_t s) {
   if (C % 32 == 0)
-    return launch_transpose<T, 32>(g, homs, inv, wsign, out, part, segments, D, H, W, C, s);
+    return launch_transpose<T, 32>(g, homs, inv, wsign, out, part, segments, D, Hr, H, W, C,
+                                   r0, s);
   if (C % 16 == 0)
-    return launch_transpose<T, 16>(g, homs, inv, wsign, out, part, segments, D, H, W, C, s);
-  return launch_transpose<T, 8>(g, homs, inv, wsign, out, part, segments, D, H, W, C, s);
+    return launch_transpose<T, 16>(g, homs, inv, wsign, out, part, segments, D, Hr, H, W, C,
+                                   r0, s);
+  return launch_transpose<T, 8>(g, homs, inv, wsign, out, part, segments, D, Hr, H, W, C, r0,
+                                s);
 }
 
 // The sizes both kernels take: C a multiple of 8 up to 256 (a pixel's lanes
-// fit a warp), a map under 2^31 elements (32-bit offsets within it).
-bool sizes_ok(int D, int H, int W, int C) {
-  return C % 8 == 0 && C >= 8 && C <= 256 && D >= 1 && H >= 1 && W >= 1 &&
-         (int64_t)H * W * C < ((int64_t)1 << 31);
+// fit a warp), a map under 2^31 elements (32-bit offsets within it), and a
+// block of reference rows [r0, r0 + Hr) inside its H rows.
+bool sizes_ok(int D, int Hr, int H, int W, int C, int r0) {
+  return C % 8 == 0 && C >= 8 && C <= 256 && D >= 1 && Hr >= 1 && W >= 1 && r0 >= 0 &&
+         r0 + Hr <= H && (int64_t)H * W * C < ((int64_t)1 << 31);
 }
 
 }  // namespace
 
-// img (H, W, C), homs (D, 3, 3) float32, out (D, H, W, C) in img's type;
-// sizes as sizes_ok, D / 16 <= 65535, all contiguous. Returns
-// cudaGetLastError().
+// img (H, W, C), homs (D, 3, 3) float32, out (D, Hr, W, C) in img's type:
+// the reference rows [row_offset, row_offset + Hr); sizes as sizes_ok,
+// D / 16 <= 65535, all contiguous. Returns cudaGetLastError().
 extern "C" int warp_launch(int dtype, const void* img, const void* homs, void* out,
-                           int D, int H, int W, int C, void* stream) {
-  if (!sizes_ok(D, H, W, C) || (D + kRun - 1) / kRun > 65535) return (int)cudaErrorInvalidValue;
+                           int D, int Hr, int H, int W, int C, int row_offset, void* stream) {
+  if (!sizes_ok(D, Hr, H, W, C, row_offset) || (D + kRun - 1) / kRun > 65535)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (dtype == mvs::kFloat32) return launch_warp<float>(img, homs, out, D, H, W, C, s);
-  if (dtype == mvs::kBFloat16) return launch_warp<bf16>(img, homs, out, D, H, W, C, s);
+  if (dtype == mvs::kFloat32)
+    return launch_warp<float>(img, homs, out, D, Hr, H, W, C, row_offset, s);
+  if (dtype == mvs::kBFloat16)
+    return launch_warp<bf16>(img, homs, out, D, Hr, H, W, C, row_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // K3's plan (plan_kernel): homs (D, 3, 3) float32 -> inv (D, 3, 3)
-// float32, wsign (D,) int32, over an H x W reference map. Returns
-// cudaGetLastError().
-extern "C" int warp_plan_launch(const void* homs, void* inv, void* wsign, int D, int H, int W,
-                                void* stream) {
-  if (D < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+// float32, wsign (D,) int32, over the reference rows [r0, r0 + Hr) of width
+// W. Returns cudaGetLastError().
+extern "C" int warp_plan_launch(const void* homs, void* inv, void* wsign, int D, int Hr,
+                                int r0, int W, void* stream) {
+  if (D < 1 || Hr < 1 || r0 < 0 || W < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   plan_kernel<<<(unsigned)((D + 127) / 128), 128, 0, s>>>(
       static_cast<const float*>(homs), static_cast<float*>(inv), static_cast<int*>(wsign), D,
-      H, W);
+      Hr, r0, W);
   return (int)cudaGetLastError();
 }
 
-// g (D, H, W, C) in float32 or bfloat16, homs (D, 3, 3) float32 and their
-// plan from warp_plan_launch (inv (D, 3, 3) float32, wsign (D,) int32), out
-// (H, W, C) float32, every element written; the depths split into
-// `segments` runs (1 <= segments <= D) summed apart into part (segments, H,
-// W, C) float32 scratch (unused for 1), then in order into out; sizes as
-// sizes_ok, all contiguous. Returns cudaGetLastError().
+// g (D, Hr, W, C) in float32 or bfloat16, the cotangents of the reference
+// rows [row_offset, row_offset + Hr), homs (D, 3, 3) float32 and their plan
+// over those rows from warp_plan_launch (inv (D, 3, 3) float32, wsign (D,)
+// int32), out (H, W, C) float32, every element written; the depths split
+// into `segments` runs (1 <= segments <= D) summed apart into part
+// (segments, H, W, C) float32 scratch (unused for 1), then in order into
+// out; sizes as sizes_ok, all contiguous. Returns cudaGetLastError().
 extern "C" int warp_transpose_launch(int dtype, const void* g, const void* homs,
                                      const void* inv, const void* wsign, void* out, void* part,
-                                     int segments, int D, int H, int W, int C, void* stream) {
-  if (!sizes_ok(D, H, W, C) || segments < 1 || segments > D || segments > 65535)
+                                     int segments, int D, int Hr, int H, int W, int C,
+                                     int row_offset, void* stream) {
+  if (!sizes_ok(D, Hr, H, W, C, row_offset) || segments < 1 || segments > D ||
+      segments > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
   if (dtype == mvs::kFloat32)
-    return launch_transpose<float>(g, homs, inv, wsign, out, part, segments, D, H, W, C, s);
+    return launch_transpose<float>(g, homs, inv, wsign, out, part, segments, D, Hr, H, W, C,
+                                   row_offset, s);
   if (dtype == mvs::kBFloat16)
-    return launch_transpose<bf16>(g, homs, inv, wsign, out, part, segments, D, H, W, C, s);
+    return launch_transpose<bf16>(g, homs, inv, wsign, out, part, segments, D, Hr, H, W, C,
+                                  row_offset, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -23,6 +23,12 @@ that JAX takes over the whole batch (power_loss's depth sum, losses.py:68;
 gaussian_loss's sum, :83; gradient_loss's count, :93; the metrics' counts,
 :123) goes through it, and each rank's loss is its share: the ranks'
 losses add up to the global loss, and so do their gradients.
+
+With a map's rows split over 'space' as well (R-MVSNet's training sweep),
+the classification loss takes this rank's rows of the probability volume
+and a `gather` of its per-pixel terms over the row blocks: every rank of a
+data group then holds its maps' whole terms and takes the loss whole, once
+along 'space' (the gather's backward hands each rank its rows' cotangent).
 """
 
 from __future__ import annotations
@@ -155,7 +161,7 @@ def mvsnet_regression_loss(estimated_depth, depth_image, depth_start, depth_end,
 
 
 def mvsnet_classification_loss(prob_volume, gt_depth_image, depth_num: int, depth_start,
-                               depth_interval, batch_sum=None):
+                               depth_interval, batch_sum=None, rows=None, gather=None):
     """R-MVSNet's cross entropy and winner-take-all metrics (losses.py:161-195;
     reference: loss.py:223-267). prob_volume (B, D, H, W) softmax
     probabilities, gt_depth_image (B, H, W, 1), depth_start and
@@ -168,22 +174,29 @@ def mvsnet_classification_loss(prob_volume, gt_depth_image, depth_num: int, dept
     with atomics on the card, in no fixed order). The winner-take-all plane
     is the first of equal maxima. xent and masked_mae are sums of per-map
     terms; with `batch_sum` (see above) the metrics' counts are the whole
-    batch's."""
+    batch's. With `rows` (r0, r1) the prob volume holds those rows of the
+    maps (B, D, r1 - r0, W), and `gather` takes a (B, r1 - r0, W, 1) map of
+    per-pixel terms to the whole (B, H, W, 1); see the module docstring."""
     B, D = prob_volume.shape[:2]
     mask = (gt_depth_image != 0.0).to(torch.float32)
     valid = mask.sum(dim=(1, 2, 3)) + 1e-7
     start = depth_start.reshape(B, 1, 1, 1)
     interval = depth_interval.reshape(B, 1, 1, 1)
-    gt_index = torch.round(mask * ((gt_depth_image - start) / interval)).to(torch.int32)
-    gt_index = gt_index[..., 0].clamp(0, depth_num - 1)                 # (B, H, W)
+    mine = slice(None) if rows is None else slice(*rows)
+    gt_index = torch.round(mask[:, mine] * ((gt_depth_image[:, mine] - start) / interval))
+    gt_index = gt_index.to(torch.int32)[..., 0].clamp(0, depth_num - 1)   # (B, H, W)
     logp = torch.log(torch.clamp(prob_volume, min=1e-20))
     one_hot = (torch.arange(D, device=prob_volume.device)[None, :, None, None]
                == gt_index[:, None]).to(logp.dtype)
     picked = torch.sum(logp * one_hot, dim=1)
-    xent_image = -picked[..., None] * mask
+    xent_image = -picked[..., None] * mask[:, mine]
+    if gather is not None:
+        xent_image = gather(xent_image)
     xent = torch.sum(xent_image.sum(dim=(1, 2, 3)) / valid)
     with torch.no_grad():
         wta_index = torch.argmax(prob_volume, dim=1).to(torch.float32)[..., None]
+        if gather is not None:
+            wta_index = gather(wta_index)
         wta_depth = wta_index * interval + start
         abs_interval = torch.abs(interval.reshape(B))
         masked_mae = non_zero_mean_absolute_diff(gt_depth_image, wta_depth, abs_interval)

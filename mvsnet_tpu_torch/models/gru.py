@@ -9,6 +9,11 @@ Both convs have biases. GRURegularizer stacks three cells (16, 4, 2 filters
 in "normal" mode, halved otherwise) and a 1-channel 3x3 projection
 `prob_conv`. The depth sweep lives in models/mvsnet.py (`GRUSweep`).
 
+With the rows of a map split over 'space' (multi-device training), `op`
+replaces each conv's kernel call with the row-halo one
+(`parallel/halo.halo_conv`) and `stat_sum` sums the norms' statistics
+over the row blocks (`layers.GroupNormFlexible`).
+
 Channels-last (B, H, W, C) only: the JAX package's channel-second-minor
 "cw" layout is a TPU layout with the same numbers. The dtypes follow JAX's
 promotion, which PyTorch's gives as long as no operand is cast early: the
@@ -34,7 +39,8 @@ def gru_filter_sizes(network_mode: str) -> Tuple[int, int, int]:
 
 
 class ConvGRUCell(nn.Module):
-    """One ConvGRU cell (gru.py:31-58): forward(x, h) -> h'."""
+    """One ConvGRU cell (gru.py:31-58): forward(x, h) -> h'; `op` and
+    `stat_sum` as in the module docstring."""
 
     def __init__(self, in_channels: int, filters: int, kernel: int = 3,
                  dtype: Optional[torch.dtype] = None):
@@ -48,13 +54,13 @@ class ConvGRUCell(nn.Module):
                                 dtype=dtype)
         self.output_norm = GroupNormFlexible(filters)
 
-    def forward(self, x, h):
-        gates = self.gates_conv(torch.cat([x, h.to(x.dtype)], dim=-1))
+    def forward(self, x, h, op=None, stat_sum=None):
+        gates = self.gates_conv(torch.cat([x, h.to(x.dtype)], dim=-1), op=op)
         reset, update = gates.chunk(2, dim=-1)
-        reset = torch.sigmoid(self.reset_norm(reset))
-        update = torch.sigmoid(self.update_norm(update))
-        y = self.output_conv(torch.cat([x, (reset * h).to(x.dtype)], dim=-1))
-        y = torch.tanh(self.output_norm(y))
+        reset = torch.sigmoid(self.reset_norm(reset, stat_sum))
+        update = torch.sigmoid(self.update_norm(update, stat_sum))
+        y = self.output_conv(torch.cat([x, (reset * h).to(x.dtype)], dim=-1), op=op)
+        y = torch.tanh(self.output_norm(y, stat_sum))
         return update * h + (1 - update) * y
 
 
@@ -73,11 +79,11 @@ class GRURegularizer(nn.Module):
         self.conv_gru3 = ConvGRUCell(f2, f3, dtype=dtype)
         self.prob_conv = Conv(f3, 1, 3, 1, relu=False, use_bias=True, dtype=dtype)
 
-    def forward(self, neg_cost, states: Sequence):
-        s1 = self.conv_gru1(neg_cost, states[0])
-        s2 = self.conv_gru2(s1, states[1])
-        s3 = self.conv_gru3(s2, states[2])
-        return self.prob_conv(s3), (s1, s2, s3)
+    def forward(self, neg_cost, states: Sequence, op=None, stat_sum=None):
+        s1 = self.conv_gru1(neg_cost, states[0], op, stat_sum)
+        s2 = self.conv_gru2(s1, states[1], op, stat_sum)
+        s3 = self.conv_gru3(s2, states[2], op, stat_sum)
+        return self.prob_conv(s3, op=op), (s1, s2, s3)
 
     @staticmethod
     def init_states(batch: int, height: int, width: int, network_mode: str,

@@ -83,9 +83,10 @@ class Conv(_ConvBase):
     """SAME conv of rank 2 or 3 (layers.py:476-574), on the conv kernel.
 
     `post_scale`, `post_shift` and `post_relu` apply a per-channel affine
-    and a ReLU after the conv, folded into the kernel and its epilogue. In
-    eval, `op` replaces the kernel's call `conv(x, kernel, shift, stride,
-    relu)`, for example with the depth-slab version (`parallel/halo.py`)."""
+    and a ReLU after the conv, folded into the kernel and its epilogue.
+    `op` replaces the kernel's call `conv(x, kernel, shift, stride, relu)`,
+    for example with the block version (`parallel/halo.py`); in training it
+    is called without shift or ReLU and must be differentiable."""
 
     def __init__(self, in_channels: int, filters: int, kernel: int = 3,
                  stride: int = 1, relu: bool = True, use_bias: bool = True,
@@ -97,6 +98,8 @@ class Conv(_ConvBase):
     def forward(self, x, post_scale=None, post_shift=None, post_relu: bool = False,
                 op=None):
         if self.training:
+            if op is not None:
+                return self._train_forward(lambda a, k: op(a, k, None, self.stride, False), x)
             return self._train_forward(
                 lambda a, k: autograd.ConvFn.apply(a, k, self.stride), x)
         x, k, shift = self._operands(x, post_scale, post_shift)
@@ -119,15 +122,30 @@ class Deconv(_ConvBase):
     def forward(self, x, post_scale=None, post_shift=None, post_relu: bool = False,
                 op=None):
         if self.training:
+            if op is not None:
+                return self._train_forward(lambda a, k: op(a, k, None, False), x)
             return self._train_forward(autograd.DeconvFn.apply, x)
         x, k, shift = self._operands(x, post_scale, post_shift)
         return (op or deconv_k.deconv)(x, k, shift, relu=post_relu or self.relu)
 
 
-def group_norm_core(x, gamma, beta, num_groups: int, eps: float):
+def spatial_mean(t, axes, stat_sum=None, keepdim=False):
+    """t's mean over `axes`; with `stat_sum` (a differentiable sum over the
+    ranks that hold the rest of the map's rows) the mean over the whole
+    map: the local sums and count summed over them, then divided."""
+    if stat_sum is None:
+        return t.mean(dim=axes, keepdim=keepdim)
+    s = t.sum(dim=axes, keepdim=keepdim)
+    count = math.prod(t.shape[a] for a in axes)
+    total = stat_sum(torch.cat([s.reshape(-1), s.new_tensor([count])]))
+    return total[:-1].reshape(s.shape) / total[-1]
+
+
+def group_norm_core(x, gamma, beta, num_groups: int, eps: float, stat_sum=None):
     """Group norm of channels-last x (N, ..., C) in float32, cast back
     (layers.py:769-811): channel c is in group c // (C // G); moments are
-    two-pass, per channel over the spatial axes first, then per group."""
+    two-pass, per channel over the spatial axes first, then per group.
+    `stat_sum`: see `spatial_mean`."""
     N, C = x.shape[0], x.shape[-1]
     G = num_groups
     spatial = tuple(range(1, x.ndim - 1))
@@ -138,8 +156,8 @@ def group_norm_core(x, gamma, beta, num_groups: int, eps: float):
         g = per_channel.reshape(N, G, C // G).mean(dim=2, keepdim=True)
         return g.expand(N, G, C // G).reshape(N, C)
 
-    mean = group_mean(xf.mean(dim=spatial)).reshape(bshape)
-    var = group_mean(torch.square(xf - mean).mean(dim=spatial)).reshape(bshape)
+    mean = group_mean(spatial_mean(xf, spatial, stat_sum)).reshape(bshape)
+    var = group_mean(spatial_mean(torch.square(xf - mean), spatial, stat_sum)).reshape(bshape)
     y = (xf - mean) * torch.rsqrt(var + eps) * gamma + beta
     return y.to(x.dtype)
 
@@ -165,7 +183,9 @@ class GroupNormFlexible(nn.Module):
       G >= C -> an instance norm (per channel over the spatial axes), eps 1e-6;
       else   -> `group_norm_core`, eps 1e-5.
     Statistics in float32, two-pass (the variance is mean((x - mean)^2), as
-    `jnp.var` computes it), the result cast back to x's dtype."""
+    `jnp.var` computes it), the result cast back to x's dtype. With
+    `stat_sum` (the ConvGRU's rows split over 'space') each pass sums its
+    statistics over the map's row blocks (`spatial_mean`)."""
 
     def __init__(self, channels: int, group_channel: int = 16, channel_wise: bool = True,
                  group: int = 32):
@@ -175,17 +195,17 @@ class GroupNormFlexible(nn.Module):
         self.groups = (max(1, channels // group_channel) if channel_wise
                        else min(group, channels))
 
-    def forward(self, x):
+    def forward(self, x, stat_sum=None):
         C = x.shape[-1]
         if self.groups == 1 or self.groups >= C:
             eps = 1e-12 if self.groups == 1 else 1e-6
             axes = tuple(range(1, x.ndim) if self.groups == 1 else range(1, x.ndim - 1))
             centered = x.to(torch.float32)
-            centered = centered - centered.mean(dim=axes, keepdim=True)
-            var = torch.square(centered).mean(dim=axes, keepdim=True)
+            centered = centered - spatial_mean(centered, axes, stat_sum, keepdim=True)
+            var = spatial_mean(torch.square(centered), axes, stat_sum, keepdim=True)
             y = centered / torch.sqrt(var + eps) * self.scale + self.bias
             return y.to(x.dtype)
-        return group_norm_core(x, self.scale, self.bias, self.groups, 1e-5)
+        return group_norm_core(x, self.scale, self.bias, self.groups, 1e-5, stat_sum)
 
 
 class BatchNormRef(nn.Module):
@@ -293,7 +313,7 @@ class ConvBN(nn.Module):
 
     def forward(self, x, op=None):
         if self.training:
-            y = self.bn(self.conv(x))
+            y = self.bn(self.conv(x, op=op))
             return torch.relu(y) if self.relu else y
         scale, shift = self.bn.affine()
         return self.conv(x, post_scale=scale, post_shift=shift, post_relu=self.relu, op=op)
@@ -313,7 +333,7 @@ class DeconvBN(nn.Module):
 
     def forward(self, x, op=None):
         if self.training:
-            y = self.bn(self.deconv(x))
+            y = self.bn(self.deconv(x, op=op))
             return torch.relu(y) if self.relu else y
         scale, shift = self.bn.affine()
         return self.deconv(x, post_scale=scale, post_shift=shift,

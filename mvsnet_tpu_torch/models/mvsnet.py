@@ -9,13 +9,17 @@ and the fused soft-argmin + probability tail; the GRU graphs run the
 three-cell ConvGRU over the depth planes (`GRUSweep`), then a softmax over
 depth (training) or a winner-take-all (serving). In training mode
 (`nn.Module.training`) the cost volume is differentiable (`CostVolumeFn`)
-and the layers train (`models/layers.py`). With `cfg.refinement` the
+and the layers train (`models/layers.py`); the GRU's training sweep can take
+this rank's rows of a map split over 'space' (`gru_cost_sweep`'s
+`blocks`). With `cfg.refinement` the
 3D-CNN graph builds a refinement network (`models/refine.py`) that
 `refine` runs on the depth map and the reference image; the GRU graphs
 ignore refinement, as JAX's do.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch import nn
@@ -27,11 +31,13 @@ from mvsnet_tpu_torch.models.layers import reset_parameters
 from mvsnet_tpu_torch.models.refine import RefineNetConv, RefineUNetConv
 from mvsnet_tpu_torch.models.regnet import RegNetUS0
 from mvsnet_tpu_torch.ops import kernels
-from mvsnet_tpu_torch.ops.cost_volume import plane_sweep_cost_volume
+from mvsnet_tpu_torch.ops.cost_volume import plane_sweep_cost_volume, sweep_cost_volume_sharded
 from mvsnet_tpu_torch.ops.depth import soft_argmin_prob_map, winner_take_all_update
 from mvsnet_tpu_torch.ops.geometry import (depth_values, homographies_for_views,
                                            inv_depth_values)
 from mvsnet_tpu_torch.ops.resize import resize_bilinear
+from mvsnet_tpu_torch.parallel.halo import halo_conv
+from mvsnet_tpu_torch.parallel.mesh import AxisSplit
 
 REFINE_NETS = {"original": RefineNetConv, "unet": RefineUNetConv}
 
@@ -60,9 +66,10 @@ class GRUSweep(nn.Module):
         self._graphs = {}           # shape key -> _StepGraph, least recently used first
         self._graph_params = None   # the parameters' addresses the captures read
 
-    def step(self, states, neg_cost, carry=None, depth=None):
-        """(states, reg (B, h, w, 1) float32, carry or None) after one plane."""
-        reg, states = self.gru(neg_cost, states)
+    def step(self, states, neg_cost, carry=None, depth=None, op=None, stat_sum=None):
+        """(states, reg (B, h, w, 1) float32, carry or None) after one plane;
+        `op` and `stat_sum` as in models/gru.py."""
+        reg, states = self.gru(neg_cost, states, op, stat_sum)
         reg = reg.to(torch.float32)
         if carry is not None:
             carry = winner_take_all_update(carry, torch.exp(reg), depth)
@@ -83,14 +90,16 @@ class GRUSweep(nn.Module):
                       for _ in range(3))
         return states, carry
 
-    def eager(self, cost, samples=None):
-        """The sweep plane by plane; see `forward`."""
+    def eager(self, cost, samples=None, op=None, stat_sum=None):
+        """The sweep plane by plane; see `forward`. `op` and `stat_sum`: a
+        block of rows (models/gru.py)."""
         states, carry = self._zeros(cost)
         carry = None if samples is None else carry
         regs = []
         for d in range(cost.shape[1]):
             states, reg, carry = self.step(states, -cost[:, d], carry,
-                                           None if samples is None else samples[:, d])
+                                           None if samples is None else samples[:, d],
+                                           op, stat_sum)
             regs.append(reg[..., 0])
         return torch.stack(regs, dim=1), carry
 
@@ -245,24 +254,41 @@ class MVSNet(nn.Module):
     forward = forward_3dcnn
 
     def gru_cost_sweep(self, images, cams, depth_start, depth_interval, depth_end,
-                       samples=None):
+                       samples=None, blocks=None):
         """The GRU sweep (mvsnet.py:193-240): features, the cost volume over
         all D planes at once (differentiable in training), then `GRUSweep`.
         depth_start, depth_interval, depth_end (B,) float32. Returns regs
         (B, D, h, w) float32 and the winner-take-all carry when `samples`
-        (B, D) are given."""
-        ref_f, view_f = self.extract_features(images)
-        cost = plane_sweep_cost_volume(
-            ref_f, view_f, self.homographies(cams, depth_start, depth_interval, depth_end),
-            differentiable=self.training)
-        return self.gru_sweep(cost, samples)
+        (B, D) are given.
 
-    def forward_prob_recurrent(self, images, cams, depth_start, depth_interval):
+        `blocks` (mesh, rows: a `parallel.mesh.AxisSplit` over 'space'),
+        for training over 'space' (JAX constrains the sweep's volume over
+        'space', mvsnet.py:228): the cost volume is this rank's rows over all
+        D planes (D is the scan axis), K1s forward and K2/K3 on the block
+        backward; the cells' 3x3 convs take a one-row halo over 'space' each
+        plane and their norms sum their statistics over it. Regs are then
+        (B, D, hl, w), the rank's rows."""
+        ref_f, view_f = self.extract_features(images)
+        homs = self.homographies(cams, depth_start, depth_interval, depth_end)
+        if blocks is None:
+            cost = plane_sweep_cost_volume(ref_f, view_f, homs, differentiable=self.training)
+            return self.gru_sweep(cost, samples)
+        mesh, rows = blocks
+        r0, r1 = rows.bounds()
+        cost = sweep_cost_volume_sharded(ref_f[:, r0:r1], view_f[:, :, r0:r1], homs, mesh,
+                                         depth=AxisSplit("depth", self.cfg.max_d), rows=rows)
+        op = functools.partial(halo_conv, mesh=mesh, splits=(rows, None), level=0)
+        return self.gru_sweep.eager(cost, samples, op,
+                                    lambda t: mesh.all_reduce_grad(t, rows.axis))
+
+    def forward_prob_recurrent(self, images, cams, depth_start, depth_interval, blocks=None):
         """R-MVSNet's training graph (mvsnet.py:242-247): the float32
-        softmax over depth of the GRU sweep's regs, (B, D, h, w)."""
+        softmax over depth of the GRU sweep's regs, (B, D, h, w); with
+        `blocks` (see `gru_cost_sweep`) this rank's rows, (B, D, hl, w): the
+        softmax is per pixel."""
         ds, di, de = self.depth_range(depth_start, depth_interval, images.shape[0],
                                       images.device)
-        regs, _ = self.gru_cost_sweep(images, cams, ds, di, de)
+        regs, _ = self.gru_cost_sweep(images, cams, ds, di, de, blocks=blocks)
         return torch.softmax(regs, dim=1)
 
     def forward_gru_wta(self, images, cams, depth_start, depth_interval=None, depth_end=None,

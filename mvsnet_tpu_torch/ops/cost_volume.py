@@ -17,7 +17,8 @@ chunks whose V float32 volumes stay under 2 GiB. The homographies get no
 gradient (cameras are data), as in the JAX VJP.
 
 `sweep_cost_volume_sharded` is the multi-device edition (kernel K1s): each
-rank computes its 'space' rows and its 'depth' slab of the volume.
+rank computes its 'space' rows and its 'depth' slab of the volume, and in
+training its backward runs K2 and K3 on the same row block.
 `cost_slice` is one plane of the volume in plain PyTorch, with either fill
 mode (ops/cost_volume.py:241 of the JAX package, which no graph calls);
 `plane_sweep_cost_volume(..., fill_mode="edge")` stacks it over the planes.
@@ -44,15 +45,19 @@ def _cost_one(ref, views, homs):
                       for c0 in range(0, D, chunk)], dim=0)
 
 
-def cost_volume_backward(ref, views, homs, g):
+def cost_volume_backward(ref, views, homs, g, row_offset=None):
     """Gradients of one batch element's cost volume (sweep.py:1793-1841):
 
       d_ref    = (2/V) sum_d (ref - mean_d) g_d
       d_view_v = warp_v^T ((2/V) (w_vd - mean_d) g_d)
 
     ref (h, w, C), views (V-1, h, w, C), homs (V-1, D, 3, 3), g (D, h, w,
-    C) -> d_ref in ref's dtype, d_views in views' dtype."""
+    C) -> d_ref in ref's dtype, d_views in views' dtype. With `row_offset`
+    ref and g hold the rows [row_offset, row_offset + hl) of a block (K1s's
+    output) and the views stay whole: the warps run on the block (K2 and K3
+    with a row offset), d_views is the whole maps' share."""
     H, W, C = ref.shape
+    Hs = views.shape[1]
     V1, D = homs.shape[:2]
     V = V1 + 1
     g32 = g.to(torch.float32)
@@ -61,11 +66,12 @@ def cost_volume_backward(ref, views, homs, g):
     dc = -(-D // n_chunks)
     scale = 2.0 / V
     d_ref = torch.zeros((H, W, C), dtype=torch.float32, device=ref.device)
-    d_views = [torch.zeros_like(d_ref) for _ in range(V1)]
+    d_views = [torch.zeros((Hs, W, C), dtype=torch.float32, device=ref.device)
+               for _ in range(V1)]
     for c0 in range(0, D, dc):
         gd = g32[c0:c0 + dc]
-        warped = [warp.warp_all_depths(views[v], homs[v, c0:c0 + dc]).to(torch.float32)
-                  for v in range(V1)]
+        warped = [warp.warp_all_depths(views[v], homs[v, c0:c0 + dc], row_offset,
+                                       H).to(torch.float32) for v in range(V1)]
         mean = ref32[None]
         for w in warped:
             mean = mean + w
@@ -73,28 +79,36 @@ def cost_volume_backward(ref, views, homs, g):
         d_ref += scale * torch.sum((ref32[None] - mean) * gd, dim=0)
         for v in range(V1):
             cot = scale * (warped[v] - mean) * gd
-            d_views[v] += warp.warp_transpose(cot, homs[v, c0:c0 + dc])
+            d_views[v] += warp.warp_transpose(cot, homs[v, c0:c0 + dc], row_offset, Hs)
     return d_ref.to(ref.dtype), torch.stack(d_views).to(views.dtype)
 
 
 class CostVolumeFn(torch.autograd.Function):
-    """Differentiable cost volume; see the module docstring."""
+    """Differentiable cost volume; see the module docstring. With
+    `row_offset` the row block of `sweep_cost_volume_sharded`: K1s forward,
+    the block's K2 and K3 backward."""
 
     @staticmethod
-    def forward(ctx, ref_feature, view_features, homographies):
+    def forward(ctx, ref_feature, view_features, homographies, row_offset=None):
         ctx.save_for_backward(ref_feature, view_features, homographies)
+        ctx.row_offset = row_offset
         B = ref_feature.shape[0]
-        return torch.stack([_cost_one(ref_feature[b], view_features[:, b],
-                                      homographies[:, b]) for b in range(B)], dim=0)
+        if row_offset is None:
+            outs = [_cost_one(ref_feature[b], view_features[:, b], homographies[:, b])
+                    for b in range(B)]
+        else:
+            outs = [sweep.cost_volume(ref_feature[b], view_features[:, b], homographies[:, b],
+                                      row_offset=row_offset) for b in range(B)]
+        return torch.stack(outs, dim=0)
 
     @staticmethod
     def backward(ctx, g):
         ref, views, homs = ctx.saved_tensors
-        grads = [cost_volume_backward(ref[b], views[:, b], homs[:, b], g[b])
+        grads = [cost_volume_backward(ref[b], views[:, b], homs[:, b], g[b], ctx.row_offset)
                  for b in range(ref.shape[0])]
         d_ref = torch.stack([r for r, _ in grads], dim=0)
         d_views = torch.stack([v for _, v in grads], dim=1)
-        return d_ref, d_views, None
+        return d_ref, d_views, None, None
 
 
 def plane_sweep_cost_volume(ref_feature, view_features, homographies, depth_chunk: int = 0,
@@ -130,34 +144,46 @@ def plane_sweep_cost_volume(ref_feature, view_features, homographies, depth_chun
     return out.transpose(-1, -2) if cw_out else out
 
 
-def sweep_cost_volume_sharded(ref_l, views_l, homographies, mesh):
+def sweep_cost_volume_sharded(ref_l, views_l, homographies, mesh, depth=None, rows=None):
     """This rank's block of the cost volume (counterpart of
     `pallas_sweep_cost_volume_sharded`, mvsnet_tpu/ops/pallas/sweep.py:1986).
 
     ref_l (B, hl, w, C) and views_l (V-1, B, hl, w, C) are the rank's row
-    shard over 'space' (rows [s * hl, (s + 1) * hl), s its 'space' index);
-    homographies (V-1, B, D, 3, 3) are whole. The source views are
-    all-gathered over 'space', the homographies cut to the rank's depth
-    slab (D / depth planes at d * D / depth), and K1s runs per batch
-    element with row offset s * hl. Returns (B, D / depth, hl, w, C) in the
-    features' dtype. Inference only; shapes K1s cannot take raise.
-    """
-    if torch.is_grad_enabled() and (ref_l.requires_grad or views_l.requires_grad):
-        raise NotImplementedError("the sharded cost volume is inference only")
+    block; homographies (V-1, B, D, 3, 3) are whole. `depth` and `rows`
+    (`parallel.mesh.AxisSplit`s over 'depth' and 'space') say which planes
+    and rows the block holds; by default the even split over the mesh's
+    axes (rows [s * hl, (s + 1) * hl), s the 'space' index). The source
+    views are all-gathered over 'space', the homographies cut to the depth
+    slab, and K1s runs per batch element with the block's row offset.
+    Under autograd it is `CostVolumeFn` on the block (K2 and K3 with the
+    row offset backward), and the gather's backward sums each rank's share
+    of the views' gradient over 'space' and hands the owners their rows.
+    Returns (B, Dl, hl, w, C) in the features' dtype; shapes K1s cannot
+    take raise."""
+    from mvsnet_tpu_torch.parallel.mesh import AxisSplit
+
     V1, B, D = homographies.shape[:3]
     hl = ref_l.shape[1]
-    dp, d = mesh.axis_size("depth"), mesh.axis_index("depth")
-    s = mesh.axis_index("space")
-    if D % dp:
-        raise ValueError(f"{D} depth planes do not split over {dp} 'depth' ranks")
     if views_l.shape[:2] != (V1, B) or views_l.shape[2:] != ref_l.shape[1:]:
         raise ValueError(f"views {tuple(views_l.shape)} do not match ref {tuple(ref_l.shape)} "
                          f"and homographies {tuple(homographies.shape)}")
-    views = mesh.all_gather(views_l.contiguous(), "space", dim=2)
-    Dl = D // dp
-    homs = homographies[:, :, d * Dl:(d + 1) * Dl]
-    return torch.stack([sweep.cost_volume(ref_l[b], views[:, b], homs[:, b],
-                                          row_offset=s * hl) for b in range(B)], dim=0)
+    if depth is None:
+        dp = mesh.axis_size("depth")
+        if D % dp:
+            raise ValueError(f"{D} depth planes do not split over {dp} 'depth' ranks")
+        depth = AxisSplit("depth", D, dp, mesh.axis_index("depth"))
+    if rows is None:
+        sp = mesh.axis_size("space")
+        rows = AxisSplit("space", hl * sp, sp, mesh.axis_index("space"))
+    (d0, d1), (r0, r1) = depth.bounds(), rows.bounds()
+    if r1 - r0 != hl or depth.size != D:
+        raise ValueError(f"a block of {hl} rows and {D} planes for {rows} and {depth}")
+    views = mesh.all_gather_grad(views_l, "space", dim=2) if rows.n > 1 else views_l
+    homs = homographies[:, :, d0:d1]
+    if torch.is_grad_enabled() and (ref_l.requires_grad or views_l.requires_grad):
+        return CostVolumeFn.apply(ref_l, views, homs, r0)
+    return torch.stack([sweep.cost_volume(ref_l[b], views[:, b], homs[:, b], row_offset=r0)
+                        for b in range(B)], dim=0)
 
 
 def cost_slice(ref_feature, view_features, homographies_d, fill_mode: str = "zeros"):

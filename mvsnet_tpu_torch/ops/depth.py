@@ -2,7 +2,9 @@
 winner-take-all update (counterpart of mvsnet_tpu/ops/depth.py:20-182).
 
 The JAX package leaves these to XLA, not to a Pallas kernel, so they are
-plain PyTorch in float32 here.
+plain PyTorch in float32 here. `soft_argmin_prob_map_sharded` is the
+collective edition over a volume's depth slabs (multi-device runs): GSPMD's
+collective softmax along D, written out.
 """
 
 from __future__ import annotations
@@ -43,10 +45,12 @@ def _bucket_indices(depth, start, interval, D, inverse_depth):
     return left0, right0
 
 
-def _bucket_weight(left0, right0, D, num_buckets, dtype):
+def _bucket_weight(left0, right0, D, num_buckets, dtype, planes=None):
     """Summed per-bucket indicators over the depth axis, (B, D, H, W); a
-    bucket counted twice (floor == ceil) weighs twice, as in the reference."""
-    iota = torch.arange(D, device=left0.device)[None, :, None, None]
+    bucket counted twice (floor == ceil) weighs twice, as in the reference.
+    `planes` (start, count): only those planes of the D, (B, count, H, W)."""
+    p0, n = (0, D) if planes is None else planes
+    iota = torch.arange(p0, p0 + n, device=left0.device)[None, :, None, None]
 
     def indicator(idx):
         return (iota == idx[:, None]).to(dtype)
@@ -111,6 +115,47 @@ def soft_argmin_prob_map(reg_cost, depth_start, depth_interval,
     weight = _bucket_weight(left0, right0, D, num_buckets, e.dtype)
     prob = torch.sum(e * weight, dim=1) / s
     return depth[..., None], prob[..., None]
+
+
+def soft_argmin_prob_map_sharded(reg_block, plane0: int, depth_start, depth_interval,
+                                 depth_num: int, inverse_depth: bool = False, depth_end=None,
+                                 num_buckets: int = 4, reduce_sum=None, reduce_max=None):
+    """`soft_argmin_prob_map` of a volume whose depth planes lie in slabs
+    over ranks: reg_block (B, Dl, H, W) holds the planes [plane0, plane0 +
+    Dl) of depth_num. `reduce_max` and `reduce_sum` take a tensor to its
+    maximum and sum over the ranks holding the other slabs (None: this rank
+    holds them all); the sum's backward is the identity, since every rank
+    uses the result alike (`Mesh.all_reduce_replicated`). Three
+    collectives: the max of -reg; the sums of e and e * sample, each slab
+    with its global samples; the sum of e * w over the buckets around the
+    depth, by their global plane indices. Equal to the whole tail up to the
+    order of the sums. Returns depth (B, H, W, 1), prob (B, H, W, 1)."""
+    if num_buckets not in (2, 4):
+        raise ValueError(f"num_buckets must be 2 or 4, got {num_buckets}")
+    B, Dl = reg_block.shape[:2]
+    D = depth_num
+    if not 0 <= plane0 <= D - Dl:
+        raise ValueError(f"planes [{plane0}, {plane0 + Dl}) do not fit {D} planes")
+    x = -reg_block.to(torch.float32)
+    with torch.no_grad():           # the result does not depend on it
+        m = x.amax(dim=1, keepdim=True)
+        if reduce_max is not None:
+            m = reduce_max(m)
+    e = torch.exp(x - m)
+    dev = reg_block.device
+    start = _per_batch(depth_start, B, dev)
+    interval = _per_batch(depth_interval, B, dev)
+    samples = _samples(B, D, start, interval, depth_end, inverse_depth, dev)[:, plane0:plane0 + Dl]
+    sums = torch.stack([e.sum(dim=1), torch.sum(e * samples[:, :, None, None], dim=1)])
+    if reduce_sum is not None:
+        sums = reduce_sum(sums)
+    s, depth = sums[0], sums[1] / sums[0]
+    left0, right0 = _bucket_indices(depth, start, interval, D, inverse_depth)
+    weight = _bucket_weight(left0, right0, D, num_buckets, e.dtype, planes=(plane0, Dl))
+    prob = torch.sum(e * weight, dim=1)
+    if reduce_sum is not None:
+        prob = reduce_sum(prob)
+    return depth[..., None], (prob / s)[..., None]
 
 
 def winner_take_all_update(carry, prob, depth_value):

@@ -18,6 +18,8 @@ COUNTERS = {
     "deconv": (deconv, "launches"),
     "warp": (warp, "launches"),
     "warp_transpose": (warp, "transpose_launches"),
+    "warp_sharded": (warp, "launches_sharded"),
+    "warp_transpose_sharded": (warp, "transpose_launches_sharded"),
     "wgrad": (wgrad, "launches"),
 }
 

@@ -119,7 +119,7 @@ def conv(x, kernel, bias=None, stride: int = 1, relu: bool = False, pads=None,
     """SAME conv of x (B, [D,] H, W, Cin) with kernel ([KD,] KH, KW, Cin,
     Cout), float32 sums; out = act(sum + bias) in x's dtype. The kernel is
     cast to x's dtype; bias is float32 or None. `pads`, ((lo, hi), ...)
-    per spatial axis, replaces the SAME pads (the depth-slab halo convs of
+    per spatial axis, replaces the SAME pads (the block halo convs of
     `parallel/halo.py`). `edition`: see the module docstring."""
     global launches
     rank = _check_args(x, kernel, bias, stride)

@@ -68,8 +68,9 @@ FASTDIV_LIMIT = 2 ** 17                # csrc/tc_conv.cuh FastDiv is exact below
 _TC_ARGTYPES = [_I, _I] + [_P] * 6
 
 
-def _geometry(x, g, ksize, stride):
-    """Checks shapes; returns the low pads, one per spatial axis."""
+def _geometry(x, g, ksize, stride, pads=None):
+    """Checks shapes; returns the low pads, one per spatial axis: SAME's, or
+    those of the explicit `pads` ((lo, hi) per axis)."""
     rank = x.ndim - 2
     if rank not in (2, 3) or g.ndim != x.ndim or len(ksize) != rank:
         raise ValueError(f"wgrad takes NHWC/NDHWC x and g and one kernel extent per "
@@ -77,24 +78,28 @@ def _geometry(x, g, ksize, stride):
     if stride not in (1, 2) or g.shape[0] != x.shape[0]:
         raise ValueError(f"stride {stride} or batch {g.shape[0]} != {x.shape[0]}")
     los = []
-    for n, k, m in zip(x.shape[1:-1], ksize, g.shape[1:-1]):
-        lo, _, out = same_pads(n, k, stride)
+    for i, (n, k, m) in enumerate(zip(x.shape[1:-1], ksize, g.shape[1:-1])):
+        if pads is None:
+            lo, _, out = same_pads(n, k, stride)
+        else:
+            lo, hi = (int(p) for p in pads[i])
+            out = (n + lo + hi - k) // stride + 1 if min(lo, hi) >= 0 else -1
         if out != m:
-            raise ValueError(f"cotangent {tuple(g.shape)} is not the SAME stride-"
-                             f"{stride} output of {tuple(x.shape)}")
+            raise ValueError(f"cotangent {tuple(g.shape)} is not the stride-{stride} output "
+                             f"of {tuple(x.shape)} at pads {pads or 'SAME'}")
         los.append(lo)
     return los
 
 
-def wgrad_plain(x, g, ksize, stride: int = 1):
+def wgrad_plain(x, g, ksize, stride: int = 1, pads=None):
     """Plain PyTorch version: for every tap, the strided slice of the
     zero-padded input times g, summed over the output voxels by one float32
     matrix product.
 
     x (B, [D,] H, W, Cin), g (B, [Do,] Ho, Wo, Cout), ksize ([KD,] KH, KW)
-    -> ([KD,] KH, KW, Cin, Cout) float32.
+    -> ([KD,] KH, KW, Cin, Cout) float32; `pads` as for `wgrad`.
     """
-    los = _geometry(x, g, ksize, stride)
+    los = _geometry(x, g, ksize, stride, pads)
     cin, cout = x.shape[-1], g.shape[-1]
     pads = []
     for n, k, m, lo in zip(x.shape[1:-1], ksize, g.shape[1:-1], los):
@@ -277,16 +282,18 @@ def _prepared(x5_shape, g5_shape, taps, strides, los):
     return p, plan_ints(p, x5_shape, g5_shape, taps, strides, los)
 
 
-def wgrad(x, g, ksize, stride: int = 1, edition=None):
+def wgrad(x, g, ksize, stride: int = 1, edition=None, pads=None):
     """Weight gradient of the SAME conv of x with a ([KD,] KH, KW, Cin,
     Cout) kernel at `stride`, given the cotangent g of its output:
-    ([KD,] KH, KW, Cin, Cout) float32. x and g share one dtype.
+    ([KD,] KH, KW, Cin, Cout) float32. x and g share one dtype. `pads`,
+    ((lo, hi), ...) per spatial axis, replaces the SAME pads (the halo
+    convs of `parallel/halo.py` read a halo-extended input at pads 0).
     `edition`: see the module docstring."""
     global launches
     edition = pick_edition(x.dtype, x.shape[-1], g.shape[-1], edition)
     if x.device.type == "cpu":
-        return wgrad_plain(x, g, ksize, stride)
-    los = _geometry(x, g, ksize, stride)
+        return wgrad_plain(x, g, ksize, stride, pads)
+    los = _geometry(x, g, ksize, stride, pads)
     if g.dtype != x.dtype:
         raise TypeError(f"x is {x.dtype} and g {g.dtype}")
     x = x.contiguous()

@@ -1,7 +1,7 @@
 """Multi-device serving and training over one process per card
 (counterpart of mvsnet_tpu/parallel/): the mesh (`mesh.py`), starting ranks
-(`launch.py`), the depth-slab halo convs (`halo.py`), sharded inference
-(`infer_step.py`) and the sharded train step (`train_step.py`)."""
+(`launch.py`), the halo convs on depth x space blocks (`halo.py`), sharded
+inference (`infer_step.py`) and the sharded train step (`train_step.py`)."""
 
 from mvsnet_tpu_torch.parallel.mesh import AXES, Mesh, factorize_devices, make_mesh
 

@@ -1,71 +1,215 @@
-"""3x3x3 convs on depth slabs with a halo exchange over 'depth': the U-Net
-sharding that GSPMD derives in the JAX package (models/mvsnet.py:174,
-models/regnet.py:10), written out.
+"""Convs on blocks of a volume with halo exchanges: the U-Net sharding that
+GSPMD derives in the JAX package (models/mvsnet.py:174, models/regnet.py:10)
+and the row halos of the ConvGRU's cells (:228), written out.
 
-A rank holds the slab of Dl planes at global offset r * Dl of a volume of
-D = n * Dl planes, (B, Dl, h, w, C), rows and columns whole. Zero planes
-stand beyond the global ends. From the kernels' index rules:
+A rank holds a block of the volume: along each split axis (depth planes
+over 'depth', feature rows over 'space'; columns and channels whole) the
+[start, stop) of its `AxisSplit` at the op's level, the levels halving by
+the stride rule, so blocks may be uneven. Zeros stand beyond the global
+ends. From the kernels' index rules, on an input block [a, b):
 
-  * stride-1 SAME conv (pads 1/1): one plane from each neighbour, then
-    depth pads (0, 0): Dl outputs;
-  * stride-2 SAME conv on even D (pads 0/1): output o reads 2o..2o+2, so
-    one plane from the next rank, then depth pads (0, 0): Dl/2 outputs,
-    Dl even;
+  * stride-1 SAME conv (pads 1/1): output o reads o-1..o+1, so the rows
+    a-1 and b, one from each neighbour, then pads (0, 0): b - a outputs;
+  * stride-2 SAME conv (pads 0/1, even extent): output o reads 2o..2o+2,
+    and the rank owns the outputs [ceil(a/2), ceil(b/2)) whose first input
+    it owns, so it reads rows 2 ceil(a/2) .. 2 ceil(b/2): one or two rows
+    from the next rank, and an odd a leaves its own first row unread;
   * stride-2 transposed conv, out[o] = sum_t k[2-t] x[(o-t)/2]: output o
-    reads x[o//2] and x[o//2 - 1], so one plane from the previous rank,
-    prepended, then `deconv(lo=2)` over 2 Dl outputs.
+    reads x[o//2] and x[o//2 - 1], so the fine block [a, b) whose coarse
+    block is [ceil(a/2), ceil(b/2)) reads one row from the previous rank,
+    prepended, then `deconv(lo=a - 2 ceil(a/2) + 2)` over b - a outputs.
 
-One `all_gather` over the depth group of every rank's (first, last) planes
-serves each exchange: deadlock-free, and the same on gloo and NCCL.
+A 3x3x3 conv on a depth x space block needs its corners too: it exchanges
+over 'depth' first, then the rows of the depth-extended block over
+'space'. One `all_gather` over the axis group serves each exchange: every
+rank sends those of its first, second and last rows that some rank's
+index rule reads (every rank computes which from the blocks, so the
+packets agree: s1 sends two rows, the transposed conv one, s2 one or two),
+and each takes what it reads; deadlock-free, and the same on gloo and
+NCCL. The exchange is an autograd function: its backward sends each halo
+row's gradient back to its owner in one `all_gather` too, which adds it to
+its boundary row, so the ops train (`ops/autograd.py` at explicit pads).
+An axis of one rank takes the kernel's SAME pads instead.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 
+from mvsnet_tpu_torch.ops import autograd
 from mvsnet_tpu_torch.ops.kernels import conv as conv_k
 from mvsnet_tpu_torch.ops.kernels import deconv as deconv_k
+from mvsnet_tpu_torch.parallel.mesh import AxisSplit, Mesh
 
 
-def exchange(x, mesh):
-    """(previous rank's last plane, next rank's first plane) of the slab x
-    (B, Dl, h, w, C), each (B, 1, h, w, C); zeros beyond the global ends."""
-    n, r = mesh.axis_size("depth"), mesh.axis_index("depth")
-    zero = torch.zeros_like(x[:, :1])
-    if n == 1:
-        return zero, zero
-    ends = torch.stack([x[:, 0], x[:, -1]], dim=1)           # (B, 2, h, w, C)
-    every = mesh.all_gather(ends[None], "depth", dim=0)       # (n, B, 2, h, w, C)
-    before = every[r - 1][:, 1:2] if r > 0 else zero
-    after = every[r + 1][:, 0:1] if r < n - 1 else zero
-    return before, after
+def _half_up(a: int) -> int:
+    return -(-a // 2)
 
 
-def _hw_pads(x, stride):
-    return [conv_k.same_pads(n, 3, stride)[:2] for n in x.shape[2:4]]
+# the input rows [lo, hi) an op reads, from the input block [a, b)
+READS = {
+    "s1": lambda a, b: (a - 1, b + 1),
+    "s2": lambda a, b: (2 * _half_up(a), 2 * _half_up(b) + 1),
+    "up": lambda a, b: (a - 1, b),
+}
 
 
-def halo_conv(x, kernel, bias, stride: int, relu: bool, mesh):
-    """The depth slab of conv(whole volume, kernel, bias, stride, relu) for
-    a 3x3x3 SAME conv of stride 1 or 2; see the module docstring."""
-    if tuple(kernel.shape[:3]) != (3, 3, 3):
-        raise ValueError(f"halo_conv takes 3x3x3 kernels, got {tuple(kernel.shape)}")
-    before, after = exchange(x, mesh)
-    if stride == 1:
-        xx = torch.cat([before, x, after], dim=1)
-    elif stride == 2:
-        if x.shape[1] % 2:
-            raise ValueError(f"a stride-2 halo conv needs an even slab, got {x.shape[1]} planes")
-        xx = torch.cat([x, after], dim=1)
-    else:
+def _owner(split: AxisSplit, level: int, row: int) -> int:
+    for q in range(split.n):
+        a, b = split.bounds(level, q)
+        if a <= row < b:
+            return q
+    raise ValueError(f"row {row} lies outside {split}")
+
+
+def _slot(split: AxisSplit, level: int, row: int):
+    """(owner, slot) of a row another rank reads: slot 0 or 1 its owner's
+    first or second row, 2 its last."""
+    q = _owner(split, level, row)
+    a, b = split.bounds(level, q)
+    if row - a < 2:
+        return q, row - a
+    if row == b - 1:
+        return q, 2
+    raise ValueError(f"row {row} is not at an edge of rank {q}'s block [{a}, {b})")
+
+
+def _halo_rows(split: AxisSplit, level: int, kind: str, q: int):
+    """The rows rank q reads from other ranks: [(row, k)], k its place among
+    (row a - 1, row b, row b + 1)."""
+    a, b = split.bounds(level, q)
+    lo, hi = READS[kind](a, b)
+    n = split.extent(level)
+    rows = [(a - 1, 0), (b, 1), (b + 1, 2)]
+    return [(r, k) for r, k in rows if lo <= r < hi and 0 <= r < n and not a <= r < b]
+
+
+def _packets(split: AxisSplit, level: int, kind: str):
+    """(slots, places): the owner slots (0, 1: first, second row; 2: last)
+    that some rank reads, the forward packet's rows in that order; and the
+    places k of `_halo_rows` that some rank reads, the backward packet's.
+    The same on every rank."""
+    reads = [r for q in range(split.n) for r in _halo_rows(split, level, kind, q)]
+    slots = sorted({_slot(split, level, row)[1] for row, _ in reads})
+    places = sorted({k for _, k in reads})
+    return slots, places
+
+
+class _Exchange(torch.autograd.Function):
+    """x's block along `dim`, extended to the rows [lo, hi) its op reads;
+    see the module docstring."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim, split, level, kind):
+        ctx.mesh, ctx.dim, ctx.split, ctx.level, ctx.kind = mesh, dim, split, level, kind
+        a, b = split.bounds(level)
+        lo, hi = READS[kind](a, b)
+        n_rows = x.shape[dim]
+        if n_rows != b - a:
+            raise ValueError(f"a block of {n_rows} rows along dim {dim}, expected [{a}, {b}) "
+                             f"of {split} at level {level}")
+        zero = torch.zeros_like(x.narrow(dim, 0, 1))
+        slots, _ = _packets(split, level, kind)
+        every = None
+        if slots:
+            rows = {0: x.narrow(dim, 0, 1), 1: x.narrow(dim, 1, 1) if n_rows > 1 else zero,
+                    2: x.narrow(dim, n_rows - 1, 1)}
+            packet = torch.cat([rows[k] for k in slots], dim)
+            every = mesh.all_gather(packet.unsqueeze(0), split.axis, dim=0)
+        extent = split.extent(level)
+
+        def halo_row(row):
+            if not 0 <= row < extent:
+                return zero
+            q, k = _slot(split, level, row)
+            return every[q].narrow(dim, slots.index(k), 1)
+        own0, own1 = max(lo, a), min(hi, b)
+        parts = [halo_row(row) for row in range(lo, min(hi, a))]
+        parts.append(x.narrow(dim, own0 - a, own1 - own0))
+        parts += [halo_row(row) for row in range(max(lo, b), hi)]
+        ctx.own = (own0 - a, own1 - own0, n_rows, lo)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim, split, level, kind = ctx.mesh, ctx.dim, ctx.split, ctx.level, ctx.kind
+        start, count, n_rows, lo = ctx.own
+        a, b = split.bounds(level)
+        grad = torch.zeros(g.shape[:dim] + (n_rows,) + g.shape[dim + 1:], dtype=g.dtype,
+                           device=g.device)
+        grad.narrow(dim, start, count).copy_(g.narrow(dim, a + start - lo, count))
+        _, places = _packets(split, level, kind)
+        if places:
+            zero = torch.zeros_like(g.narrow(dim, 0, 1))
+            packet = {k: zero for k in places}
+            for row, k in _halo_rows(split, level, kind, split.index):
+                packet[k] = g.narrow(dim, row - lo, 1)
+            every = mesh.all_gather(torch.cat([packet[k] for k in places], dim).unsqueeze(0),
+                                    split.axis, dim=0)
+            for q in range(split.n):
+                if q == split.index:
+                    continue
+                for row, k in _halo_rows(split, level, kind, q):
+                    if a <= row < b:
+                        grad.narrow(dim, row - a, 1).add_(
+                            every[q].narrow(dim, places.index(k), 1))
+        return grad, None, None, None, None, None
+
+
+def exchange(x, mesh: Mesh, dim: int, split: AxisSplit, level: int, kind: str):
+    """x (a block of `split` at `level` along `dim`) extended to the rows
+    its op `kind` ("s1", "s2" or "up") reads; differentiable."""
+    return _Exchange.apply(x, mesh, dim, split, level, kind)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def halo_conv(x, kernel, bias, stride: int, relu: bool, *, mesh: Mesh,
+              splits: Sequence[Optional[AxisSplit]], level: int):
+    """This rank's block of conv(whole volume, kernel, bias, stride, relu)
+    for a 3x3(x3) SAME conv of stride 1 or 2 on x (B, [D,] H, W, C), a
+    block at `level` of `splits` (one per spatial axis, None or one rank:
+    whole); see the module docstring. Under autograd (bias None, no ReLU:
+    the training layers add them) it is `ConvFn` at the explicit pads."""
+    if tuple(kernel.shape[:-2]) != (3,) * (x.ndim - 2):
+        raise ValueError(f"halo_conv takes 3x3(x3) kernels, got {tuple(kernel.shape)}")
+    if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2, got {stride}")
-    return conv_k.conv(xx, kernel, bias, stride, relu, pads=[(0, 0)] + _hw_pads(x, stride))
+    xx, pads = x, []
+    for dim, split in enumerate(splits, start=1):
+        if split is not None and split.n > 1:
+            xx = exchange(xx, mesh, dim, split, level, "s1" if stride == 1 else "s2")
+            pads.append((0, 0))
+        else:
+            pads.append(conv_k.same_pads(x.shape[dim], 3, stride)[:2])
+    if _needs_grad(xx, kernel):
+        if bias is not None or relu:
+            raise ValueError("a differentiable halo conv takes no bias or ReLU")
+        return autograd.ConvFn.apply(xx, kernel, stride, pads)
+    return conv_k.conv(xx, kernel, bias, stride, relu, pads=pads)
 
 
-def halo_deconv(x, kernel, bias, relu: bool, mesh):
-    """The depth slab (2 Dl planes) of flax's k3 s2 SAME transposed conv of
-    the whole volume; see the module docstring."""
-    before, _ = exchange(x, mesh)
-    B, Dl, h, w, _ = x.shape
-    return deconv_k.deconv(torch.cat([before, x], dim=1), kernel, bias, relu,
-                           lo=(2, 0, 0), out_spatial=(2 * Dl, 2 * h, 2 * w))
+def halo_deconv(x, kernel, bias, relu: bool, *, mesh: Mesh,
+                splits: Sequence[Optional[AxisSplit]], level: int):
+    """This rank's block at level - 1 of flax's k3 s2 SAME transposed conv
+    of the whole volume, x a block at `level`; see the module docstring.
+    Under autograd it is `DeconvFn` at the explicit crop."""
+    xx, los, outs = x, [], []
+    for dim, split in enumerate(splits, start=1):
+        if split is not None and split.n > 1:
+            xx = exchange(xx, mesh, dim, split, level, "up")
+            a, b = split.bounds(level - 1)
+            los.append(a - 2 * split.bounds(level)[0] + 2)
+            outs.append(b - a)
+        else:
+            los.append(0)
+            outs.append(2 * x.shape[dim])
+    if _needs_grad(xx, kernel):
+        if bias is not None or relu:
+            raise ValueError("a differentiable halo deconv takes no bias or ReLU")
+        return autograd.DeconvFn.apply(xx, kernel, tuple(los), tuple(outs))
+    return deconv_k.deconv(xx, kernel, bias, relu, lo=los, out_spatial=outs)

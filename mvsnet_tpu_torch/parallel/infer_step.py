@@ -7,18 +7,21 @@ Two regimes, chosen per call by the batch size B over the mesh's n ranks:
   on its B / n maps, in rank order (JAX's batch spec over all three axes),
   and the outputs are all-gathered, so every rank holds the whole
   (B, h, w, 1) result, as JAX's replicated output.
-* **Latency** (otherwise, typically B = 1): one map's volume is split.
-  Every rank runs the 2D feature tower and keeps its 'space' row shard of
-  the features; the row- and depth-sliced cost kernel K1s computes its
-  block of the cost volume (`sweep_cost_volume_sharded`); the blocks are
-  all-gathered over 'space' into the rank's depth slab; the 3D U-Net runs
-  on the slabs with halo exchanges over 'depth'
-  (`RegNetUS0.forward_sharded`); the 1-channel regularized slabs (B, Dl,
-  h, w) float32 are all-gathered over 'depth', and the soft-argmin tail
-  runs whole on every rank. With refinement every rank then holds the
-  whole depth and prob maps and runs the refinement network whole on
-  them. The 'data' axis replicates this regime. The U-Net does not shard
-  rows yet: the cost volume's row blocks are gathered before it.
+* **Latency** (otherwise, typically B = 1): one map's volume is split
+  over 'depth' x 'space' (`forward_3dcnn_blocks`, which the train step
+  shares). Every rank runs the 2D feature tower and keeps its 'space' row
+  block of the features (JAX constrains the towers' output over 'space');
+  the row- and depth-sliced cost kernel K1s computes its depth x space
+  block of the cost volume (`sweep_cost_volume_sharded`); the 3D U-Net
+  runs on the blocks with halo exchanges over 'depth' and 'space'
+  (`RegNetUS0.forward_sharded`); the collective soft-argmin tail
+  (`ops.depth.soft_argmin_prob_map_sharded`) leaves each rank its rows of
+  the depth and prob maps, which are all-gathered over 'space', so every
+  rank holds the whole maps. With refinement every rank then runs the
+  refinement network whole on them. The 'data' axis replicates this
+  regime. No rank holds a whole (D, h, w) volume; where an axis cannot be
+  split (`models.regnet.plan_volume`) the U-Net runs whole along it, with
+  a warning.
 
 Refinement runs in both regimes, as in JAX (infer_step.py:53-79): in the
 throughput regime inside the single-device forward on each rank's maps.
@@ -35,10 +38,12 @@ from typing import Callable, Optional
 import torch
 
 from mvsnet_tpu_torch.models.mvsnet import MVSNet, apply_forward_3dcnn, refine_outputs
+from mvsnet_tpu_torch.models.regnet import VolumePlan, plan_volume
 from mvsnet_tpu_torch.ops.cost_volume import sweep_cost_volume_sharded
+from mvsnet_tpu_torch.ops.depth import soft_argmin_prob_map_sharded
 from mvsnet_tpu_torch.parallel.mesh import Mesh
 
-LATENCY_STAGES = ("features", "cost_volume", "space_gather", "regnet", "depth_gather_tail")
+LATENCY_STAGES = ("features", "cost_volume", "regnet", "collective_tail")
 
 
 def _pad_batch(xs, B: int, n: int):
@@ -48,37 +53,64 @@ def _pad_batch(xs, B: int, n: int):
     return tuple(torch.cat([x] + [x[-1:]] * pad, dim=0) for x in xs)
 
 
-def latency_forward(model: MVSNet, mesh: Mesh, images, cams, depth_start, depth_interval,
-                    on_stage: Optional[Callable[[str], None]] = None):
-    """The latency regime on this rank; see the module docstring. Returns
-    (depth_map, prob_map, residual) as `apply_forward_3dcnn` does.
-    `on_stage(name)`, where given, is called after each of
-    `LATENCY_STAGES`, and with refinement after "refine"."""
+def forward_3dcnn_blocks(model: MVSNet, mesh: Mesh, images, cams, depth_start,
+                         depth_interval, on_stage: Optional[Callable[[str], None]] = None,
+                         plan: Optional[VolumePlan] = None):
+    """`model.forward_3dcnn` with the volume in depth x space blocks over
+    the mesh (see the module docstring), in eval or, with the model in
+    training mode, differentiable: the views' gather over 'space' and the
+    halos send their gradients back, the tail's sums over 'depth' pass the
+    whole cotangent to every slab (the ranks use the maps alike), and the
+    maps' gather over 'space' hands each rank its rows' cotangent. Returns
+    depth_map, prob_map, each (B, h, w, 1) float32, whole on every rank.
+    `on_stage(name)` is called after each of `LATENCY_STAGES`; `plan`
+    (default `plan_volume` of the features) lays out the volume."""
     mark = on_stage or (lambda name: None)
     B = images.shape[0]
     ds, di, de = model.depth_range(depth_start, depth_interval, B, images.device)
     ref_f, view_f = model.extract_features(images)
     h, w = ref_f.shape[1:3]
     model.check_feature_shape(h, w)
-    sp, s = mesh.axis_size("space"), mesh.axis_index("space")
-    if h % sp:
-        raise ValueError(f"feature height {h} does not split over {sp} 'space' ranks")
-    rows = slice(s * (h // sp), (s + 1) * (h // sp))
-    ref_l, views_l = ref_f[:, rows], view_f[:, :, rows]
+    plan = plan or plan_volume(mesh, model.cfg.max_d, h)
+    if (plan.depth.size, plan.rows.size) != (model.cfg.max_d, h):
+        raise ValueError(f"a plan of {plan.depth.size} planes and {plan.rows.size} rows for "
+                         f"{model.cfg.max_d} planes and {h} feature rows")
+    r0, r1 = plan.rows.bounds()
     mark("features")
-    cost = sweep_cost_volume_sharded(ref_l, views_l, model.homographies(cams, ds, di, de), mesh)
+    cost = sweep_cost_volume_sharded(ref_f[:, r0:r1], view_f[:, :, r0:r1],
+                                     model.homographies(cams, ds, di, de), mesh,
+                                     depth=plan.depth, rows=plan.rows)
     mark("cost_volume")
-    cost = mesh.all_gather(cost, "space", dim=2)                    # (B, Dl, h, w, C)
-    mark("space_gather")
-    reg = model.regnet.forward_sharded(cost, mesh)[..., 0].to(torch.float32)
+    reg = model.regnet.forward_sharded(cost, mesh, plan)[..., 0].to(torch.float32)
     mark("regnet")
-    reg = mesh.all_gather(reg.contiguous(), "depth", dim=1)          # (B, D, h, w)
-    depth, prob = model.depth_tail(reg, ds, di, de)
-    mark("depth_gather_tail")
+    cfg, by_depth = model.cfg, plan.depth.n > 1
+    depth, prob = soft_argmin_prob_map_sharded(
+        reg, plan.depth.bounds()[0], ds, di, cfg.max_d, inverse_depth=cfg.inverse_depth,
+        depth_end=de, num_buckets=cfg.prob_num_buckets,
+        reduce_sum=(lambda t: mesh.all_reduce_replicated(t, "depth")) if by_depth else None,
+        reduce_max=(lambda t: mesh.all_reduce(t, "depth", op="max")) if by_depth else None)
+    if plan.rows.n > 1:
+        depth, prob = (mesh.all_gather_grad(t, "space", dim=1, replicated=True)
+                       for t in (depth, prob))
+    mark("collective_tail")
+    return depth, prob
+
+
+def latency_forward(model: MVSNet, mesh: Mesh, images, cams, depth_start, depth_interval,
+                    on_stage: Optional[Callable[[str], None]] = None):
+    """The latency regime on this rank; see the module docstring. Returns
+    (depth_map, prob_map, residual) as `apply_forward_3dcnn` does.
+    `on_stage(name)`, where given, is called after each of
+    `LATENCY_STAGES`, and with refinement after "refine"."""
+    depth, prob = forward_3dcnn_blocks(model, mesh, images, cams, depth_start, depth_interval,
+                                       on_stage)
     if not model.refines:
         return depth, prob, torch.zeros_like(depth)
+    B = images.shape[0]
+    ds, di, _ = model.depth_range(depth_start, depth_interval, B, images.device)
     out = refine_outputs(model, images, depth, prob, ds, di)
-    mark("refine")
+    if on_stage is not None:
+        on_stage("refine")
     return out
 
 

@@ -14,10 +14,21 @@ Backends:
     count). NCCL cannot put two ranks on one card; this can, so one card
     can run a two-rank mesh.
 
-The collectives the port uses are `all_gather` and `all_reduce` (sum)
-along one axis or the whole mesh, `all_reduce_grad`, whose backward
-is the same sum, and `broadcast_` from rank 0 (`shard_state`). The boundary-plane exchange of the depth-sharded U-Net
-is an `all_gather` over 'depth' (`parallel/halo.py`).
+The collectives the port uses are `all_gather` and `all_reduce` (sum, or
+max) along one axis or the whole mesh, and `broadcast_` from rank 0
+(`shard_state`). Three of them have a backward for training over blocks:
+  * `all_reduce_grad`: the sum, whose backward sums the cotangents over the
+    same ranks (every rank's loss depends on every rank's part);
+  * `all_reduce_replicated`: the sum, whose backward is the identity (what
+    follows it runs alike on every rank of the axis and the loss is taken
+    once: the soft-argmin tail over 'depth');
+  * `all_gather_grad`: the gather, whose backward gives each rank its own
+    part of the cotangent, summed over the axis (partial consumers: the
+    source views of the cost volume) or as it is (`replicated`: the maps
+    after the tail, whose loss every rank of the axis takes whole).
+The boundary exchanges of the blocked U-Net and of the GRU's cells are one
+`all_gather` over an axis each (`parallel/halo.py`). `AxisSplit` says which
+planes or rows of a volume axis a rank holds, level by level.
 """
 
 from __future__ import annotations
@@ -81,11 +92,40 @@ def axis_ranks(shape, axis: int):
     return out
 
 
-def shards(dim_size: int, axis_size: int) -> bool:
-    """The rule of `constrain` (mesh.py:88-112): an axis shards a dimension
-    only where the dimension divides evenly over it; otherwise that
-    dimension stays whole (replicated)."""
-    return axis_size > 1 and dim_size % axis_size == 0
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisSplit:
+    """How one axis of a volume lies over a mesh axis: `size` planes or
+    rows at level 0, split evenly over `n` ranks (1: whole on every rank),
+    this rank the `index`-th. Level l halves level l - 1 by the stride
+    rule of a stride-2 SAME conv: a rank owns the outputs whose first input
+    it owns, so its block is [ceil(start / 2^l), ceil(stop / 2^l)), and the
+    blocks may be uneven (216 rows on 2 ranks: 108, 54, 27 -> 14 / 13)."""
+
+    axis: str
+    size: int
+    n: int = 1
+    index: int = 0
+
+    def bounds(self, level: int = 0, index: Optional[int] = None) -> Tuple[int, int]:
+        """[start, stop) of rank `index` (default this rank) at `level`."""
+        i = self.index if index is None else index
+        f = 2 ** level
+        return (_ceil_div(i * self.size // self.n, f),
+                _ceil_div((i + 1) * self.size // self.n, f))
+
+    def extent(self, level: int = 0) -> int:
+        """The whole axis at `level`."""
+        return _ceil_div(self.size, 2 ** level)
+
+    def filled(self, levels: int) -> bool:
+        """Whether every rank holds at least one plane or row at levels
+        0..levels."""
+        return all(a < b for lv in range(levels + 1)
+                   for a, b in (self.bounds(lv, i) for i in range(self.n)))
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -100,6 +140,38 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.mesh.all_reduce(g.contiguous(), ctx.axis), None, None
+
+
+class _AllReduceReplicated(torch.autograd.Function):
+    """Sum over an axis whose backward is the identity: the ranks of the
+    axis use the sum alike and the loss counts it once, so each rank's
+    cotangent of the sum is already the whole one."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        return mesh.all_reduce(t, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """`all_gather` along `dim` whose backward hands each rank its own part
+    of the cotangent: summed over the axis first, unless `replicated`."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim, replicated):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.replicated = mesh, axis, dim, replicated
+        ctx.part = t.shape[dim]
+        return mesh.all_gather(t.contiguous(), axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if not ctx.replicated:
+            g = ctx.mesh.all_reduce(g.contiguous(), ctx.axis)
+        i = ctx.mesh.axis_index(ctx.axis)
+        return g.narrow(ctx.dim, i * ctx.part, ctx.part), None, None, None, None
 
 
 @dataclasses.dataclass(eq=False)
@@ -155,12 +227,14 @@ class Mesh:
         dist.all_gather(parts, x, group=self.groups[axis])
         return self._from_group(torch.cat(parts, dim=dim), t)
 
-    def all_reduce(self, t, axis: Optional[str] = None):
-        """Sum of `t` over the ranks along `axis`, as a new tensor."""
+    def all_reduce(self, t, axis: Optional[str] = None, op: str = "sum"):
+        """Sum (or with op="max" the maximum) of `t` over the ranks along
+        `axis`, as a new tensor."""
         if self.axis_size(axis) == 1:
             return t
         x = self._to_group(t, as_bytes=False).clone()
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.groups[axis])
+        dist.all_reduce(x, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=self.groups[axis])
         return self._from_group(x, t)
 
     def broadcast_(self, t):
@@ -179,6 +253,21 @@ class Mesh:
         if self.axis_size(axis) == 1:
             return t
         return _AllReduceSum.apply(t, self, axis)
+
+    def all_reduce_replicated(self, t, axis: Optional[str] = None):
+        """`all_reduce` whose backward is the identity; see the module
+        docstring."""
+        if self.axis_size(axis) == 1:
+            return t
+        return _AllReduceReplicated.apply(t, self, axis)
+
+    def all_gather_grad(self, t, axis: Optional[str] = None, dim: int = 0,
+                        replicated: bool = False):
+        """`all_gather` that autograd differentiates; see the module
+        docstring. Every rank's part has the same shape."""
+        if self.axis_size(axis) == 1:
+            return t
+        return _AllGather.apply(t, self, axis, dim, replicated)
 
 
 def _rank_device(backend: str) -> torch.device:

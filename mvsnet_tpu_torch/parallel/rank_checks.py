@@ -15,6 +15,7 @@ import logging
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from mvsnet_tpu_torch import infer
 from mvsnet_tpu_torch import train as driver
@@ -22,11 +23,13 @@ from mvsnet_tpu_torch import train_lib
 from mvsnet_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
 from mvsnet_tpu_torch.models import MVSNet
 from mvsnet_tpu_torch.models.layers import BatchNormRef
-from mvsnet_tpu_torch.ops.cost_volume import sweep_cost_volume_sharded
+from mvsnet_tpu_torch.ops.cost_volume import CostVolumeFn, sweep_cost_volume_sharded
+from mvsnet_tpu_torch.ops.depth import soft_argmin_prob_map_sharded
 from mvsnet_tpu_torch.ops.kernels import conv as conv_k
 from mvsnet_tpu_torch.ops.kernels import deconv as deconv_k
 from mvsnet_tpu_torch.parallel import halo
-from mvsnet_tpu_torch.parallel.mesh import make_mesh
+from mvsnet_tpu_torch.parallel.infer_step import latency_forward
+from mvsnet_tpu_torch.parallel.mesh import AxisSplit, make_mesh
 from mvsnet_tpu_torch.parallel.train_step import make_sharded_train_step
 from mvsnet_tpu_torch.predict import Predictor
 
@@ -53,21 +56,132 @@ def sweep(inp):
 
 
 def halo_ops(inp):
-    """This rank's slab of the halo conv s1, s2 and transposed conv, and
-    the whole ops on the whole volume for reference."""
+    """This rank's depth slab of the halo conv s1, s2 and transposed conv
+    (rows whole), and the whole ops on the whole volume for reference."""
     mesh = make_mesh(shape=inp["shape"], backend="gloo")
     n, r = mesh.axis_size("depth"), mesh.axis_index("depth")
     x, k, b = _t(inp["x"]), _t(inp["k"]), _t(inp["b"])
     xd, kd = _t(inp["x_deconv"]), _t(inp["k_deconv"])
     Dl, Dld = x.shape[1] // n, xd.shape[1] // n
     mine, mine_d = slice(r * Dl, (r + 1) * Dl), slice(r * Dld, (r + 1) * Dld)
+    slabs = (AxisSplit("depth", x.shape[1], n, r), None, None)
     return {"coords": mesh.coords,
-            "s1": _np(halo.halo_conv(x[:, mine], k, b, 1, True, mesh)),
-            "s2": _np(halo.halo_conv(x[:, mine], k, b, 2, False, mesh)),
-            "deconv": _np(halo.halo_deconv(xd[:, mine_d], kd, b, True, mesh)),
+            "s1": _np(halo.halo_conv(x[:, mine], k, b, 1, True, mesh=mesh, splits=slabs,
+                                     level=0)),
+            "s2": _np(halo.halo_conv(x[:, mine], k, b, 2, False, mesh=mesh, splits=slabs,
+                                     level=0)),
+            "deconv": _np(halo.halo_deconv(xd[:, mine_d], kd, b, True, mesh=mesh,
+                                           splits=slabs, level=1)),
             "want_s1": _np(conv_k.conv(x, k, b, 1, True)),
             "want_s2": _np(conv_k.conv(x, k, b, 2, False)),
             "want_deconv": _np(deconv_k.deconv(xd, kd, b, True))}
+
+
+def block_of(t, splits, level, index=None):
+    """The block of the whole tensor t (B, *spatial, C) that `splits` (one
+    AxisSplit or None per spatial axis) give a rank at `level`."""
+    for dim, split in enumerate(splits, start=1):
+        if split is not None:
+            a, b = split.bounds(level, index[dim - 1] if index else None)
+            t = t.narrow(dim, a, b - a)
+    return t
+
+
+def halo_blocks(inp):
+    """This rank's block of each halo op of `inp["ops"]` (kind, level, x,
+    kernel, cotangent) over a mesh (1, depth, space), the volume's axes at
+    level 0 `inp["sizes"]` (3D: planes and rows; 2D: rows), with the
+    gradients of sum(out * cotangent) on the plain path: the block's dx
+    and this rank's share of dk."""
+    mesh = make_mesh(shape=inp["shape"], backend="gloo")
+    sizes = inp["sizes"]
+    if len(sizes) == 2:
+        splits = (AxisSplit("depth", sizes[0], mesh.axis_size("depth"),
+                            mesh.axis_index("depth")),
+                  AxisSplit("space", sizes[1], mesh.axis_size("space"),
+                            mesh.axis_index("space")), None)
+    else:
+        splits = (AxisSplit("space", sizes[0], mesh.axis_size("space"),
+                            mesh.axis_index("space")), None)
+    out = {"coords": mesh.coords}
+    for name, (kind, level, x, k, cot) in inp["ops"].items():
+        xb = block_of(_t(x), splits, level).clone().requires_grad_(True)
+        kt = _t(k).requires_grad_(True)
+        if kind == "up":
+            y = halo.halo_deconv(xb, kt, None, False, mesh=mesh, splits=splits, level=level)
+            out_level = level - 1
+        else:
+            y = halo.halo_conv(xb, kt, None, 1 if kind == "s1" else 2, False, mesh=mesh,
+                               splits=splits, level=level)
+            out_level = level + (kind == "s2")
+        (y * block_of(_t(cot), splits, out_level)).sum().backward()
+        with torch.no_grad():
+            bias = torch.linspace(-1, 1, k.shape[-1])
+            if kind == "up":
+                y_eval = halo.halo_deconv(xb, kt, bias, True, mesh=mesh, splits=splits,
+                                          level=level)
+            else:
+                y_eval = halo.halo_conv(xb, kt, bias, 1 if kind == "s1" else 2, True,
+                                        mesh=mesh, splits=splits, level=level)
+        out[name] = {"y": _np(y), "dx": _np(xb.grad), "dk": _np(kt.grad), "y_eval": _np(y_eval),
+                     "bounds": [s.bounds(out_level) if s else None for s in splits],
+                     "in_bounds": [s.bounds(level) if s else None for s in splits]}
+    return out
+
+
+class ShapeAudit(TorchDispatchMode):
+    """Records the shape of every tensor an op makes while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.shapes = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in (out if isinstance(out, (tuple, list)) else (out,)):
+            if isinstance(t, torch.Tensor):
+                self.shapes.add(tuple(t.shape))
+        return out
+
+
+def whole_volume_shapes(shapes, D, h, w):
+    """The shapes among `shapes` that hold a whole (D, h, w) volume in any
+    layout: D, h and w (or D, w, h; h, w, D) in that order, not
+    necessarily adjacent."""
+    def holds(shape, dims):
+        it = iter(shape)
+        return all(any(d == s for s in it) for d in dims)
+    return [tuple(s) for s in shapes
+            if any(holds(s, p) for p in ((D, h, w), (D, w, h), (h, w, D)))]
+
+
+def audit(inp):
+    """The shapes of every tensor one latency request makes on this rank
+    (`latency_forward`, from the images to the gathered maps), and the
+    request's depth map."""
+    mesh = make_mesh(shape=inp["shape"], backend="gloo")
+    model = MVSNet(ModelConfig(**inp["cfg"]), seed=1)
+    args = tuple(_t(a) for a in inp["inputs"][:4])
+    with torch.no_grad(), ShapeAudit() as seen:
+        depth, _, _ = latency_forward(model, mesh, *args)
+    return {"coords": mesh.coords, "shapes": sorted(seen.shapes), "depth": _np(depth)}
+
+
+def tail(inp):
+    """This rank's collective soft-argmin tail over its depth slab of
+    `inp["reg"]` for each (num_buckets, inverse_depth) of `inp["tails"]`."""
+    mesh = make_mesh(shape=inp["shape"], backend="gloo")
+    reg = _t(inp["reg"])
+    n, r = mesh.axis_size("depth"), mesh.axis_index("depth")
+    Dl = reg.shape[1] // n
+    ds, di, de = (_t(a) for a in inp["range"])
+    out = {}
+    for buckets, inverse in inp["tails"]:
+        out[(buckets, inverse)] = tuple(_np(t) for t in soft_argmin_prob_map_sharded(
+            reg[:, r * Dl:(r + 1) * Dl], r * Dl, ds, di, reg.shape[1], inverse, de, buckets,
+            reduce_sum=lambda t: mesh.all_reduce_replicated(t, "depth"),
+            reduce_max=lambda t: mesh.all_reduce(t, "depth", op="max")))
+    return out
 
 
 class _Records(logging.Handler):
@@ -99,15 +213,25 @@ def predict(inp):
 
 def train(inp):
     """One `make_sharded_train_step` step: metrics, gradients, running
-    statistics, updated parameters, and whether the batch norms still sum
-    over the mesh after it."""
+    statistics, updated parameters, the shapes of the cost volumes it built
+    and whether the batch norms still sum over the mesh after it."""
     mesh = make_mesh(shape=inp["shape"], backend="gloo")
     cfg, tcfg = ModelConfig(**inp["cfg"]), TrainConfig(**inp["tcfg"])
     model = MVSNet(cfg)
     model.load_state_dict({k: _t(v) for k, v in inp["state_dict"].items()})
     state = train_lib.create_train_state(model, cfg, tcfg, device=mesh.device)
-    state, metrics = make_sharded_train_step(model, cfg, tcfg, mesh)(state, inp["batch"])
-    return {"metrics": {k: float(v) for k, v in metrics.items()},
+    costs, forward = [], CostVolumeFn.forward
+
+    def recording(ctx, *args):
+        out = forward(ctx, *args)
+        costs.append(tuple(out.shape))
+        return out
+    CostVolumeFn.forward = staticmethod(recording)
+    try:
+        state, metrics = make_sharded_train_step(model, cfg, tcfg, mesh)(state, inp["batch"])
+    finally:
+        CostVolumeFn.forward = staticmethod(forward)
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "costs": costs,
             "grads": {n: _np(p.grad) for n, p in model.named_parameters()},
             "buffers": {n: _np(b) for n, b in model.named_buffers()},
             "params": {n: _np(p) for n, p in model.named_parameters()},
@@ -149,7 +273,8 @@ def default_device_error(_inp):
     return None
 
 
-CASES = {"sweep": sweep, "halo": halo_ops, "predict": predict, "train": train,
+CASES = {"sweep": sweep, "halo": halo_ops, "halo_blocks": halo_blocks, "audit": audit,
+         "tail": tail, "predict": predict, "train": train,
          "driver_batches": driver_batches, "default_device_error": default_device_error,
          "infer_driver": infer_driver}
 

@@ -3,22 +3,43 @@ mvsnet_tpu/parallel/train_step.py:24-77, and of the single-device steps
 they equal, tests/test_parallel.py:45-75), and `shard_state`.
 
 Parameters and optimizer state are replicated; each rank of the 'data'
-axis takes its slice of the batch. What GSPMD gives the JAX step for free
-is written out, because a plain data-parallel average would differ:
+axis takes its slice of the batch. Along 'depth' and 'space' the ranks of
+a data group split the volume, as JAX's constraints do inside the jitted
+step (models/mvsnet.py:174, :179, :228):
+  * the 3D-CNN graph runs on the rank's depth x space block
+    (`infer_step.forward_3dcnn_blocks`: the cost volume's block by K1s,
+    K2 and K3 with a row offset backward; the U-Net with halo exchanges
+    that send their gradients back; the collective soft-argmin tail);
+  * the GRU graph runs its sweep on the rank's rows over all D planes
+    (`MVSNet.gru_cost_sweep`'s `blocks`), the cells with one-row halos
+    and their norms' statistics summed over 'space'.
+What GSPMD gives the JAX step for free is written out, because a plain
+data-parallel average would differ:
   * the losses are sums over the batch, not means, so the gradients are
-    *summed* over 'data', not averaged;
-  * every batch-wide sum or count of the losses (`losses.py`) is summed
-    over 'data' before it is used, each rank's loss being its share;
+    *summed* over 'data', not averaged; every batch-wide sum or count of
+    the losses (`losses.py`) is summed over 'data' before it is used, each
+    rank's loss being its share;
+  * the maps after the tail (and the GRU's per-pixel loss terms) are
+    gathered over 'space', so every rank of a data group takes its maps'
+    loss whole, once along 'depth' and 'space';
+  * a parameter's gradient is summed over the axes along which its copies
+    saw different parts of the loss: the feature tower, the U-Net and the
+    GRU over 'data' and the axes that split the volume (the tower runs
+    whole on every rank but receives only its block's cotangent); the
+    refinement net, which runs on the gathered maps alike along 'depth'
+    and 'space', over 'data' only;
   * training batch norms sum their per-channel sums and sums of squares
-    over 'data' (differentiably), so their statistics are the global
-    batch's and the running statistics agree on every rank.
-The metrics are global. Ranks along 'depth' and 'space' repeat their data
-group's step: sharding the training volume is later work.
+    (differentiably) over 'data' and the axes whose blocks the U-Net
+    holds apart, so their statistics are the global batch's and the
+    running statistics agree on every rank.
+The metrics are global.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import logging
 
 import torch
 
@@ -26,7 +47,11 @@ from mvsnet_tpu_torch import train_lib
 from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
 from mvsnet_tpu_torch.models.layers import BatchNormRef
 from mvsnet_tpu_torch.models.mvsnet import MVSNet
-from mvsnet_tpu_torch.parallel.mesh import Mesh
+from mvsnet_tpu_torch.models.regnet import plan_volume
+from mvsnet_tpu_torch.parallel.infer_step import forward_3dcnn_blocks
+from mvsnet_tpu_torch.parallel.mesh import AxisSplit, Mesh
+
+logger = logging.getLogger(__name__)
 
 
 @contextlib.contextmanager
@@ -44,22 +69,72 @@ def global_batch_norms(model, sync):
             m.batch_sum = None
 
 
+def _sum_over(mesh: Mesh, t, axes, grad: bool = False):
+    """t summed over the ranks of every axis in `axes` (one after the
+    other: the sum over their product), differentiably with `grad`."""
+    for axis in axes:
+        t = mesh.all_reduce_grad(t, axis) if grad else mesh.all_reduce(t, axis)
+    return t
+
+
+class _Blocks:
+    """The graph's forward on this rank's block (`train_lib.compute_loss`'s
+    `blocks`), and the axes each sum of the step runs over: `split`, those
+    along which the ranks hold different blocks, `norms` those of them
+    whose blocks the U-Net's batch norms see apart."""
+
+    def __init__(self, mesh: Mesh, cfg: ModelConfig, feature_height: int):
+        self.mesh = mesh
+        if cfg.regularization == "GRU":
+            sp = mesh.axis_size("space")
+            if feature_height % sp:
+                logger.warning("GRU: %d feature rows do not divide over %d 'space' ranks; "
+                               "every rank sweeps them all", feature_height, sp)
+                sp = 1
+            self.rows = AxisSplit("space", feature_height, sp, mesh.axis_index("space") % sp)
+            self.plan = None
+            self.split = ("space",) if sp > 1 else ()
+            self.norms = ()
+        else:
+            self.plan = plan_volume(mesh, cfg.max_d, feature_height)
+            self.split = self.plan.sharded
+            self.norms = tuple(a for a in self.split if a not in self.plan.gathered)
+
+    @classmethod
+    def of(cls, mesh: Mesh, cfg: ModelConfig, feature_height: int):
+        """The blocks of this step, or None where no axis splits the volume."""
+        blocks = cls(mesh, cfg, feature_height)
+        return blocks if blocks.split else None
+
+    def forward_3dcnn(self, model, images, cams, depth_start, depth_interval):
+        return forward_3dcnn_blocks(model, self.mesh, images, cams, depth_start,
+                                    depth_interval, plan=self.plan)
+
+    def forward_prob_recurrent(self, model, images, cams, depth_start, depth_interval):
+        prob = model.forward_prob_recurrent(images, cams, depth_start, depth_interval,
+                                            blocks=(self.mesh, self.rows))
+        return prob, self.rows.bounds(), self.gather
+
+    def gather(self, t):
+        """A (B, hl, w, 1) map of this rank's rows -> the whole map, whose
+        every rank takes the loss alike."""
+        return self.mesh.all_gather_grad(t, "space", dim=1, replicated=True)
+
+
 def make_sharded_train_step(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh):
     """train_step(state, batch) -> (state, metrics). Every rank calls it
     with the whole batch (images, cams, depth_image, full_depth) as
     arrays; B must divide over 'data'. `state` comes from
     `train_lib.create_train_state(model, ..., device=mesh.device)` on every
-    rank from the same weights. The model's batch norms sum their
-    statistics over 'data' only inside a step."""
+    rank from the same weights. The volume splits over 'depth' and 'space'
+    as the module docstring says (the GRU over 'space' only: its depth is
+    the scan); the model's batch norms sum their statistics over the mesh
+    only inside a step."""
     n, i = mesh.axis_size("data"), mesh.axis_index("data")
-    sync = None
-    batch_sum = None
-    if n > 1:
-        def sync(t):
-            return mesh.all_reduce_grad(t, "data")
-
-        def batch_sum(t):
-            return mesh.all_reduce(t, "data")
+    batch_sum = None if n == 1 else (lambda t: mesh.all_reduce(t, "data"))
+    alike = [p for name, p in model.named_parameters() if name.startswith("refine_net.")]
+    # one plan (and its warnings) per feature height
+    blocks_for = functools.lru_cache(maxsize=None)(lambda h: _Blocks.of(mesh, cfg, h))
 
     def train_step(state, batch):
         B = batch[0].shape[0]
@@ -67,18 +142,29 @@ def make_sharded_train_step(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, 
             raise ValueError(f"a batch of {B} does not split over {n} 'data' ranks")
         mine = slice(i * (B // n), (i + 1) * (B // n))
         local = train_lib.to_device(tuple(b[mine] for b in batch), state.device)
+        blocks = blocks_for(local[0].shape[2] // 4)
+        split = ("data",) + (blocks.split if blocks else ())
+        norms = ("data",) + (blocks.norms if blocks else ())
+        norms = tuple(a for a in norms if mesh.axis_size(a) > 1)
+        sync = (lambda t: _sum_over(mesh, t, norms, grad=True)) if norms else None
         state.optimizer.zero_grad(set_to_none=True)
         with global_batch_norms(model, sync):
             loss, metrics = train_lib.compute_loss(model, cfg, tcfg, local, training=True,
-                                                   batch_sum=batch_sum)
+                                                   batch_sum=batch_sum, blocks=blocks)
             loss.backward()
-        if n > 1:
-            grads = [p.grad for p in model.parameters() if p.grad is not None]
-            total = mesh.all_reduce(torch.cat([g.reshape(-1) for g in grads]), "data")
+        for params, axes in ((alike, ("data",)),
+                             ([p for p in model.parameters()
+                               if not any(p is q for q in alike)], split)):
+            axes = tuple(a for a in axes if mesh.axis_size(a) > 1)
+            grads = [p.grad for p in params if p.grad is not None]
+            if not axes or not grads:
+                continue
+            total = _sum_over(mesh, torch.cat([g.reshape(-1) for g in grads]), axes)
             offset = 0
             for g in grads:
                 g.copy_(total[offset:offset + g.numel()].view_as(g))
                 offset += g.numel()
+        if batch_sum is not None:
             metrics["loss"] = batch_sum(metrics["loss"])
             metrics["debug"] = batch_sum(metrics["debug"])
         return train_lib.apply_gradients(state, tcfg), metrics

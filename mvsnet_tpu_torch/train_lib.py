@@ -16,6 +16,7 @@ main depth map's loss with the refined map's (`refinement_train_mode`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -103,7 +104,7 @@ def to_device(batch, device):
 
 
 def compute_loss(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, batch,
-                 training: bool, batch_sum=None):
+                 training: bool, batch_sum=None, blocks=None):
     """Forward and loss for one batch of device tensors (reference get_loss,
     train.py:307-364; train_lib.py:71-123). Returns (loss, metrics).
     With refinement (3D-CNN only; the GRU graph ignores it, as in JAX) the
@@ -113,17 +114,29 @@ def compute_loss(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, batch,
     loss1 + 1e-9 loss0, "main_only" loss0 + 1e-12 loss1 with the main
     map's <1px and <3px; "debug" is the refined map's. `batch_sum`: see
     `losses.py`; loss, metrics["loss"] and metrics["debug"] are then this
-    rank's shares."""
+    rank's shares. `blocks` (`parallel.train_step`, multi-device) runs the
+    graph on this rank's block of the volume: `blocks.forward_3dcnn` gives
+    the whole depth and prob maps of the blocked 3D-CNN graph,
+    `blocks.forward_prob_recurrent` the GRU graph's rows and their gather."""
     images, cams, depth_image, full_depth = batch
     depth_start, depth_interval, depth_end = batch_depth_params(cams)
     model.train(training)
     if cfg.regularization == "GRU":
-        prob_volume = model.forward_prob_recurrent(images, cams, depth_start, depth_interval)
+        rows = gather = None
+        if blocks is None:
+            prob_volume = model.forward_prob_recurrent(images, cams, depth_start,
+                                                       depth_interval)
+        else:
+            prob_volume, rows, gather = blocks.forward_prob_recurrent(
+                model, images, cams, depth_start, depth_interval)
         loss, mae, l1, l3, _ = mvsnet_classification_loss(
-            prob_volume, depth_image, cfg.max_d, depth_start, depth_interval, batch_sum)
+            prob_volume, depth_image, cfg.max_d, depth_start, depth_interval, batch_sum,
+            rows, gather)
         return loss, {"loss": loss.detach(), "less_one": l1, "less_three": l3,
                       "debug": mae.detach()}
-    depth_map, prob_map = model.forward_3dcnn(images, cams, depth_start, depth_interval)
+    forward = model.forward_3dcnn if blocks is None else functools.partial(
+        blocks.forward_3dcnn, model)
+    depth_map, prob_map = forward(images, cams, depth_start, depth_interval)
 
     def regression_loss(estimate, target):
         return mvsnet_regression_loss(

@@ -1041,3 +1041,74 @@ def test_native_library_builds_and_matches_plain(dev):
     np.testing.assert_array_equal(got[1][og], want[1][ow])
     np.testing.assert_array_equal(native.radius_outlier_removal(pts, 0.7, 5),
                                   native.radius_outlier_removal_plain(pts, 0.7, 5))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_warp_row_blocks_stitch_and_match_plain(dev, dtype):
+    """K2 and K3 with a row offset (the blocked train step's cost volume):
+    K2's row blocks stitched equal one whole launch bit for bit (the same
+    arithmetic per pixel), K3's blocks' source-map gradients add up to the
+    whole launch's, and each block matches its plain version; the launches
+    count apart."""
+    rng = np.random.default_rng(21)
+    img = _rand(rng, (20, 28, 16), dtype, dev)
+    g = _rand(rng, (12, 20, 28, 16), dtype, dev)
+    for homs in (_homs(12, 0.02, 12.0, dev), _degenerate_homs(12, dev)):
+        before = (warp.launches_sharded, warp.transpose_launches_sharded)
+        blocks = [(0, 7), (7, 6), (13, 7)]
+        stitched = torch.cat([warp.warp_all_depths(img, homs, r, n) for r, n in blocks], dim=1)
+        assert torch.equal(stitched, warp.warp_all_depths(img, homs))
+        parts = [warp.warp_transpose(g[:, r:r + n], homs, r, 20) for r, n in blocks]
+        assert (warp.launches_sharded, warp.transpose_launches_sharded) == \
+            (before[0] + 3, before[1] + 3)
+        _close(sum(parts), warp.warp_transpose(g, homs), TOL[torch.float32])
+        for (r, n), part in zip(blocks, parts):
+            _close(warp.warp_all_depths(img, homs, r, n),
+                   warp.warp_all_depths_plain(img, homs, r, n), TOL[dtype])
+            _close(part, warp.warp_transpose_plain(g[:, r:r + n], homs, r, 20),
+                   TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_halo_conv_gradients_match_plain(dev, dtype, stride):
+    """The halo conv's training ops at explicit pads (`ops/autograd.py`):
+    forward, input gradient (stride 1: the conv at pads 2; stride 2: the
+    transposed conv at low pad 0) and K4w on the halo-extended input, on
+    the card against the plain path."""
+    rng = np.random.default_rng(22)
+    n = 9 if stride == 1 else 7
+    x = _rand(rng, (1, n, 9, 12, 16), dtype, dev)
+    k = _rand(rng, (3, 3, 3, 16, 8), dtype, dev, 0.05)
+    pads = [(0, 0), (0, 0), (1, 1)] if stride == 1 else [(0, 0), (0, 0), (0, 1)]
+    out = [(m - 3) // stride + 1 for m in (n, 9)] + [-(-12 // stride)]
+    g = _rand(rng, (1, *out, 8), dtype, dev)
+    grads = []
+    for d in (dev, "cpu"):
+        xx = x.detach().to(d).requires_grad_(True)
+        kk = k.detach().to(d).requires_grad_(True)
+        y = autograd.ConvFn.apply(xx, kk, stride, pads)
+        (y.float() * g.to(d).float()).sum().backward()
+        grads.append((y.detach().cpu(), xx.grad.cpu(), kk.grad.cpu()))
+    for got, want in zip(*grads):
+        _close(got, want, TOL[dtype])
+
+
+def test_halo_deconv_gradients_match_plain(dev):
+    """The halo transposed conv's training op at an explicit crop (lo 1, an
+    odd block start): forward, input gradient (a stride-2 conv at pads
+    (lo, 2 (n-1) + 3 - m - lo)) and dk, card against the plain path."""
+    rng = np.random.default_rng(23)
+    x = _rand(rng, (1, 5, 6, 7, 16), torch.bfloat16, dev)
+    k = _rand(rng, (3, 3, 3, 16, 8), torch.bfloat16, dev, 0.05)
+    lo, outs = (1, 2, 0), (7, 9, 14)
+    g = _rand(rng, (1, *outs, 8), torch.bfloat16, dev)
+    grads = []
+    for d in (dev, "cpu"):
+        xx = x.detach().to(d).requires_grad_(True)
+        kk = k.detach().to(d).requires_grad_(True)
+        y = autograd.DeconvFn.apply(xx, kk, lo, outs)
+        (y.float() * g.to(d).float()).sum().backward()
+        grads.append((y.detach().cpu(), xx.grad.cpu(), kk.grad.cpu()))
+    for got, want in zip(*grads):
+        _close(got, want, TOL[torch.bfloat16])

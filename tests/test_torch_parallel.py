@@ -13,12 +13,24 @@ batches) is held against the port's single device and JAX's
 step on two ranks against the port's single device, whose JAX parity is
 tests/test_torch_gru.py's.
 
+The depth x space blocks (slice 6b): the halo ops on uneven row blocks
+(h = 24 splits 12 / 6 / 3 / 2+1 over two 'space' ranks) with their
+gradients, the latency regime at height 96 on (1, 1, 2) and (1, 2, 2), an
+audit of one rank's tensors (none holds the whole (D, h, w) volume, as
+tests/test_parallel.py:78-136 checks JAX's compiled module), the
+collective soft-argmin tail, and the blocked train steps on (1, 2, 1),
+(1, 2, 2) and (2, 1, 2) at D=16, the refined step on (1, 2, 1) and the
+GRU's on (1, 1, 2), against the single device and JAX's sharded step.
+
 Tolerances: the sharded port against the unsharded port 1e-5 (float32
-sums in other blocks: halo planes, slab convs); a single halo op 1e-6; the
-forward against JAX those of tests/test_torch_models.py (depth 2e-3, prob
-5e-3); the train step those of tests/test_torch_train.py (loss 1e-4
+sums in other blocks: halo planes, slab convs); a single halo op 1e-6, its
+kernel gradient (summed over the ranks' shares) 1e-5 of its largest entry;
+the forward against JAX those of tests/test_torch_models.py (depth 2e-3,
+prob 5e-3); the train step those of tests/test_torch_train.py (loss 1e-4
 relative, each gradient leaf 1e-3 of its largest entry, running
-statistics 1e-4), and the running statistics equal on every rank.
+statistics 1e-4), and the running statistics equal on every rank; the
+blocked train step against the port's single step: loss 1e-5, each leaf
+1e-4 of its largest entry.
 """
 
 import concurrent.futures
@@ -71,6 +83,17 @@ GRU = dict(view_num=3, max_d=8, width=64, height=64, regularization="GRU",
 # refinement with the training driver's defaults; D=16 splits over 2 depth ranks
 REFINED = dict(SERVE, max_d=16, refinement=True, refinement_network="unet",
                upsample_before_refinement=True, refine_with_confidence=True)
+# the blocked train steps: D=16 halves to 1 plane a rank on 2 'depth' ranks
+TRAIN16 = dict(TRAIN, max_d=16)
+BLOCK_TRAIN = ((1, 2, 1), (1, 2, 2), (2, 1, 2))
+# the latency regime at height 96: h = 24 rows, 12 a 'space' rank, whose
+# U-Net levels go 6, 3, then 2 and 1
+SERVE96 = dict(SERVE, height=96)
+REFINED_TCFG = dict(TCFG, refinement_train_mode="all")
+# the audit's D differs from every other extent (32 channels, 24 x 16 features)
+AUDIT = dict(SERVE96, max_d=64)
+# the collective tail's (num_buckets, inverse_depth)
+TAILS = ((2, False), (4, False), (4, True))
 
 
 def _numpy_tree(tree):
@@ -91,26 +114,47 @@ def _perturb(variables, seed):
     return {c: jax.tree_util.tree_map_with_path(f, t) for c, t in variables.items()}
 
 
-def _scene(B, D, seed=3):
-    """B maps of three views with a baseline, 64x64, D planes from 5.0 by
+def _scene(B, D, seed=3, H=64):
+    """B maps of three views with a baseline, H x 64, D planes from 5.0 by
     0.5; each map its own images and a slightly moved second view. Returns
     `Predictor.predict`'s arrays: images, cams, depth start, interval, end."""
-    _, cams, _, _ = tiny_inputs(D=D)
+    _, cams, _, _ = tiny_inputs(D=D, H=H)
     cams = np.repeat(np.array(cams, np.float32), B, axis=0)
     cams[:, 1, 0, 0, 3] += 0.4 + 0.05 * np.arange(B)
     cams[:, 2, 0, 1, 3] -= 0.3
-    images = np.random.default_rng(seed).standard_normal((B, 3, 64, 64, 3)).astype(np.float32)
+    images = np.random.default_rng(seed).standard_normal((B, 3, H, 64, 3)).astype(np.float32)
     return (images, cams, cams[:, 0, 1, 3, 0].copy(), cams[:, 0, 1, 3, 1].copy(),
             cams[:, 0, 1, 3, 3].copy())
 
 
-def _train_batch(B=2):
-    images, cams = _scene(B, 8, seed=5)[:2]
+def _train_batch(B=2, D=8):
+    images, cams = _scene(B, D, seed=5)[:2]
     rng = np.random.default_rng(6)
     gt = rng.uniform(5.0, 8.5, (B, 16, 16, 1)).astype(np.float32)
     gt[:, :3] = 0.0
     gt[1, :, :2] = 0.0
     return images, cams, gt, gt
+
+
+def _halo_block_inputs(shape, rank3):
+    """Each halo op at an input level where the row blocks are uneven (and
+    at level 0): a whole input of the level's size, a kernel and the
+    cotangent of the whole output; the volume is 16 planes x 24 rows x 5
+    columns at level 0 (3D), or 24 x 5 (2D)."""
+    rng = np.random.default_rng(9 + rank3)
+    ops = {}
+    for kind, level in HALO_OPS:
+        spatial = (16 >> level, 24 >> level) if rank3 else (24 >> level,)
+        x = rng.standard_normal((2, *spatial, 5, 8)).astype(np.float32)
+        k = (rng.standard_normal((3,) * (len(spatial) + 1) + (8, 8)) / 10).astype(np.float32)
+        out = [n * 2 if kind == "up" else -(-n // (1 if kind == "s1" else 2))
+               for n in spatial] + [10 if kind == "up" else 5 if kind == "s1" else 3]
+        cot = rng.standard_normal((2, *out, 8)).astype(np.float32)
+        ops[f"{kind}{level}"] = (kind, level, x, k, cot)
+    return {"shape": shape, "sizes": (16, 24) if rank3 else (24,), "ops": ops}
+
+
+HALO_OPS = (("s1", 3), ("s2", 2), ("up", 3), ("s1", 0), ("s2", 0), ("up", 1))
 
 
 def _halo_inputs(shape):
@@ -169,6 +213,23 @@ class World:
         self.refine_sd = {k: v.numpy() for k, v in state_dict_from_jax(self.refine_vars).items()}
 
         self.latency = {shape: _scene(1, 32) for shape in ((1, 4, 1), (1, 2, 2))}
+        self.latency96 = _scene(1, 32, seed=12, H=96)
+        self.serve96_model = JaxMVSNet(JaxModelConfig(**SERVE96))
+
+        # the blocked train steps at D=16 (the same variables: no shape
+        # depends on D); the refined step with the full-resolution depth
+        self.train16_model = JaxMVSNet(JaxModelConfig(**TRAIN16))
+        self.batch16 = _train_batch(D=16)
+        rb_images, rb_cams = _scene(2, 16, seed=15)[:2]
+        gt = np.random.default_rng(16).uniform(5.5, 12.0, (2, 64, 64, 1)).astype(np.float32)
+        gt[:, :7] = 0.0
+        self.refined_batch = (rb_images, rb_cams, gt[:, ::4, ::4].copy(), gt)
+        rng = np.random.default_rng(17)
+        self.tail_inputs = {"shape": (1, 2, 1), "tails": TAILS,
+                            "reg": rng.standard_normal((2, 16, 6, 7)).astype(np.float32) * 3,
+                            "range": (np.array([5.0, 4.0], np.float32),
+                                      np.array([0.5, 0.25], np.float32),
+                                      np.array([12.5, 7.75], np.float32))}
         self.fallback = _scene(1, 16)
         self.throughput = _scene(4, 32, seed=4)
 
@@ -176,9 +237,9 @@ class World:
             return ("predict", {"shape": shape, "cfg": cfg, "state_dict": sd,
                                 "inputs": inputs})
 
-        def train(shape):
-            return ("train", {"shape": shape, "cfg": TRAIN, "tcfg": TCFG,
-                              "state_dict": tsd, "batch": self.batch})
+        def train(shape, cfg=TRAIN, batch=self.batch, state_dict=tsd, tcfg=TCFG):
+            return ("train", {"shape": shape, "cfg": cfg, "tcfg": tcfg,
+                              "state_dict": state_dict, "batch": batch})
         cases4 = [("halo", _halo_inputs((1, 4, 1))),
                   ("halo", _halo_inputs((1, 2, 2))),
                   predict((1, 4, 1), self.latency[(1, 4, 1)]),
@@ -186,7 +247,12 @@ class World:
                   predict((1, 4, 1), self.fallback, dict(SERVE, max_d=16)),
                   predict(None, self.throughput),
                   train((2, 2, 1)),
-                  ("default_device_error", None)]
+                  ("default_device_error", None),
+                  ("halo_blocks", _halo_block_inputs((1, 2, 2), True)),
+                  predict((1, 2, 2), self.latency96, SERVE96),
+                  ("audit", {"shape": (1, 2, 2), "cfg": AUDIT, "inputs": self.latency96}),
+                  train((1, 2, 2), TRAIN16, self.batch16),
+                  train((2, 1, 2), TRAIN16, self.batch16)]
         gru_predict = [("predict", {"shape": None, "cfg": dict(GRU, network_mode="lite"),
                                     "state_dict": self.gru_sd, "inputs": self.gru_serve[B]})
                        for B in (1, 3)]
@@ -196,12 +262,23 @@ class World:
         refined = [("predict", {"shape": None, "cfg": REFINED, "state_dict": self.refine_sd,
                                 "inputs": self.refined[B]}) for B in (1, 2)]
         cases2 = [predict(None, self.throughput), train((2, 1, 1)), *gru_predict, gru_train,
-                  *refined]
+                  *refined,
+                  ("halo_blocks", _halo_block_inputs((1, 1, 2), False)),
+                  predict((1, 1, 2), self.latency96, SERVE96),
+                  ("tail", self.tail_inputs),
+                  train((1, 2, 1), TRAIN16, self.batch16),
+                  train((1, 2, 1), REFINED, self.refined_batch, self.refine_sd, REFINED_TCFG),
+                  train((1, 1, 2), dict(GRU, network_mode="lite"), self.batch, self.gru_sd, {})]
         self.index4 = {"halo4": 0, "halo2": 1, "latency141": 2, "latency122": 3,
-                       "fallback": 4, "throughput": 5, "train": 6, "default_device_error": 7}
+                       "fallback": 4, "throughput": 5, "train": 6, "default_device_error": 7,
+                       "blocks3d": 8, "latency96_122": 9, "audit": 10, "train122": 11,
+                       "train212": 12}
         self.index2 = {"throughput": 0, "train": 1, "gru1": 2, "gru3": 3, "gru_train": 4,
-                       "refined1": 5, "refined2": 6}
+                       "refined1": 5, "refined2": 6, "blocks2d": 7, "latency96_112": 8,
+                       "tail": 9, "train121": 10, "refined_train121": 11,
+                       "gru_train112": 12}
         self.state_dict = sd
+        self.train_state_dict = tsd
         self._futures = {
             4: pool.submit(spawn, rank_checks.run, 4, "gloo", cases4),
             2: pool.submit(spawn, rank_checks.run, 2, "gloo", cases2)}
@@ -345,23 +422,25 @@ def jax_single_step(world):
     return _jax_step(world, None)
 
 
-def _jax_step(world, shape):
-    cfg, tcfg = JaxModelConfig(**TRAIN), JaxTrainConfig(**TCFG)
-    model, v = world.train_model, world.train_vars
+def _jax_step(world, shape, cfgd=TRAIN):
+    cfg, tcfg = JaxModelConfig(**cfgd), JaxTrainConfig(**TCFG)
+    model, v = (world.train_model, world.train_vars) if cfgd is TRAIN else \
+        (world.train16_model, world.train_vars)
+    batch = world.batch if cfgd is TRAIN else world.batch16
     state = jax_train.TrainState.create(apply_fn=model.apply, params=v["params"],
                                         batch_stats=v["batch_stats"],
                                         tx=jax_train.make_optimizer(tcfg))
     if shape is None:
         def loss_fn(p):
             return jax_train.compute_loss(model, cfg, tcfg, p, state.batch_stats,
-                                          world.batch, True)
+                                          batch, True)
         grads, (stats, metrics) = jax.jit(jax.grad(loss_fn, has_aux=True))(state.params)
         return _numpy_tree(grads), _numpy_tree(stats), metrics
     # the sharded step: gradients and statistics from the updated state
     mesh = jax_make_mesh(int(np.prod(shape)), shape)
     try:
         step, mesh = jax_sharded_step(model, cfg, tcfg, mesh=mesh, donate=False)
-        new_state, metrics = step(shard_state(state, mesh), world.batch)
+        new_state, metrics = step(shard_state(state, mesh), batch)
     finally:
         set_active_mesh(None)
     return None, _numpy_tree(new_state.batch_stats), metrics
@@ -501,3 +580,221 @@ def test_dryrun_multichip_gloo():
     summary = dryrun_multichip(4, "gloo")
     assert summary["mesh"] == (2, 2, 1) and np.isfinite(summary["loss"])
     assert summary["gru_wta"] == 3
+
+
+def _place(results, key, field, bounds_of):
+    """The whole tensor stitched from every rank's block of results[key]
+    (each rank's `bounds_of` per spatial axis; None: whole)."""
+    parts = {}
+    for r in results:
+        o = r[key]
+        idx = tuple((0, None) if b is None else tuple(b) for b in o[bounds_of])
+        parts[idx] = o[field]
+    starts = [sorted({i[a][0] for i in parts}) for a in range(len(next(iter(parts))))]
+
+    def build(axis, prefix):
+        if axis == len(starts):
+            return parts[tuple(prefix)]
+        blocks = [build(axis + 1, prefix + [p]) for p in sorted(
+            {i[axis] for i in parts if list(i[:axis]) == prefix})]
+        return np.concatenate(blocks, axis=axis + 1)
+    return build(0, [])
+
+
+def _whole_op(kind, x, k, cot, bias=None):
+    """The whole op on the plain path: its output, eval output with a bias
+    and ReLU, dx and dk of sum(out * cot) through `ops/autograd.py`."""
+    from mvsnet_tpu_torch.ops import autograd
+    from mvsnet_tpu_torch.ops.kernels import conv as conv_k, deconv as deconv_k
+
+    xt, kt = torch.from_numpy(x).requires_grad_(True), torch.from_numpy(k).requires_grad_(True)
+    if kind == "up":
+        y = autograd.DeconvFn.apply(xt, kt)
+        y_eval = deconv_k.deconv(xt.detach(), kt.detach(), bias, True)
+    else:
+        stride = 1 if kind == "s1" else 2
+        y = autograd.ConvFn.apply(xt, kt, stride)
+        y_eval = conv_k.conv(xt.detach(), kt.detach(), bias, stride, True)
+    (y * torch.from_numpy(cot)).sum().backward()
+    return y.detach().numpy(), y_eval.numpy(), xt.grad.numpy(), kt.grad.numpy()
+
+
+@pytest.mark.parametrize("op", [f"{k}{lv}" for k, lv in HALO_OPS])
+@pytest.mark.parametrize("case", ["blocks3d", "blocks2d"])
+def test_halo_blocks_match_whole_op_and_its_gradients(world, case, op):
+    """The halo ops on depth x space blocks (3D, mesh (1, 2, 2)) and on row
+    blocks (2D, (1, 1, 2)) of 24 rows, uneven from level 3 (rows 2 + 1):
+    each rank's block of the output, with and without bias + ReLU, and of
+    dx equal the whole op's on the plain path, and the ranks' shares of dk
+    add up to its dk."""
+    ranks = [r for r in world.ranks(4 if case == "blocks3d" else 2, case)]
+    inputs = _halo_block_inputs((1, 2, 2) if case == "blocks3d" else (1, 1, 2),
+                                case == "blocks3d")["ops"][op]
+    kind, _, x, k, cot = inputs
+    bias = torch.linspace(-1, 1, k.shape[-1])
+    y, y_eval, dx, dk = _whole_op(kind, x, k, cot, bias)
+    np.testing.assert_allclose(_place(ranks, op, "y", "bounds"), y, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(_place(ranks, op, "y_eval", "bounds"), y_eval, rtol=1e-6,
+                               atol=1e-6)
+    np.testing.assert_allclose(_place(ranks, op, "dx", "in_bounds"), dx, rtol=1e-6, atol=1e-5)
+    got_dk = sum(r[op]["dk"] for r in ranks)
+    assert np.abs(got_dk - dk).max() <= 1e-5 * np.abs(dk).max()
+    if op in ("s13", "s22"):           # the blocks are uneven here
+        assert len({np.prod(r[op]["y"].shape) for r in ranks}) > 1
+
+
+def _jax_serve96(world, shape):
+    images, cams, ds, di = (jnp.asarray(a) for a in world.latency96[:4])
+    mesh = jax_make_mesh(int(np.prod(shape)), shape)
+    try:
+        return jax_sharded_forward(world.serve96_model, JaxModelConfig(**SERVE96), mesh)(
+            world.serve_vars, images, cams, ds, di)[:2]
+    finally:
+        set_active_mesh(None)
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 2), (1, 2, 2)])
+def test_latency_blocks_at_height_96_match_port_and_jax(world, shape):
+    """The latency regime on depth x space blocks at 96x64 (24 feature rows,
+    uneven row blocks at the U-Net's deepest level): every rank's whole maps
+    equal the port's single device within PORT and JAX's sharded forward on
+    the same mesh shape within the models' tolerance; no axis falls back."""
+    ranks = world.ranks(int(np.prod(shape)), f"latency96_{''.join(map(str, shape))}")
+    single = _port_single(world.latency96, SERVE96, world.state_dict)
+    for r in ranks:
+        assert r["mesh"] == shape and r["depth"].shape == (1, 24, 16, 1)
+        np.testing.assert_allclose(r["depth"], single[0], **PORT)
+        np.testing.assert_allclose(r["prob"], single[1], **PORT)
+        assert not any("RegNetUS0" in m for m in r["log"]), r["log"]
+    _assert_jax((ranks[0]["depth"], ranks[0]["prob"]), _jax_serve96(world, shape))
+
+
+def test_no_rank_holds_a_whole_volume(world):
+    """One latency request at 96x64, D=64 on (1, 2, 2), every tensor any op
+    made on each rank recorded: none holds the whole (D, h, w) = (64, 24,
+    16) volume in any layout, and the depth x space block (32, 12, 16) does
+    the work (tests/test_parallel.py:78-136 checks JAX's compiled module
+    so)."""
+    D, h, w = 64, 24, 16
+    for r in world.ranks(4, "audit"):
+        shapes = [tuple(s) for s in r["shapes"]]
+        whole = rank_checks.whole_volume_shapes(shapes, D, h, w)
+        assert not whole, f"rank {r['coords']}: whole-volume tensors {whole}"
+        assert any(s[:4] == (1, D // 2, h // 2, w) for s in shapes), shapes
+        assert np.isfinite(r["depth"]).all() and r["depth"].shape == (1, h, w, 1)
+
+
+@pytest.mark.parametrize("tail", TAILS)
+def test_collective_tail_matches_soft_argmin_prob_map(world, tail):
+    """The collective soft-argmin tail over two depth slabs (2 and 4
+    buckets, inverse depth) equals `soft_argmin_prob_map` of the whole
+    volume on every rank, up to the order of the sums."""
+    from mvsnet_tpu_torch.ops.depth import soft_argmin_prob_map
+
+    inp = world.tail_inputs
+    buckets, inverse = tail
+    ds, di, de = (torch.from_numpy(a) for a in inp["range"])
+    want = soft_argmin_prob_map(torch.from_numpy(inp["reg"]), ds, di, 16, inverse, de, buckets)
+    for r in world.ranks(2, "tail"):
+        for got, w in zip(r[tail], want):
+            np.testing.assert_allclose(got, w.numpy(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def jax_single_step16(world):
+    """JAX's single-device step at D=16 on the blocked steps' batch."""
+    return _jax_step(world, None, TRAIN16)
+
+
+def _port_single_step(cfgd, tcfgd, state_dict, batch):
+    cfg, tcfg = ModelConfig(**cfgd), TrainConfig(**tcfgd)
+    model = MVSNet(cfg)
+    model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()})
+    state = train_lib.create_train_state(model, cfg, tcfg, device="cpu")
+    _, metrics = train_lib.make_train_step(model, cfg, tcfg)(state, batch)
+    return model, metrics
+
+
+def _assert_port_step(r, model, metrics, vanishing=False):
+    """A blocked step's rank against the port's single step: loss 1e-5,
+    each leaf 1e-4 of its largest entry (with `vanishing`, leaves whose
+    gradient vanishes analytically held under 1e-6 of the largest)."""
+    np.testing.assert_allclose(r["metrics"]["loss"], metrics["loss"].item(), rtol=1e-5)
+    for k in ("less_one", "less_three"):
+        np.testing.assert_allclose(r["metrics"][k], metrics[k].item(), atol=1e-6)
+    top = max(float(p.grad.abs().max()) for p in model.parameters())
+    for name, p in model.named_parameters():
+        scale, got = float(p.grad.abs().max()), r["grads"][name]
+        if vanishing and max(scale, float(np.abs(got).max())) <= 1e-6 * top:
+            continue
+        assert float(np.abs(got - p.grad.numpy()).max()) <= 1e-4 * max(scale, 1e-12), name
+    for name, b in model.named_buffers():
+        np.testing.assert_allclose(r["buffers"][name], b.numpy(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", BLOCK_TRAIN)
+def test_blocked_train_step_matches_jax_and_port(world, jax_single_step16, shape):
+    """The 3D-CNN train step with the volume in blocks over 'depth' x
+    'space' (D=16: one plane a rank at the U-Net's deepest level) against
+    JAX's single-device step and JAX's sharded step on the same mesh shape
+    (tolerances of test_sharded_train_step_matches_jax) and against the
+    port's single step (loss 1e-5, leaves 1e-4); equal statistics and
+    parameters on every rank; each rank's cost volume is its block (B/data,
+    D/depth, h/space, w, C), none the whole."""
+    ranks = world.ranks(int(np.prod(shape)), "train" + "".join(map(str, shape)))
+    block = (2 // shape[0], 16 // shape[1], 16 // shape[2], 16, 8)      # ultralite: C = 8
+    assert all(r["costs"] == [block] for r in ranks), [r["costs"] for r in ranks]
+    grads, stats, metrics = jax_single_step16
+    model, port_metrics = _port_single_step(TRAIN16, TCFG, world.train_state_dict,
+                                            world.batch16)
+    for r in ranks:
+        np.testing.assert_allclose(r["metrics"]["loss"], float(metrics["loss"]), rtol=1e-4)
+        _assert_grads(r["grads"], grads)
+        _assert_stats(r["buffers"], stats)
+        _assert_port_step(r, model, port_metrics)
+        for name, p in r["params"].items():
+            np.testing.assert_array_equal(p, ranks[0]["params"][name], err_msg=name)
+        for name, b in r["buffers"].items():
+            np.testing.assert_array_equal(b, ranks[0]["buffers"][name], err_msg=name)
+    _, sharded_stats, sharded_metrics = _jax_step(world, shape, TRAIN16)
+    np.testing.assert_allclose(ranks[0]["metrics"]["loss"], float(sharded_metrics["loss"]),
+                               rtol=1e-4)
+    _assert_stats(ranks[0]["buffers"], sharded_stats)
+
+
+def test_blocked_refined_train_step_matches_port(world):
+    """The refined 3D-CNN step ("all" mode, the U-Net upsampled with
+    confidence, against the full-resolution depth) with the volume in
+    depth slabs on (1, 2, 1): the refinement net runs on the gathered maps
+    alike on both ranks; against the port's single step."""
+    model, metrics = _port_single_step(REFINED, REFINED_TCFG, world.refine_sd,
+                                       world.refined_batch)
+    assert any(p.grad.abs().max() > 0 for n, p in model.named_parameters()
+               if n.startswith("refine_net."))
+    for r in world.ranks(2, "refined_train121"):
+        _assert_port_step(r, model, metrics)
+
+
+def test_blocked_gru_train_step_matches_port_and_jax(world):
+    """R-MVSNet's train step with the sweep's rows over two 'space' ranks
+    (1, 1, 2), JAX's variables ("lite"): against the port's single step
+    under test_sharded_gru_train_step_matches_single's bounds, and its loss
+    and metrics against JAX's sharded step on (1, 1, 2) (1e-4 relative)."""
+    cfgd = dict(GRU, network_mode="lite")
+    model, metrics = _port_single_step(cfgd, {}, world.gru_sd, world.batch)
+    ranks = world.ranks(2, "gru_train112")
+    for r in ranks:
+        _assert_port_step(r, model, metrics, vanishing=True)
+    cfg, tcfg = world.gru_cfg, JaxTrainConfig()
+    state = jax_train.TrainState.create(apply_fn=world.gru_model.apply,
+                                        params=world.gru_vars["params"], batch_stats={},
+                                        tx=jax_train.make_optimizer(tcfg))
+    mesh = jax_make_mesh(2, (1, 1, 2))
+    try:
+        step, mesh = jax_sharded_step(world.gru_model, cfg, tcfg, mesh=mesh, donate=False)
+        _, want = step(shard_state(state, mesh), world.batch)
+    finally:
+        set_active_mesh(None)
+    np.testing.assert_allclose(ranks[0]["metrics"]["loss"], float(want["loss"]), rtol=1e-4)
+    for k in ("less_one", "less_three"):
+        np.testing.assert_allclose(ranks[0]["metrics"][k], float(want[k]), atol=1e-6)

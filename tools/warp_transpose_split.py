@@ -71,8 +71,8 @@ def main() -> int:
 
         def no_owners(g=g):
             e = bare(_lib.dtype_code(g), g.data_ptr(), homs.data_ptr(), inv.data_ptr(),
-                     wsign.data_ptr(), out.data_ptr(), part.data_ptr(), segments, D, H, W, C,
-                     stream)
+                     wsign.data_ptr(), out.data_ptr(), part.data_ptr(), segments, D, H, H, W,
+                     C, 0, stream)
             assert e == 0, e
         modes = {"whole": lambda g=g: warp.warp_transpose(g, homs), "without owners": no_owners}
         times = {m: [] for m in modes}
