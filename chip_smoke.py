@@ -3,7 +3,7 @@
 Run from the repository root, on a machine with one H100:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --multi    # phases 1, 2 and 8 only (several cards)
+    python3 chip_smoke.py --multi    # phases 1, 2, 8 and 8i only (four cards)
 
 Phases run in the order 1-7, 10-13, 8, 9, 14, 15, 16.
 
@@ -94,16 +94,32 @@ Phases, each of which fails the script (non-zero exit, no result line):
         then 2 the same way:
      f. latency serving on (1,2,2) at phase 4's point, 3 requests: depth
         and prob against phase 4's single-card `Predictor` within 8b's
-        bounds, K1s once a request and rank, each rank's stages, halo
-        exchanges and peak memory beside phase 4's, and every tensor of one
-        request recorded: none a whole (D, h, w) volume;
+        bounds, K1s once a request and rank, conv 36 and deconv 7 a
+        request and rank (the feature tower's and the U-Net's halo convs),
+        each rank's stages (host clock and CUDA events), halo exchanges
+        (the tower's apart from the U-Net's), the tower's norm sums and
+        peak memory beside phase 4's, and every tensor of one request
+        recorded: none a whole (D, h, w) volume; the tower alone on each
+        rank's rows (`tower_profile`): its ms by CUDA events, its 30
+        exchanges and 31 norm sums (bf16) each timed alone, its largest tensor,
+        no whole (B·V, H/2^l, W/2^l, C) map and no whole-tower warning;
      g. one f32 blocked train step at 128x128, D=16, B=2 on (1,2,2) and on
         (1,2,1) against 8c's single-card step (phase 7's bounds); 3 bf16
-        steps at phase 6's point on (1,2,1), timed, launches per step
-        asserted (K1s 1, K2 and K3 with a row offset 2 each, the convs as
-        phase 6's), each rank's peak beside phase 6's;
+        steps at phase 6's point on (1,2,1) and on (1,2,2), timed,
+        launches per step asserted (K1s 1, K2 and K3 with a row offset 2
+        each, the convs as phase 6's), each rank's peak beside phase 6's;
+        on (1,2,2) the tower alone in training, forward and backward, as
+        in 8f, with the backward's 30 all_gathers and 31 all_reduces;
      h. one R-MVSNet "ultralite" f32 train step at 128x128, D=16 with the
-        sweep's rows on (1,1,2) against the single-card step;
+        sweep's rows on (1,1,2) against the single-card step; R-MVSNet's
+        tower ("lite") alone in training on (1,1,2) at phase 6's size;
+     i. with `--multi` on four cards only: `python -m mvsnet_tpu_torch.
+        train --num_devices 4` (3 steps, 640x480, D=192, lite, float32,
+        batch 2 over (2,2,1)) and `infer` / `test --num_devices 4` (phase
+        14's point, float32, refinement, one cluster) under
+        `torch.distributed.run`, each against the same command on one card:
+        exit codes 0, the first step's loss within phase 7's 1e-4, the
+        maps within phase 5's bounds, the results CSV within 1e-2;
   9. the training driver (`python -m mvsnet_tpu_torch.train`'s `main`):
      a. at the bench train point (640x480, D=192, 3 views, "lite", bf16,
         RMSprop, power + gradient loss), 6 steps with a validation round,
@@ -1263,6 +1279,177 @@ def gib(n_bytes) -> str:
     return "not measured" if n_bytes is None or n_bytes != n_bytes else f"{n_bytes / 2 ** 30:.3f} GiB"
 
 
+class _Clock:
+    """A point in time: a CUDA event on a card, the host clock on the CPU
+    (the rehearsal on CPU ranks). Synchronize before reading `ms_to`."""
+
+    def __init__(self, dev):
+        self.event = torch.cuda.Event(enable_timing=True) if dev.type == "cuda" else None
+        self.t = None
+
+    def record(self):
+        if self.event is not None:
+            self.event.record()
+        else:
+            self.t = time.perf_counter()
+        return self
+
+    def ms_to(self, later):
+        if self.event is not None:
+            return self.event.elapsed_time(later.event)
+        return (later.t - self.t) * 1e3
+
+
+class _Timed:
+    """For the length of a `with` block, each (owner, attribute) of
+    `targets` is wrapped so that each call is timed alone (a synchronize
+    either side); `spent[attribute]` lists the calls' ms. A module's
+    function (`halo.exchange`, `feature_net.norm_sum`) is replaced where
+    its callers look it up; a mesh's method on the instance, so that the
+    autograd functions' backwards, which call it, are timed too."""
+
+    def __init__(self, dev, targets):
+        self.dev, self.targets = dev, targets
+        self.spent = {attr: [] for _, attr in targets}
+
+    def _wrap(self, fn, into):
+        def timed(*args, **kwargs):
+            _sync(self.dev)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync(self.dev)
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def __enter__(self):
+        self.saved = [(owner, attr, vars(owner).get(attr)) for owner, attr in self.targets]
+        for owner, attr in self.targets:
+            setattr(owner, attr, self._wrap(getattr(owner, attr), self.spent[attr]))
+        return self.spent
+
+    def __exit__(self, *exc):
+        for owner, attr, fn in self.saved:
+            if fn is None:
+                delattr(owner, attr)
+            else:
+                setattr(owner, attr, fn)
+        return False
+
+
+def tower_profile(model, mesh, images, rows, train):
+    """The feature tower alone on this rank's rows of the images (B, V, H,
+    W, 3) (`MVSNet.extract_features` with `rows` over 'space'), eval or
+    with `train` forward and backward (the backward of a fixed linear
+    function of the features): the stages' ms by CUDA events after a
+    warm-up call, and the peak; then one call with every collective timed
+    alone: forward, the exchanges (`halo.exchange`) and the norms' sums
+    (`feature_net.norm_sum`); backward, the mesh's all_gathers (the
+    exchanges' halo cotangents going home) and all_reduces (the sums'
+    cotangents); every tensor of one forward recorded: the whole (B·V,
+    H/2^l, W/2^l, C) maps (none) and the largest but the images; whether
+    the tower split
+    (no whole-tower warning). Returns numpy and Python values."""
+    import contextlib
+    import logging
+
+    from mvsnet_tpu_torch.models import feature_net
+    from mvsnet_tpu_torch.parallel import halo
+    from mvsnet_tpu_torch.parallel.rank_checks import ShapeAudit, whole_tower_shapes
+
+    dev = images.device
+    B, V, H, W, _ = images.shape
+    model.train(train)
+    blocks = (mesh, rows)
+    records = []
+    handler = logging.Handler()
+    handler.emit = lambda record: records.append(record.getMessage())
+    logging.getLogger("mvsnet_tpu_torch").addHandler(handler)
+
+    def forward():
+        ref, views = model.extract_features(images, blocks)
+        if not train:
+            return ref, None
+        return ref, (ref.float().mean() + views.float().mean()) * 1e3
+
+    def backward(loss):
+        loss.backward()
+        for p in model.parameters():
+            p.grad = None
+
+    out = {}
+    try:
+        with contextlib.nullcontext() if train else torch.inference_mode():
+            ref, loss = forward()                          # warm-up
+            if train:
+                backward(loss)
+            _sync(dev)
+            _reset_peak(dev)
+            clocks = [_Clock(dev) for _ in range(3)]
+            torch.distributed.barrier()
+            clocks[0].record()
+            ref, loss = forward()
+            clocks[1].record()
+            if train:
+                backward(loss)
+            clocks[2].record()
+            _sync(dev)
+            out["peak"] = _peak(dev)
+            out["forward_ms"] = clocks[0].ms_to(clocks[1])
+            out["backward_ms"] = clocks[1].ms_to(clocks[2]) if train else None
+            out["rows"] = tuple(ref.shape[1:3])
+            torch.distributed.barrier()
+            with _Timed(dev, [(halo, "exchange"), (feature_net, "norm_sum")]) as fwd:
+                ref, loss = forward()
+            bwd = {"all_gather": [], "all_reduce": []}
+            if train:
+                with _Timed(dev, [(mesh, "all_gather"), (mesh, "all_reduce")]) as bwd:
+                    backward(loss)
+            with ShapeAudit() as seen:
+                forward()
+    finally:
+        logging.getLogger("mvsnet_tpu_torch").removeHandler(handler)
+    model.eval()
+    out.update(exchanges=fwd["exchange"], norm_sums=fwd["norm_sum"],
+               backward_gathers=bwd["all_gather"], backward_reduces=bwd["all_reduce"],
+               whole_maps=whole_tower_shapes(seen.shapes, B * V, H, W),
+               largest=max((sh for sh in seen.shapes if not (sh[-1:] == (3,) and H in sh)),
+                           key=lambda sh: int(np.prod(sh))),
+               whole_tower=[m for m in records if "UNetDS2GN" in m],
+               sums_a_call=31 if model.feature_net.dtype in (torch.bfloat16,
+                                                             torch.float16) else 62)
+    return out
+
+
+def tower_text(t) -> str:
+    """One rank's `tower_profile` as a line."""
+    text = f"tower {t['forward_ms']:.3f} ms forward"
+    if t["backward_ms"] is not None:
+        text += f", {t['backward_ms']:.3f} ms backward"
+    text += (f" (CUDA events, rows {t['rows'][0]} of the features); exchanges "
+             f"{len(t['exchanges'])} taking {sum(t['exchanges']):.3f} ms, norm sums "
+             f"{len(t['norm_sums'])} taking {sum(t['norm_sums']):.3f} ms (each timed alone)")
+    if t["backward_ms"] is not None:
+        text += (f"; backward all_gathers {len(t['backward_gathers'])} taking "
+                 f"{sum(t['backward_gathers']):.3f} ms, all_reduces "
+                 f"{len(t['backward_reduces'])} taking {sum(t['backward_reduces']):.3f} ms")
+    return (text + f"; largest tower tensor {t['largest']}; whole tower maps "
+            f"{t['whole_maps'] or 'none'}; peak {gib(t['peak'])}")
+
+
+def tower_ok(t, train) -> bool:
+    """The split was taken (no whole-tower warning), no rank held a whole
+    tower map, and the collectives are the split tower's: 30 exchanges and
+    the norms' sums (31 in bfloat16, 62 in float32) forward, as many
+    backward."""
+    sums = t["sums_a_call"]
+    good = (not t["whole_tower"] and not t["whole_maps"] and len(t["exchanges"]) == 30
+            and len(t["norm_sums"]) == sums)
+    if train:
+        good = good and len(t["backward_gathers"]) == 30 and len(t["backward_reduces"]) == sums
+    return good
+
+
 # the ultralite GRU's leaves whose gradient vanishes analytically: the
 # biases before a one-channel layer norm (conv_gru3's gates and output, one
 # filter each) and prob_conv's before the softmax over depth
@@ -1333,9 +1520,16 @@ def phase8_blocks(smi, dev, request, peaks, serve_args=BLOCK_SERVE_ARGS,
                 p_err = max(float(np.abs(r["serve"]["prob"] - ref[1]).max()) for r in results)
                 k1s = [[c["cost_volume_sharded"] for c in r["serve"]["counts"]] for r in results]
                 k1 = [[c["cost_volume"] for c in r["serve"]["counts"]] for r in results]
+                convs = [[(c["conv"], c["deconv"]) for c in r["serve"]["counts"]]
+                         for r in results]
+                want_convs = (EXPECTED_LAUNCHES["conv"], EXPECTED_LAUNCHES["deconv"])
                 whole = [r["serve"]["whole"] for r in results]
+                towers = [r["serve"]["tower"] for r in results]
+                split = all(not r["serve"]["whole_tower"] and tower_ok(t, False)
+                            for r, t in zip(results, towers))
                 good = (d_err <= E2E_DEPTH_ATOL and p_err <= E2E_PROB_ATOL
                         and all(k == [1, 1, 1] for k in k1s) and all(k == [0, 0, 0] for k in k1)
+                        and all(c == [want_convs] * 3 for c in convs) and split
                         and not any(whole) and all(r["serve"]["finite"] for r in results))
                 ok = ok and good
                 print(f"  8f: latency serving on {r0['mesh']}, {serve_args['width']}x"
@@ -1344,7 +1538,12 @@ def phase8_blocks(smi, dev, request, peaks, serve_args=BLOCK_SERVE_ARGS,
                       f"vs phase 4's single-card Predictor depth max "
                       f"abs err {d_err:.3e} (bound {E2E_DEPTH_ATOL:g}), prob {p_err:.3e} "
                       f"(bound {E2E_PROB_ATOL:g}); K1s launches per rank and request {k1s} "
-                      f"(expected 1), K1 {k1}; whole (D, h, w) tensors per rank {whole} "
+                      f"(expected 1), K1 {k1}; conv and deconv launches per rank and request "
+                      f"{convs} (expected {want_convs}: the tower's and the U-Net's halo "
+                      f"convs, one launch each); whole (D, h, w) tensors per rank {whole}; the "
+                      f"tower split over 'space' on every rank (no whole-tower warning, no "
+                      f"whole tower map, 30 exchanges and {towers[0]['sums_a_call']} norm sums "
+                      f"a call): {split} "
                       f"{'ok' if good else 'FAIL'} [{smi}]")
                 for i, r in enumerate(results):
                     sv = r["serve"]
@@ -1352,10 +1551,18 @@ def phase8_blocks(smi, dev, request, peaks, serve_args=BLOCK_SERVE_ARGS,
                           f"{', '.join(f'{w:.2f}' for w in sv['walls'])} (the first includes "
                           f"set-up); stages (ms, host clock after a synchronize) "
                           + ", ".join(f"{k} {v:.3f}" for k, v in sv["stages"].items())
+                          + "; stages (ms, CUDA events) "
+                          + ", ".join(f"{k} {v:.3f}" for k, v in sv["stage_events"].items())
                           + f"; halo exchanges {sv['halo_count']} taking {sv['halo_ms']:.3f} ms "
-                          f"(each timed alone); peak memory {gib(sv['peak'])} (phase 4's "
-                          f"single card: {gib(peaks.get('serve'))}); largest tensor "
+                          f"(each timed alone), of which the tower's {sv['tower_halo']['exchanges']} "
+                          f"taking {sv['tower_halo']['ms']:.3f} ms and the U-Net's "
+                          f"{sv['halo_count'] - sv['tower_halo']['exchanges']} taking "
+                          f"{sv['halo_ms'] - sv['tower_halo']['ms']:.3f} ms; the tower's norm "
+                          f"sums {sv['norm_sums'][0]} taking {sv['norm_sums'][1]:.3f} ms; peak "
+                          f"memory {gib(sv['peak'])} (phase 4's single card: "
+                          f"{gib(peaks.get('serve'))}); largest tensor "
                           f"{sv['largest']} [{smi}]")
+                    print(f"      the tower alone, eval: {tower_text(sv['tower'])} [{smi}]")
             elif key.startswith("small"):
                 reg = "GRU" if key.endswith("gru") else "3DCNN"
                 for i, r in enumerate(results):
@@ -1368,23 +1575,38 @@ def phase8_blocks(smi, dev, request, peaks, serve_args=BLOCK_SERVE_ARGS,
                             "8g: train step, normal")
                     print(f"  {what} f32 128x128 D=16 B=2 on {t['mesh']}, rank {i}, vs the "
                           f"single-card step: {text}")
-            elif key == "big":
-                per_step = [r["big"]["counts"] for r in results]
+            elif key.startswith("big"):
+                per_step = [r[key]["counts"] for r in results]
+                towers = [r[key].get("tower") for r in results]
                 good = (all(c == want_big for st in per_step for c in st)
-                        and all(r["big"]["finite"] for r in results))
+                        and all(r[key]["finite"] for r in results)
+                        and all(t is None or tower_ok(t, True) for t in towers))
                 ok = ok and good
                 print(f"  8g: blocked train steps on {r0['mesh']}, {W}x{H}, D={D}, V=3, "
                       f"{b_cfg.network_mode}, {b_cfg.compute_dtype}, rmsprop, power + gradient "
                       f"loss: losses "
                       f"{[round(v, 4) for v in r0['losses']]}; launches per step, rank "
-                      f"0: {per_step[0][0]}; expected per rank {want_big} "
-                      f"{'ok' if good else 'FAIL'} [{smi}]")
+                      f"0: {per_step[0][0]}; expected per rank {want_big}"
+                      + (f"; the tower split over 'space' on every rank (30 exchanges and "
+                         f"{towers[0]['sums_a_call']} norm sums forward, as many backward, no "
+                         f"whole tower map)" if towers[0] is not None else "")
+                      + f" {'ok' if good else 'FAIL'} [{smi}]")
                 for i, r in enumerate(results):
-                    print(f"    rank {i}: step ms {', '.join(f'{w:.2f}' for w in r['big']['walls'])}"
-                          f" (the first includes set-up); peak memory {gib(r['big']['peak'])} "
+                    print(f"    rank {i}: step ms {', '.join(f'{w:.2f}' for w in r[key]['walls'])}"
+                          f" (the first includes set-up); peak memory {gib(r[key]['peak'])} "
                           f"(phase 6's single card: {gib(peaks.get('train'))}) [{smi}]")
-                counts = {k: sum(r["big"]["total"][k] for r in results)
-                          for k in results[0]["big"]["total"]}
+                    if towers[i] is not None:
+                        print(f"      the tower alone, training: {tower_text(towers[i])} [{smi}]")
+                if key == "big":
+                    counts = {k: sum(r["big"]["total"][k] for r in results)
+                              for k in results[0]["big"]["total"]}
+            elif key == "tower_112_gru":
+                good = all(tower_ok(r[key], True) for r in results)
+                ok = ok and good
+                print(f"  8h: R-MVSNet's tower (lite) alone in training on (1,1,2), {W}x{H}: the "
+                      f"split taken on every rank {'ok' if good else 'FAIL'} [{smi}]")
+                for i, r in enumerate(results):
+                    print(f"    rank {i}: {tower_text(r[key])} [{smi}]")
     if not ok:
         print("phase 8f-8h FAILED")
         return None
@@ -1410,11 +1632,16 @@ def blocked_small_step(backend, shape, reg="3DCNN"):
 def phase8_blocks_rank(backend, serve_in, big_batch, serve_args, big_args):
     """One rank of 8f-8h (started by `parallel.launch.spawn`). In a world of
     4: latency serving on (1,2,2) (3 requests, stages, halos, peak, the
-    tensors of one request audited) and the f32 step on (1,2,2); in a world
-    of 2: the f32 step on (1,2,1), 3 bf16 steps on (1,2,1), the GRU's f32
-    step on (1,1,2) (`blocks_two`). Returns numpy results, counts and
-    timings."""
+    tensors of one request audited, the tower alone), the f32 step and 3
+    bf16 steps on (1,2,2) with the tower alone in training; in a world of
+    2: the f32 step on (1,2,1), 3 bf16 steps on (1,2,1), the GRU's f32 step
+    on (1,1,2) and its tower alone at the training point
+    (`blocks_two`). Returns numpy results, counts and timings."""
+    import logging
+
     from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch.models import feature_net
+    from mvsnet_tpu_torch.models.regnet import plan_volume
     from mvsnet_tpu_torch.ops import kernels
     from mvsnet_tpu_torch.parallel import halo
     from mvsnet_tpu_torch.parallel.infer_step import latency_forward
@@ -1432,85 +1659,92 @@ def phase8_blocks_rank(backend, serve_in, big_batch, serve_args, big_args):
         cfg = ModelConfig(**serve_args)
         mesh = make_mesh(shape=(1, 2, 2), backend=backend)
         predictor = Predictor(cfg, seed=0, mesh=mesh, device=dev)
+        records = []
+        handler = logging.Handler()
+        handler.emit = lambda record: records.append(record.getMessage())
+        logging.getLogger("mvsnet_tpu_torch").addHandler(handler)
         walls, counts = [], []
         _sync(dev)
         _reset_peak(dev)
-        for _ in range(3):
-            before = kernels.launch_counts()
-            torch.distributed.barrier()
-            t0 = time.perf_counter()
-            depth, prob, _ = predictor.predict(*serve_in, fetch=False)
-            _sync(dev)
-            walls.append((time.perf_counter() - t0) * 1e3)
-            after = kernels.launch_counts()
-            counts.append({k: after[k] - before[k] for k in after})
+        try:
+            for _ in range(3):
+                before = kernels.launch_counts()
+                torch.distributed.barrier()
+                t0 = time.perf_counter()
+                depth, prob, _ = predictor.predict(*serve_in, fetch=False)
+                _sync(dev)
+                walls.append((time.perf_counter() - t0) * 1e3)
+                after = kernels.launch_counts()
+                counts.append({k: after[k] - before[k] for k in after})
+        finally:
+            logging.getLogger("mvsnet_tpu_torch").removeHandler(handler)
         peak = _peak(dev)
         serve = dict(mesh=mesh.shape, coords=mesh.coords, walls=walls, counts=counts, peak=peak,
                      depth=depth.cpu().numpy(), prob=prob.cpu().numpy(),
-                     finite=bool(torch.isfinite(depth).all() and torch.isfinite(prob).all()))
+                     finite=bool(torch.isfinite(depth).all() and torch.isfinite(prob).all()),
+                     whole_tower=[m for m in records if "UNetDS2GN" in m])
         model = predictor.model
         args = tuple(torch.as_tensor(a, device=mesh.device) for a in serve_in[:4])
         marks = []
 
         def mark(name):
             _sync(dev)
-            marks.append((name, time.perf_counter()))
-        exchange, spent = halo.exchange, []
+            marks.append((name, time.perf_counter(), _Clock(dev).record()))
+        tower_share = {}
 
-        def timed_exchange(*a):
-            _sync(dev)
-            t0 = time.perf_counter()
-            r = exchange(*a)
-            _sync(dev)
-            spent.append((time.perf_counter() - t0) * 1e3)
-            return r
+        def note_tower(name):
+            if name == "features":
+                tower_share.update(exchanges=len(spent["exchange"]),
+                                   ms=sum(spent["exchange"]))
         with torch.inference_mode():
             torch.distributed.barrier()
             mark("start")
             latency_forward(model, mesh, *args, on_stage=mark)
+            _sync(dev)
             serve["stages"] = {name: (t - marks[i][1]) * 1e3
-                               for i, (name, t) in enumerate(marks[1:])}
-            halo.exchange = timed_exchange
-            try:
-                latency_forward(model, mesh, *args)
-            finally:
-                halo.exchange = exchange
-            serve["halo_ms"], serve["halo_count"] = sum(spent), len(spent)
+                               for i, (name, t, _) in enumerate(marks[1:])}
+            serve["stage_events"] = {name: marks[i][2].ms_to(c)
+                                     for i, (name, _, c) in enumerate(marks[1:])}
+            with _Timed(dev, [(halo, "exchange"), (feature_net, "norm_sum")]) as spent:
+                latency_forward(model, mesh, *args, on_stage=note_tower)
+            serve["halo_ms"], serve["halo_count"] = sum(spent["exchange"]), len(spent["exchange"])
+            serve["tower_halo"] = tower_share
+            serve["norm_sums"] = (len(spent["norm_sum"]), sum(spent["norm_sum"]))
             with ShapeAudit() as seen:
                 latency_forward(model, mesh, *args)
         serve["whole"] = whole_volume_shapes(seen.shapes, cfg.max_d, cfg.height // 4,
                                              cfg.width // 4)
         serve["largest"] = max(seen.shapes, key=lambda sh: int(np.prod(sh)))
+        rows = plan_volume(mesh, cfg.max_d, cfg.height // 4).rows
+        serve["tower"] = tower_profile(model, mesh, args[0], rows, train=False)
         out["serve"] = serve
         del predictor, model, args
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         out["small_122"] = blocked_small_step(backend, (1, 2, 2))
+        out["big_122"] = big_steps(backend, (1, 2, 2), big_batch, big_args)
         return out
 
     return blocks_two(backend, big_batch, big_args)
 
 
-def blocks_two(backend, big_batch, big_args):
-    """8g and 8h's work in a world of two ranks: the f32 step on (1,2,1), 3
-    bf16 steps at `big_args` on (1,2,1), the GRU's f32 step on (1,1,2)."""
+def big_steps(backend, shape, big_batch, big_args):
+    """8g's main path on a mesh of `shape`: 3 bf16 blocked train steps at
+    `big_args`, timed, launches per step, the peak; where the mesh splits
+    'space', then the tower alone in training (`tower_profile`)."""
     from mvsnet_tpu_torch import train_lib
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.models import MVSNet
     from mvsnet_tpu_torch.ops import kernels
-    from mvsnet_tpu_torch.parallel.mesh import make_mesh
+    from mvsnet_tpu_torch.parallel.mesh import AxisSplit, make_mesh
     from mvsnet_tpu_torch.parallel.train_step import make_sharded_train_step
 
-    out = {}
-    dev = make_mesh(shape=(1, 2, 1), backend=backend).device
-
-    out["small_121"] = blocked_small_step(backend, (1, 2, 1))
-    # 8g's main path: 3 bf16 steps at the training point on (1,2,1)
     cfg = ModelConfig(**big_args)
     tcfg = TrainConfig()
-    mesh = make_mesh(shape=(1, 2, 1), backend=backend)
+    mesh = make_mesh(shape=shape, backend=backend)
+    dev = mesh.device
     model = MVSNet(cfg, seed=0)
-    state = train_lib.create_train_state(model, cfg, tcfg, device=mesh.device)
+    state = train_lib.create_train_state(model, cfg, tcfg, device=dev)
     step = make_sharded_train_step(model, cfg, tcfg, mesh)
     _sync(dev)
     _reset_peak(dev)
@@ -1528,12 +1762,38 @@ def blocks_two(backend, big_batch, big_args):
         losses.append(metrics["loss"].item())
         finite = finite and np.isfinite(losses[-1]) and all(
             bool(torch.isfinite(p.grad).all()) for p in model.parameters())
-    out["big"] = dict(mesh=mesh.shape, walls=walls, counts=per_step, losses=losses,
-                      total=kernels.launch_counts(), peak=_peak(dev), finite=finite)
-    del state, model, step
+    out = dict(mesh=mesh.shape, walls=walls, counts=per_step, losses=losses,
+               total=kernels.launch_counts(), peak=_peak(dev), finite=finite)
+    del state, step
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    out["small_112_gru"] = blocked_small_step(backend, (1, 1, 2), "GRU")
+    if mesh.axis_size("space") > 1:
+        sp = mesh.axis_size("space")
+        rows = AxisSplit("space", cfg.height // 4, sp, mesh.axis_index("space"))
+        images = torch.as_tensor(big_batch[0], device=dev)
+        out["tower"] = tower_profile(model, mesh, images, rows, train=True)
+    return out
+
+
+def blocks_two(backend, big_batch, big_args):
+    """8g and 8h's work in a world of two ranks: the f32 step on (1,2,1), 3
+    bf16 steps at `big_args` on (1,2,1), the GRU's f32 step on (1,1,2) and
+    the GRU "lite" model's tower alone in training on (1,1,2) at
+    `big_args`' size (the bench `train_gru` point)."""
+    from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.parallel.mesh import AxisSplit, make_mesh
+
+    out = {"small_121": blocked_small_step(backend, (1, 2, 1)),
+           "big": big_steps(backend, (1, 2, 1), big_batch, big_args),
+           "small_112_gru": blocked_small_step(backend, (1, 1, 2), "GRU")}
+    mesh = make_mesh(shape=(1, 1, 2), backend=backend)
+    cfg = ModelConfig(**dict(big_args, network_mode="lite", regularization="GRU"))
+    model = MVSNet(cfg, seed=0).to(mesh.device)
+    rows = AxisSplit("space", cfg.height // 4, 2, mesh.axis_index("space"))
+    images = torch.as_tensor(big_batch[0], device=mesh.device)
+    _sync(mesh.device)
+    out["tower_112_gru"] = tower_profile(model, mesh, images, rows, train=True)
     return out
 
 
@@ -1562,6 +1822,187 @@ def _first_difference(a, b):
         return f"keys {sorted(a.keys() ^ b.keys())[:3]}"
     return next((k for k in a if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape
                  or a[k].tobytes() != b[k].tobytes()), None)
+
+
+# 8i (--multi): the drivers as a user starts them on four cards, against one
+# card's run of the same command: the training driver at 9a's point in
+# float32 (so that one card bounds it tightly), a batch of 2 over the
+# (2, 2, 1) mesh of four ranks, 3 steps; the serving drivers at phase 14's
+# point, float32, one cluster
+MULTI_TRAIN_ARGS = ["--view_num", "3", "--max_d", "192", "--width", "640", "--height", "480",
+                    "--network_mode", "lite", "--compute_dtype", "float32",
+                    "--optimizer", "rmsprop", "--loss_type", "power", "--grad_loss", "true",
+                    "--batch_size", "2", "--epoch", "1", "--max_steps_per_epoch", "3",
+                    "--snapshot", "1000", "--loader_workers", "1"]
+
+
+def run_driver(module, args, nproc, timeout=900):
+    """`python -m module args` in a fresh process from the repository root,
+    or with nproc > 1 under `torch.distributed.run --standalone` as nproc
+    ranks with `--num_devices nproc`: (exit code, ms, the output's tail).
+    A rank's failure makes torch.distributed.run exit non-zero."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", module, *args]
+    if nproc > 1:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={nproc}", "-m", module, *args, "--num_devices", str(nproc)]
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                              timeout=timeout)
+        rc, text = proc.returncode, proc.stdout[-1500:] + proc.stderr[-3000:]
+    except subprocess.TimeoutExpired as e:
+        rc, text = 124, f"timed out after {timeout} s: {e}"
+    return rc, (time.perf_counter() - t0) * 1e3, text
+
+
+def phase8i_drivers(smi, nproc=4, device="cuda:0", train_point=(480, 640, 192),
+                    serve_point=(384, 512, 4, 192)):
+    """8i: `python -m mvsnet_tpu_torch.train --num_devices nproc` and the
+    serving drivers (`infer`, `test`) with `--num_devices nproc`, each under
+    `torch.distributed.run` (NCCL, a rank a card), against the same command
+    on one card (`device`; "cpu" with gloo ranks rehearses it at small
+    points). Gates: every run's exit code 0; training: the first step's
+    loss within phase 7's 1e-4 of one card's (the same weights and batch;
+    the driver logs it to metrics.jsonl), every logged loss finite, the
+    final checkpoint's parameters finite and its keys one card's; serving:
+    every file read back as phase 14 does, the depth, prob and residual
+    maps within phase 5's bounds of one card's, the results CSV's numbers
+    within 1e-2 of max(1, |one card's|). Returns whether every gate held."""
+    import re
+    import shutil
+    import tempfile
+
+    from mvsnet_tpu_torch import checkpoint, train_lib
+    from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.io.pfm import load_pfm
+    from mvsnet_tpu_torch.models import MVSNet
+
+    (H, W, D), (sH, sW, sV, sD) = train_point, serve_point
+    print(f"phase 8i: the drivers on {nproc} ranks under torch.distributed.run "
+          f"({'NCCL, a rank a card' if device != 'cpu' else 'gloo, CPU ranks'}) against one "
+          f"{'card' if device != 'cpu' else 'process'}: train at {W}x{H}, D={D}, lite, float32, "
+          f"batch 2, 3 steps; infer and test with refinement at {sW}x{sH}, V={sV}, D={sD}, "
+          f"normal, float32, one cluster [{smi}]", flush=True)
+    ok = True
+    with tempfile.TemporaryDirectory(prefix="mvsnet_multi_drivers_") as root:
+        data = os.path.join(root, "data")
+        for k in (0, 1):
+            write_rendered_session(os.path.join(data, "train", f"session_{k}"), W, H, 5, k)
+        train_args = [*MULTI_TRAIN_ARGS, "--width", str(W), "--height", str(H), "--max_d",
+                      str(D), "--train_data_root", data, "--device", device]
+        runs = {}
+        for n in (1, nproc):
+            model_dir = os.path.join(root, f"train_{n}")
+            runs[n] = run_driver("mvsnet_tpu_torch.train", train_args + ["--model_dir", model_dir],
+                                 n) + (model_dir,)
+        records, finals, losses = {}, {}, {}
+        for n, (rc, ms, text, model_dir) in runs.items():
+            path = os.path.join(model_dir, "metrics.jsonl")
+            records[n] = ([json.loads(line) for line in open(path) if line.strip()]
+                          if os.path.exists(path) else [])
+            losses[n] = [float(x) for x in re.findall(r"loss=([-\d.e+naninf]+)", text)]
+            step = checkpoint.latest_step(model_dir, "3DCNN", "lite") if rc == 0 else None
+            finals[n] = (_state_arrays(checkpoint.restore_tree(model_dir, "3DCNN", "lite", step))
+                         if step is not None else None)
+        first = {n: r[0]["loss"] if r else float("nan") for n, r in records.items()}
+        rel = abs(first[nproc] - first[1]) / max(abs(first[1]), 1e-12)
+        good = (all(r[0] == 0 for r in runs.values()) and rel <= TRAIN_LOSS_RTOL
+                and all(np.isfinite(v) for ls in losses.values() for v in ls)
+                and all(f is not None for f in finals.values()))
+        diff = None
+        if good:
+            a, b = ({k: v for k, v in f.items() if k.startswith("model.")}
+                    for f in (finals[nproc], finals[1]))
+            good = sorted(a) == sorted(b) and all(np.isfinite(v).all() for v in a.values())
+            diff = (float(np.sqrt(sum(float(np.square(a[k] - b[k]).sum()) for k in b)
+                                  / sum(float(np.square(b[k]).sum()) for k in b)))
+                    if good else None)
+        ok = ok and good
+        print(f"  train: one {'card' if device != 'cpu' else 'process'} rc {runs[1][0]} in "
+              f"{runs[1][1]:.1f} ms, {nproc} ranks rc {runs[nproc][0]} in {runs[nproc][1]:.1f} ms "
+              f"(process start, set-up and 3 steps); first step's loss {first[nproc]:.6f} vs one's "
+              f"{first[1]:.6f}: relative difference {rel:.3e} (bound {TRAIN_LOSS_RTOL:g}); the "
+              f"steps' logged losses (a line a rank) {losses[nproc]} vs {losses[1]}; final "
+              f"parameters' difference {diff if diff is None else f'{diff:.3e}'} of their norm "
+              f"(3 RMSprop steps, whose sign-like first updates turn rounding-level gradient "
+              f"differences into lr-sized ones; not bounded) {'ok' if good else 'FAIL'} [{smi}]")
+        if not good:
+            for n, r in runs.items():
+                print(f"  --- {n} rank(s), output's tail:\n{r[2]}")
+
+        # serving: a checkpoint, two copies of each session, one card and n ranks
+        cfg = ModelConfig(view_num=sV, max_d=sD, width=sW, height=sH, network_mode="normal",
+                          compute_dtype="float32", **REFINE_ARGS)
+        state = train_lib.create_train_state(MVSNet(cfg, seed=0), cfg, TrainConfig(),
+                                             device="cpu")
+        model_dir = os.path.join(root, "models")
+        checkpoint.save_checkpoint(model_dir, "3DCNN", "normal", 100, state)
+        del state
+        common = ["--view_num", str(sV), "--max_d", str(sD), "--width", str(sW), "--height",
+                  str(sH), "--network_mode", "normal", "--compute_dtype", "float32",
+                  "--refinement", "--refinement_network", "unet", "--refine_with_confidence",
+                  "--visualize", "--model_dir", model_dir, "--ckpt_step", "100",
+                  "--max_clusters_per_session", "1", "--device", device]
+        write_rendered_session(os.path.join(root, "infer_1"), sW, sH, sV, 0)
+        write_rendered_session(os.path.join(root, "bench_1", "test", "session_0"), sW, sH, sV, 1)
+        shutil.copytree(os.path.join(root, "infer_1"), os.path.join(root, f"infer_{nproc}"))
+        shutil.copytree(os.path.join(root, "bench_1"), os.path.join(root, f"bench_{nproc}"))
+        maps, rows = {}, {}
+        for n in (1, nproc):
+            infer_dir, bench_dir = (os.path.join(root, f"{k}_{n}") for k in ("infer", "bench"))
+            results = os.path.join(root, f"results_{n}.csv")
+            r_infer = run_driver("mvsnet_tpu_torch.infer", ["--input_dir", infer_dir,
+                                                            "--upsample_before_refinement",
+                                                            *common], n)
+            r_test = run_driver("mvsnet_tpu_torch.test", ["--input_dir", bench_dir,
+                                                          "--results_path", results,
+                                                          "--write_output", *common], n)
+            runs[("infer", n)], runs[("test", n)] = r_infer, r_test
+            for name, out_dir in (("infer", os.path.join(infer_dir, "depths_mvsnet")),
+                                  ("test", os.path.join(bench_dir, "test", "session_0",
+                                                        "depths_mvsnet"))):
+                try:
+                    first = sorted(f for f in os.listdir(out_dir) if f.endswith("_init.pfm"))
+                    index = first[0][:-len("_init.pfm")]
+                    maps[(name, n)] = {k: load_pfm(os.path.join(out_dir, f"{index}_{k}.pfm"))
+                                       for k in ("init", "prob", "residual")}
+                except (OSError, ValueError, IndexError) as e:
+                    maps[(name, n)] = repr(e)
+            rows[n] = (open(results).read().splitlines()[1:] if os.path.exists(results) else [])
+        for name in ("infer", "test"):
+            a, b = maps[(name, nproc)], maps[(name, 1)]
+            rcs = (runs[(name, 1)][0], runs[(name, nproc)][0])
+            read = isinstance(a, dict) and isinstance(b, dict)
+            errs = ({k: float(np.abs(a[k] - b[k]).max()) for k in b}
+                    if read and all(a[k].shape == b[k].shape for k in b) else
+                    ([a, b] if not read else {k: (a[k].shape, b[k].shape) for k in b}))
+            scale = max(1.0, float(np.abs(b["residual"]).max())) if read else 1.0
+            good = (rcs == (0, 0) and read and all(a[k].shape == b[k].shape for k in b)
+                    and all(np.isfinite(m).all() for m in a.values())
+                    and errs["init"] <= E2E_DEPTH_ATOL and errs["prob"] <= E2E_PROB_ATOL
+                    and errs["residual"] <= REFINE_RESIDUAL_TOL * scale)
+            if name == "test":
+                fa = [f for f in (rows[nproc][0].split(", ") if rows[nproc] else [])]
+                fb = [f for f in (rows[1][0].split(", ") if rows[1] else [])]
+                row_ok = (len(fa) == len(fb) == 6 and fa[:2] == fb[:2] and all(
+                    abs(float(x) - float(y)) <= 1e-2 * max(1.0, abs(float(y)))
+                    for x, y in zip(fa[2:], fb[2:])))
+                good = good and row_ok
+            ok = ok and good
+            print(f"  {name}: one rc {rcs[0]} in {runs[(name, 1)][1]:.1f} ms, {nproc} ranks rc "
+                  f"{rcs[1]} in {runs[(name, nproc)][1]:.1f} ms; refined depth, prob and "
+                  f"residual vs one's: max abs err {errs} (bounds {E2E_DEPTH_ATOL:g}, "
+                  f"{E2E_PROB_ATOL:g}, {REFINE_RESIDUAL_TOL:g} of {scale:.3g})"
+                  + (f"; results CSV rows {rows[nproc]} vs {rows[1]}" if name == "test" else "")
+                  + f" {'ok' if good else 'FAIL'} [{smi}]")
+            if not good:
+                for n in (1, nproc):
+                    print(f"  --- {name}, {n} rank(s), output's tail:\n{runs[(name, n)][2]}")
+    if not ok:
+        print("phase 8i FAILED")
+    return ok
 
 
 def phase9_driver(smi, dev):
@@ -3161,7 +3602,16 @@ def main() -> int:
     t_homs = homs_of(t_batch[1], 192)
     if sys.argv[1:] == ["--multi"]:
         k1s = phase8(smi, dev, randn, homs, request)
-        return 1 if k1s is None else report([k1s[0]])
+        if k1s is None:
+            return 1
+        print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 8i next]",
+              flush=True)
+        if torch.cuda.device_count() < 4:
+            print(f"phase 8i: skipped, it runs the drivers on four cards and this machine has "
+                  f"{torch.cuda.device_count()}")
+        elif not phase8i_drivers(smi):
+            return 1
+        return report([k1s[0]])
     cases = []     # one dict per kernel and shape
     peaks = {}     # phase 4's and phase 6's peak memory, for phase 8
 

@@ -137,33 +137,52 @@ def spatial_mean(t, axes, stat_sum=None, keepdim=False):
         return t.mean(dim=axes, keepdim=keepdim)
     s = t.sum(dim=axes, keepdim=keepdim)
     count = math.prod(t.shape[a] for a in axes)
-    total = stat_sum(torch.cat([s.reshape(-1), s.new_tensor([count])]))
+    total = stat_sum(torch.cat([s.reshape(-1), s.new_full((1,), count)]))
     return total[:-1].reshape(s.shape) / total[-1]
 
 
 def group_norm_core(x, gamma, beta, num_groups: int, eps: float, stat_sum=None):
     """Group norm of channels-last x (N, ..., C) in float32, cast back
-    (layers.py:769-811): channel c is in group c // (C // G); moments are
-    two-pass, per channel over the spatial axes first, then per group.
-    `stat_sum`: see `spatial_mean`."""
+    (layers.py:769-811): channel c is in group c // (C // G). In float32
+    the moments are two-pass, per channel over the spatial axes first,
+    then per group, as JAX's; `stat_sum`: see `spatial_mean` (two sums).
+    A bfloat16 or float16 x takes them from the float64 sums of x and x^2
+    (exact: such a value's square is exact in float32, and float64 holds
+    these sums to its rounding), mean = S / n and var = Q / n - mean^2 per
+    group: sums whose order does not show in float32, so a block of rows
+    whose sums `stat_sum` adds up (one sum) gets the whole map's statistics
+    bit for bit, as a half-precision request on one card does."""
     N, C = x.shape[0], x.shape[-1]
     G = num_groups
     spatial = tuple(range(1, x.ndim - 1))
     bshape = (N,) + (1,) * (x.ndim - 2) + (C,)
     xf = x.to(torch.float32)
 
-    def group_mean(per_channel):                      # (N, C) -> (N, C)
-        g = per_channel.reshape(N, G, C // G).mean(dim=2, keepdim=True)
-        return g.expand(N, G, C // G).reshape(N, C)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        sums = torch.stack([xf.sum(dim=spatial, dtype=torch.float64),
+                            (xf * xf).sum(dim=spatial, dtype=torch.float64)])   # (2, N, C)
+        n = math.prod(x.shape[a] for a in spatial)
+        if stat_sum is not None:                      # the count made on the device: no sync
+            total = stat_sum(torch.cat([sums.reshape(-1), sums.new_full((1,), n)]))
+            sums, n = total[:-1].reshape(sums.shape), total[-1:]
+        group = sums.reshape(2, N, G, C // G).sum(dim=3) / (n * (C // G))      # (2, N, G)
+        moments = torch.stack([group[0], group[1] - group[0] * group[0]]).to(torch.float32)
+        mean, var = (m[:, :, None].expand(N, G, C // G).reshape(bshape) for m in moments)
+    else:
+        def group_mean(per_channel):                      # (N, C) -> (N, C)
+            g = per_channel.reshape(N, G, C // G).mean(dim=2, keepdim=True)
+            return g.expand(N, G, C // G).reshape(N, C)
 
-    mean = group_mean(spatial_mean(xf, spatial, stat_sum)).reshape(bshape)
-    var = group_mean(spatial_mean(torch.square(xf - mean), spatial, stat_sum)).reshape(bshape)
+        mean = group_mean(spatial_mean(xf, spatial, stat_sum)).reshape(bshape)
+        var = group_mean(spatial_mean(torch.square(xf - mean), spatial,
+                                      stat_sum)).reshape(bshape)
     y = (xf - mean) * torch.rsqrt(var + eps) * gamma + beta
     return y.to(x.dtype)
 
 
 class GroupNormRef(nn.Module):
-    """Groups of `group_channel` channels, eps 1e-5 (layers.py:814-832)."""
+    """Groups of `group_channel` channels, eps 1e-5 (layers.py:814-832).
+    `stat_sum`: x is a block of the map's rows (`group_norm_core`)."""
 
     def __init__(self, channels: int, group_channel: int = 8, eps: float = 1e-5):
         super().__init__()
@@ -172,8 +191,8 @@ class GroupNormRef(nn.Module):
         self.groups = max(1, channels // group_channel)
         self.eps = eps
 
-    def forward(self, x):
-        return group_norm_core(x, self.scale, self.bias, self.groups, self.eps)
+    def forward(self, x, stat_sum=None):
+        return group_norm_core(x, self.scale, self.bias, self.groups, self.eps, stat_sum)
 
 
 class GroupNormFlexible(nn.Module):
@@ -265,7 +284,9 @@ class BatchNormRef(nn.Module):
 
 
 class ConvGN(nn.Module):
-    """conv (no bias) -> group norm -> ReLU (layers.py:954-977)."""
+    """conv (no bias) -> group norm -> ReLU (layers.py:954-977). On a block
+    of rows, `op` replaces the conv's kernel call (`Conv`) and `stat_sum`
+    sums the norm's statistics over the blocks (`group_norm_core`)."""
 
     def __init__(self, in_channels: int, filters: int, kernel: int = 3,
                  stride: int = 1, relu: bool = True, rank: int = 2,
@@ -276,14 +297,14 @@ class ConvGN(nn.Module):
         self.gn = GroupNormRef(filters)
         self.relu = relu
 
-    def forward(self, x):
-        y = self.gn(self.conv(x))
+    def forward(self, x, op=None, stat_sum=None):
+        y = self.gn(self.conv(x, op=op), stat_sum)
         return torch.relu(y) if self.relu else y
 
 
 class DeconvGN(nn.Module):
     """deconv (no bias) -> group norm [-> ReLU, off by default]
-    (layers.py:980-1002)."""
+    (layers.py:980-1002); `op` and `stat_sum` as for `ConvGN`."""
 
     def __init__(self, in_channels: int, filters: int, relu: bool = False,
                  rank: int = 2, dtype: Optional[torch.dtype] = None):
@@ -293,8 +314,8 @@ class DeconvGN(nn.Module):
         self.gn = GroupNormRef(filters)
         self.relu = relu
 
-    def forward(self, x):
-        y = self.gn(self.deconv(x))
+    def forward(self, x, op=None, stat_sum=None):
+        y = self.gn(self.deconv(x, op=op), stat_sum)
         return torch.relu(y) if self.relu else y
 
 

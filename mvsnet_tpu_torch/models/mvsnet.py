@@ -25,7 +25,7 @@ import torch
 from torch import nn
 
 from mvsnet_tpu_torch.config import ModelConfig
-from mvsnet_tpu_torch.models.feature_net import UNetDS2GN
+from mvsnet_tpu_torch.models.feature_net import UNetDS2GN, tower_split
 from mvsnet_tpu_torch.models.gru import GRURegularizer
 from mvsnet_tpu_torch.models.layers import reset_parameters
 from mvsnet_tpu_torch.models.refine import RefineNetConv, RefineUNetConv
@@ -195,10 +195,27 @@ class MVSNet(nn.Module):
         # switches to training mode, with batch statistics and autograd convs
         self.eval()
 
-    def extract_features(self, images):
-        """(B, V, H, W, 3) -> ref (B, h, w, C), views (V-1, B, h, w, C)."""
+    def extract_features(self, images, blocks=None):
+        """(B, V, H, W, 3) -> ref (B, h, w, C), views (V-1, B, h, w, C).
+
+        `blocks` (mesh, rows: a `parallel.mesh.AxisSplit` of the h feature
+        rows over 'space'): this rank's rows [r0, r1) of both, (B, r1 - r0,
+        w, C) and (V-1, B, r1 - r0, w, C), from the tower on the rank's
+        image rows (`UNetDS2GN.forward_blocks`); where `feature_net.
+        tower_split` finds the rows cannot split, from the whole tower,
+        sliced."""
         B, V, H, W, _ = images.shape
-        feats = self.feature_net(images.reshape(B * V, H, W, 3))
+        x = images.reshape(B * V, H, W, 3)
+        if blocks is None:
+            feats = self.feature_net(x)
+        else:
+            mesh, rows = blocks
+            split = tower_split(mesh, rows, H)
+            if split is None:
+                r0, r1 = rows.bounds()
+                feats = self.feature_net(x)[:, r0:r1]
+            else:
+                feats = self.feature_net.forward_blocks(x, mesh, split)
         h, w, C = feats.shape[1:]
         feats = feats.reshape(B, V, h, w, C)
         return feats[:, 0], feats[:, 1:].movedim(1, 0)
@@ -263,19 +280,19 @@ class MVSNet(nn.Module):
 
         `blocks` (mesh, rows: a `parallel.mesh.AxisSplit` over 'space'),
         for training over 'space' (JAX constrains the sweep's volume over
-        'space', mvsnet.py:228): the cost volume is this rank's rows over all
+        'space', mvsnet.py:228): the tower runs on this rank's rows
+        (`extract_features`' blocks), the cost volume is its rows over all
         D planes (D is the scan axis), K1s forward and K2/K3 on the block
         backward; the cells' 3x3 convs take a one-row halo over 'space' each
         plane and their norms sum their statistics over it. Regs are then
         (B, D, hl, w), the rank's rows."""
-        ref_f, view_f = self.extract_features(images)
+        ref_f, view_f = self.extract_features(images, blocks)
         homs = self.homographies(cams, depth_start, depth_interval, depth_end)
         if blocks is None:
             cost = plane_sweep_cost_volume(ref_f, view_f, homs, differentiable=self.training)
             return self.gru_sweep(cost, samples)
         mesh, rows = blocks
-        r0, r1 = rows.bounds()
-        cost = sweep_cost_volume_sharded(ref_f[:, r0:r1], view_f[:, :, r0:r1], homs, mesh,
+        cost = sweep_cost_volume_sharded(ref_f, view_f, homs, mesh,
                                          depth=AxisSplit("depth", self.cfg.max_d), rows=rows)
         op = functools.partial(halo_conv, mesh=mesh, splits=(rows, None), level=0)
         return self.gru_sweep.eager(cost, samples, op,

@@ -1,6 +1,7 @@
 """Convs on blocks of a volume with halo exchanges: the U-Net sharding that
-GSPMD derives in the JAX package (models/mvsnet.py:174, models/regnet.py:10)
-and the row halos of the ConvGRU's cells (:228), written out.
+GSPMD derives in the JAX package (models/mvsnet.py:174, models/regnet.py:10),
+the row halos of the ConvGRU's cells (:228) and of the 2D feature tower
+(whose output JAX constrains over 'space', :113-114), written out.
 
 A rank holds a block of the volume: along each split axis (depth planes
 over 'depth', feature rows over 'space'; columns and channels whole) the
@@ -14,6 +15,11 @@ ends. From the kernels' index rules, on an input block [a, b):
     and the rank owns the outputs [ceil(a/2), ceil(b/2)) whose first input
     it owns, so it reads rows 2 ceil(a/2) .. 2 ceil(b/2): one or two rows
     from the next rank, and an odd a leaves its own first row unread;
+  * 5x5 stride-2 SAME conv (TF pads 1/2 at even extent, the tower's
+    conv9_0 and conv10_0): output o reads 2o-1..2o+3, so the outputs
+    [ceil(a/2), ceil(b/2)) read rows 2 ceil(a/2) - 1 .. 2 ceil(b/2) + 2:
+    one row from the previous rank (a even; none when a is odd), two (b
+    even) or three (b odd) from the next;
   * stride-2 transposed conv, out[o] = sum_t k[2-t] x[(o-t)/2]: output o
     reads x[o//2] and x[o//2 - 1], so the fine block [a, b) whose coarse
     block is [ceil(a/2), ceil(b/2)) reads one row from the previous rank,
@@ -22,14 +28,18 @@ ends. From the kernels' index rules, on an input block [a, b):
 A 3x3x3 conv on a depth x space block needs its corners too: it exchanges
 over 'depth' first, then the rows of the depth-extended block over
 'space'. One `all_gather` over the axis group serves each exchange: every
-rank sends those of its first, second and last rows that some rank's
-index rule reads (every rank computes which from the blocks, so the
-packets agree: s1 sends two rows, the transposed conv one, s2 one or two),
-and each takes what it reads; deadlock-free, and the same on gloo and
-NCCL. The exchange is an autograd function: its backward sends each halo
+rank sends those of its first, second, third and last rows that some
+rank's index rule reads (every rank computes which from the blocks, so the
+packets agree: s1 sends two rows, the transposed conv one, s2 one or two,
+the 5x5 s2 conv two to four), and each takes what it reads; deadlock-free,
+and the same on gloo and NCCL. The exchange is an autograd function: its backward sends each halo
 row's gradient back to its owner in one `all_gather` too, which adds it to
 its boundary row, so the ops train (`ops/autograd.py` at explicit pads).
-An axis of one rank takes the kernel's SAME pads instead.
+An axis of one rank takes the kernel's SAME pads instead. An input that
+every rank holds whole (`replicated`: the tower's images) is cut to the
+rows its op reads, zeros beyond the ends, with no exchange. `fits` says
+whether a split serves a list of ops: every row a rank reads beyond its
+block lies in a neighbour's.
 """
 
 from __future__ import annotations
@@ -52,8 +62,11 @@ def _half_up(a: int) -> int:
 READS = {
     "s1": lambda a, b: (a - 1, b + 1),
     "s2": lambda a, b: (2 * _half_up(a), 2 * _half_up(b) + 1),
+    "s2k5": lambda a, b: (2 * _half_up(a) - 1, 2 * _half_up(b) + 2),
     "up": lambda a, b: (a - 1, b),
 }
+# the kind of a (kernel size, stride) conv
+CONV_KINDS = {(3, 1): "s1", (3, 2): "s2", (5, 2): "s2k5"}
 
 
 def _owner(split: AxisSplit, level: int, row: int) -> int:
@@ -66,29 +79,31 @@ def _owner(split: AxisSplit, level: int, row: int) -> int:
 
 def _slot(split: AxisSplit, level: int, row: int):
     """(owner, slot) of a row another rank reads: slot 0 or 1 its owner's
-    first or second row, 2 its last."""
+    first or second row, 2 its last, 3 its third."""
     q = _owner(split, level, row)
     a, b = split.bounds(level, q)
     if row - a < 2:
         return q, row - a
     if row == b - 1:
         return q, 2
+    if row - a == 2:
+        return q, 3
     raise ValueError(f"row {row} is not at an edge of rank {q}'s block [{a}, {b})")
 
 
 def _halo_rows(split: AxisSplit, level: int, kind: str, q: int):
     """The rows rank q reads from other ranks: [(row, k)], k its place among
-    (row a - 1, row b, row b + 1)."""
+    (row a - 1, row b, row b + 1, row b + 2)."""
     a, b = split.bounds(level, q)
     lo, hi = READS[kind](a, b)
     n = split.extent(level)
-    rows = [(a - 1, 0), (b, 1), (b + 1, 2)]
+    rows = [(a - 1, 0), (b, 1), (b + 1, 2), (b + 2, 3)]
     return [(r, k) for r, k in rows if lo <= r < hi and 0 <= r < n and not a <= r < b]
 
 
 def _packets(split: AxisSplit, level: int, kind: str):
-    """(slots, places): the owner slots (0, 1: first, second row; 2: last)
-    that some rank reads, the forward packet's rows in that order; and the
+    """(slots, places): the owner slots (0, 1: first, second row; 2: last;
+    3: third) that some rank reads, the forward packet's rows in that order; and the
     places k of `_halo_rows` that some rank reads, the backward packet's.
     The same on every rank."""
     reads = [r for q in range(split.n) for r in _halo_rows(split, level, kind, q)]
@@ -115,7 +130,8 @@ class _Exchange(torch.autograd.Function):
         every = None
         if slots:
             rows = {0: x.narrow(dim, 0, 1), 1: x.narrow(dim, 1, 1) if n_rows > 1 else zero,
-                    2: x.narrow(dim, n_rows - 1, 1)}
+                    2: x.narrow(dim, n_rows - 1, 1),
+                    3: x.narrow(dim, 2, 1) if n_rows > 2 else zero}
             packet = torch.cat([rows[k] for k in slots], dim)
             every = mesh.all_gather(packet.unsqueeze(0), split.axis, dim=0)
         extent = split.extent(level)
@@ -160,8 +176,35 @@ class _Exchange(torch.autograd.Function):
 
 def exchange(x, mesh: Mesh, dim: int, split: AxisSplit, level: int, kind: str):
     """x (a block of `split` at `level` along `dim`) extended to the rows
-    its op `kind` ("s1", "s2" or "up") reads; differentiable."""
+    its op `kind` ("s1", "s2", "s2k5" or "up") reads; differentiable."""
     return _Exchange.apply(x, mesh, dim, split, level, kind)
+
+
+def local_rows(x, dim: int, split: AxisSplit, level: int, kind: str):
+    """x, whole along `dim` on every rank, cut to the rows [lo, hi) that
+    this rank's op `kind` reads at `level`, zeros beyond the ends: what
+    `exchange` gives a block of it, without a collective."""
+    lo, hi = READS[kind](*split.bounds(level))
+    n = x.shape[dim]
+    if n != split.extent(level):
+        raise ValueError(f"{n} rows along dim {dim}, expected the whole {split.extent(level)}")
+    zeros = [torch.zeros_like(x.narrow(dim, 0, 1))]
+    parts = zeros * max(0, -lo) + [x.narrow(dim, max(lo, 0), min(hi, n) - max(lo, 0))]
+    return torch.cat(parts + zeros * max(0, hi - n), dim)
+
+
+def fits(split: AxisSplit, ops) -> bool:
+    """Whether `split` serves the ops [(kind, level)]: at each op's level
+    every rank holds a row, and every row a rank reads beyond its block
+    lies in a neighbour's."""
+    for kind, level in ops:
+        if not split.filled(level):
+            return False
+        for q in range(split.n):
+            for row, _ in _halo_rows(split, level, kind, q):
+                if abs(_owner(split, level, row) - q) != 1:
+                    return False
+    return True
 
 
 def _needs_grad(*ts) -> bool:
@@ -169,23 +212,29 @@ def _needs_grad(*ts) -> bool:
 
 
 def halo_conv(x, kernel, bias, stride: int, relu: bool, *, mesh: Mesh,
-              splits: Sequence[Optional[AxisSplit]], level: int):
+              splits: Sequence[Optional[AxisSplit]], level: int, replicated: bool = False):
     """This rank's block of conv(whole volume, kernel, bias, stride, relu)
-    for a 3x3(x3) SAME conv of stride 1 or 2 on x (B, [D,] H, W, C), a
-    block at `level` of `splits` (one per spatial axis, None or one rank:
-    whole); see the module docstring. Under autograd (bias None, no ReLU:
+    for a SAME conv, 3x3(x3) of stride 1 or 2 or 5x5 of stride 2, on x
+    (B, [D,] H, W, C), a block at `level` of `splits` (one per spatial
+    axis, None or one rank: whole), or with `replicated` whole on every
+    rank; see the module docstring. Under autograd (bias None, no ReLU:
     the training layers add them) it is `ConvFn` at the explicit pads."""
-    if tuple(kernel.shape[:-2]) != (3,) * (x.ndim - 2):
-        raise ValueError(f"halo_conv takes 3x3(x3) kernels, got {tuple(kernel.shape)}")
-    if stride not in (1, 2):
-        raise ValueError(f"stride must be 1 or 2, got {stride}")
+    K = kernel.shape[0]
+    kind = CONV_KINDS.get((K, stride))
+    if kind is None or tuple(kernel.shape[:-2]) != (K,) * (x.ndim - 2):
+        raise ValueError(f"halo_conv takes 3x3(x3) kernels of stride 1 or 2 and 5x5(x5) of "
+                         f"stride 2, got {tuple(kernel.shape)} at stride {stride}")
     xx, pads = x, []
     for dim, split in enumerate(splits, start=1):
         if split is not None and split.n > 1:
-            xx = exchange(xx, mesh, dim, split, level, "s1" if stride == 1 else "s2")
+            if stride == 2 and split.extent(level) % 2:
+                raise ValueError(f"a stride-2 halo conv reads TF's SAME pads of an even "
+                                 f"extent, got {split.extent(level)} along dim {dim}")
+            xx = (local_rows(xx, dim, split, level, kind) if replicated else
+                  exchange(xx, mesh, dim, split, level, kind))
             pads.append((0, 0))
         else:
-            pads.append(conv_k.same_pads(x.shape[dim], 3, stride)[:2])
+            pads.append(conv_k.same_pads(x.shape[dim], K, stride)[:2])
     if _needs_grad(xx, kernel):
         if bias is not None or relu:
             raise ValueError("a differentiable halo conv takes no bias or ReLU")

@@ -9,9 +9,11 @@ Two regimes, chosen per call by the batch size B over the mesh's n ranks:
   (B, h, w, 1) result, as JAX's replicated output.
 * **Latency** (otherwise, typically B = 1): one map's volume is split
   over 'depth' x 'space' (`forward_3dcnn_blocks`, which the train step
-  shares). Every rank runs the 2D feature tower and keeps its 'space' row
-  block of the features (JAX constrains the towers' output over 'space');
-  the row- and depth-sliced cost kernel K1s computes its depth x space
+  shares). Every rank runs the 2D feature tower on its 'space' row block
+  of every level, with halos (`UNetDS2GN.forward_blocks`: JAX constrains
+  the tower's output over 'space' and GSPMD splits each layer's rows; the
+  'depth' ranks of a row block compute the same rows); the row- and
+  depth-sliced cost kernel K1s computes its depth x space
   block of the cost volume (`sweep_cost_volume_sharded`); the 3D U-Net
   runs on the blocks with halo exchanges over 'depth' and 'space'
   (`RegNetUS0.forward_sharded`); the collective soft-argmin tail
@@ -64,21 +66,20 @@ def forward_3dcnn_blocks(model: MVSNet, mesh: Mesh, images, cams, depth_start,
     maps' gather over 'space' hands each rank its rows' cotangent. Returns
     depth_map, prob_map, each (B, h, w, 1) float32, whole on every rank.
     `on_stage(name)` is called after each of `LATENCY_STAGES`; `plan`
-    (default `plan_volume` of the features) lays out the volume."""
+    (default `plan_volume` of the features) lays out the volume, and the
+    tower runs on its rows (`MVSNet.extract_features`' blocks)."""
     mark = on_stage or (lambda name: None)
-    B = images.shape[0]
+    B, _, H, W = images.shape[:4]
     ds, di, de = model.depth_range(depth_start, depth_interval, B, images.device)
-    ref_f, view_f = model.extract_features(images)
-    h, w = ref_f.shape[1:3]
+    h, w = -(-H // 4), -(-W // 4)
     model.check_feature_shape(h, w)
     plan = plan or plan_volume(mesh, model.cfg.max_d, h)
     if (plan.depth.size, plan.rows.size) != (model.cfg.max_d, h):
         raise ValueError(f"a plan of {plan.depth.size} planes and {plan.rows.size} rows for "
                          f"{model.cfg.max_d} planes and {h} feature rows")
-    r0, r1 = plan.rows.bounds()
+    ref_f, view_f = model.extract_features(images, (mesh, plan.rows))
     mark("features")
-    cost = sweep_cost_volume_sharded(ref_f[:, r0:r1], view_f[:, :, r0:r1],
-                                     model.homographies(cams, ds, di, de), mesh,
+    cost = sweep_cost_volume_sharded(ref_f, view_f, model.homographies(cams, ds, di, de), mesh,
                                      depth=plan.depth, rows=plan.rows)
     mark("cost_volume")
     reg = model.regnet.forward_sharded(cost, mesh, plan)[..., 0].to(torch.float32)

@@ -103,23 +103,36 @@ class AxisSplit:
     this rank the `index`-th. Level l halves level l - 1 by the stride
     rule of a stride-2 SAME conv: a rank owns the outputs whose first input
     it owns, so its block is [ceil(start / 2^l), ceil(stop / 2^l)), and the
-    blocks may be uneven (216 rows on 2 ranks: 108, 54, 27 -> 14 / 13)."""
+    blocks may be uneven (216 rows on 2 ranks: 108, 54, 27 -> 14 / 13).
+
+    `shift` levels finer (`finer`), level `shift` is the split's level 0
+    and the levels below it double: the feature tower's image rows, whose
+    level 2 is the cost volume's rows, start at 4x the volume's starts."""
 
     axis: str
     size: int
     n: int = 1
     index: int = 0
+    shift: int = 0
 
     def bounds(self, level: int = 0, index: Optional[int] = None) -> Tuple[int, int]:
         """[start, stop) of rank `index` (default this rank) at `level`."""
         i = self.index if index is None else index
-        f = 2 ** level
-        return (_ceil_div(i * self.size // self.n, f),
-                _ceil_div((i + 1) * self.size // self.n, f))
+        a, b = i * self.size // self.n, (i + 1) * self.size // self.n
+        lv = level - self.shift
+        if lv < 0:
+            return a << -lv, b << -lv
+        return _ceil_div(a, 2 ** lv), _ceil_div(b, 2 ** lv)
 
     def extent(self, level: int = 0) -> int:
         """The whole axis at `level`."""
-        return _ceil_div(self.size, 2 ** level)
+        lv = level - self.shift
+        return self.size << -lv if lv < 0 else _ceil_div(self.size, 2 ** lv)
+
+    def finer(self, levels: int) -> "AxisSplit":
+        """The same split seen `levels` stride-2 levels finer: its level
+        `levels` is this split's level 0."""
+        return dataclasses.replace(self, shift=self.shift + levels)
 
     def filled(self, levels: int) -> bool:
         """Whether every rank holds at least one plane or row at levels

@@ -10,6 +10,7 @@ outputs (numpy), with the rank's coordinates on each mesh it used.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import logging
 
@@ -22,6 +23,7 @@ from mvsnet_tpu_torch import train as driver
 from mvsnet_tpu_torch import train_lib
 from mvsnet_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
 from mvsnet_tpu_torch.models import MVSNet
+from mvsnet_tpu_torch.models.feature_net import TOWER_LAYERS
 from mvsnet_tpu_torch.models.layers import BatchNormRef
 from mvsnet_tpu_torch.ops.cost_volume import CostVolumeFn, sweep_cost_volume_sharded
 from mvsnet_tpu_torch.ops.depth import soft_argmin_prob_map_sharded
@@ -113,7 +115,7 @@ def halo_blocks(inp):
         else:
             y = halo.halo_conv(xb, kt, None, 1 if kind == "s1" else 2, False, mesh=mesh,
                                splits=splits, level=level)
-            out_level = level + (kind == "s2")
+            out_level = level + (kind != "s1")
         (y * block_of(_t(cot), splits, out_level)).sum().backward()
         with torch.no_grad():
             bias = torch.linspace(-1, 1, k.shape[-1])
@@ -144,6 +146,31 @@ class ShapeAudit(TorchDispatchMode):
         return out
 
 
+@contextlib.contextmanager
+def tower_rows(model):
+    """{layer: (input rows, output rows)} of each feature-tower layer's last
+    call while the block is active (the rows a rank's tower works on)."""
+    rows, hooks = {}, []
+    for name, _, _ in TOWER_LAYERS:
+        def hook(module, args, out, name=name):
+            rows[name] = (args[0].shape[1], out.shape[1])
+        hooks.append(model.feature_net._modules[name].register_forward_hook(hook))
+    try:
+        yield rows
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def whole_tower_shapes(shapes, N, H, W):
+    """The shapes among `shapes` that hold a whole (N, H / 2^l, W / 2^l, C)
+    map of the feature tower at some level l of 0-4, the images (level 0,
+    C = 3) exempt."""
+    return [tuple(s) for s in shapes if len(s) == 4 and any(
+        tuple(s[:3]) == (N, -(-H // 2 ** lv), -(-W // 2 ** lv)) and (lv or s[3] != 3)
+        for lv in range(5))]
+
+
 def whole_volume_shapes(shapes, D, h, w):
     """The shapes among `shapes` that hold a whole (D, h, w) volume in any
     layout: D, h and w (or D, w, h; h, w, D) in that order, not
@@ -157,14 +184,15 @@ def whole_volume_shapes(shapes, D, h, w):
 
 def audit(inp):
     """The shapes of every tensor one latency request makes on this rank
-    (`latency_forward`, from the images to the gathered maps), and the
-    request's depth map."""
+    (`latency_forward`, from the images to the gathered maps), the
+    request's depth map and its tower's rows."""
     mesh = make_mesh(shape=inp["shape"], backend="gloo")
     model = MVSNet(ModelConfig(**inp["cfg"]), seed=1)
     args = tuple(_t(a) for a in inp["inputs"][:4])
-    with torch.no_grad(), ShapeAudit() as seen:
+    with torch.no_grad(), ShapeAudit() as seen, tower_rows(model) as rows:
         depth, _, _ = latency_forward(model, mesh, *args)
-    return {"coords": mesh.coords, "shapes": sorted(seen.shapes), "depth": _np(depth)}
+    return {"coords": mesh.coords, "shapes": sorted(seen.shapes), "depth": _np(depth),
+            "tower_rows": rows}
 
 
 def tail(inp):
@@ -195,7 +223,8 @@ class _Records(logging.Handler):
 
 def predict(inp):
     """`Predictor.predict` over a mesh (`shape`, or the default mesh of
-    the process group when None) on the CPU, with the log it wrote."""
+    the process group when None) on the CPU, with the log it wrote and its
+    tower's rows."""
     records = _Records()
     logger = logging.getLogger("mvsnet_tpu_torch")
     logger.addHandler(records)
@@ -204,17 +233,19 @@ def predict(inp):
         p = Predictor(ModelConfig(**inp["cfg"]), state_dict={k: _t(v) for k, v in
                                                              inp["state_dict"].items()},
                       device="cpu", mesh=mesh)
-        depth, prob, residual = p.predict(*inp["inputs"])
+        with tower_rows(p.model) as rows:
+            depth, prob, residual = p.predict(*inp["inputs"])
     finally:
         logger.removeHandler(records)
     return {"mesh": p.mesh.shape, "depth": depth, "prob": prob, "residual": residual,
-            "log": records.messages}
+            "log": records.messages, "tower_rows": rows}
 
 
 def train(inp):
     """One `make_sharded_train_step` step: metrics, gradients, running
-    statistics, updated parameters, the shapes of the cost volumes it built
-    and whether the batch norms still sum over the mesh after it."""
+    statistics, updated parameters, the shapes of the cost volumes it built,
+    the tower's rows, the log, and whether the batch norms still sum over
+    the mesh after it."""
     mesh = make_mesh(shape=inp["shape"], backend="gloo")
     cfg, tcfg = ModelConfig(**inp["cfg"]), TrainConfig(**inp["tcfg"])
     model = MVSNet(cfg)
@@ -227,11 +258,17 @@ def train(inp):
         costs.append(tuple(out.shape))
         return out
     CostVolumeFn.forward = staticmethod(recording)
+    records = _Records()
+    logging.getLogger("mvsnet_tpu_torch").addHandler(records)
     try:
-        state, metrics = make_sharded_train_step(model, cfg, tcfg, mesh)(state, inp["batch"])
+        with tower_rows(model) as rows:
+            state, metrics = make_sharded_train_step(model, cfg, tcfg, mesh)(state,
+                                                                            inp["batch"])
     finally:
         CostVolumeFn.forward = staticmethod(forward)
+        logging.getLogger("mvsnet_tpu_torch").removeHandler(records)
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "costs": costs,
+            "tower_rows": rows, "log": records.messages,
             "grads": {n: _np(p.grad) for n, p in model.named_parameters()},
             "buffers": {n: _np(b) for n, b in model.named_buffers()},
             "params": {n: _np(p) for n, p in model.named_parameters()},

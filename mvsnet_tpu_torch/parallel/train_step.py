@@ -7,10 +7,13 @@ axis takes its slice of the batch. Along 'depth' and 'space' the ranks of
 a data group split the volume, as JAX's constraints do inside the jitted
 step (models/mvsnet.py:174, :179, :228):
   * the 3D-CNN graph runs on the rank's depth x space block
-    (`infer_step.forward_3dcnn_blocks`: the cost volume's block by K1s,
-    K2 and K3 with a row offset backward; the U-Net with halo exchanges
-    that send their gradients back; the collective soft-argmin tail);
-  * the GRU graph runs its sweep on the rank's rows over all D planes
+    (`infer_step.forward_3dcnn_blocks`: the feature tower on the rank's
+    rows of every level, with halos and its group norms' moments gathered
+    over 'space'; the cost volume's block by K1s, K2 and K3 with a row
+    offset backward; the U-Net with halo exchanges that send their
+    gradients back; the collective soft-argmin tail);
+  * the GRU graph runs the tower on the rank's rows as the 3D-CNN does,
+    and its sweep on the rank's rows over all D planes
     (`MVSNet.gru_cost_sweep`'s `blocks`), the cells with one-row halos
     and their norms' statistics summed over 'space'.
 What GSPMD gives the JAX step for free is written out, because a plain
@@ -24,8 +27,12 @@ data-parallel average would differ:
     loss whole, once along 'depth' and 'space';
   * a parameter's gradient is summed over the axes along which its copies
     saw different parts of the loss: the feature tower, the U-Net and the
-    GRU over 'data' and the axes that split the volume (the tower runs
-    whole on every rank but receives only its block's cotangent); the
+    GRU over 'data' and the axes that split the volume, once each (the
+    tower's copy on a rank holds its rows' share over 'space', and of
+    those rows the share its depth slab's cotangent gives over 'depth':
+    the halos' and norm gathers' backwards return the cotangents within a
+    'space' group, so no share is counted twice; where the tower runs
+    whole it receives only its block's cotangent, the same shares); the
     refinement net, which runs on the gathered maps alike along 'depth'
     and 'space', over 'data' only;
   * training batch norms sum their per-channel sums and sums of squares

@@ -65,11 +65,13 @@ from mvsnet_tpu_torch import train_lib  # noqa: E402
 from mvsnet_tpu_torch.config import ModelConfig, TrainConfig  # noqa: E402
 from mvsnet_tpu_torch.convert import state_dict_from_jax  # noqa: E402
 from mvsnet_tpu_torch.entry import dryrun_multichip  # noqa: E402
+from mvsnet_tpu_torch.models import feature_net  # noqa: E402
 from mvsnet_tpu_torch.models import MVSNet  # noqa: E402
 from mvsnet_tpu_torch.parallel import factorize_devices, rank_checks  # noqa: E402
 from mvsnet_tpu_torch.parallel.infer_step import make_sharded_gru_forward  # noqa: E402
 from mvsnet_tpu_torch.parallel.launch import spawn  # noqa: E402
-from mvsnet_tpu_torch.parallel.mesh import axis_ranks, make_mesh, rank_coords  # noqa: E402
+from mvsnet_tpu_torch.parallel import halo  # noqa: E402
+from mvsnet_tpu_torch.parallel.mesh import AxisSplit, axis_ranks, make_mesh, rank_coords  # noqa: E402
 from mvsnet_tpu_torch.predict import Predictor  # noqa: E402
 
 SERVE = dict(view_num=3, max_d=32, width=64, height=64, network_mode="lite",
@@ -136,25 +138,37 @@ def _train_batch(B=2, D=8):
     return images, cams, gt, gt
 
 
-def _halo_block_inputs(shape, rank3):
+def _halo_block_inputs(shape, rank3, rows=24, halo_ops=None):
     """Each halo op at an input level where the row blocks are uneven (and
-    at level 0): a whole input of the level's size, a kernel and the
-    cotangent of the whole output; the volume is 16 planes x 24 rows x 5
-    columns at level 0 (3D), or 24 x 5 (2D)."""
+    at level 0): a whole input of the level's size, a kernel (5x5(x5) for
+    the 5x5 stride-2 kind "s2k5") and the cotangent of the whole output;
+    the volume is 16 planes x `rows` rows x 5 columns at level 0 (3D), or
+    `rows` x 5 (2D)."""
     rng = np.random.default_rng(9 + rank3)
     ops = {}
-    for kind, level in HALO_OPS:
-        spatial = (16 >> level, 24 >> level) if rank3 else (24 >> level,)
+    for kind, level in halo_ops or [op for op in HALO_OPS if not (rank3 and op[0] == "s2k5")]:
+        spatial = (16 >> level, rows >> level) if rank3 else (rows >> level,)
         x = rng.standard_normal((2, *spatial, 5, 8)).astype(np.float32)
-        k = (rng.standard_normal((3,) * (len(spatial) + 1) + (8, 8)) / 10).astype(np.float32)
+        K = 5 if kind == "s2k5" else 3
+        k = (rng.standard_normal((K,) * (len(spatial) + 1) + (8, 8)) / 10).astype(np.float32)
         out = [n * 2 if kind == "up" else -(-n // (1 if kind == "s1" else 2))
                for n in spatial] + [10 if kind == "up" else 5 if kind == "s1" else 3]
         cot = rng.standard_normal((2, *out, 8)).astype(np.float32)
         ops[f"{kind}{level}"] = (kind, level, x, k, cot)
-    return {"shape": shape, "sizes": (16, 24) if rank3 else (24,), "ops": ops}
+    return {"shape": shape, "sizes": (16, rows) if rank3 else (rows,), "ops": ops}
 
 
-HALO_OPS = (("s1", 3), ("s2", 2), ("up", 3), ("s1", 0), ("s2", 0), ("up", 1))
+# the 5x5 stride-2 kind at level 2 of 24 rows: blocks of 3 rows, so rank 0
+# (an odd block end) reads three rows from rank 1. It runs on row blocks
+# (2D) only, as the tower's conv9_0 and conv10_0: the port's transposed
+# conv, its input gradient, takes 5x5 kernels in 2D only.
+HALO_OPS = (("s1", 3), ("s2", 2), ("up", 3), ("s1", 0), ("s2", 0), ("up", 1), ("s2k5", 0),
+            ("s2k5", 2))
+HALO_CASES = ([("blocks3d", f"{k}{lv}") for k, lv in HALO_OPS if k != "s2k5"]
+              + [("blocks2d", f"{k}{lv}") for k, lv in HALO_OPS])
+# 40 rows: level 2 splits 5 / 5, and rank 0 reads rank 1's first three rows
+# (the third not its last)
+HALO_K5_ROWS = 40
 
 
 def _halo_inputs(shape):
@@ -231,6 +245,9 @@ class World:
                                       np.array([0.5, 0.25], np.float32),
                                       np.array([12.5, 7.75], np.float32))}
         self.fallback = _scene(1, 16)
+        # 32x64 images on four 'space' ranks: the tower's level 4 has 2 rows,
+        # so two ranks would hold none, and it runs whole
+        self.tower_fallback = _scene(1, 32, seed=18, H=32)
         self.throughput = _scene(4, 32, seed=4)
 
         def predict(shape, inputs, cfg=SERVE):
@@ -252,7 +269,8 @@ class World:
                   predict((1, 2, 2), self.latency96, SERVE96),
                   ("audit", {"shape": (1, 2, 2), "cfg": AUDIT, "inputs": self.latency96}),
                   train((1, 2, 2), TRAIN16, self.batch16),
-                  train((2, 1, 2), TRAIN16, self.batch16)]
+                  train((2, 1, 2), TRAIN16, self.batch16),
+                  predict((1, 1, 4), self.tower_fallback, dict(SERVE, height=32))]
         gru_predict = [("predict", {"shape": None, "cfg": dict(GRU, network_mode="lite"),
                                     "state_dict": self.gru_sd, "inputs": self.gru_serve[B]})
                        for B in (1, 3)]
@@ -268,15 +286,17 @@ class World:
                   ("tail", self.tail_inputs),
                   train((1, 2, 1), TRAIN16, self.batch16),
                   train((1, 2, 1), REFINED, self.refined_batch, self.refine_sd, REFINED_TCFG),
-                  train((1, 1, 2), dict(GRU, network_mode="lite"), self.batch, self.gru_sd, {})]
+                  train((1, 1, 2), dict(GRU, network_mode="lite"), self.batch, self.gru_sd, {}),
+                  ("halo_blocks", _halo_block_inputs((1, 1, 2), False, HALO_K5_ROWS,
+                                                     (("s2k5", 2),)))]
         self.index4 = {"halo4": 0, "halo2": 1, "latency141": 2, "latency122": 3,
                        "fallback": 4, "throughput": 5, "train": 6, "default_device_error": 7,
                        "blocks3d": 8, "latency96_122": 9, "audit": 10, "train122": 11,
-                       "train212": 12}
+                       "train212": 12, "tower_fallback": 13}
         self.index2 = {"throughput": 0, "train": 1, "gru1": 2, "gru3": 3, "gru_train": 4,
                        "refined1": 5, "refined2": 6, "blocks2d": 7, "latency96_112": 8,
                        "tail": 9, "train121": 10, "refined_train121": 11,
-                       "gru_train112": 12}
+                       "gru_train112": 12, "blocks2d_k5": 13}
         self.state_dict = sd
         self.train_state_dict = tsd
         self._futures = {
@@ -365,7 +385,7 @@ def test_latency_regime_matches_port_and_jax(world, shape):
         assert r["mesh"] == shape and not r["residual"].any()
         np.testing.assert_allclose(r["depth"], single[0], **PORT)
         np.testing.assert_allclose(r["prob"], single[1], **PORT)
-        assert not any("gathering the volume" in m for m in r["log"])
+        assert not any("gathering the volume" in m or "UNetDS2GN" in m for m in r["log"])
     _assert_jax((ranks[0]["depth"], ranks[0]["prob"]), _jax_forward(world, inputs, shape))
     _assert_jax((ranks[0]["depth"], ranks[0]["prob"]), _jax_forward(world, inputs))
 
@@ -619,17 +639,9 @@ def _whole_op(kind, x, k, cot, bias=None):
     return y.detach().numpy(), y_eval.numpy(), xt.grad.numpy(), kt.grad.numpy()
 
 
-@pytest.mark.parametrize("op", [f"{k}{lv}" for k, lv in HALO_OPS])
-@pytest.mark.parametrize("case", ["blocks3d", "blocks2d"])
-def test_halo_blocks_match_whole_op_and_its_gradients(world, case, op):
-    """The halo ops on depth x space blocks (3D, mesh (1, 2, 2)) and on row
-    blocks (2D, (1, 1, 2)) of 24 rows, uneven from level 3 (rows 2 + 1):
-    each rank's block of the output, with and without bias + ReLU, and of
-    dx equal the whole op's on the plain path, and the ranks' shares of dk
-    add up to its dk."""
-    ranks = [r for r in world.ranks(4 if case == "blocks3d" else 2, case)]
-    inputs = _halo_block_inputs((1, 2, 2) if case == "blocks3d" else (1, 1, 2),
-                                case == "blocks3d")["ops"][op]
+def _assert_halo_blocks(ranks, op, inputs):
+    """The ranks' blocks of one halo op (output, eval output, dx) stitched
+    equal the whole op's; their shares of dk add up to its dk."""
     kind, _, x, k, cot = inputs
     bias = torch.linspace(-1, 1, k.shape[-1])
     y, y_eval, dx, dk = _whole_op(kind, x, k, cot, bias)
@@ -639,8 +651,43 @@ def test_halo_blocks_match_whole_op_and_its_gradients(world, case, op):
     np.testing.assert_allclose(_place(ranks, op, "dx", "in_bounds"), dx, rtol=1e-6, atol=1e-5)
     got_dk = sum(r[op]["dk"] for r in ranks)
     assert np.abs(got_dk - dk).max() <= 1e-5 * np.abs(dk).max()
+
+
+def _rows_read_from_next(rows, level, kind, q=0):
+    """The places (1: row b, 2: b + 1, 3: b + 2) of the rows rank q of two
+    'space' ranks over `rows` reads beyond its block's end b."""
+    split = AxisSplit("space", rows, 2, q)
+    return [k for _, k in halo._halo_rows(split, level, kind, q) if k > 0]
+
+
+@pytest.mark.parametrize("case,op", HALO_CASES)
+def test_halo_blocks_match_whole_op_and_its_gradients(world, case, op):
+    """The halo ops on depth x space blocks (3D, mesh (1, 2, 2)) and on row
+    blocks (2D, (1, 1, 2)) of 24 rows, uneven from level 3 (rows 2 + 1):
+    each rank's block of the output, with and without bias + ReLU, and of
+    dx equal the whole op's on the plain path, and the ranks' shares of dk
+    add up to its dk. The 5x5 stride-2 kind at level 2 has an odd block end
+    (3 rows a rank), where rank 0 reads three rows from rank 1."""
+    ranks = [r for r in world.ranks(4 if case == "blocks3d" else 2, case)]
+    inputs = _halo_block_inputs((1, 2, 2) if case == "blocks3d" else (1, 1, 2),
+                                case == "blocks3d")["ops"][op]
+    _assert_halo_blocks(ranks, op, inputs)
     if op in ("s13", "s22"):           # the blocks are uneven here
         assert len({np.prod(r[op]["y"].shape) for r in ranks}) > 1
+    if op == "s2k52":
+        assert _rows_read_from_next(24, 2, "s2k5") == [1, 2, 3]
+
+
+def test_five_by_five_halo_reads_a_third_row(world):
+    """The 5x5 stride-2 halo conv at level 2 of 40 rows on (1, 1, 2): blocks
+    of 5 rows, so rank 0 reads rank 1's first, second and third rows (the
+    third not its last: the packet's fourth slot); its blocks and gradients
+    against the whole op as in test_halo_blocks_match_whole_op_and_its_gradients."""
+    assert _rows_read_from_next(HALO_K5_ROWS, 2, "s2k5") == [1, 2, 3]
+    split = AxisSplit("space", HALO_K5_ROWS, 2, 0)
+    assert [halo._slot(split, 2, row) for row in (5, 6, 7)] == [(1, 0), (1, 1), (1, 3)]
+    inputs = _halo_block_inputs((1, 1, 2), False, HALO_K5_ROWS, (("s2k5", 2),))
+    _assert_halo_blocks(world.ranks(2, "blocks2d_k5"), "s2k52", inputs["ops"]["s2k52"])
 
 
 def _jax_serve96(world, shape):
@@ -665,7 +712,7 @@ def test_latency_blocks_at_height_96_match_port_and_jax(world, shape):
         assert r["mesh"] == shape and r["depth"].shape == (1, 24, 16, 1)
         np.testing.assert_allclose(r["depth"], single[0], **PORT)
         np.testing.assert_allclose(r["prob"], single[1], **PORT)
-        assert not any("RegNetUS0" in m for m in r["log"]), r["log"]
+        assert not any("RegNetUS0" in m or "UNetDS2GN" in m for m in r["log"]), r["log"]
     _assert_jax((ranks[0]["depth"], ranks[0]["prob"]), _jax_serve96(world, shape))
 
 
@@ -674,13 +721,21 @@ def test_no_rank_holds_a_whole_volume(world):
     made on each rank recorded: none holds the whole (D, h, w) = (64, 24,
     16) volume in any layout, and the depth x space block (32, 12, 16) does
     the work (tests/test_parallel.py:78-136 checks JAX's compiled module
-    so)."""
+    so); none holds a whole (B·V, H/2^l, W/2^l, C) feature-tower map at any
+    level l of 0-4 (the replicated images exempt), and the half-row block
+    (B·V, H/2^(l+1), W/2^l, C) does the work at every level."""
     D, h, w = 64, 24, 16
+    N, H, W = 3, 96, 64
     for r in world.ranks(4, "audit"):
         shapes = [tuple(s) for s in r["shapes"]]
         whole = rank_checks.whole_volume_shapes(shapes, D, h, w)
         assert not whole, f"rank {r['coords']}: whole-volume tensors {whole}"
         assert any(s[:4] == (1, D // 2, h // 2, w) for s in shapes), shapes
+        maps = rank_checks.whole_tower_shapes(shapes, N, H, W)
+        assert not maps, f"rank {r['coords']}: whole tower maps {maps}"
+        for lv in range(5):
+            assert any(len(s) == 4 and s[:3] == (N, (H >> lv) // 2, W >> lv) and s[3] != 3
+                       for s in shapes), (lv, shapes)
         assert np.isfinite(r["depth"]).all() and r["depth"].shape == (1, h, w, 1)
 
 
@@ -748,6 +803,7 @@ def test_blocked_train_step_matches_jax_and_port(world, jax_single_step16, shape
     model, port_metrics = _port_single_step(TRAIN16, TCFG, world.train_state_dict,
                                             world.batch16)
     for r in ranks:
+        assert not any("UNetDS2GN" in m for m in r["log"]), r["log"]
         np.testing.assert_allclose(r["metrics"]["loss"], float(metrics["loss"]), rtol=1e-4)
         _assert_grads(r["grads"], grads)
         _assert_stats(r["buffers"], stats)
@@ -784,6 +840,7 @@ def test_blocked_gru_train_step_matches_port_and_jax(world):
     model, metrics = _port_single_step(cfgd, {}, world.gru_sd, world.batch)
     ranks = world.ranks(2, "gru_train112")
     for r in ranks:
+        assert not any("UNetDS2GN" in m for m in r["log"]), r["log"]
         _assert_port_step(r, model, metrics, vanishing=True)
     cfg, tcfg = world.gru_cfg, JaxTrainConfig()
     state = jax_train.TrainState.create(apply_fn=world.gru_model.apply,
@@ -798,3 +855,98 @@ def test_blocked_gru_train_step_matches_port_and_jax(world):
     np.testing.assert_allclose(ranks[0]["metrics"]["loss"], float(want["loss"]), rtol=1e-4)
     for k in ("less_one", "less_three"):
         np.testing.assert_allclose(ranks[0]["metrics"][k], float(want[k]), atol=1e-6)
+
+
+def _jax_tower_rows(hlo):
+    """{layer: (forward rows, backward rows)} of the feature tower's
+    convolutions in a partitioned HLO module: the rows (the output's first
+    spatial dimension, from `dim_labels`) of each convolution whose op name
+    runs through feature_net/<layer>, the backward ones (under
+    `transpose(`) apart."""
+    import re
+
+    rows = {}
+    for line in hlo.splitlines():
+        if " convolution(" not in line or "feature_net/" not in line:
+            continue
+        op_name = re.search(r'op_name="([^"]*)"', line).group(1)
+        layer = re.search(r"feature_net/([^/]+)/", op_name).group(1)
+        dims = [int(d) for d in re.search(r"= \w+\[([\d,]+)\]", line).group(1).split(",")]
+        out_labels = re.search(r"dim_labels=\S*->(\w+)", line).group(1)
+        fwd, bwd = rows.setdefault(layer, (set(), set()))
+        (bwd if "transpose(" in op_name else fwd).add(dims[out_labels.index("0")])
+    return rows
+
+
+def _jax_latency_hlo(world, shape):
+    images, cams, ds, di = (jnp.asarray(a) for a in world.latency96[:4])
+    mesh = jax_make_mesh(int(np.prod(shape)), shape)
+    try:
+        fwd = jax_sharded_forward(world.serve96_model, JaxModelConfig(**SERVE96), mesh)
+        variables = jax.device_put(world.serve_vars, jax.sharding.NamedSharding(
+            mesh, jax.sharding.PartitionSpec()))
+        return fwd.jit_for(1).lower(variables, images, cams, ds, di).compile().as_text()
+    finally:
+        set_active_mesh(None)
+
+
+def _jax_train_hlo(world, shape):
+    cfg, tcfg = JaxModelConfig(**TRAIN16), JaxTrainConfig(**TCFG)
+    v = world.train_vars
+    state = jax_train.TrainState.create(apply_fn=world.train16_model.apply, params=v["params"],
+                                        batch_stats=v["batch_stats"],
+                                        tx=jax_train.make_optimizer(tcfg))
+    mesh = jax_make_mesh(int(np.prod(shape)), shape)
+    try:
+        step, mesh = jax_sharded_step(world.train16_model, cfg, tcfg, mesh=mesh, donate=False)
+        return step.lower(shard_state(state, mesh), world.batch16).compile().as_text()
+    finally:
+        set_active_mesh(None)
+
+
+@pytest.mark.parametrize("program", ["latency122", "latency112", "train122"])
+def test_tower_rows_match_jax_partitioned_programs(world, program):
+    """The layout of the feature tower over 'space' against JAX's compiled,
+    partitioned programs on the same mesh shape (tests/test_parallel.py:
+    78-136 compiles them so): latency serving at 96x64 on (1, 2, 2) and
+    (1, 1, 2), and the blocked 3D-CNN train step at 64x64 on (1, 2, 2).
+    For every layer of UNetDS2GN the rows of JAX's forward convolution
+    equal those of the port rank's output block for that layer, and the
+    rows of JAX's backward (transposed) convolutions those of the rank's
+    input block, the rows whose gradient it keeps; every rank's rows are
+    the same (the blocks are even here), and a whole map has twice them."""
+    if program.startswith("latency"):
+        shape = tuple(int(c) for c in program[-3:])
+        ranks = world.ranks(int(np.prod(shape)), f"latency96_{program[-3:]}")
+        jax_rows, H = _jax_tower_rows(_jax_latency_hlo(world, shape)), 96
+    else:
+        shape = (1, 2, 2)
+        ranks = world.ranks(4, "train122")
+        jax_rows, H = _jax_tower_rows(_jax_train_hlo(world, shape)), 64
+    port = [r["tower_rows"] for r in ranks]
+    assert all(p == port[0] for p in port), port
+    names = [name for name, _, _ in feature_net.TOWER_LAYERS]
+    assert sorted(jax_rows) == sorted(names) == sorted(port[0])
+    for name, level, kind in feature_net.TOWER_LAYERS:
+        fwd, bwd = jax_rows[name]
+        rows_in, rows_out = port[0][name]
+        assert rows_out == (H >> feature_net.output_level(level, kind)) // 2, name
+        assert fwd == {rows_out}, (name, fwd, rows_out)
+        if bwd:                         # the two convs on the images have no dx
+            assert bwd == {rows_in}, (name, bwd, rows_in)
+    if program.startswith("train"):
+        assert sum(bool(b) for _, b in jax_rows.values()) == len(names) - 2
+
+
+def test_tower_runs_whole_where_rows_cannot_split(world):
+    """32x64 images on (1, 1, 4): 8 feature rows, 2 a rank, but the tower's
+    level 4 has 2 rows for four ranks, so it runs whole on every rank and
+    keeps the rank's rows, and the log says so; the maps equal the single
+    device's (the U-Net gathers its rows too, as plan_volume says)."""
+    ranks = world.ranks(4, "tower_fallback")
+    single = _port_single(world.tower_fallback, dict(SERVE, height=32), world.state_dict)
+    for r in ranks:
+        assert any("UNetDS2GN" in m and "runs the whole tower" in m for m in r["log"]), r["log"]
+        assert r["tower_rows"]["conv10_2"] == (8, 8)
+        np.testing.assert_allclose(r["depth"], single[0], **PORT)
+        np.testing.assert_allclose(r["prob"], single[1], **PORT)
