@@ -20,7 +20,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
      point, the backward kernels (warp, transposed warp, weight gradient,
      the 5x5 transposed conv) at the training point; every bf16 conv,
      transposed-conv and weight-gradient row of an editioned kernel is
-     timed in both editions, in turns (tc, simt, simt, tc); the transposed
+     timed in both editions, in turns (tc, simt, simt, tc), and each
+     edition's device time (CUDA events over a CUDA graph of 20 calls, no
+     host time between launches) beside cuDNN's, taken the same way; the
+     rows whose Cin is not a multiple of 8 (the image convs' 3, the
+     refinement's 5, the GRU cells' 1, 2, 6, 10, 20) run the tensor cores
+     with Cin zero-padded in shared memory; the transposed
      warp is called twice on the same inputs, which must agree bit for bit,
      and so must two calls of the cost volume's backward at the training
      point (bf16); the GRU serving path's rows: the seven convs of the
@@ -31,7 +36,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
      at C = 16, and each cell conv (Cin 24, 10, 3, 1) forward, its input
      gradient and its weight gradient; the refinement U-Net's rows at the
      refined-serving point (1x864x1152: `2dconv0_1_refine` 5->8 and
-     `2dconv1_0_refine` 5->16 s2 on the CUDA cores, `2dconv8_3_refine`
+     `2dconv1_0_refine` 5->16 s2, `2dconv8_3_refine`
      8->32, `2dconv8_4_refine` 32->1, `2dconv5_1_refine` 128->64 at
      108x144, the transposed conv `2dconv5_0_refine` 128->64 from 54x72) and
      at the training point (640x480: the Cin = 5 conv's weight gradient and
@@ -41,7 +46,8 @@ Phases, each of which fails the script (non-zero exit, no result line):
      launch within float32's tolerance, each block its plain version;
   4. inference: `Predictor` at 1152x864, D=192, 3 views, "normal",
      bfloat16, seeded weights, answers 3 requests; launch counts per
-     request are asserted (cost volume 1, conv 36, deconv 7), then one more
+     request are asserted (cost volume 1, conv 36, deconv 7; every one on
+     the tensor cores), then one more
      request is timed stage by stage and one is profiled;
   5. inference end to end at 320x256, D=32, "normal", float32: the card's
      kernel path against the CPU's plain path with the same weights and
@@ -49,7 +55,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
   6. training: `make_train_step` at 640x480, D=192, 3 views, "normal",
      bfloat16 with float32 parameters, RMSprop, power + gradient loss,
      seeded weights and a synthetic scene, takes 3 steps; launch counts per
-     step, and the weight gradient's editions (tc 41, simt 2), are asserted
+     step, and the weight gradient's editions (tc 43), are asserted
      against counts derived from the model, losses and gradients must be
      finite; then one step is timed stage by stage
      (forward, backward, optimizer) and one is profiled;
@@ -169,7 +175,7 @@ Phases, each of which fails the script (non-zero exit, no result line):
      the training driver sets it (the U-Net, upsampled to the images, with
      the confidence channel), seeded weights: a first request, then 3
      requests with launches per request and edition asserted against the
-     counts derived from the model (conv 60: tc 56, simt 4; deconv 11),
+     counts derived from the model (conv 60 and deconv 11, all tc),
      peak memory, one request stage by stage (features, cost volume,
      U-Net, tail, upsample, refinement net; equal bit for bit to the
      Predictor's) and one profiled; one request each of the original net
@@ -282,11 +288,10 @@ E2E_PROB_ATOL = 1e-3
 EXPECTED_LAUNCHES = {"cost_volume": 1, "cost_volume_sharded": 0, "conv": 36, "deconv": 7,
                      "warp": 0, "warp_transpose": 0, "warp_sharded": 0,
                      "warp_transpose_sharded": 0, "wgrad": 0}
-# per bf16 request: every conv and deconv on the tensor cores but the two
-# convs on the 3-channel images (2dconv1_0, 2dconv0_1)
-EXPECTED_EDITIONS = {"conv": {"tc": 34, "simt": 2}, "deconv": {"tc": 7, "simt": 0},
+# per bf16 request: every conv and deconv on the tensor cores, the two convs
+# on the 3-channel images (2dconv1_0, 2dconv0_1) with Cin zero-padded
+EXPECTED_EDITIONS = {"conv": {"tc": 36, "simt": 0}, "deconv": {"tc": 7, "simt": 0},
                      "wgrad": {"tc": 0, "simt": 0}}
-SIMT_LAYERS = {"feature_net.2dconv1_0.conv", "feature_net.2dconv0_1.conv"}
 # one float32 train step at 128x128, D=16, card kernels vs the CPU's plain
 # path. The forward is well conditioned: loss and batch-norm statistics to
 # 1e-4. The gradients are not: with every kernel swapped for its plain
@@ -335,6 +340,27 @@ def cuda_time_ms(fn, budget_s=0.25, max_iters=50):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls=20, replays=5):
+    """Device ms of one call of fn: `calls` calls captured in one CUDA graph
+    (`kernels.CountedGraph`, after its warm-up), replayed `replays` times
+    between two CUDA events. The launches follow one another on the card
+    with no host time between them, as in a captured step; the replays are
+    a measurement and count no launches."""
+    from mvsnet_tpu_torch.ops.kernels import CountedGraph
+
+    graph = CountedGraph(lambda: [fn() for _ in range(calls)], torch.device("cuda", 0)).graph
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (replays * calls)
 
 
 def scene(B, V, H, W, D, seed):
@@ -448,8 +474,7 @@ def expected_wgrad_editions(model, dtype):
     """Weight-gradient launches of one train step by edition: a conv's dk
     is wgrad(x, g) on (Cin, Cout), a transposed conv's wgrad(g, x) on (Cout,
     Cin), once a run (`module_calls`); each runs the edition
-    `wgrad.pick_edition` gives its channels (bf16 3D-CNN: "simt" only for
-    the two image convs' Cin = 3)."""
+    `wgrad.pick_edition` gives its channels (bf16: "tc" at every Cin)."""
     from mvsnet_tpu_torch.models.layers import Conv, Deconv
     from mvsnet_tpu_torch.ops.kernels import wgrad
 
@@ -560,8 +585,8 @@ def layer_times(smi, predictor, request):
     """One steady request with every conv and deconv call timed by CUDA
     events around the wrapper (launch included), named by module: one line
     per layer (name, input shape, edition, ms, bound ms), then the sums per
-    source and edition. Returns whether every layer ran the edition the
-    rule gives it (simt only for the two convs on the images)."""
+    source and edition. Returns whether every layer ran the tensor-core
+    edition, as the rule gives bf16 at every Cin."""
     from mvsnet_tpu_torch.models.layers import Conv, Deconv
     from mvsnet_tpu_torch.ops.kernels import conv, deconv
 
@@ -607,7 +632,7 @@ def layer_times(smi, predictor, request):
         src = f"{kind}.cu {ed}"
         n, t, b = sums.get(src, (0, 0.0, 0.0))
         sums[src] = (n + 1, t + ms, b + bound)
-        want = "simt" if name in SIMT_LAYERS else "tc"
+        want = "tc"
         ok = ok and ed == want
         print(f"    {name:32s} {kind:6s} in {xs} k {ws} {ed:4s} {ms:8.4f} ms  bound "
               f"{bound:.4f} ms{'' if ed == want else '  WRONG EDITION'}")
@@ -2468,10 +2493,11 @@ REFINE_ARGS = dict(refinement=True, refinement_network="unet",
                    upsample_before_refinement=True, refine_with_confidence=True)
 # per refined request, derived from the model: the tower's 28 convs and 4
 # transposed convs and the 3D U-Net's 8 and 3, then the refinement U-Net's
-# 24 and 4; on the CUDA cores the two image convs of the tower and the two
-# Cin = 5 convs of the refinement net (image, depth, confidence)
+# 24 and 4; every one on the tensor cores, the two image convs of the tower
+# and the two Cin = 5 convs of the refinement net (image, depth,
+# confidence) with Cin zero-padded
 REFINE_LAUNCHES = {"conv": 36 + 24, "deconv": 7 + 4}
-REFINE_EDITIONS = {"conv": {"tc": 56, "simt": 4}, "deconv": {"tc": 11, "simt": 0}}
+REFINE_EDITIONS = {"conv": {"tc": 60, "simt": 0}, "deconv": {"tc": 11, "simt": 0}}
 # card vs CPU, float32: the refined depth within phase 5's depth bound (the
 # net adds its residual to the depth) and the residual within this share of
 # max(1, max|residual|)
@@ -3831,8 +3857,8 @@ def main() -> int:
                              ("gru2_gates", 20, 8), ("gru2_output", 20, 4),
                              ("gru3_gates", 6, 4), ("gru3_output", 6, 2), ("prob_conv", 2, 1)):
         add_conv(layer, (1, 296, 400, cin), 3, 1, cout, True, c2s1, relu=False, path="gru")
-    # ... and its feature tower at 1184x1600: the image conv (CUDA cores) and
-    # the first tensor-core conv
+    # ... and its feature tower at 1184x1600: the image conv (Cin 3) and the
+    # first conv at Cin 8
     add_conv("2dconv0_1:gru", (3, 1184, 1600, 3), 3, 1, 8, False, c2s1, path="gru")
     add_conv("2dconv0_2:gru", (3, 1184, 1600, 8), 3, 1, 8, False, c2s1, path="gru")
     # the GRU training path at the bench train_gru point (640x480, "lite":
@@ -3852,8 +3878,8 @@ def main() -> int:
         add_wgrad(name, (1, 120, 160, cin), (1, 120, 160, cout), 3, 1, wg1, path="train_gru")
 
     # the refinement U-Net at the refined-serving point (1152x864 images,
-    # "normal"; image + depth + confidence: Cin 5, so its two first convs run
-    # on the CUDA cores); bias and ReLU but for the output conv
+    # "normal"; image + depth + confidence: Cin 5 in its two first convs);
+    # bias and ReLU but for the output conv
     d2 = "mvsnet_tpu/ops/pallas/deconv2d.py:185"
     add_conv("2dconv0_1_refine", (1, 864, 1152, 5), 3, 1, 8, True, c2s1, path="refine")
     add_conv("2dconv1_0_refine", (1, 864, 1152, 5), 3, 2, 16, True, c2s2, path="refine")
@@ -3863,7 +3889,7 @@ def main() -> int:
              path="refine")
     add_deconv("2dconv5_0_refine", (1, 54, 72, 128), 64, True, d2, path="refine")
     # ... and at the training point (640x480): the Cin = 5 conv's weight
-    # gradient (CUDA cores) and its input gradient (8 -> 5, tensor cores)
+    # gradient and its input gradient (8 -> 5)
     add_wgrad("2dconv0_1_refine", (1, 480, 640, 5), (1, 480, 640, 8), 3, 1, wg1,
               path="train_refine")
     add_conv("2dconv0_1_refine_dx", (1, 480, 640, 8), 3, 1, 5, False, c2s1, path="train_refine")
@@ -3916,7 +3942,7 @@ def main() -> int:
             tol = TOL[torch.float32 if c.get("f32_out") else dtype]
             ok = bool(torch.isfinite(got).all()) and err <= tol * max(1.0, scale)
             del got, want
-            simt_text = ""
+            simt_text, device = "", {}
             if editioned and dtype == torch.bfloat16:
                 turns = {"tc": [], "simt": []}
                 for ed in ("tc", "simt", "simt", "tc"):
@@ -3924,8 +3950,12 @@ def main() -> int:
                         continue
                     turns[ed].append(cuda_time_ms(lambda ed=ed: c["kernel"](*inputs, edition=ed)))
                 ms = float(np.mean(turns[want_ed]))
+                # device time alone: the wrapper's host time hidden by a graph
+                for ed in dict.fromkeys((want_ed, "simt")):
+                    device[ed] = graph_ms(lambda ed=ed: c["kernel"](*inputs, edition=ed))
                 simt_text = (f"  [{want_ed} {', '.join(f'{t:.4f}' for t in turns[want_ed])}; "
-                             f"simt {', '.join(f'{t:.4f}' for t in turns['simt'])}]")
+                             f"simt {', '.join(f'{t:.4f}' for t in turns['simt'])}; device "
+                             + ", ".join(f"{e} {t:.4f}" for e, t in device.items()))
             else:
                 ms = cuda_time_ms(lambda: c["kernel"](*inputs))
             plain_ms = cuda_time_ms(lambda: c["plain"](*inputs), max_iters=10)
@@ -3933,7 +3963,18 @@ def main() -> int:
             if c["library"] is not None:
                 lib_in = c["library_inputs"](*inputs)
                 lib_ms = cuda_time_ms(lambda: c["library"](*lib_in))
+                if device:
+                    # a yardstick: a library call that a graph does not take
+                    # leaves its device time unmeasured, not the phase failed
+                    try:
+                        device["library"] = graph_ms(lambda: c["library"](*lib_in))
+                        simt_text += f", library {device['library']:.4f}"
+                    except RuntimeError as e:
+                        simt_text += f", library not measured ({str(e)[:60]})"
                 del lib_in
+            if device:
+                simt_text += " ms]"
+                torch.cuda.empty_cache()
             it = torch.tensor([], dtype=dtype).element_size()
             t_bytes = c["bytes"](it) / HBM_BYTES_PER_S * 1e3
             t_ops = c["ops"] / PEAK_OPS[dtype] * 1e3
@@ -3948,7 +3989,8 @@ def main() -> int:
                 failures.append(f"{c['name']} {tag}: max abs err {err:.3e} (max|plain| {scale:.3e})")
             records[(c["name"], tag)] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms)
+                bound_by=bound_by, library_ms=lib_ms,
+                device_ms=device.get(c["edition"](dtype)) if device else None)
             del inputs
             torch.cuda.empty_cache()
     failures += backward_repeat(smi, randn, t_homs)

@@ -15,12 +15,13 @@
 // sums are float32; the epilogue runs on the float32 sum and casts once.
 //
 // Two editions, which the wrapper (ops/kernels/conv.py) picks by dtype and
-// shape. bf16 with Cin % 8 == 0 runs the tensor-core edition of
-// tc_conv.cuh (conv_tc_launch): an implicit GEMM on mma.sync fed by a
-// staged, zero-filled input box; its note says what bounds each layer on
-// the H100 and what the design does about it. float32, and bf16 with Cin
-// % 8 != 0 (the two convs on the 3-channel images), run the CUDA-core
-// edition below (conv_launch): there operations bound it, and each thread
+// shape. bf16 (Cout <= 128) runs the tensor-core edition of tc_conv.cuh
+// (conv_tc_launch): an implicit GEMM on mma.sync fed by a staged,
+// zero-filled input box, a Cin that is not a multiple of 8 zero-padded
+// there; its note says what bounds each layer on the H100 and what the
+// design does about it. float32 runs the CUDA-core edition below
+// (conv_launch; bf16 too where the caller asks for it): there operations
+// bound it, and each thread
 // owns one output voxel and COT output channels, keeps COT float32 sums in
 // registers, reads its input in 16-byte vectors of 8 channels, and takes
 // the block's weight slice from shared memory as float32, so one
@@ -158,7 +159,7 @@ extern "C" int conv_launch(int dtype, int kd, int kh, int kw, int cot,
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core edition (bf16, Cin % 8 == 0): plan is the 200 ints of
+// The tensor-core edition (bf16, any Cin): plan is the 200 ints of
 // tc_conv.cuh's Plan (ops/kernels/tc.py), w the (KD, KH, KW, Cin, Cout)
 // kernel, bias (Cout,) float32 or null.
 extern "C" int conv_tc_launch(int nt, int mt, int warps, const int* plan, const void* x,

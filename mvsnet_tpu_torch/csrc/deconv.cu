@@ -19,14 +19,15 @@
 // output is written once; sums and the epilogue are float32.
 //
 // Two editions, which the wrapper (ops/kernels/deconv.py) picks by dtype
-// and shape. bf16 with Cin % 8 == 0 runs the tensor-core edition of
-// tc_conv.cuh (deconv_tc_launch): the output splits into 2^rank parity
+// and shape. bf16 (any Cin, zero-padded in shared memory where it is not a
+// multiple of 8) runs the tensor-core edition of tc_conv.cuh
+// (deconv_tc_launch): the output splits into 2^rank parity
 // classes (one per parity of the output along each axis), each a stride-1
 // implicit GEMM over the input grid with 1-8 taps (3D, K = 3) or 1-9 (2D,
 // K = 5), all classes in one launch, stored to out[2 j + r]; bytes bound
 // it on the H100 (a quarter of a 3x3x3 conv's taps, the output 8 times the
-// input's voxels). float32, and bf16 with Cin % 8 != 0, run the CUDA-core
-// edition below (deconv_launch), with the tiling of conv.cu's: one output
+// input's voxels). float32 runs the CUDA-core edition below (deconv_launch;
+// bf16 too where the caller asks for it), with the tiling of conv.cu's: one output
 // voxel and COT output channels per thread, 16-byte input reads, and the
 // weight slice in shared memory as float32.
 #include "common.cuh"
@@ -177,7 +178,7 @@ extern "C" int deconv_launch(int dtype, int rank, int k, int cot, const void* x,
   return (int)cudaErrorInvalidValue;
 }
 
-// The tensor-core edition (bf16, Cin % 8 == 0): plan is the 200 ints of
+// The tensor-core edition (bf16, any Cin): plan is the 200 ints of
 // tc_conv.cuh's Plan with one class per output parity (ops/kernels/tc.py),
 // w the flax-oriented (KD, KH, KW, Cin, Cout) kernel (KD = 1 for rank 2).
 extern "C" int deconv_tc_launch(int nt, int mt, int warps, const int* plan, const void* x,

@@ -5,6 +5,13 @@
 // taps x Cin in 8-channel units, so a Cin = 8 layer fills each k16 step
 // with two taps and a Cin = 16..128 layer takes Cin / 16 steps a tap.
 //
+// A Cin that is not a multiple of 8 (the image convs' 3, the refinement's
+// 5, the GRU cells' 1, 2, 6, 10, 20) is zero-padded in shared memory while
+// the box is staged: each box pixel holds ceil(Cin / 8) chunks, channels
+// past Cin zero, and everything downstream is the Cin % 8 == 0 pipeline.
+// Such pixels are not 16-byte aligned, so their chunks are gathered element
+// by element instead of by cp.async; the weights' rows past Cin are zero.
+//
 // Bound on the H100. A 3x3x3 conv of 8-32 channels does 100-300 operations
 // per byte of its input and output, under the card's 295 for bf16: bytes
 // bound the large layers (3dconv0_1: 0.29 ms). The deep layers (3dconv3_1,
@@ -103,7 +110,8 @@ struct Plan {
   int box_bytes, tiles_per_b;         // a box buffer's bytes; tiles per batch element
   int nbuf;                           // box buffers: 2 double-buffers across tiles
   int persist;                        // blocks walk tiles (else one block a tile)
-  int unused[3];
+  int nch;                            // 16-byte chunks a box pixel holds: ceil(Cin / 8)
+  int unused[2];
   ClassPlan cls[kMaxClasses];
 };
 static_assert(sizeof(ClassPlan) == 20 * 4, "ClassPlan is 20 ints");
@@ -171,6 +179,22 @@ struct FastDiv {
   }
 };
 
+// Where Cin % 8 != 0, chunk c of a box pixel: the values c * 8 .. c * 8 + 7
+// of a channels-last row from element f0 (the pixel times Cin), zero where
+// the row is outside the input (!in), past the pixel's Cin channels and
+// outside [0, row_len).
+__device__ __forceinline__ uint4 gather_chunk(const unsigned short* __restrict__ row, bool in,
+                                              int f0, int c, int cin, int row_len) {
+  __align__(16) unsigned short e[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int f = f0 + c * 8 + i;
+    e[i] = in && c * 8 + i < cin && (unsigned)f < (unsigned)row_len ? __ldg(row + f)
+                                                                  : (unsigned short)0;
+  }
+  return *reinterpret_cast<const uint4*>(e);
+}
+
 // A persistent block walks the tiles T = blockIdx.x, + gridDim.x, ... of
 // the (batch, class, tile) index space; its weights load once (again only
 // where the next tile belongs to another class). For each tile it stages
@@ -193,11 +217,13 @@ tc_conv_kernel(const __grid_constant__ Plan P, const bf16* __restrict__ x,
   int T = blockIdx.x;
   if (T >= total) return;
   const int tid = threadIdx.x;
-  const int Cin = P.Cin, nch = Cin >> 3;
+  // a box pixel holds nch chunks: G8 weight rows a tap
+  const int Cin = P.Cin, nch = P.nch, G8 = nch * 8;
+  const bool aligned = (Cin & 7) == 0;
   const int BY = P.BY, BX = P.BX;
   const Swizzle swz(nch);
   const FastDiv div_nch(nch), div_bx(BX), div_by(BY), div_tx(P.TX), div_ty(P.TY),
-      div_cin(Cin);
+      div_g8(G8);
   const uint32_t smem0 = smem_u32(smem);
   const uint32_t w_u32 = smem0 + P.w_smem_off;
   const uint32_t zero_u32 = smem0 + P.zero_off;
@@ -234,34 +260,52 @@ tc_conv_kernel(const __grid_constant__ Plan P, const bf16* __restrict__ x,
     const int iz0 = tl.gz0 * P.sd - cp.pd, iy0 = tl.gy0 * P.sh - cp.ph,
               ix0 = tl.gx0 * P.sw - cp.pw;
     const bf16* xb = x + (int64_t)tl.b * P.Di * P.Hi * P.Wi * Cin;
-    for (int q = tid; q < P.BZ * BY * BX * nch; q += kThreads) {
-      const int pix = div_nch.div(q), c = q - pix * nch;
-      const int r = div_bx.div(pix), bx = pix - r * BX;
-      const int bz = div_by.div(r), by = r - bz * BY;
-      const int iz = iz0 + bz, iy = iy0 + by, ix = ix0 + bx;
-      const bool in = (unsigned)iz < (unsigned)P.Di && (unsigned)iy < (unsigned)P.Hi &&
-                      (unsigned)ix < (unsigned)P.Wi;
-      const bf16* src = in ? xb + (((int64_t)iz * P.Hi + iy) * P.Wi + ix) * Cin + c * 8 : x;
-      cp_async16(base + swz(pix - bx + xpos(bx), c), src, in ? 16 : 0);
+    if (aligned) {
+      for (int q = tid; q < P.BZ * BY * BX * nch; q += kThreads) {
+        const int pix = div_nch.div(q), c = q - pix * nch;
+        const int r = div_bx.div(pix), bx = pix - r * BX;
+        const int bz = div_by.div(r), by = r - bz * BY;
+        const int iz = iz0 + bz, iy = iy0 + by, ix = ix0 + bx;
+        const bool in = (unsigned)iz < (unsigned)P.Di && (unsigned)iy < (unsigned)P.Hi &&
+                        (unsigned)ix < (unsigned)P.Wi;
+        const bf16* src = in ? xb + (((int64_t)iz * P.Hi + iy) * P.Wi + ix) * Cin + c * 8 : x;
+        cp_async16(base + swz(pix - bx + xpos(bx), c), src, in ? 16 : 0);
+      }
+    } else {
+      // Cin % 8 != 0: chunk c of a pixel is its channels c * 8 .. c * 8 + 7,
+      // zero past Cin and outside the input
+      const unsigned short* xr = reinterpret_cast<const unsigned short*>(xb);
+      const int row_len = P.Wi * Cin;
+      for (int q = tid; q < P.BZ * BY * BX * nch; q += kThreads) {
+        const int pix = div_nch.div(q), c = q - pix * nch;
+        const int r = div_bx.div(pix), bx = pix - r * BX;
+        const int bz = div_by.div(r), by = r - bz * BY;
+        const int iz = iz0 + bz, iy = iy0 + by;
+        const bool in = (unsigned)iz < (unsigned)P.Di && (unsigned)iy < (unsigned)P.Hi;
+        *reinterpret_cast<uint4*>(smem + (base - smem0) + swz(pix - bx + xpos(bx), c)) =
+            gather_chunk(xr + (in ? ((int64_t)iz * P.Hi + iy) * row_len : 0), in,
+                         (ix0 + bx) * Cin, c, Cin, row_len);
+      }
     }
     cp_async_commit();
   };
-  // taps [t0, t0 + n) of class cp's kernel slice, (taps * Cin) rows of N
-  // columns (zero past Cout), to shared-memory rows from d0; read straight
-  // from the (KD, KH, KW, Cin, Cout) kernel
+  // taps [t0, t0 + n) of class cp's kernel slice, G8 rows a tap (zero past
+  // Cin) of N columns (zero past Cout), to shared-memory rows from d0; read
+  // straight from the (KD, KH, KW, Cin, Cout) kernel
   auto load_weights = [&](const ClassPlan& cp, int t0, int n, int d0) {
     const FastDiv div_khw(cp.kh * cp.kw), div_kw(cp.kw);
-    for (int q = tid; q < n * Cin * NT; q += kThreads) {
+    for (int q = tid; q < n * G8 * NT; q += kThreads) {
       const int r = q / NT, co = (q - r * NT) * 8;
-      const int dt = div_cin.div(r), ci = r - dt * Cin, t = t0 + dt;
+      const int dt = div_g8.div(r), ci = r - dt * G8, t = t0 + dt;
       const int a = div_khw.div(t), rem = t - a * cp.kh * cp.kw;
       const int bb = div_kw.div(rem), e = rem - bb * cp.kw;
       const int64_t krow =
           (((int64_t)(cp.sz + a * P.osd) * P.KH + cp.sy + bb * P.osh) * P.KW + cp.sx + e * P.osw) *
               Cin + ci;
+      const bool valid = ci < Cin && co < P.Cout;
       const uint32_t dst = w_u32 + ((d0 + r) * WS + co) * 2;
-      if ((P.Cout & 7) == 0 || co >= P.Cout) {
-        cp_async16(dst, co < P.Cout ? w + krow * P.Cout + co : w, co < P.Cout ? 16 : 0);
+      if ((P.Cout & 7) == 0 || !valid) {
+        cp_async16(dst, valid ? w + krow * P.Cout + co : w, valid ? 16 : 0);
       } else {
         bf16* d = reinterpret_cast<bf16*>(smem + P.w_smem_off) + (d0 + r) * WS + co;
         for (int i = 0; i < 8; ++i)
@@ -278,8 +322,8 @@ tc_conv_kernel(const __grid_constant__ Plan P, const bf16* __restrict__ x,
     } else {
       load_weights(cp, 0, taps, 0);
       // rows past the last tap read as zero (an odd count of 8-channel units)
-      uint4* zr = reinterpret_cast<uint4*>(smem + P.w_smem_off + taps * Cin * WS * 2);
-      for (int q = tid; q < (P.kpad - taps * Cin) * WS / 8; q += kThreads)
+      uint4* zr = reinterpret_cast<uint4*>(smem + P.w_smem_off + taps * G8 * WS * 2);
+      for (int q = tid; q < (P.kpad - taps * G8) * WS / 8; q += kThreads)
         zr[q] = make_uint4(0, 0, 0, 0);
     }
     if (tid < kMaxTaps) {
@@ -406,19 +450,19 @@ tc_conv_kernel(const __grid_constant__ Plan P, const bf16* __restrict__ x,
       // an odd unit count ends on the zero row: tap table -1, weights zero
       run(box, 0, 0, (taps * nch + 1) / 2);
     } else {
-      // Cin % 16 == 0: the weights of taps [sl G, sl G + G) live in ring
-      // stage sl & 1 while the next slice's copies are in flight
+      // nch even (Cin % 16 == 0): the weights of taps [sl G, sl G + G) live
+      // in ring stage sl & 1 while the next slice's copies are in flight
       const int G = P.stream, nsl = (taps + G - 1) / G;
       for (int sl = 0; sl < nsl; ++sl) {
         if (sl + 1 < nsl) {
-          load_weights(cp, (sl + 1) * G, min(G, taps - (sl + 1) * G), ((sl + 1) & 1) * G * Cin);
+          load_weights(cp, (sl + 1) * G, min(G, taps - (sl + 1) * G), ((sl + 1) & 1) * G * G8);
           cp_async_commit();
           cp_async_wait<1>();
         } else {
           cp_async_wait<0>();
         }
         __syncthreads();
-        run(box, sl * G, (sl & 1) * G * Cin, (min(taps, sl * G + G) - sl * G) * nch / 2);
+        run(box, sl * G, (sl & 1) * G * G8, (min(taps, sl * G + G) - sl * G) * nch / 2);
         __syncthreads();
       }
     }
@@ -488,14 +532,32 @@ int launch_t(const Plan& P, const void* x, const void* w, const void* bias, void
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem_bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  // persistent: as many blocks as the card holds at once, or one per tile
-  int dev = 0, sms = 0, per_sm = 0;
+  // persistent: as many blocks as the card holds at once, or one per tile.
+  // The SM count and this kernel's blocks an SM are queried once per
+  // (device, shared-memory size) and kept in a few slots: the queries cost
+  // more host time than a small layer's launch (the GRU cells' convs,
+  // thousands a step).
+  constexpr int kSlots = 8;
+  static int q_dev[kSlots] = {-1, -1, -1, -1, -1, -1, -1, -1};
+  static int q_smem[kSlots], q_sms[kSlots], q_per_sm[kSlots], q_next = 0;
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, P.smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  int slot = -1;
+  for (int i = 0; i < kSlots; ++i)
+    if (q_dev[i] == dev && q_smem[i] == P.smem_bytes) slot = i;
+  if (slot < 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, P.smem_bytes);
+    if (e != cudaSuccess) return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    slot = q_next;
+    q_next = (q_next + 1) % kSlots;
+    q_dev[slot] = dev, q_smem[slot] = P.smem_bytes, q_sms[slot] = sms, q_per_sm[slot] = per_sm;
+  }
+  const int sms = q_sms[slot], per_sm = q_per_sm[slot];
   const dim3 grid((unsigned)(P.persist ? min(P.grid_x, sms * per_sm) : P.grid_x));
   kern<<<grid, kThreads, P.smem_bytes, stream>>>(
       P, static_cast<const bf16*>(x), static_cast<const bf16*>(w),

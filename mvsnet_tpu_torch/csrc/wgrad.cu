@@ -16,7 +16,7 @@
 // adds the partials in a fixed order. No atomics: the result is the same
 // from run to run for a given shape and plan.
 //
-// The tensor-core edition (wgrad_tc_launch; bf16, Cin % 8 == 0). dk is a
+// The tensor-core edition (wgrad_tc_launch; bf16, any Cin). dk is a
 // product with K running over the output voxels: per tap,
 // dk_t = X_t^T G, M = taps x Cin (row t * Cin + ci), N = Cout. The Pallas
 // kernel folds the same (tap, ci) rows into one MXU dot (conv3d.py:1099).
@@ -57,14 +57,19 @@
 //     whose partials do not fit one block (3dconv3_1's 64 x 64 x 27,
 //     2dconv4_1's 128 x 128 x 9) split row tiles and Cout slices over
 //     blockIdx.y; each such block stages only its Cout slice of g.
+//  5. A Cin that is not a multiple of 8 is zero-padded in shared memory per
+//     tap, as tc_conv.cuh pads it (packing taps along x, as that kernel may,
+//     was slower here on the card): M runs over taps x 8-channel chunks of
+//     the padded layout, the workspace keeps those padded rows, and the
+//     second pass maps each row of dk to its padded row and drops the rest.
+//     Such rows of x are gathered element by element, not by cp.async.
 // The launch plan (tile, box, buffers, splits) is chosen in Python
 // (ops/kernels/wgrad.py) and passed as ints (struct Plan).
 //
-// The CUDA-core edition (wgrad_launch; float32, and the layers outside
-// the tensor-core rule: the two convs on the 3-channel images) is the
-// first edition of this kernel, bound by operations on the CUDA cores. Pass 1 gives every block
-// one tap and one
-// contiguous range of output voxels; it stages P rows of the tap's input
+// The CUDA-core edition (wgrad_launch; float32, and bf16 where the caller
+// asks for it) is the first edition of this kernel, bound by operations on
+// the CUDA cores. Pass 1 gives every block one tap and one contiguous range
+// of output voxels; it stages P rows of the tap's input
 // (gathered) and of g in shared memory as float32, and each thread keeps a
 // TI x TO tile of dk (up to kMaxTiles of them) in registers; when dk has
 // fewer tiles than the block has threads, the rows are split among groups
@@ -221,12 +226,21 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+// out[i] = the nsplit partials of i added in order. Row r of dk (n / cout
+// rows) sits in the workspace at row (r / gr) g8 + r % gr: gr rows of dk a
+// tap (its Cin), g8 >= gr padded rows (gr == g8: unpadded).
 __global__ void wgrad_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out,
-                                    int nsplit, int64_t n) {
+                                    int nsplit, int64_t n, int64_t n_ws, int cout, int gr,
+                                    int g8) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  int64_t src = i;
+  if (gr != g8) {
+    const int64_t r = i / cout, grp = r / gr;
+    src = (grp * g8 + (r - grp * gr)) * cout + (i - r * cout);
+  }
   float s = 0.f;
-  for (int k = 0; k < nsplit; ++k) s += ws[k * n + i];
+  for (int k = 0; k < nsplit; ++k) s += ws[k * n_ws + src];
   out[i] = s;
 }
 
@@ -255,7 +269,8 @@ int launch(const void* x, const void* g, float* ws, float* out, int KD, int KH, 
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int64_t n = (int64_t)KT * Cin * Cout;
-  wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(ws, out, nsplit, n);
+  wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(ws, out, nsplit, n, n, Cout,
+                                                                   1, 1);
   return (int)cudaGetLastError();
 }
 
@@ -275,7 +290,7 @@ int dispatch(int ti, int to, const void* x, const void* g, float* ws, float* out
 
 // ---- the tensor-core edition
 
-// Mirrors ops/kernels/wgrad.py `plan_ints`: 39 ints.
+// Mirrors ops/kernels/wgrad.py `plan_ints`: 40 ints.
 struct TcPlan {
   int B, Di, Hi, Wi, Cin;
   int Do, Ho, Wo, Cout;
@@ -288,13 +303,14 @@ struct TcPlan {
   int n_tiles;           // B * tz * ty * tx
   int ksteps;            // TZ * TY * TX / 16
   int kg, wm;            // warp groups along k; warps along the row tiles (kg * wm = 8)
-  int units, m_tiles;    // 8-channel units (taps * Cin / 8); row tiles of 16, ceil(units / 2)
+  int units, m_tiles;    // 8-channel units (taps * nch); row tiles of 16, ceil(units / 2)
   int m_slices;          // blockIdx.y = n_slice * m_slices + m_slice
   int box_bytes, g_bytes;   // one buffer's box and cotangent tile (two buffers)
   int smem_bytes;
   int grid_x, grid_y;
+  int nch;               // 16-byte chunks a staged pixel of x holds: ceil(Cin / 8)
 };
-static_assert(sizeof(TcPlan) == 39 * 4, "TcPlan is 39 ints");
+static_assert(sizeof(TcPlan) == 40 * 4, "TcPlan is 40 ints");
 
 constexpr int kTcWarps = 8;
 constexpr int kTcThreads = 32 * kTcWarps;
@@ -309,7 +325,8 @@ wgrad_tc_kernel(const __grid_constant__ TcPlan P, const bf16* __restrict__ x,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wm = warp % P.wm, kg = warp / P.wm;
   const int ms = blockIdx.y % P.m_slices, ns = blockIdx.y / P.m_slices;
-  const int nch = P.Cin >> 3, gch = (P.Cout + 7) >> 3;
+  const int nch = P.nch, gch = (P.Cout + 7) >> 3;
+  const bool aligned = (P.Cin & 7) == 0;
   const int gc0 = ns * NT;   // the block's first 8-channel chunk of g
   const Swizzle swx(nch), swg(NT);
   const FastDiv div_nch(nch), div_bx(P.BX), div_by(P.BY), div_tx(P.TX), div_ty(P.TY);
@@ -321,7 +338,8 @@ wgrad_tc_kernel(const __grid_constant__ TcPlan P, const bf16* __restrict__ x,
 
   // This warp's row tiles j0 .. j0 + nvalid - 1. In tile j, lanes 0-7 and
   // 16-23 address unit 2j (rows 16 j .. 16 j + 7), lanes 8-15 and 24-31
-  // unit 2j + 1; a unit is (tap, 8-channel chunk), row tap * Cin + ci.
+  // unit 2j + 1; a unit is (tap, 8-channel chunk), row tap * nch * 8 + ci
+  // of the padded layout.
   const int j0 = (ms * P.wm + wm) * MT;
   const int nvalid = min(MT, P.m_tiles - j0);
   const int half = (lane >> 3) & 1;
@@ -349,15 +367,32 @@ wgrad_tc_kernel(const __grid_constant__ TcPlan P, const bf16* __restrict__ x,
     const uint32_t xb = smem0 + buf * buf_bytes, gb = xb + P.box_bytes;
     const int iz0 = oz * P.sd - P.pd, iy0 = oy * P.sh - P.ph, ix0 = ox * P.sw - P.pw;
     const bf16* xbat = x + (int64_t)b * P.Di * P.Hi * P.Wi * P.Cin;
-    for (int q = tid; q < P.BZ * P.BY * P.BX * nch; q += kTcThreads) {
-      const int pix = div_nch.div(q), c = q - pix * nch;
-      const int r = div_bx.div(pix), bx = pix - r * P.BX;
-      const int bz = div_by.div(r), by = r - bz * P.BY;
-      const int zz = iz0 + bz, yy = iy0 + by, xx = ix0 + bx;
-      const bool in = (unsigned)zz < (unsigned)P.Di && (unsigned)yy < (unsigned)P.Hi &&
-                      (unsigned)xx < (unsigned)P.Wi;
-      const bf16* src = in ? xbat + (((int64_t)zz * P.Hi + yy) * P.Wi + xx) * P.Cin + c * 8 : x;
-      cp_async16(xb + swx(pix - bx + xpos(bx), c), src, in ? 16 : 0);
+    if (aligned) {
+      for (int q = tid; q < P.BZ * P.BY * P.BX * nch; q += kTcThreads) {
+        const int pix = div_nch.div(q), c = q - pix * nch;
+        const int r = div_bx.div(pix), bx = pix - r * P.BX;
+        const int bz = div_by.div(r), by = r - bz * P.BY;
+        const int zz = iz0 + bz, yy = iy0 + by, xx = ix0 + bx;
+        const bool in = (unsigned)zz < (unsigned)P.Di && (unsigned)yy < (unsigned)P.Hi &&
+                        (unsigned)xx < (unsigned)P.Wi;
+        const bf16* src = in ? xbat + (((int64_t)zz * P.Hi + yy) * P.Wi + xx) * P.Cin + c * 8 : x;
+        cp_async16(xb + swx(pix - bx + xpos(bx), c), src, in ? 16 : 0);
+      }
+    } else {
+      // Cin % 8 != 0: each pixel's Cin channels gathered, zero-padded to
+      // nch chunks (tc_conv.cuh `gather_chunk`)
+      const unsigned short* xr = reinterpret_cast<const unsigned short*>(xbat);
+      const int row_len = P.Wi * P.Cin;
+      for (int q = tid; q < P.BZ * P.BY * P.BX * nch; q += kTcThreads) {
+        const int pix = div_nch.div(q), c = q - pix * nch;
+        const int r = div_bx.div(pix), bx = pix - r * P.BX;
+        const int bz = div_by.div(r), by = r - bz * P.BY;
+        const int zz = iz0 + bz, yy = iy0 + by;
+        const bool in = (unsigned)zz < (unsigned)P.Di && (unsigned)yy < (unsigned)P.Hi;
+        *reinterpret_cast<uint4*>(smem + buf * buf_bytes + swx(pix - bx + xpos(bx), c)) =
+            gather_chunk(xr + (in ? ((int64_t)zz * P.Hi + yy) * row_len : 0), in,
+                         (ix0 + bx) * P.Cin, c, P.Cin, row_len);
+      }
     }
     const bf16* gbat = g + (int64_t)b * P.Do * P.Ho * P.Wo * P.Cout;
     for (int q = tid; q < M * NT; q += kTcThreads) {
@@ -439,8 +474,8 @@ wgrad_tc_kernel(const __grid_constant__ TcPlan P, const bf16* __restrict__ x,
     buf ^= 1;
   }
 
-  // the partial of (block, warp group): rows 16 j + g and + 8, columns
-  // 8 (gc0 + nt) + 2 tq and + 1
+  // the partial of (block, warp group): rows 16 j + g and + 8 of the padded
+  // layout, columns 8 (gc0 + nt) + 2 tq and + 1
   const int rows = P.units * 8;
   float* dst = ws + (int64_t)(blockIdx.x * P.kg + kg) * rows * P.Cout;
   const int gq = lane >> 2, tq = lane & 3;
@@ -481,8 +516,10 @@ int launch_tc(const TcPlan& P, const void* x, const void* g, float* ws, float* o
       P, static_cast<const bf16*>(x), static_cast<const bf16*>(g), ws);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int64_t n = (int64_t)P.units * 8 * P.Cout;
-  wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(ws, out, P.grid_x * P.kg, n);
+  // dk's rows: taps x Cin, padded to taps x nch * 8 in the workspace
+  const int64_t n = (int64_t)P.KD * P.KH * P.KW * P.Cin * P.Cout;
+  wgrad_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      ws, out, P.grid_x * P.kg, n, (int64_t)P.units * 8 * P.Cout, P.Cout, P.Cin, P.nch * 8);
   return (int)cudaGetLastError();
 }
 
@@ -516,9 +553,9 @@ extern "C" const char* wgrad_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-// x (B, Di, Hi, Wi, Cin % 8 == 0) and g (B, Do, Ho, Wo, Cout) bf16; ws
-// (grid_x * kg, taps * Cin, Cout) float32 workspace; out (KD, KH, KW, Cin,
-// Cout) float32; all contiguous and 16-byte aligned. plan: the 39 ints of
+// x (B, Di, Hi, Wi, Cin) and g (B, Do, Ho, Wo, Cout) bf16; ws (grid_x *
+// kg, units * 8, Cout) float32 workspace; out (KD, KH, KW, Cin, Cout)
+// float32; all contiguous and 16-byte aligned. plan: the 40 ints of
 // TcPlan; (nt, mt) as ops/kernels/wgrad.py TC_TILES allows them. Launches
 // the partial pass and the reduction on the stream; returns
 // cudaGetLastError().
@@ -526,7 +563,7 @@ extern "C" int wgrad_tc_launch(int nt, int mt, const int* plan, const void* x, c
                                void* ws, void* out, void* stream) {
   TcPlan P;
   memcpy(&P, plan, sizeof(TcPlan));
-  if (P.Cin % 8 != 0 || P.Cout < 1 || P.kg * P.wm != kTcWarps || P.grid_x < 1 ||
+  if (P.Cin < 1 || P.nch < 1 || P.Cout < 1 || P.kg * P.wm != kTcWarps || P.grid_x < 1 ||
       P.grid_y < 1 || P.ksteps * 16 != P.TZ * P.TY * P.TX || P.TX % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);

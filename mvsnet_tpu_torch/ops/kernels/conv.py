@@ -8,10 +8,11 @@ Pallas 2D conv kernels (mvsnet_tpu/ops/pallas/conv2d.py, `_rowconv2d_fwd_impl`
 at conv2d.py:871, :825, :774, and `_rowconv2d_s2_fwd_impl` at :578). It also
 serves the shapes the JAX package leaves to XLA: every conv of the path runs
 here. Two editions (see the sources' notes):
-- "tc", bf16 with Cin % 8 == 0 and Cout <= 128: an implicit GEMM on the
-  tensor cores, the input box staged once per tile, float32 sums;
-- "simt", float32, and bf16 with Cin % 8 != 0 (the convs on the 3-channel
-  images): the CUDA-core kernel, float32 sums in registers.
+- "tc", bf16 with Cout <= 128: an implicit GEMM on the tensor cores, the
+  input box staged once per tile (a Cin that is not a multiple of 8
+  zero-padded in shared memory), float32 sums;
+- "simt", float32 (and bf16 where `edition="simt"` asks for it): the
+  CUDA-core kernel, float32 sums in registers.
 `edition=None` picks by that rule; asking for "tc" on operands it does not
 take raises. `launches` counts every launch, `launches_by_edition` each
 edition's.
@@ -72,14 +73,14 @@ def _check_args(x, kernel, bias, stride):
 
 def pick_edition(dtype, cin: int, cout: int, edition=None) -> str:
     """The edition that runs these operands: `edition`, or by the rule
-    (bf16, Cin % 8 == 0 and Cout <= 128 -> "tc", else "simt")."""
+    (bf16 with Cout <= 128 -> "tc", else "simt")."""
     if edition not in (None, *EDITIONS):
         raise ValueError(f"edition must be None, 'tc' or 'simt', got {edition!r}")
     if edition is None:
         return "tc" if tc.takes(dtype, cin, cout) else "simt"
     if edition == "tc" and not tc.takes(dtype, cin, cout):
-        raise ValueError(f"the tensor-core edition takes bf16 with Cin % 8 == 0 and "
-                         f"Cout <= {tc.MAX_COUT}, got {dtype}, Cin={cin}, Cout={cout}")
+        raise ValueError(f"the tensor-core edition takes bf16 with Cout <= {tc.MAX_COUT}, "
+                         f"got {dtype}, Cin={cin}, Cout={cout}")
     return edition
 
 

@@ -10,11 +10,13 @@ offset `lo` and an output size it is the adjoint of a K x K stride-2 SAME
 conv, K = 3 or (rank 2) 5: the input gradient of every stride-2 conv of the
 path (`ops/autograd.py`). Bound by bytes on the H100. Two editions, picked
 as for the direct conv (`conv.pick_edition`, argument `edition`):
-- "tc", bf16 with Cin % 8 == 0: the output's 2^rank parity classes
+- "tc", bf16 with Cout <= 128: the output's 2^rank parity classes
   (`tc.deconv_classes`), each a stride-1 implicit GEMM of the input with a
-  slice of the kernel on the tensor cores, all in one launch;
-- "simt", float32 and bf16 with Cin % 8 != 0: one thread gathers the (at
-  most (K + 1) / 2 per axis) taps of each output on the CUDA cores.
+  slice of the kernel on the tensor cores, all in one launch (a Cin that is
+  not a multiple of 8 zero-padded in shared memory);
+- "simt", float32 (and bf16 where `edition="simt"` asks for it): one
+  thread gathers the (at most (K + 1) / 2 per axis) taps of each output on
+  the CUDA cores.
 Neither uses atomics; sums are float32 (see the sources' notes).
 
 `deconv` runs the kernel on CUDA tensors and `deconv_plain` on CPU tensors;

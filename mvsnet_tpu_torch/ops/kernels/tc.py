@@ -6,8 +6,9 @@ that lands at out[grid * ostride + offset]: one class for a conv, one per
 output parity for a stride-2 transposed conv (`deconv_classes`). `plan`
 picks the tile (rows per warp, tile shape, weights resident or streamed)
 that a simple cost model of staged bytes and tile waves prefers, and lays
-out the block's shared memory. All of it is plain Python, which the CPU
-tests reach; only `launch` needs the card.
+out the block's shared memory. A Cin that is not a multiple of 8 is
+zero-padded in shared memory to ceil(Cin / 8) chunks a pixel. All of it is
+plain Python, which the CPU tests reach; only `launch` needs the card.
 
 `deconv_by_classes` runs a transposed conv class by class with plain
 PyTorch convs: the CPU's check that the class table is the transposed conv.
@@ -73,8 +74,10 @@ def weight_row_stride(nt: int) -> int:
 
 
 def takes(dtype, cin: int, cout: int) -> bool:
-    """Whether the tensor-core edition takes these operands."""
-    return dtype == torch.bfloat16 and cin % 8 == 0 and 0 < cout <= MAX_COUT
+    """Whether the tensor-core edition takes these operands: bf16 at any
+    Cin (one not a multiple of 8 is zero-padded in shared memory) and
+    0 < Cout <= MAX_COUT."""
+    return dtype == torch.bfloat16 and cin > 0 and 0 < cout <= MAX_COUT
 
 
 def deconv_classes(k: int, ins, los, outs, upsampled):
@@ -136,6 +139,7 @@ class Plan:
     box_bytes: int       # one box buffer (the output stage reuses it)
     nbuf: int = 1        # box buffers
     persist: bool = False  # blocks walk tiles (else one block per tile)
+    nch: int = 0         # 16-byte chunks a box pixel holds: ceil(Cin / 8)
 
 
 def _pow2_up_to(n):
@@ -172,7 +176,8 @@ def candidates(cin: int, cout: int, strides, classes, batch: int = 1):
     """(cost, Plan) of every feasible tiling of `batch` elements. The
     model's constants are fitted to chip timings of every conv shape of a
     request (H100): a tile costs one unit per row and k step plus 0.1 per
-    staged box byte (the larger of the two where the box is double-
+    staged box byte, twice that where Cin % 8 != 0 gathers it element by
+    element (the larger of the two where the box is double-
     buffered) plus 20000, and 8000 per streamed weight slice; tiles run
     in waves of SMS x (blocks at once on an SM: all it holds when
     persistent, else at most 2), slowed where those blocks hold fewer than
@@ -181,11 +186,11 @@ def candidates(cin: int, cout: int, strides, classes, batch: int = 1):
         raise ValueError(f"{len(classes)} tap classes")
     nt = n_tiles_of(cout)
     ws = weight_row_stride(nt)
-    nch = cin // 8
     taps_max = max(c.n_taps for c in classes)
     if taps_max > MAX_TAPS - 1:
         raise ValueError(f"{taps_max} taps exceed the kernel's table")
-    kpad = -(-taps_max * cin // 16) * 16
+    nch = -(-cin // 8)                             # a pixel's chunks, zero past Cin
+    kpad = -(-taps_max * nch * 8 // 16) * 16
     deep = any(c.grid[0] > 1 for c in classes)     # tiles split the depth too
     ksteps = max(-(-c.n_taps * nch // 2) for c in classes)
     tail = 16 + 4 * MAX_TAPS                       # zero row, tap table
@@ -201,7 +206,7 @@ def candidates(cin: int, cout: int, strides, classes, batch: int = 1):
                 tile = (tz, ty, tx)
                 box = tuple(max((t - 1) * s + c.taps[a] for c in classes)
                             for a, (t, s) in enumerate(zip(tile, strides)))
-                box_bytes = math.prod(box) * cin * 2
+                box_bytes = math.prod(box) * nch * 16
                 region0 = -(-max(box_bytes, m * ws * 2) // 16) * 16
                 tiles = [tuple(-(-g // t) for g, t in zip(c.grid, tile)) for c in classes]
                 n_tiles = sum(math.prod(t) for t in tiles)
@@ -210,9 +215,10 @@ def candidates(cin: int, cout: int, strides, classes, batch: int = 1):
                 # products (resident weights only)
                 plane = max(c.taps[1] * c.taps[2] for c in classes)
                 for stream, nbuf in ((0, 1), (0, 2), (1, 1), (plane, 1)):
-                    if stream and (cin % 16 or stream >= taps_max):
+                    # a streamed slice is whole k steps of taps: nch even
+                    if stream and (nch % 2 or stream >= taps_max):
                         continue
-                    w_bytes = (2 * stream * cin if stream else kpad) * ws * 2
+                    w_bytes = (2 * stream * nch * 8 if stream else kpad) * ws * 2
                     smem = nbuf * region0 + w_bytes + tail
                     if smem > SMEM_LIMIT:
                         continue
@@ -223,13 +229,13 @@ def candidates(cin: int, cout: int, strides, classes, batch: int = 1):
                                  zero_off=nbuf * region0 + w_bytes,
                                  toff_off=nbuf * region0 + w_bytes + 16, kpad=kpad,
                                  tiles=tuple(tiles), grid_x=n_tiles * batch, box_bytes=region0,
-                                 nbuf=nbuf, persist=persist)
+                                 nbuf=nbuf, persist=persist, nch=nch)
                         # blocks that run at once on an SM, and the share of
                         # its issue rate they reach (8 warps saturate it)
                         conc = blocks_per_sm(p) if persist else min(2, blocks_per_sm(p))
                         eff = min(1.0, conc * warps / 8)
                         k_cost = m * ksteps
-                        box_cost = 0.1 * box_bytes
+                        box_cost = (0.1 if cin % 8 == 0 else 0.2) * box_bytes
                         tile_cost = ((max(k_cost, box_cost) if nbuf == 2 else k_cost + box_cost)
                                      + 20000 + 8000 * (-(-taps_max // stream) if stream else 0))
                         cost = -(-n_tiles * batch // (SMS * conc)) * tile_cost / eff
@@ -245,7 +251,7 @@ def plan_ints(p: Plan, x5_shape, out5_shape, k5_shape, strides, ostrides, classe
     head = [B, Di, Hi, Wi, Cin, Do, Ho, Wo, Cout, 8 * p.nt, *strides, *ostrides, *p.tile,
             *p.box, p.stream, int(relu), len(classes), p.smem_bytes, p.w_smem_off,
             p.zero_off, p.toff_off, p.kpad, p.grid_x, k5_shape[1], k5_shape[2],
-            p.box_bytes, sum(math.prod(t) for t in p.tiles), p.nbuf, int(p.persist)]
+            p.box_bytes, sum(math.prod(t) for t in p.tiles), p.nbuf, int(p.persist), p.nch]
     head += [0] * (40 - len(head))
     body = []
     first = 0

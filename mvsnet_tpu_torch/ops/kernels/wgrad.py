@@ -13,14 +13,13 @@ in float32. Both editions are split-K products: one pass writes partial
 dk's into a float32 workspace that this wrapper allocates, a second launch
 adds them in a fixed order, so the result does not change from run to run.
 Two editions (see the source's note):
-- "tc", bf16 with Cin % 8 == 0: the tensor-core kernel, each block staging
-  an input box and a cotangent tile once for all taps (a Cout that is not
-  a multiple of 8, 3dconv6_2's 1, zero-padded to 8 columns in shared
-  memory); `tc_plan` picks its tiling (plain Python, which the CPU tests
-  reach);
-- "simt", float32, and bf16 with Cin % 8 != 0 (the two convs on the
-  3-channel images): the CUDA-core kernel, which gathers the input once
-  per tap.
+- "tc", bf16: the tensor-core kernel, each block staging an input box and
+  a cotangent tile once for all taps (a Cout that is not a multiple of 8,
+  3dconv6_2's 1, zero-padded to 8 columns in shared memory; a Cin that is
+  not, the images' 3 or the GRU cells' 1, 2, 10, zero-padded per tap);
+  `tc_plan` picks its tiling (plain Python, which the CPU tests reach);
+- "simt", float32: the CUDA-core kernel, which gathers the input once per
+  tap (bf16 too where `edition="simt"` asks for it).
 `edition=None` picks by that rule; asking for "tc" on operands it does not
 take raises. `launches` counts every launch, `launches_by_edition` each
 edition's.
@@ -117,20 +116,22 @@ def wgrad_plain(x, g, ksize, stride: int = 1, pads=None):
 
 
 def takes_tc(dtype, cin: int, cout: int) -> bool:
-    """Whether the tensor-core edition takes these operands."""
-    return dtype == torch.bfloat16 and cin % 8 == 0
+    """Whether the tensor-core edition takes these operands: bf16 at any
+    Cin and Cout (a Cin or Cout that is not a multiple of 8 is zero-padded
+    in shared memory)."""
+    return dtype == torch.bfloat16 and cin > 0 and cout > 0
 
 
 def pick_edition(dtype, cin: int, cout: int, edition=None) -> str:
     """The edition that runs these operands: `edition`, or by the rule
-    (bf16 with Cin % 8 == 0 -> "tc", else "simt")."""
+    (bf16 -> "tc", float32 -> "simt")."""
     if edition not in (None, *EDITIONS):
         raise ValueError(f"edition must be None, 'tc' or 'simt', got {edition!r}")
     if edition is None:
         return "tc" if takes_tc(dtype, cin, cout) else "simt"
     if edition == "tc" and not takes_tc(dtype, cin, cout):
-        raise ValueError(f"the tensor-core edition takes bf16 with Cin % 8 == 0, got "
-                         f"{dtype}, Cin={cin}, Cout={cout}")
+        raise ValueError(f"the tensor-core edition takes bf16, got {dtype}, Cin={cin}, "
+                         f"Cout={cout}")
     return edition
 
 
@@ -147,6 +148,7 @@ class TcPlan:
     box_bytes: int       # one buffer's box and cotangent tile; a block has two
     g_bytes: int
     smem_bytes: int
+    nch: int = 0         # 16-byte chunks a staged pixel of x holds: ceil(Cin / 8)
 
     @property
     def wm(self) -> int:
@@ -175,7 +177,8 @@ def tc_regs(nt: int, mt: int) -> int:
 
 
 def tc_candidates(x5_shape, g5_shape, taps, strides, los):
-    """(cost, TcPlan) of every feasible tiling. The cost counts SM clock
+    """(cost, TcPlan) of every feasible tiling, a Cin % 8 != 0 padded per
+    tap (its gathered bytes count twice). The cost counts SM clock
     cycles: per tile, the shared-memory wavefronts of the fragment loads (4
     a 16 x 16 input fragment, 2 a cotangent fragment pair) against 1.5 a
     product, and the staged bytes at 24 bytes a clock (overlapped with the
@@ -184,10 +187,10 @@ def tc_candidates(x5_shape, g5_shape, taps, strides, los):
     over the workspace."""
     B, _, _, _, cin = x5_shape
     _, Do, Ho, Wo, cout = g5_shape
-    nch, gch = cin // 8, _ceil(cout, 8)
-    n_taps = math.prod(taps)
-    units = n_taps * nch
+    nch, gch = _ceil(cin, 8), _ceil(cout, 8)
+    units = math.prod(taps) * nch
     m_tiles = _ceil(units, 2)
+    gather = 1 if cin % 8 == 0 else 2
     tiles = []
     for tx in (8, 16, 32, 64):
         if tx > max(8, _ceil(Wo, 8) * 8):
@@ -223,14 +226,14 @@ def tc_candidates(x5_shape, g5_shape, taps, strides, los):
                     box = tuple((t - 1) * s + k for t, s, k in zip(tile, strides, taps))
                     if math.prod(box) * nch >= FASTDIV_LIMIT:
                         continue
-                    box_bytes = _ceil(math.prod(box) * cin * 2, 128) * 128
+                    box_bytes = _ceil(math.prod(box) * nch * 16, 128) * 128
                     g_bytes = _ceil(math.prod(tile) * nt * 16, 128) * 128
                     n_tiles = B * math.prod(_ceil(n, t) for n, t in zip((Do, Ho, Wo), tile))
                     grid_y = m_slices * n_slices
                     mt_slice = m_tiles / m_slices
                     comp = max(ks * (mt_slice * 4 + wm * max(2, 2 * nt)), ks * mt_slice * nt * 1.5)
                     copies = math.prod(box) * nch + math.prod(tile) * nt
-                    stage = max((box_bytes + g_bytes) / 24, copies * 25 / 128)
+                    stage = max((gather * box_bytes + g_bytes) / 24, copies * 25 / 128)
                     smem = 2 * (box_bytes + g_bytes)
                     if smem > SMEM_LIMIT:
                         continue
@@ -249,7 +252,7 @@ def tc_candidates(x5_shape, g5_shape, taps, strides, los):
                     yield ((cost, m_slices * n_slices, -math.prod(tile)),
                            TcPlan(nt=nt, mt=mt, kg=kg, tile=tile, box=box, m_slices=m_slices,
                                   n_slices=n_slices, grid_x=grid_x, box_bytes=box_bytes,
-                                  g_bytes=g_bytes, smem_bytes=smem))
+                                  g_bytes=g_bytes, smem_bytes=smem, nch=nch))
 
 
 @functools.lru_cache(maxsize=256)
@@ -263,16 +266,21 @@ def tc_plan(x5_shape, g5_shape, taps, strides, los) -> TcPlan:
     return best[1]
 
 
+def tc_units(p: TcPlan, taps) -> int:
+    """8-channel units of M, the workspace's rows / 8: taps x ceil(Cin / 8)."""
+    return math.prod(taps) * p.nch
+
+
 def plan_ints(p: TcPlan, x5_shape, g5_shape, taps, strides, los):
-    """The 39 ints of csrc/wgrad.cu's `TcPlan`."""
+    """The 40 ints of csrc/wgrad.cu's `TcPlan`."""
     B, Di, Hi, Wi, cin = x5_shape
     _, Do, Ho, Wo, cout = g5_shape
     counts = [_ceil(n, t) for n, t in zip((Do, Ho, Wo), p.tile)]
-    units = math.prod(taps) * cin // 8
+    units = tc_units(p, taps)
     ints = [B, Di, Hi, Wi, cin, Do, Ho, Wo, cout, *taps, *strides, *los, *p.tile, *p.box,
             *counts, B * math.prod(counts), p.ksteps, p.kg, p.wm, units, _ceil(units, 2),
             p.m_slices, p.box_bytes, p.g_bytes, p.smem_bytes, p.grid_x,
-            p.m_slices * p.n_slices]
+            p.m_slices * p.n_slices, p.nch]
     return np.asarray(ints, dtype=np.int32)
 
 
@@ -308,8 +316,8 @@ def wgrad(x, g, ksize, stride: int = 1, edition=None, pads=None):
     if edition == "tc":
         p, ints = _prepared(tuple(x5.shape), tuple(g5.shape), (kd, kh, kw),
                             (sd, stride, stride), (pd, ph, pw))
-        ws = torch.empty((p.grid_x * p.kg, kd * kh * kw, cin, cout), dtype=torch.float32,
-                         device=x.device)
+        ws = torch.empty((p.grid_x * p.kg, tc_units(p, (kd, kh, kw)) * 8, cout),
+                         dtype=torch.float32, device=x.device)
         out = torch.empty((kd, kh, kw, cin, cout), dtype=torch.float32, device=x.device)
         fn = _lib.launcher("wgrad", _TC_ARGTYPES, entry="tc_launch")
         err = fn(p.nt, p.mt, ints.ctypes.data_as(ctypes.c_void_p), _lib.ptr(x5), _lib.ptr(g5),

@@ -441,8 +441,8 @@ def test_deconv_tc_matches_plain(dev, shape, k, cin, cout, lo, outs):
 
 
 def test_edition_rule_on_card(dev):
-    """bf16 with Cin % 8 == 0 runs "tc" by default; float32 and Cin = 3 run
-    "simt", and asking for "tc" on them raises before any launch."""
+    """bf16 runs "tc" by default at any Cin (8 and 3 here); float32 runs
+    "simt", and asking for "tc" on it raises before any launch."""
     rng = np.random.default_rng(16)
     w8 = _rand(rng, (3, 3, 8, 8), torch.bfloat16, dev)
     before = _editions()
@@ -450,15 +450,15 @@ def test_edition_rule_on_card(dev):
     conv.conv(_rand(rng, (1, 9, 10, 3), torch.bfloat16, dev), w8[:, :, :3])
     conv.conv(_rand(rng, (1, 9, 10, 8), torch.float32, dev), w8.float())
     deconv.deconv(_rand(rng, (1, 4, 5, 8), torch.bfloat16, dev), w8)
+    deconv.deconv(_rand(rng, (1, 4, 5, 3), torch.bfloat16, dev), w8[:, :, :3])
     after = _editions()
-    assert after["conv"] == {"tc": before["conv"]["tc"] + 1, "simt": before["conv"]["simt"] + 2}
-    assert after["deconv"]["tc"] == before["deconv"]["tc"] + 1
-    for x, w in ((_rand(rng, (1, 9, 10, 8), torch.float32, dev), w8.float()),
-                 (_rand(rng, (1, 9, 10, 3), torch.bfloat16, dev), w8[:, :, :3])):
-        with pytest.raises(ValueError, match="tensor-core"):
-            conv.conv(x, w, edition="tc")
-        with pytest.raises(ValueError, match="tensor-core"):
-            deconv.deconv(x, w, edition="tc")
+    assert after["conv"] == {"tc": before["conv"]["tc"] + 2, "simt": before["conv"]["simt"] + 1}
+    assert after["deconv"]["tc"] == before["deconv"]["tc"] + 2
+    x, w = _rand(rng, (1, 9, 10, 8), torch.float32, dev), w8.float()
+    with pytest.raises(ValueError, match="tensor-core"):
+        conv.conv(x, w, edition="tc")
+    with pytest.raises(ValueError, match="tensor-core"):
+        deconv.deconv(x, w, edition="tc")
     assert _editions() == after
 
 
@@ -509,6 +509,98 @@ def test_wgrad_editions_match_plain(dev, edition, shape, k, stride, cin, cout):
     _close(got, wgrad.wgrad_plain(x, g, (k,) * rank, stride), TOL[torch.float32])
 
 
+# ---- Cin % 8 != 0 on the tensor cores: zero-padded in shared memory
+
+SMALL_CIN = [1, 2, 3, 5, 6, 10]
+
+
+@pytest.mark.parametrize("cin", SMALL_CIN)
+@pytest.mark.parametrize("shape,k,stride", [((2, 13, 21), 3, 1), ((1, 15, 17), 3, 2),
+                                            ((1, 11, 19), 5, 2), ((1, 5, 9, 11), 3, 1)])
+def test_conv_tc_small_cin_matches_plain(dev, cin, shape, k, stride):
+    """The conv kernel's tensor-core edition at Cin % 8 != 0, 2D 3x3 s1,
+    3x3 s2, 5x5 s2 and 3D 3x3x3: bf16's tolerance against the plain
+    version, one tc launch each."""
+    rng = np.random.default_rng(cin * 10 + k + stride)
+    rank = len(shape) - 1
+    x = _rand(rng, shape + (cin,), torch.bfloat16, dev)
+    w = _rand(rng, (k,) * rank + (cin, 8), torch.bfloat16, dev, (k ** rank * cin) ** -0.5)
+    b = _rand(rng, (8,), torch.float32, dev)
+    before = _editions()["conv"]
+    got = conv.conv(x, w, b, stride, True)
+    assert _editions()["conv"] == {"tc": before["tc"] + 1, "simt": before["simt"]}
+    _close(got, conv.conv_plain(x, w, b, stride, True), TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("cin", SMALL_CIN)
+@pytest.mark.parametrize("shape,k,lo,outs", [((2, 5, 7), 3, 0, None), ((1, 3, 4, 5), 3, 0, None),
+                                             ((1, 8, 11), 5, 1, (15, 21))])
+def test_deconv_tc_small_cin_matches_plain(dev, cin, shape, k, lo, outs):
+    """The transposed conv's tensor-core edition at Cin % 8 != 0 (flax's
+    3x3 s2 in 2D and 3D, the 5x5 adjoint): the plain version within bf16's
+    tolerance, one tc launch each."""
+    rng = np.random.default_rng(cin * 7 + k)
+    rank = len(shape) - 1
+    x = _rand(rng, shape + (cin,), torch.bfloat16, dev)
+    w = _rand(rng, (k,) * rank + (cin, 8), torch.bfloat16, dev, (k * k * cin) ** -0.5)
+    b = _rand(rng, (8,), torch.float32, dev)
+    before = _editions()["deconv"]
+    got = deconv.deconv(x, w, b, True, lo, outs)
+    assert _editions()["deconv"] == {"tc": before["tc"] + 1, "simt": before["simt"]}
+    _close(got, deconv.deconv_plain(x, w, b, True, lo, outs), TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("cin", SMALL_CIN)
+@pytest.mark.parametrize("shape,k,stride,cout", [((2, 13, 21), 3, 1, 8), ((1, 15, 17), 3, 2, 16),
+                                                 ((1, 11, 19), 5, 2, 8), ((1, 5, 9, 11), 3, 1, 1)])
+def test_wgrad_tc_small_cin_matches_plain(dev, cin, shape, k, stride, cout):
+    """K4w's tensor-core edition at Cin % 8 != 0: float32's tolerance against
+    the plain version (bf16 inputs, float32 sums), one tc launch, and two
+    calls equal bit for bit."""
+    rng = np.random.default_rng(cin * 13 + k + stride)
+    rank = len(shape) - 1
+    x = _rand(rng, shape + (cin,), torch.bfloat16, dev)
+    out = [conv.same_pads(n, k, stride)[2] for n in shape[1:]]
+    g = _rand(rng, (shape[0], *out, cout), torch.bfloat16, dev)
+    before = _editions()["wgrad"]
+    got = wgrad.wgrad(x, g, (k,) * rank, stride)
+    assert _editions()["wgrad"] == {"tc": before["tc"] + 1, "simt": before["simt"]}
+    _close(got, wgrad.wgrad_plain(x, g, (k,) * rank, stride), TOL[torch.float32])
+    assert torch.equal(got, wgrad.wgrad(x, g, (k,) * rank, stride))
+
+
+@pytest.mark.parametrize("cin", [3, 5])
+def test_small_cin_simt_edition_still_runs(dev, cin):
+    """`edition="simt"` keeps the CUDA-core kernels reachable for bf16 at a
+    small Cin: conv, transposed conv and weight gradient, each against its
+    plain version."""
+    rng = np.random.default_rng(cin)
+    x = _rand(rng, (1, 13, 17, cin), torch.bfloat16, dev)
+    w = _rand(rng, (3, 3, cin, 8), torch.bfloat16, dev, (9 * cin) ** -0.5)
+    g = _rand(rng, (1, 13, 17, 8), torch.bfloat16, dev)
+    before = _editions()
+    _close(conv.conv(x, w, None, 1, False, edition="simt"), conv.conv_plain(x, w),
+           TOL[torch.bfloat16])
+    _close(deconv.deconv(x, w, edition="simt"), deconv.deconv_plain(x, w), TOL[torch.bfloat16])
+    _close(wgrad.wgrad(x, g, (3, 3), 1, edition="simt"), wgrad.wgrad_plain(x, g, (3, 3), 1),
+           TOL[torch.float32])
+    after = _editions()
+    assert all(after[k]["simt"] == before[k]["simt"] + 1 for k in after)
+    assert all(after[k]["tc"] == before[k]["tc"] for k in after)
+
+
+def test_small_cin_rows_of_a_block_equal_the_whole_map(dev):
+    """The image conv on a row block at explicit pads, as the tower's row
+    blocks run it, gives the whole map's rows bit for bit: a Cin of 3 is
+    padded alike whatever the shape, and each output sums in one order."""
+    rng = np.random.default_rng(21)
+    x = _rand(rng, (1, 40, 40, 3), torch.bfloat16, dev)     # rows of 240 bytes
+    w = _rand(rng, (3, 3, 3, 8), torch.bfloat16, dev, 0.2)
+    whole = conv.conv(x, w, None, 1, False)
+    got = conv.conv(x[:, 9:31], w, None, 1, False, pads=[(0, 0), (1, 1)])
+    assert torch.equal(got, whole[:, 10:30])
+
+
 def test_wgrad_tc_is_deterministic(dev):
     """Two tc calls on the same inputs are equal bit for bit: every block's
     partial sums its tiles in one order and the second pass adds the
@@ -522,12 +614,11 @@ def test_wgrad_tc_is_deterministic(dev):
 
 
 def test_wgrad_edition_rule_on_card(dev):
-    """bf16 with Cin % 8 == 0 runs "tc" by default (Cout = 1 too); float32
-    and Cin = 3 run "simt", and asking for "tc" on them raises before any
-    launch."""
+    """bf16 runs "tc" by default (Cin = 3 and Cout = 1 too); float32 runs
+    "simt", and asking for "tc" on it raises before any launch."""
     rng = np.random.default_rng(20)
     cases = [((1, 9, 10, 8), (1, 9, 10, 8), torch.bfloat16, "tc"),
-             ((1, 9, 10, 3), (1, 9, 10, 8), torch.bfloat16, "simt"),
+             ((1, 9, 10, 3), (1, 9, 10, 8), torch.bfloat16, "tc"),
              ((1, 9, 10, 8), (1, 9, 10, 1), torch.bfloat16, "tc"),
              ((1, 9, 10, 8), (1, 9, 10, 8), torch.float32, "simt")]
     for xs, gs, dtype, want in cases:
@@ -682,12 +773,7 @@ GRU_CONVS = [(48, 32), (48, 16), (20, 8), (20, 4), (6, 4), (6, 2), (2, 1), (48, 
 def test_gru_cell_convs_match_plain(dev, dtype, edition, cin, cout):
     """A GRU cell's 3x3 SAME conv with bias and no ReLU at a feature map of
     37x50 (odd, not a multiple of any tile), in each edition that takes
-    it (the tensor cores take bf16 with Cin % 8 == 0)."""
-    if edition == "tc" and cin % 8:
-        with pytest.raises(ValueError, match="tensor-core"):
-            conv.conv(torch.zeros((1, 4, 4, cin), dtype=dtype, device=dev),
-                      torch.zeros((3, 3, cin, cout), dtype=dtype, device=dev), edition="tc")
-        return
+    it (the tensor cores take bf16 at any Cin: 20, 6 and 2 zero-padded)."""
     rng = np.random.default_rng(cin * 100 + cout)
     x = _rand(rng, (1, 37, 50, cin), dtype, dev)
     w = _rand(rng, (3, 3, cin, cout), dtype, dev, (9 * cin) ** -0.5)
@@ -876,9 +962,9 @@ def test_refined_predictor_card_matches_cpu(dev, dtype):
     """A refined request (`normal`, 128x160, D=16) on the card against the
     CPU's plain path: in float32 the refined depth within phase 5's 0.05,
     prob 1e-3, the residual within 1e-3 of max(1, max|residual|); in
-    bfloat16 the refinement net's two Cin = 5 convs run the CUDA-core
-    edition and every other conv and transposed conv the tensor cores,
-    and the maps are finite."""
+    bfloat16 every conv and transposed conv runs the tensor cores (the
+    tower's two image convs and the refinement net's two Cin = 5 convs
+    too), and the maps are finite."""
     from mvsnet_tpu_torch.ops import kernels
 
     cfg = ModelConfig(view_num=3, max_d=16, width=160, height=128, network_mode="normal",
@@ -891,9 +977,10 @@ def test_refined_predictor_card_matches_cpu(dev, dtype):
     after = kernels.edition_counts()
     assert all(np.isfinite(o).all() for o in card) and card[0].shape == (1, 128, 160, 1)
     if dtype == "bfloat16":
-        # the tower's two image convs and the refinement net's two Cin = 5 convs
-        assert after["conv"]["simt"] - before["conv"]["simt"] == 4
-        assert after["conv"]["tc"] - before["conv"]["tc"] == 56
+        # the tower's two image convs and the refinement net's two Cin = 5
+        # convs zero-padded in shared memory
+        assert after["conv"]["simt"] - before["conv"]["simt"] == 0
+        assert after["conv"]["tc"] - before["conv"]["tc"] == 60
         assert after["deconv"]["tc"] - before["deconv"]["tc"] == 11
         return
     cpu = Predictor(cfg, state_dict=sd, device="cpu").predict(*inputs)

@@ -36,8 +36,11 @@ def _inputs(seed, x_shape, k_shape):
 @pytest.mark.parametrize("dtype,cin,cout,want", [
     (torch.bfloat16, 8, 1, "tc"), (torch.bfloat16, 32, 8, "tc"),
     (torch.bfloat16, 128, 128, "tc"), (torch.bfloat16, 24, 12, "tc"),
-    (torch.bfloat16, 3, 8, "simt"), (torch.bfloat16, 64, 256, "simt"),
+    (torch.bfloat16, 3, 8, "tc"), (torch.bfloat16, 64, 256, "simt"),
     (torch.float32, 32, 8, "simt"), (torch.float32, 3, 8, "simt"),
+    (torch.bfloat16, 1, 1, "tc"), (torch.bfloat16, 2, 8, "tc"), (torch.bfloat16, 5, 128, "tc"),
+    (torch.bfloat16, 6, 4, "tc"), (torch.bfloat16, 10, 2, "tc"), (torch.bfloat16, 20, 8, "tc"),
+    (torch.bfloat16, 5, 129, "simt"), (torch.float32, 5, 8, "simt"),
 ])
 def test_edition_rule(dtype, cin, cout, want):
     assert conv.pick_edition(dtype, cin, cout) == want
@@ -215,3 +218,208 @@ def test_plan_ints_layout():
         row = ints[40 + 20 * i:60 + 20 * i]
         assert tuple(row[:3]) == c.taps and tuple(row[12:15]) == c.start
         assert tuple(row[15:18]) == p.tiles[i]
+
+
+# ---- Cin % 8 != 0: a mirror of the kernel's zero-padded staging
+
+def _fields(src, name):
+    """Field names of `struct <name> { int a, b; int c[2]; ... }` in order,
+    arrays expanded, comments removed."""
+    body = src[src.index(f"struct {name} {{"):]
+    body = re.sub(r"//[^\n]*", "", body[body.index("{") + 1:body.index("};")])
+    names = []
+    for decl in re.findall(r"\bint\s+([^;]+);", body):
+        for item in decl.split(","):
+            item = item.strip()
+            size = re.search(r"\[(\w+)\]", item)
+            names += ([f"{item[:item.index('[')]}{i}" for i in range(int(size.group(1)))]
+                      if size else [item])
+    return names
+
+
+_SRC = (Path(tc.__file__).resolve().parents[2] / "csrc" / "tc_conv.cuh").read_text()
+PLAN_FIELDS, CLASS_FIELDS = _fields(_SRC, "Plan"), _fields(_SRC, "ClassPlan")
+
+
+def _swizzle(nch):
+    """csrc/tc_conv.cuh `Swizzle`: the chunk slot of (position, chunk)."""
+    shift = mask = 0
+    if nch & (nch - 1) == 0:
+        if nch >= 8:
+            mask = 7
+        elif nch > 1:
+            mask, shift = nch - 1, (1 if nch == 4 else 2)
+    return lambda pix, c: pix * nch + (c ^ ((pix >> shift) & mask))
+
+
+def mirror_tc_conv(x5, k5, bias, strides, ostrides, classes, relu):
+    """out5 as csrc/tc_conv.cuh computes it, from the plan ints alone:
+    each tile's box staged into a simulated shared memory (NaN where
+    nothing is staged) as the aligned or the element-by-element path
+    stages it, the weight rows as `load_weights` lays them out (zero past
+    Cin and past the last tap), the tap table, and every output row's sum
+    over the k units in the kernel's order; float64."""
+    B = x5.shape[0]
+    cin, cout = x5.shape[-1], k5.shape[-1]
+    out_shape = [B] + [max((c.grid[a] - 1) * c.step[a] + c.offset[a] + 1 for c in classes)
+                       for a in range(3)] + [cout]
+    p = tc.plan(cin, cout, strides, classes, B)
+    assert not p.stream
+    ints = tc.plan_ints(p, x5.shape, out_shape, k5.shape, strides, ostrides, classes, relu)
+    P = dict(zip(PLAN_FIELDS, ints[:40].tolist()))
+    nch, BZ, BY, BX = P["nch"], P["BZ"], P["BY"], P["BX"]
+    G8, swz = 8 * nch, _swizzle(nch)
+    half_x = (BX + 1) >> 1
+    xpos = (lambda bx: (bx & 1) * half_x + (bx >> 1)) if P["sw"] == 2 else (lambda b: b)
+    x = x5.astype(np.float64)
+    xflat = x.reshape(B, P["Di"], P["Hi"], P["Wi"] * cin)
+    w = k5.astype(np.float64).reshape(-1, cout)
+    out = np.full(out_shape, np.nan)
+    TZ, TY, TX = P["TZ"], P["TY"], P["TX"]
+    M = TZ * TY * TX
+    rows = np.arange(M)
+    lz, ly, lx = rows // (TY * TX), (rows // TX) % TY, rows % TX
+    rowpix = (lz * P["sd"] * BY + ly * P["sh"]) * BX + lx
+    for ci_, cls_ints in enumerate(ints[40:].reshape(8, 20)[:P["nclass"]]):
+        cp = dict(zip(CLASS_FIELDS, cls_ints.tolist()))
+        taps = cp["kd"] * cp["kh"] * cp["kw"]
+        wsm = np.zeros((P["kpad"], cout))
+        for r in range(taps * G8):
+            t, ci = divmod(r, G8)
+            if ci >= cin:
+                continue
+            a, rem = divmod(t, cp["kh"] * cp["kw"])
+            bb, ex = divmod(rem, cp["kw"])
+            krow = (((cp["sz"] + a * P["osd"]) * P["KH"] + cp["sy"] + bb * P["osh"]) * P["KW"]
+                    + cp["sx"] + ex * P["osw"]) * cin + ci
+            wsm[r] = w[krow]
+        toff = []
+        for t in range(taps):
+            a, rem = divmod(t, cp["kh"] * cp["kw"])
+            bb, e = divmod(rem, cp["kw"])
+            toff.append((a * BY + bb) * BX + xpos(e))
+        ksteps = -(-taps * nch // 2)
+        for b in range(B):
+            for tz in range(cp["tz"]):
+                for ty in range(cp["ty"]):
+                    for tx in range(cp["tx"]):
+                        gz0, gy0, gx0 = tz * TZ, ty * TY, tx * TX
+                        iz0 = gz0 * P["sd"] - cp["pd"]
+                        iy0 = gy0 * P["sh"] - cp["ph"]
+                        ix0 = gx0 * P["sw"] - cp["pw"]
+                        smem = np.full((P["box_bytes"] // 16, 8), np.nan)
+                        for q in range(BZ * BY * BX * nch):
+                            pix, c = divmod(q, nch)
+                            r, bx = divmod(pix, BX)
+                            bz, by = divmod(r, BY)
+                            iz, iy = iz0 + bz, iy0 + by
+                            inside = 0 <= iz < P["Di"] and 0 <= iy < P["Hi"]
+                            vals = np.zeros(8)
+                            if cin % 8 == 0:
+                                ix = ix0 + bx
+                                if inside and 0 <= ix < P["Wi"]:
+                                    vals = x[b, iz, iy, ix, 8 * c:8 * c + 8]
+                            else:
+                                f0 = (ix0 + bx) * cin + 8 * c
+                                for i in range(8):
+                                    f = f0 + i
+                                    if inside and 8 * c + i < cin and 0 <= f < P["Wi"] * cin:
+                                        vals[i] = xflat[b, iz, iy, f]
+                            smem[swz(pix - bx + xpos(bx), c)] = vals
+                        acc = np.zeros((M, cout))
+                        for u in range(2 * ksteps):
+                            tl, c = divmod(u, nch)
+                            if tl >= taps:         # the tap table's -1: the zero row
+                                arow = np.zeros((M, 8))
+                            else:
+                                arow = smem[[swz(pix, c) for pix in rowpix + toff[tl]]]
+                            acc += arow @ wsm[8 * u:8 * u + 8]
+                        if bias is not None:
+                            acc += bias
+                        if relu:
+                            acc = np.maximum(acc, 0)
+                        gz, gy, gx = gz0 + lz, gy0 + ly, gx0 + lx
+                        keep = (gz < cp["Dc"]) & (gy < cp["Hc"]) & (gx < cp["Wc"])
+                        out[b, gz[keep] * P["osd"] + cp["oz"], gy[keep] * P["osh"] + cp["oy"],
+                            gx[keep] * P["osw"] + cp["ox"]] = acc[keep]
+    assert not np.isnan(out).any(), "an output unwritten, or a NaN chunk read"
+    return out
+
+
+def _conv_case(seed, shape, cout, k, stride):
+    x, kern, b = _inputs(seed, shape, (k,) * (len(shape) - 2) + (shape[-1], cout))
+    rank = len(shape) - 2
+    pads = [conv.same_pads(n, k, stride) for n in shape[1:-1]]
+    if rank == 2:
+        pads = [(0, 0, 1)] + pads
+    taps = (k,) * 3 if rank == 3 else (1, k, k)
+    strides = (stride,) * 3 if rank == 3 else (1, stride, stride)
+    cls = tc.TapClass(taps, tuple(p[0] for p in pads), tuple(p[2] for p in pads))
+    x5 = x[:, None] if rank == 2 else x
+    k5 = kern[None] if rank == 2 else kern
+    return x, kern, b, x5, k5, strides, [cls]
+
+
+@pytest.mark.parametrize("cin,shape_hw,k,stride", [
+    (1, (9, 13), 3, 1), (2, (9, 13), 3, 1), (3, (9, 13), 3, 1), (5, (8, 12), 3, 1),
+    (6, (7, 11), 3, 1), (10, (7, 9), 3, 1), (3, (9, 13), 3, 2), (5, (10, 11), 3, 2),
+    (3, (11, 13), 5, 2),
+])
+def test_small_cin_mirror_matches_plain_2d(cin, shape_hw, k, stride):
+    """Cin % 8 != 0 zero-padded per pixel, 2D 3x3 s1, 3x3 s2 and 5x5 s2,
+    with a bias and a ReLU: the kernel's arithmetic mirrored from its plan
+    ints equals `conv_plain`."""
+    x, kern, b, x5, k5, strides, classes = _conv_case(cin * 7 + k + stride, (2, *shape_hw, cin),
+                                                      8 if cin != 5 else 5, k, stride)
+    got = mirror_tc_conv(x5, k5, b, strides, (1, 1, 1), classes, True)[:, 0]
+    want = conv.conv_plain(torch.from_numpy(x), torch.from_numpy(kern), torch.from_numpy(b),
+                           stride, True).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("cin", [1, 3, 8])
+def test_small_cin_mirror_matches_plain_3d(cin):
+    """3x3x3 s1 at Cin 1 (3dconv6_2's input gradient) and 3, and the
+    aligned Cin = 8 path through the same mirror."""
+    x, kern, _, x5, k5, strides, classes = _conv_case(cin, (1, 4, 6, 9, cin), 4, 3, 1)
+    got = mirror_tc_conv(x5, k5, None, strides, (1, 1, 1), classes, False)
+    want = conv.conv_plain(torch.from_numpy(x), torch.from_numpy(kern)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("rank,cin", [(2, 3), (2, 6), (3, 2), (3, 5)])
+def test_small_cin_mirror_matches_plain_transposed(rank, cin):
+    """The transposed conv's parity classes (kernel slices w[s::2], outputs
+    at out[2 j + r]) at Cin % 8 != 0: the mirror equals `deconv_plain`."""
+    shape = (1, 3, 4, 5) if rank == 3 else (2, 4, 6)
+    x, kern, b = _inputs(rank + cin, shape + (cin,), (3,) * rank + (cin, 8))
+    x5 = x[:, None] if rank == 2 else x
+    k5 = kern[None] if rank == 2 else kern
+    ins = x5.shape[1:-1]
+    outs = tuple(2 * n for n in ins) if rank == 3 else (1, *(2 * n for n in ins[1:]))
+    classes = tc.deconv_classes(3, ins, (0, 0, 0), outs, (rank == 3, True, True))
+    got = mirror_tc_conv(x5, k5, b, (1, 1, 1), (2 if rank == 3 else 1, 2, 2), classes, True)
+    want = deconv.deconv_plain(torch.from_numpy(x), torch.from_numpy(kern), torch.from_numpy(b),
+                               True).numpy()
+    np.testing.assert_allclose(got[:, 0] if rank == 2 else got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_small_cin_plans_fit_the_card():
+    """The plans of every Cin % 8 != 0 conv on the paths (the images' 3,
+    the refinement's 5, the GRU cells' 1, 2, 6, 10, 20 and 3dconv6_2's
+    input gradient at 1) fit a block's shared memory without overlap."""
+    for cin, shape, cout, k, s in ((3, (3, 1, 864, 1152), 8, 3, 1), (3, (3, 1, 864, 1152), 16, 3, 2),
+                                   (5, (1, 1, 864, 1152), 8, 3, 1), (5, (1, 1, 864, 1152), 16, 3, 2),
+                                   (20, (1, 1, 296, 400), 8, 3, 1), (6, (1, 1, 296, 400), 4, 3, 1),
+                                   (2, (1, 1, 296, 400), 1, 3, 1), (10, (1, 1, 120, 160), 4, 3, 1),
+                                   (1, (1, 192, 120, 160), 8, 3, 1)):
+        taps = (k,) * 3 if shape[1] > 1 else (1, k, k)
+        strides = (s,) * 3 if shape[1] > 1 else (1, s, s)
+        pads = [conv.same_pads(n, kk, ss) for n, kk, ss in zip(shape[1:], taps, strides)]
+        cls = tc.TapClass(taps, tuple(p[0] for p in pads), tuple(p[2] for p in pads))
+        p = tc.plan(cin, cout, strides, [cls], shape[0])
+        m = math.prod(p.tile)
+        assert p.nch == -(-cin // 8)
+        assert p.w_smem_off >= max(math.prod(p.box) * p.nch * 16, m * tc.weight_row_stride(p.nt) * 2)
+        assert p.kpad >= math.prod(taps) * p.nch * 8 and p.kpad % 16 == 0
+        assert p.smem_bytes <= tc.SMEM_LIMIT and not p.stream

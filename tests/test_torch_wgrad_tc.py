@@ -82,16 +82,19 @@ def _operands(x, g, ksize, stride):
 
 def mirror_tc(x, g, ksize, stride, plan=None):
     """dk as csrc/wgrad.cu's tensor-core edition computes it, from the plan
-    ints alone (float64 products of the float32 inputs)."""
+    ints alone (float64 products of the float32 inputs). A Cin % 8 != 0
+    is gathered element by element, padded per tap, and the second pass
+    maps dk's rows to the workspace's padded rows."""
     x5, g5, taps, strides, los = _operands(x, g, ksize, stride)
     if plan is None:
         plan = wgrad.tc_plan(x5.shape, g5.shape, taps, strides, los)
     P = dict(zip(FIELDS, wgrad.plan_ints(plan, x5.shape, g5.shape, taps, strides, los).tolist()))
     nt, mt_n = plan.nt, plan.mt
     Cin, Cout = P["Cin"], P["Cout"]
-    nch, gch = Cin // 8, -(-Cout // 8)
+    nch, gch = P["nch"], -(-Cout // 8)
     swx, swg = _swizzle(nch), _swizzle(nt)
     half_x = (P["BX"] + 1) >> 1
+    xflat = x5.astype(np.float64).reshape(*x5.shape[:3], -1)
 
     def xpos(bx):
         return (bx & 1) * half_x + (bx >> 1) if P["sw"] == 2 else bx
@@ -114,9 +117,17 @@ def mirror_tc(x, g, ksize, stride, plan=None):
             r, bx = divmod(pix, P["BX"])
             bz, by = divmod(r, P["BY"])
             zz, yy, xx = iz0 + bz, iy0 + by, ix0 + bx
-            inside = 0 <= zz < P["Di"] and 0 <= yy < P["Hi"] and 0 <= xx < P["Wi"]
             slot = base + swx(pix - bx + xpos(bx), c)
-            smem[slot] = xf[b, zz, yy, xx, 8 * c:8 * c + 8] if inside else 0.0
+            if Cin % 8 == 0:
+                inside = 0 <= zz < P["Di"] and 0 <= yy < P["Hi"] and 0 <= xx < P["Wi"]
+                smem[slot] = xf[b, zz, yy, xx, 8 * c:8 * c + 8] if inside else 0.0
+                continue
+            # the element-by-element gather from the channels-last row
+            inside = 0 <= zz < P["Di"] and 0 <= yy < P["Hi"]
+            f0 = (ix0 + bx) * Cin + 8 * c
+            smem[slot] = [xflat[b, zz, yy, f0 + i]
+                          if inside and 8 * c + i < Cin and 0 <= f0 + i < P["Wi"] * Cin else 0.0
+                          for i in range(8)]
         gbase = base + box_chunks
         for q in range(M * nt):
             v, c = divmod(q, nt)
@@ -192,9 +203,12 @@ def mirror_tc(x, g, ksize, stride, plan=None):
                                 ws[bx_ * P["kg"] + kg, row, col:col + cols] = \
                                     acc[warp, mt, n, rr_, :cols]
     assert not np.isnan(ws).any(), "a partial the kernel leaves unwritten, or a NaN chunk read"
-    out = ws[0].copy()
+    # the second pass: dk's row r from padded row (r / Cin) * nch * 8 +
+    # r % Cin, the partials added in order
+    src = [(r // Cin) * nch * 8 + r % Cin for r in range(math.prod(taps) * Cin)]
+    out = ws[0, src].copy()
     for k in range(1, ws.shape[0]):
-        out += ws[k]
+        out += ws[k, src]
     return out.reshape(*taps, Cin, Cout)[0 if x.ndim == 4 else slice(None)]
 
 
@@ -262,8 +276,10 @@ def test_tc_mirror_matches_pallas_interpret():
 
 @pytest.mark.parametrize("dtype,cin,cout,want", [
     (torch.bfloat16, 32, 8, "tc"), (torch.bfloat16, 8, 16, "tc"),
-    (torch.bfloat16, 128, 128, "tc"), (torch.bfloat16, 3, 8, "simt"),
+    (torch.bfloat16, 128, 128, "tc"), (torch.bfloat16, 3, 8, "tc"),
     (torch.bfloat16, 8, 1, "tc"), (torch.float32, 32, 8, "simt"),
+    (torch.bfloat16, 1, 1, "tc"), (torch.bfloat16, 5, 8, "tc"), (torch.bfloat16, 10, 4, "tc"),
+    (torch.float32, 3, 8, "simt"),
 ])
 def test_wgrad_edition_rule(dtype, cin, cout, want):
     assert wgrad.pick_edition(dtype, cin, cout) == want
@@ -290,18 +306,47 @@ def test_wgrad_edition_request_is_checked_on_cpu():
 
 
 def test_tc_plan_ints_match_the_kernel_struct():
-    """`plan_ints` fills the 39 ints of csrc/wgrad.cu's `TcPlan` (whose
+    """`plan_ints` fills the 40 ints of csrc/wgrad.cu's `TcPlan` (whose
     static_assert holds only on the card), in its field order."""
-    assert len(FIELDS) == 39
+    assert len(FIELDS) == 40
     x, g, ks = _case(1, (1, 4, 5, 16, 32), 8, 3, 1)
     x5, g5, taps, strides, los = _operands(x, g, ks, 1)
     p = wgrad.tc_plan(x5.shape, g5.shape, taps, strides, los)
     ints = wgrad.plan_ints(p, x5.shape, g5.shape, taps, strides, los)
-    assert ints.shape == (39,) and ints.dtype == np.int32
+    assert ints.shape == (40,) and ints.dtype == np.int32
     P = dict(zip(FIELDS, ints.tolist()))
     assert (P["TZ"], P["TY"], P["TX"]) == p.tile and (P["BZ"], P["BY"], P["BX"]) == p.box
     assert P["kg"] * P["wm"] == wgrad.TC_WARPS and P["ksteps"] * 16 == math.prod(p.tile)
     assert P["units"] == 27 * 4 and P["m_tiles"] == 54 and P["grid_x"] == p.grid_x
+    assert P["nch"] == 4
+
+
+@pytest.mark.parametrize("x_shape,cout,k,stride", [
+    ((1, 9, 16, 1), 1, 3, 1),              # prob_conv 1x1
+    ((1, 9, 16, 2), 3, 3, 1),              # the GRU input gradients' 2 channels
+    ((1, 9, 16, 3), 8, 3, 1),              # the images' 3 channels
+    ((1, 9, 17, 5), 8, 3, 1),              # 2dconv0_1_refine 5x8
+    ((1, 8, 16, 10), 4, 3, 1),             # gru2 10x4
+    ((1, 4, 5, 16, 1), 8, 3, 1),           # 3D, Cin 1
+    ((2, 9, 19, 3), 16, 3, 2),             # 2D 3x3 s2 (2dconv1_0)
+    ((1, 11, 21, 5), 8, 5, 2),             # 2D 5x5 s2
+])
+def test_tc_mirror_small_cin_matches_plain(x_shape, cout, k, stride):
+    """Cin % 8 != 0, padded per tap: the mirror of the kernel's gathers,
+    fragments and second pass equals `wgrad_plain`."""
+    x, g, ks = _case(sum(x_shape) + k, x_shape, cout, k, stride)
+    np.testing.assert_allclose(mirror_tc(x, g, ks, stride), _plain(x, g, ks, stride), **SUMS)
+
+
+@pytest.mark.parametrize("cin,nch", [(1, 1), (3, 1), (5, 1), (10, 2), (20, 3)])
+def test_tc_small_cin_workspace_holds_the_padded_rows(cin, nch):
+    """The plan's units count the padded layout's rows, taps x ceil(Cin /
+    8), and its box the padded chunks."""
+    x5, g5 = (1, 1, 20, 32, cin), (1, 1, 20, 32, 8)
+    p = wgrad.tc_plan(x5, g5, (1, 3, 3), (1, 1, 1), (0, 1, 1))
+    P = dict(zip(FIELDS, wgrad.plan_ints(p, x5, g5, (1, 3, 3), (1, 1, 1), (0, 1, 1))))
+    assert P["nch"] == nch and P["units"] == wgrad.tc_units(p, (1, 3, 3)) == 9 * nch
+    assert P["box_bytes"] >= math.prod(p.box) * nch * 16
 
 
 # every tc weight gradient of a train step at 640x480, D=192 (x, g, k, stride)

@@ -1,15 +1,18 @@
 """Time the tensor-core conv kernel's candidate tilings (`tc.candidates`)
 at every conv and transposed-conv shape of a bf16 request at 1152x864,
-D=192, V=3, on one card: the data the planner's cost model was fitted to.
+D=192, V=3, on one card: the data the planner's cost model was fitted to;
+then the layers of the paths whose Cin is not a multiple of 8 (zero-padded
+in shared memory).
 
-    python3 tools/tc_tile_sweep.py      # on a machine with an H100
+    python3 tools/tc_tile_sweep.py            # on a machine with an H100
+    python3 tools/tc_tile_sweep.py --small    # the Cin % 8 != 0 layers only
 
 Per layer: the planner's pick, the fastest candidate timed, and the
 wrapper's time (launch overhead included); every candidate's output must
 equal the wrapper's bit for bit (eq1), since a tile plan does not change
 any output's order of summation. Then one line with every candidate timed
 (ms/mt<MT>w<warps>(tile)s<stream>b<buffers>p<persistent>), and at the end
-the sums.
+the sums of each group of layers.
 """
 import ctypes
 import sys
@@ -26,6 +29,7 @@ MAX_CANDIDATES = 24
 # (name, kind, input (B, D, H, W, Cin), taps, strides, Cout); 2D layers have
 # D = 1, taps (1, k, k) and strides (1, s, s)
 LAYERS = []
+SMALL = []          # Cin % 8 != 0: the same
 
 
 def conv2d(name, B, H, W, cin, cout, k=3, s=1):
@@ -75,6 +79,24 @@ deconv3d("3dconv4_0", 24, 27, 36, 64, 32)
 deconv3d("3dconv5_0", 48, 54, 72, 32, 16)
 deconv3d("3dconv6_0", 96, 108, 144, 16, 8)
 conv3d("3dconv6_2", 192, 216, 288, 8, 1)
+
+
+# Cin % 8 != 0 on the paths: the image convs, the refinement net's first
+# convs, the GRU cells at the serving point and at the train_gru point
+# (forward and input gradients), 3dconv6_2's input gradient
+for name, B, H, W, cin, cout, s in (
+        ("2dconv0_1", 3, 864, 1152, 3, 8, 1), ("2dconv1_0", 3, 864, 1152, 3, 16, 2),
+        ("2dconv0_1_refine", 1, 864, 1152, 5, 8, 1), ("2dconv1_0_refine", 1, 864, 1152, 5, 16, 2),
+        ("gru2_gates", 1, 296, 400, 20, 8, 1), ("gru2_output", 1, 296, 400, 20, 4, 1),
+        ("gru3_gates", 1, 296, 400, 6, 4, 1), ("gru3_output", 1, 296, 400, 6, 2, 1),
+        ("prob_conv", 1, 296, 400, 2, 1, 1),
+        ("lite_gru2_gates", 1, 120, 160, 10, 4, 1), ("lite_gru2_output", 1, 120, 160, 10, 2, 1),
+        ("lite_gru3_gates", 1, 120, 160, 3, 2, 1), ("lite_gru3_output", 1, 120, 160, 3, 1, 1),
+        ("lite_prob_conv", 1, 120, 160, 1, 1, 1),
+        ("lite_gru2_gates_dx", 1, 120, 160, 4, 10, 1), ("lite_gru2_output_dx", 1, 120, 160, 2, 10, 1),
+        ("lite_gru3_gates_dx", 1, 120, 160, 2, 3, 1), ("lite_gru3_output_dx", 1, 120, 160, 1, 3, 1)):
+    SMALL.append((name, "conv", (B, 1, H, W, cin), (1, 3, 3), (1, s, s), cout))
+SMALL.append(("3dconv6_2_dx", "conv", (1, 192, 120, 160, 1), (3, 3, 3), (1, 1, 1), 8))
 
 
 def event_ms(fn, iters=None):
@@ -128,9 +150,45 @@ def describe(ms, p, same):
             f"eq{int(same)}")
 
 
+def sweep_layer(name, kind, xs, taps, strides, cout, randn, dev):
+    """Time up to MAX_CANDIDATES tilings of one layer; returns (pick ms,
+    best ms, wrapper ms)."""
+    x5, k5, classes, strides, ostrides, lib, wrap, out_shape = layer_call(
+        kind, xs, taps, strides, cout, randn)
+    out = torch.empty(out_shape, dtype=torch.bfloat16, device=dev)
+    fn = _lib.launcher(lib, tc._ARGTYPES, entry="tc_launch")
+    cands = sorted(tc.candidates(xs[-1], cout, strides, classes, xs[0]), key=lambda kp: kp[0])
+    # the 8 cheapest by the model, then one of each other kind of plan
+    seen, chosen = set(), []
+    for _, p in cands:
+        kind_of = (p.mt, p.warps, p.stream, p.nbuf, p.persist)
+        if len(chosen) < 8 or kind_of not in seen:
+            chosen.append(p)
+            seen.add(kind_of)
+    ref = wrap().reshape(out.shape)
+    res = []
+    for p in chosen[:MAX_CANDIDATES]:
+        ints = tc.plan_ints(p, xs, out.shape, k5.shape, strides, ostrides, classes, False)
+
+        def call(p=p, ints=ints):
+            _lib.check(lib, fn(p.nt, p.mt, p.warps, ints.ctypes.data_as(ctypes.c_void_p),
+                               _lib.ptr(x5), _lib.ptr(k5), None, _lib.ptr(out),
+                               _lib.stream_of(x5)))
+        ms = event_ms(call)
+        res.append((ms, p, torch.equal(out, ref)))
+    wms = event_ms(wrap)
+    best = min(res, key=lambda r: r[0])
+    print(f"{name:10s} pick {describe(*res[0])} | best {describe(*best)} | wrapper {wms:.4f}")
+    print("    all: " + "; ".join(
+        f"{ms:.3f}/mt{p.mt}w{p.warps}{p.tile}s{int(p.stream)}b{p.nbuf}p{int(p.persist)}"
+        for ms, p, _ in res))
+    return res[0][0], best[0], wms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("tc_tile_sweep: no CUDA device")
+    small_only = sys.argv[1:] == ["--small"]
     t0 = time.perf_counter()
     _lib.build_all()
     print("build", round(time.perf_counter() - t0, 1))
@@ -140,42 +198,13 @@ def main() -> int:
     def randn(shape, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(torch.bfloat16)
 
-    tot_pick = tot_best = tot_wrap = 0.0
-    for name, kind, xs, taps, strides, cout in LAYERS:
-        x5, k5, classes, strides, ostrides, lib, wrap, out_shape = layer_call(
-            kind, xs, taps, strides, cout, randn)
-        out = torch.empty(out_shape, dtype=torch.bfloat16, device=dev)
-        fn = _lib.launcher(lib, tc._ARGTYPES, entry="tc_launch")
-        cands = sorted(tc.candidates(xs[-1], cout, strides, classes, xs[0]), key=lambda kp: kp[0])
-        # the 8 cheapest by the model, then one of each other kind of plan
-        seen, chosen = set(), []
-        for _, p in cands:
-            kind_of = (p.mt, p.warps, p.stream, p.nbuf, p.persist)
-            if len(chosen) < 8 or kind_of not in seen:
-                chosen.append(p)
-                seen.add(kind_of)
-        ref = wrap().reshape(out.shape)
-        res = []
-        for p in chosen[:MAX_CANDIDATES]:
-            ints = tc.plan_ints(p, xs, out.shape, k5.shape, strides, ostrides, classes, False)
-
-            def call(p=p, ints=ints):
-                _lib.check(lib, fn(p.nt, p.mt, p.warps, ints.ctypes.data_as(ctypes.c_void_p),
-                                   _lib.ptr(x5), _lib.ptr(k5), None, _lib.ptr(out),
-                                   _lib.stream_of(x5)))
-            ms = event_ms(call)
-            res.append((ms, p, torch.equal(out, ref)))
-        wms = event_ms(wrap)
-        best = min(res, key=lambda r: r[0])
-        tot_pick += res[0][0]
-        tot_best += best[0]
-        tot_wrap += wms
-        print(f"{name:10s} pick {describe(*res[0])} | best {describe(*best)} | wrapper {wms:.4f}")
-        print("    all: " + "; ".join(
-            f"{ms:.3f}/mt{p.mt}w{p.warps}{p.tile}s{int(p.stream)}b{p.nbuf}p{int(p.persist)}"
-            for ms, p, _ in res))
-        del x5, out, ref
-    print(f"sum pick {tot_pick:.3f} best {tot_best:.3f} wrapper {tot_wrap:.3f}")
+    for group in ((SMALL,) if small_only else (LAYERS, SMALL)):
+        tot_pick = tot_best = tot_wrap = 0.0
+        for name, kind, xs, taps, strides, cout in group:
+            pick, best, wms = sweep_layer(name, kind, xs, taps, strides, cout, randn, dev)
+            tot_pick, tot_best, tot_wrap = tot_pick + pick, tot_best + best, tot_wrap + wms
+            torch.cuda.empty_cache()
+        print(f"sum pick {tot_pick:.4f} best {tot_best:.4f} wrapper {tot_wrap:.4f}")
     return 0
 
 
