@@ -164,13 +164,21 @@ Phases, each of which fails the script (non-zero exit, no result line):
      CPU at 320x256, D=32, "normal", float32 (regs within 1e-3 of max(1,
      max|regs|), depth equal wherever a pixel's top two regs differ by more
      than that, prob within phase 5's 1e-3);
- 11. R-MVSNet training (classification loss): 3 `make_train_step` steps at
-     the bench `train_gru` point (640x480, D=192, "lite", bf16,
+ 11. R-MVSNet training (classification loss), whose sweep recomputes its
+     depth steps in the backward pass as JAX's `nn.remat` does (a cell's
+     convs run forward twice a plane): 3 `make_train_step` steps at the
+     bench `train_gru` point (640x480, D=192, "lite", bf16,
      `TrainConfig()`), launches and editions per step asserted, stages by
-     CUDA events, one step profiled; two "normal" steps at the same point,
-     timed, with their peak; one float32 step at 128x128, D=16, "normal",
-     card against CPU within phase 7's bounds, and two card steps bit for
-     bit;
+     CUDA events, one step profiled; one float32 step at 128x128, D=16,
+     "normal", card against CPU within phase 7's bounds, and two card steps
+     bit for bit;
+     r. at the same point, "lite" and "normal": steps of the recomputing
+        sweep and of the sweep under autograd (the yardstick) in turns from
+        one state and batch, losses and gradients bit for bit, launches
+        (the recompute's convs apart) equal, walls, stages, and each one's
+        peak, the recomputing one the lower;
+     f. two "normal" bf16 steps at R-MVSNet's serving point (1600x1184,
+        D=256): step ms, peak, losses, launches against the rule; finite;
  12. refined serving: `Predictor` at phase 4's point with refinement as
      the training driver sets it (the U-Net, upsampled to the images, with
      the confidence channel), seeded weights: a first request, then 3
@@ -441,21 +449,32 @@ def module_calls(model):
     return lambda m: model.cfg.max_d if m in gru else 1
 
 
+def train_forward_calls(model):
+    """Forward calls of a module in one train step (B = 1): `module_calls`,
+    twice for the GRU sweep's modules, whose depth steps the backward pass
+    runs again plane by plane (`GRUSweep.remat`, JAX's `nn.remat`)."""
+    calls = module_calls(model)
+    gru = set(model.gru_sweep.modules()) if hasattr(model, "gru_sweep") else set()
+    return lambda m: 2 * calls(m) if m in gru else calls(m)
+
+
 def expected_train_launches(model, cfg, h, w):
     """Kernel launches of one train step (B = 1), derived from the model:
-    every conv and transposed conv runs forward once (a GRU cell's once a
-    plane, `module_calls`) and has one weight gradient a run; every conv but
-    the two on the images (2dconv1_0 and 2dconv0_1 take the images, which
-    need no gradient) has an input gradient, on the conv kernel at stride 1
-    and on the transposed-conv kernel at stride 2; every transposed conv's
-    input gradient is a stride-2 conv; the cost volume runs K1 forward, and
-    K2 and K3 once per source view and depth chunk backward."""
+    every conv and transposed conv runs forward once (a GRU cell's twice a
+    plane: in the forward and in the backward's recompute,
+    `train_forward_calls`) and has one weight gradient a run (a GRU cell's
+    once a plane, `module_calls`); every conv but the two on the images
+    (2dconv1_0 and 2dconv0_1 take the images, which need no gradient) has
+    an input gradient a run, on the conv kernel at stride 1 and on the
+    transposed-conv kernel at stride 2; every transposed conv's input
+    gradient is a stride-2 conv; the cost volume runs K1 forward, and K2
+    and K3 once per source view and depth chunk backward."""
     from mvsnet_tpu_torch.models.layers import Conv, Deconv
     from mvsnet_tpu_torch.ops.cost_volume import ACC_LIMIT_BYTES
 
     fn = model.feature_net._modules
     image_convs = {fn["2dconv1_0"].conv, fn["2dconv0_1"].conv}
-    calls = module_calls(model)
+    calls, forwards = module_calls(model), train_forward_calls(model)
     convs = [m for m in model.modules() if isinstance(m, Conv)]
     deconvs = [m for m in model.modules() if isinstance(m, Deconv)]
     n_conv, n_deconv = sum(map(calls, convs)), sum(map(calls, deconvs))
@@ -464,8 +483,8 @@ def expected_train_launches(model, cfg, h, w):
     V, C = cfg.view_num, cfg.feature_channels
     chunks = max(1, -(-(V * cfg.max_d * h * w * C * 4) // ACC_LIMIT_BYTES))
     return {"cost_volume": 1, "cost_volume_sharded": 0,
-            "conv": n_conv + dx_s1 + n_deconv,
-            "deconv": n_deconv + dx_s2, "warp": (V - 1) * chunks,
+            "conv": sum(map(forwards, convs)) + dx_s1 + n_deconv,
+            "deconv": sum(map(forwards, deconvs)) + dx_s2, "warp": (V - 1) * chunks,
             "warp_transpose": (V - 1) * chunks, "warp_sharded": 0,
             "warp_transpose_sharded": 0, "wgrad": n_conv + n_deconv}
 
@@ -491,18 +510,18 @@ def expected_wgrad_editions(model, dtype):
 
 def expected_train_editions(model, dtype):
     """Launches of one train step by kernel and edition, derived from the
-    model as `expected_train_launches` counts them: each conv's forward on
-    (Cin, Cout); a stride-1 conv's input gradient on the conv kernel and a
-    stride-2 conv's on the transposed-conv kernel, both on (Cout, Cin);
-    each transposed conv's forward on (Cin, Cout) and its input gradient,
-    a stride-2 conv, on (Cout, Cin); the weight gradients by
-    `expected_wgrad_editions`."""
+    model as `expected_train_launches` counts them: each conv's forwards
+    (`train_forward_calls`) on (Cin, Cout); a stride-1 conv's input
+    gradient on the conv kernel and a stride-2 conv's on the transposed-conv
+    kernel, both on (Cout, Cin); each transposed conv's forwards on (Cin,
+    Cout) and its input gradient, a stride-2 conv, on (Cout, Cin); the
+    weight gradients by `expected_wgrad_editions`."""
     from mvsnet_tpu_torch.models.layers import Conv, Deconv
     from mvsnet_tpu_torch.ops.kernels import conv
 
     fn = model.feature_net._modules
     image_convs = {fn["2dconv1_0"].conv, fn["2dconv0_1"].conv}
-    calls = module_calls(model)
+    calls, forwards = module_calls(model), train_forward_calls(model)
     counts = {k: {e: 0 for e in conv.EDITIONS} for k in ("conv", "deconv")}
 
     def add(kind, cin, cout, n):
@@ -512,11 +531,11 @@ def expected_train_editions(model, dtype):
         if isinstance(m, (Conv, Deconv)):
             cin, cout = m.kernel.shape[-2:]
             if isinstance(m, Conv):
-                add("conv", cin, cout, calls(m))
+                add("conv", cin, cout, forwards(m))
                 if m not in image_convs:
                     add("conv" if m.stride == 1 else "deconv", cout, cin, calls(m))
             else:
-                add("deconv", cin, cout, calls(m))
+                add("deconv", cin, cout, forwards(m))
                 add("conv", cout, cin, calls(m))
     counts["wgrad"] = expected_wgrad_editions(model, dtype)
     return counts
@@ -2425,42 +2444,10 @@ def phase11_gru_training(smi, dev, point=(480, 640, 192)):
         return None
 
     # one step stage by stage, then one profiled
-    batch = train_lib.to_device(t_batch, dev)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    state.optimizer.zero_grad(set_to_none=True)
-    ev[0].record()
-    loss, _ = train_lib.compute_loss(model, cfg, tcfg, batch, training=True)
-    ev[1].record()
-    loss.backward()
-    ev[2].record()
-    train_lib.apply_gradients(state, tcfg)
-    ev[3].record()
-    torch.cuda.synchronize()
-    print("  stages (ms, CUDA events, one step): " + ", ".join(
-        f"{n} {ev[i].elapsed_time(ev[i + 1]):.3f}"
-        for i, n in enumerate(["forward", "backward", "optimizer"])))
+    _, stages, _, _ = staged_step(model, cfg, tcfg, state, train_lib.to_device(t_batch, dev))
+    print("  stages (ms, CUDA events, one step): "
+          + ", ".join(f"{n} {v:.3f}" for n, v in stages.items()))
     print_profile("GRU train step (lite)", *profile_device(lambda: step(state, t_batch)))
-    del state, model, step, batch, loss
-    torch.cuda.empty_cache()
-
-    # two "normal" steps at the same point
-    n_cfg = dataclasses.replace(cfg, network_mode="normal")
-    model = MVSNet(n_cfg, seed=0)
-    state = train_lib.create_train_state(model, n_cfg, tcfg, device=dev)
-    step = train_lib.make_train_step(model, n_cfg, tcfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    walls = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        state, metrics = step(state, t_batch)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    peak = torch.cuda.max_memory_allocated()
-    finite = np.isfinite(metrics["loss"].item())
-    print(f"  normal: 2 steps at {W}x{H}, D={D}, bf16: step ms "
-          f"{', '.join(f'{w:.2f}' for w in walls)} (the first includes set-up); peak memory {peak / 2 ** 30:.3f} GiB; loss "
-          f"{metrics['loss'].item():.4f} [{smi}]")
     del state, model, step
     torch.cuda.empty_cache()
 
@@ -2484,6 +2471,155 @@ def phase11_gru_training(smi, dev, point=(480, 640, 192)):
           + ("" if first is None else f", first in {first}") + f" (bound 0) "
           f"{'ok' if repeat == 0 else 'FAIL'}")
     return counts if finite and good and repeat == 0 else None
+
+
+def staged_step(model, cfg, tcfg, state, batch):
+    """One step as `train_lib.make_train_step` takes it, on a batch of
+    device tensors, stage by stage: (loss, {forward, backward, optimizer:
+    ms by CUDA events}, wall ms to a synchronize, peak memory since a reset
+    just before it)."""
+    from mvsnet_tpu_torch import train_lib
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    t0 = time.perf_counter()
+    state.optimizer.zero_grad(set_to_none=True)
+    ev[0].record()
+    loss, _ = train_lib.compute_loss(model, cfg, tcfg, batch, training=True)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    train_lib.apply_gradients(state, tcfg)
+    ev[3].record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    stages = {n: ev[i].elapsed_time(ev[i + 1])
+              for i, n in enumerate(("forward", "backward", "optimizer"))}
+    return loss.item(), stages, wall, torch.cuda.max_memory_allocated()
+
+
+def phase11_remat(smi, dev, point=(480, 640, 192)):
+    """11r: R-MVSNet's training sweep, which recomputes its depth steps in
+    the backward pass (`GRUSweep.remat`, JAX's `nn.remat`), against the
+    sweep under autograd (`GRUSweep.eager` put in the model's place: the
+    yardstick), at `point` (the bench `train_gru` point), "lite" and
+    "normal", bf16: two models from one seed take steps on one batch in
+    turns remat, eager, eager, remat; the first two, both from the seeded
+    state, give the same loss and every gradient bit for bit; the remat
+    step launches the GRU cells' convs once a plane more (the recompute)
+    and everything else as often; each step's wall, stages and peak; the
+    recomputing peak under the eager one. Returns whether all held."""
+    from mvsnet_tpu_torch import train_lib
+    from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.models.layers import Conv
+    from mvsnet_tpu_torch.ops import kernels
+
+    H, W, D = point
+    tcfg = TrainConfig()
+    batch = train_lib.to_device(train_scene(H, W, D, seed=12), dev)
+    ok = True
+    for mode in ("lite", "normal"):
+        cfg = ModelConfig(view_num=3, max_d=D, width=W, height=H, network_mode=mode,
+                          regularization="GRU", compute_dtype="bfloat16")
+        runs = {}
+        for kind in ("remat", "eager"):
+            model = MVSNet(cfg, seed=0)
+            if kind == "eager":
+                model.gru_sweep.forward = model.gru_sweep.eager
+            runs[kind] = dict(model=model, steps=[], launches=[],
+                              state=train_lib.create_train_state(model, cfg, tcfg, device=dev))
+        for i, kind in enumerate(("remat", "eager", "eager", "remat")):
+            r = runs[kind]
+            before = kernels.launch_counts()
+            r["steps"].append(staged_step(r["model"], cfg, tcfg, r["state"], batch))
+            after = kernels.launch_counts()
+            r["launches"].append({k: after[k] - before[k] for k in after})
+            if i == 1:                      # both from the seeded state
+                eager = dict(runs["eager"]["model"].named_parameters())
+                named = list(runs["remat"]["model"].named_parameters())
+                differ = [n for n, p in named if not torch.equal(p.grad, eager[n].grad)]
+                finite = all(bool(torch.isfinite(p.grad).all()) for _, p in named)
+        losses = [r["steps"][0][0] for r in runs.values()]
+        peaks = {k: max(st[3] for st in r["steps"]) for k, r in runs.items()}
+        cells = runs["remat"]["model"].gru_sweep.modules()
+        recompute = D * sum(1 for m in cells if isinstance(m, Conv))
+        want = dict(runs["eager"]["launches"][0])
+        want["conv"] += recompute
+        launches_ok = all(c == want for c in runs["remat"]["launches"]) and all(
+            c == runs["eager"]["launches"][0] for c in runs["eager"]["launches"])
+        good = (losses[0] == losses[1] and not differ and finite and np.isfinite(losses[0])
+                and peaks["remat"] < peaks["eager"] and launches_ok)
+        ok = ok and good
+        walls = {k: [st[2] for st in r["steps"]] for k, r in runs.items()}
+        print(f"phase 11r: R-MVSNet train step at {W}x{H}, D={D}, V=3, {mode}, bf16, "
+              f"rmsprop, the recomputing sweep against the sweep under autograd, from one "
+              f"state and batch: loss {losses[0]:.6f} / {losses[1]:.6f}, {len(named)} "
+              f"gradient leaves, differing {differ or 'none'} (bound: bit for bit), finite "
+              f"{finite}; peak memory remat {gib(peaks['remat'])}, eager {gib(peaks['eager'])} "
+              f"(remat below); launches per step remat {runs['remat']['launches'][0]}, eager "
+              f"{runs['eager']['launches'][0]} (remat: {recompute} more convs, the cells' "
+              f"recompute) {'ok' if good else 'FAIL'} [{smi}]")
+        print(f"  step ms in turns remat {walls['remat'][0]:.2f}, eager {walls['eager'][0]:.2f}, "
+              f"eager {walls['eager'][1]:.2f}, remat {walls['remat'][1]:.2f} (the first of "
+              f"each includes set-up); stages of the second steps (ms, CUDA events): "
+              + "; ".join(f"{k} " + ", ".join(f"{n} {v:.3f}" for n, v in r["steps"][1][1].items())
+                          for k, r in runs.items()))
+        del runs, model
+        torch.cuda.empty_cache()
+    if not ok:
+        print("phase 11r FAILED")
+    return ok
+
+
+def phase11_full_width(smi, dev, point=(1184, 1600, 256)):
+    """11f: two "normal" bf16 R-MVSNet train steps (`make_train_step`) at
+    `point`, R-MVSNet's serving point (1600x1184, D=256, V=3), which the
+    recomputing sweep makes fit: step ms, peak memory, losses; launches per
+    step against the rule derived from the model; a non-finite loss or
+    gradient fails it. Returns whether all held."""
+    from mvsnet_tpu_torch import train_lib
+    from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.ops import kernels
+
+    H, W, D = point
+    cfg = ModelConfig(view_num=3, max_d=D, width=W, height=H, network_mode="normal",
+                      regularization="GRU", compute_dtype="bfloat16")
+    tcfg = TrainConfig()
+    model = MVSNet(cfg, seed=0)
+    want = expected_train_launches(model, cfg, H // 4, W // 4)
+    state = train_lib.create_train_state(model, cfg, tcfg, device=dev)
+    step = train_lib.make_train_step(model, cfg, tcfg)
+    batch = train_scene(H, W, D, seed=14)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, per_step, losses, finite = [], [], [], True
+    for _ in range(2):
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        after = kernels.launch_counts()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(metrics["loss"].item())
+        finite = finite and np.isfinite(losses[-1]) and all(
+            bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+    peak = torch.cuda.max_memory_allocated()
+    good = finite and all(c == want for c in per_step)
+    print(f"phase 11f: R-MVSNet training at its serving point, 2 steps at {W}x{H}, D={D}, "
+          f"V=3, normal, bf16, rmsprop, classification loss: step ms "
+          f"{', '.join(f'{w:.2f}' for w in walls)} (the first includes set-up); peak memory "
+          f"{gib(peak)}; losses {', '.join(f'{v:.4f}' for v in losses)}; finite {finite}; "
+          f"launches per step {per_step[-1]} (expected {want}) "
+          f"{'ok' if good else 'FAIL'} [{smi}]")
+    del state, model, step
+    torch.cuda.empty_cache()
+    if not good:
+        print("phase 11f FAILED")
+    return good
 
 
 # phases 12-14 and 8e: refinement with the training driver's defaults
@@ -4173,7 +4309,10 @@ def main() -> int:
     if gru_counts is None:
         return 1
     gru_train_counts = phase11_gru_training(smi, dev)
-    if gru_train_counts is None:
+    if gru_train_counts is None or not phase11_remat(smi, dev):
+        return 1
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 11f next]", flush=True)
+    if not phase11_full_width(smi, dev):
         return 1
 
     print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 12, 13 next]", flush=True)

@@ -110,8 +110,11 @@ class ModelConfig:
 class TrainConfig:
     """Training hyperparameters; field names and defaults match the JAX
     `TrainConfig` (mvsnet_tpu/config.py:99-122, reference: train.py:92-135).
-    `num_devices` is the number of ranks (`train.py`); JAX's `remat` has
-    no counterpart."""
+    `num_devices` is the number of ranks (`train.py`). `remat` is read
+    nowhere, as in JAX: R-MVSNet's training sweep recomputes each depth step
+    in the backward pass whatever it says (`models/mvsnet.GRUSweep.remat`),
+    and the cost volume's backward recomputes its warps
+    (`ops/cost_volume.CostVolumeFn`)."""
 
     batch_size: int = 1
     epoch: int = 1
@@ -131,6 +134,7 @@ class TrainConfig:
     train_steps_per_val: int = 500
     seed: int = 0
     num_devices: Optional[int] = None    # None = the ranks of the process group
+    remat: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,7 +159,7 @@ class DataConfig:
 
 
 # fields of the JAX configs with no counterpart here, dropped on load
-JAX_ONLY_FIELDS = {"model": {"depth_chunk", "use_pallas"}, "train": {"remat"}, "data": set()}
+JAX_ONLY_FIELDS = {"model": {"depth_chunk", "use_pallas"}, "train": set(), "data": set()}
 _CONFIGS = (("model", ModelConfig), ("train", TrainConfig), ("data", DataConfig))
 
 

@@ -9,12 +9,13 @@ and the fused soft-argmin + probability tail; the GRU graphs run the
 three-cell ConvGRU over the depth planes (`GRUSweep`), then a softmax over
 depth (training) or a winner-take-all (serving). In training mode
 (`nn.Module.training`) the cost volume is differentiable (`CostVolumeFn`)
-and the layers train (`models/layers.py`); the GRU's training sweep can take
-this rank's rows of a map split over 'space' (`gru_cost_sweep`'s
-`blocks`). With `cfg.refinement` the
-3D-CNN graph builds a refinement network (`models/refine.py`) that
-`refine` runs on the depth map and the reference image; the GRU graphs
-ignore refinement, as JAX's do.
+and the layers train (`models/layers.py`); the GRU's training sweep keeps
+each plane's states, not its activations, and recomputes the depth steps
+in the backward pass (`GRUSweep.remat`), and can take this rank's rows of
+a map split over 'space' (`gru_cost_sweep`'s `blocks`). With
+`cfg.refinement` the 3D-CNN graph builds a refinement network
+(`models/refine.py`) that `refine` runs on the depth map and the reference
+image; the GRU graphs ignore refinement, as JAX's do.
 """
 
 from __future__ import annotations
@@ -50,12 +51,18 @@ class GRUSweep(nn.Module):
 
     A depth step feeds the negated cost slice to the three cells from their
     float32 states, returns the float32 reg and, for serving, folds
-    exp(reg) into the (max_prob, depth_image, exp_sum) carry. On the CPU and
-    under autograd the planes run one by one in Python (`eager`). On a card
-    in eval without autograd, JAX's compiled scan has its counterpart in a
-    CUDA graph of one depth step (`graphed`), captured once per shape and
-    replayed D times: a step is some 80 launches, and a 1600x1184 map at
-    D=256 some 20,000."""
+    exp(reg) into the (max_prob, depth_image, exp_sum) carry. Whenever
+    autograd records (training mode, or gradients on with a parameter or
+    the volume that needs one) the sweep is JAX's `nn.scan(nn.remat(...))`
+    (`remat`): it keeps each plane's float32 states and the cost volume,
+    not the planes' activations, and recomputes one depth step at a time in
+    the backward pass, so that its memory does not grow with D by more
+    than the states. In eval on the CPU, or on a block of rows, the planes
+    run one by one in Python (`eager`, also the tests' yardstick for
+    `remat`). On a card in eval without autograd, JAX's compiled scan has
+    its counterpart in a CUDA graph of one depth step (`graphed`), captured
+    once per shape and replayed D times: a step is some 80 launches, and a
+    1600x1184 map at D=256 some 20,000."""
 
     MAX_GRAPHS = 4
 
@@ -75,13 +82,17 @@ class GRUSweep(nn.Module):
             carry = winner_take_all_update(carry, torch.exp(reg), depth)
         return states, reg, carry
 
-    def forward(self, cost, samples=None):
+    def forward(self, cost, samples=None, op=None, stat_sum=None):
         """cost (B, D, h, w, C); samples (B, D), each plane's depth, or None
         -> regs (B, D, h, w) float32, and the carry after the last plane
-        (None without samples)."""
-        if cost.device.type == "cuda" and not (self.training or torch.is_grad_enabled()):
+        (None without samples). `op` and `stat_sum`: a block of rows
+        (models/gru.py)."""
+        if self.training or (torch.is_grad_enabled() and any(
+                t.requires_grad for t in (cost, *self.parameters()))):
+            return self.remat(cost, samples, op, stat_sum)
+        if cost.device.type == "cuda" and op is None:
             return self.graphed(cost, samples)
-        return self.eager(cost, samples)
+        return self.eager(cost, samples, op, stat_sum)
 
     def _zeros(self, cost):
         B, _, h, w, _ = cost.shape
@@ -96,12 +107,28 @@ class GRUSweep(nn.Module):
         states, carry = self._zeros(cost)
         carry = None if samples is None else carry
         regs = []
-        for d in range(cost.shape[1]):
-            states, reg, carry = self.step(states, -cost[:, d], carry,
+        for d, plane in enumerate(cost.unbind(1)):
+            states, reg, carry = self.step(states, -plane, carry,
                                            None if samples is None else samples[:, d],
                                            op, stat_sum)
             regs.append(reg[..., 0])
         return torch.stack(regs, dim=1), carry
+
+    def remat(self, cost, samples=None, op=None, stat_sum=None):
+        """The sweep as JAX trains it (`nn.scan(nn.remat(_GRUStep))`,
+        mvsnet.py:232-239): the planes run without autograd, keeping only
+        the cost volume and each plane's float32 input states, and the
+        backward recomputes one depth step at a time (`_RematSweep`). Regs
+        and gradients equal `eager`'s bit for bit. With `samples` the
+        winner-take-all carry folds the regs afterwards, as `step` folds
+        them; see `forward`."""
+        regs = _RematSweep.apply(self, op, stat_sum, cost, *self.parameters())
+        if samples is None:
+            return regs, None
+        carry = self._zeros(cost)[1]
+        for d, reg in enumerate(regs.unbind(1)):
+            carry = winner_take_all_update(carry, torch.exp(reg[..., None]), samples[:, d])
+        return regs, carry
 
     def graphed(self, cost, samples=None):
         """The sweep as D replays of the captured step; see `forward`. One
@@ -123,6 +150,67 @@ class GRUSweep(nn.Module):
             graph = _StepGraph(self, cost, samples is not None)
         self._graphs[key] = graph
         return graph.run(cost, samples)
+
+
+class _RematSweep(torch.autograd.Function):
+    """`GRUSweep.remat`: forward(sweep, op, stat_sum, cost, *the sweep's
+    parameters) -> regs (B, D, h, w) float32.
+
+    The forward runs the planes without autograd and saves the cost volume
+    and the three states each plane starts from. The backward walks the
+    planes from the last to the first: it recomputes the plane's step under
+    autograd from its saved states and its cost slice (a view of the saved
+    volume, negated inside the step) and differentiates that step alone,
+    from the reg's gradient and, but for the last plane, the gradients of
+    the states the next plane took. Autograd through the whole sweep sums
+    in the same order: a state's gradients from the next plane come first,
+    the ones from its own plane's later cells after them, and a parameter's
+    from the last plane to the first. The halo exchanges and norm sums of a
+    block of rows (`op`, `stat_sum`) run again in the recompute, in the same
+    order on every rank."""
+
+    @staticmethod
+    def forward(ctx, sweep, op, stat_sum, cost, *params):
+        B, D, h, w, _ = cost.shape
+        states, _ = sweep._zeros(cost)
+        regs = torch.empty((B, D, h, w), dtype=torch.float32, device=cost.device)
+        saved = []
+        for d, plane in enumerate(cost.unbind(1)):
+            saved.extend(states)
+            states, reg, _ = sweep.step(states, -plane, op=op, stat_sum=stat_sum)
+            regs[:, d] = reg[..., 0]
+        ctx.save_for_backward(cost, *saved)
+        ctx.sweep, ctx.op, ctx.stat_sum, ctx.params = sweep, op, stat_sum, params
+        return regs
+
+    @staticmethod
+    def backward(ctx, g_regs):
+        cost, *saved = ctx.saved_tensors
+        need_cost = ctx.needs_input_grad[3]
+        wanted = ctx.needs_input_grad[4:]
+        params = [p for p, need in zip(ctx.params, wanted) if need]
+        g_cost = torch.empty_like(cost) if need_cost else None
+        g_params = [None] * len(params)
+        g_states = ()
+        planes = cost.unbind(1)
+        for d in reversed(range(cost.shape[1])):
+            with torch.enable_grad():
+                states = tuple(s.detach().requires_grad_(d > 0) for s in saved[3 * d:3 * d + 3])
+                plane = planes[d].detach().requires_grad_(need_cost)
+                new_states, reg, _ = ctx.sweep.step(states, -plane, op=ctx.op,
+                                                    stat_sum=ctx.stat_sum)
+            inputs = ([plane] if need_cost else []) + (list(states) if d > 0 else []) + params
+            got = list(torch.autograd.grad(
+                (reg,) + (new_states if g_states else ()), inputs,
+                (g_regs[:, d, ..., None].contiguous(),) + g_states))
+            if need_cost:
+                g_cost[:, d] = got.pop(0)
+            if d > 0:
+                g_states, got = tuple(got[:3]), got[3:]
+            g_params = [g if acc is None else acc + g for acc, g in zip(g_params, got)]
+        taken = iter(g_params)
+        return (None, None, None, g_cost) + tuple(next(taken) if need else None
+                                                  for need in wanted)
 
 
 class _StepGraph:
@@ -295,8 +383,7 @@ class MVSNet(nn.Module):
         cost = sweep_cost_volume_sharded(ref_f, view_f, homs, mesh,
                                          depth=AxisSplit("depth", self.cfg.max_d), rows=rows)
         op = functools.partial(halo_conv, mesh=mesh, splits=(rows, None), level=0)
-        return self.gru_sweep.eager(cost, samples, op,
-                                    lambda t: mesh.all_reduce_grad(t, rows.axis))
+        return self.gru_sweep(cost, samples, op, lambda t: mesh.all_reduce_grad(t, rows.axis))
 
     def forward_prob_recurrent(self, images, cams, depth_start, depth_interval, blocks=None):
         """R-MVSNet's training graph (mvsnet.py:242-247): the float32

@@ -70,8 +70,11 @@ def cost_volume_backward(ref, views, homs, g, row_offset=None):
                for _ in range(V1)]
     for c0 in range(0, D, dc):
         gd = g32[c0:c0 + dc]
-        warped = [warp.warp_all_depths(views[v], homs[v, c0:c0 + dc], row_offset,
-                                       H).to(torch.float32) for v in range(V1)]
+        # copies: the kernels take 16-byte aligned tensors, and a view's
+        # planes from c0 start 36 (v D + c0) bytes into `homs`
+        hc = [homs[v, c0:c0 + dc].clone() for v in range(V1)]
+        warped = [warp.warp_all_depths(views[v], hc[v], row_offset, H).to(torch.float32)
+                  for v in range(V1)]
         mean = ref32[None]
         for w in warped:
             mean = mean + w
@@ -79,7 +82,7 @@ def cost_volume_backward(ref, views, homs, g, row_offset=None):
         d_ref += scale * torch.sum((ref32[None] - mean) * gd, dim=0)
         for v in range(V1):
             cot = scale * (warped[v] - mean) * gd
-            d_views[v] += warp.warp_transpose(cot, homs[v, c0:c0 + dc], row_offset, Hs)
+            d_views[v] += warp.warp_transpose(cot, hc[v], row_offset, Hs)
     return d_ref.to(ref.dtype), torch.stack(d_views).to(views.dtype)
 
 

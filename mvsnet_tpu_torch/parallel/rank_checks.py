@@ -25,6 +25,7 @@ from mvsnet_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
 from mvsnet_tpu_torch.models import MVSNet
 from mvsnet_tpu_torch.models.feature_net import TOWER_LAYERS
 from mvsnet_tpu_torch.models.layers import BatchNormRef
+from mvsnet_tpu_torch.models.mvsnet import GRUSweep
 from mvsnet_tpu_torch.ops.cost_volume import CostVolumeFn, sweep_cost_volume_sharded
 from mvsnet_tpu_torch.ops.depth import soft_argmin_prob_map_sharded
 from mvsnet_tpu_torch.ops.kernels import conv as conv_k
@@ -244,20 +245,29 @@ def predict(inp):
 def train(inp):
     """One `make_sharded_train_step` step: metrics, gradients, running
     statistics, updated parameters, the shapes of the cost volumes it built,
-    the tower's rows, the log, and whether the batch norms still sum over
-    the mesh after it."""
+    the GRU sweeps it ran (`GRUSweep`'s method names), the tower's rows, the
+    log, and whether the batch norms still sum over the mesh after it."""
     mesh = make_mesh(shape=inp["shape"], backend="gloo")
     cfg, tcfg = ModelConfig(**inp["cfg"]), TrainConfig(**inp["tcfg"])
     model = MVSNet(cfg)
     model.load_state_dict({k: _t(v) for k, v in inp["state_dict"].items()})
     state = train_lib.create_train_state(model, cfg, tcfg, device=mesh.device)
     costs, forward = [], CostVolumeFn.forward
+    sweeps, sweep_fns = [], {k: getattr(GRUSweep, k) for k in ("remat", "eager", "graphed")}
 
     def recording(ctx, *args):
         out = forward(ctx, *args)
         costs.append(tuple(out.shape))
         return out
+
+    def sweep_recording(kind):
+        def run(self, *args, **kwargs):
+            sweeps.append(kind)
+            return sweep_fns[kind](self, *args, **kwargs)
+        return run
     CostVolumeFn.forward = staticmethod(recording)
+    for kind in sweep_fns:
+        setattr(GRUSweep, kind, sweep_recording(kind))
     records = _Records()
     logging.getLogger("mvsnet_tpu_torch").addHandler(records)
     try:
@@ -266,9 +276,11 @@ def train(inp):
                                                                             inp["batch"])
     finally:
         CostVolumeFn.forward = staticmethod(forward)
+        for kind, fn in sweep_fns.items():
+            setattr(GRUSweep, kind, fn)
         logging.getLogger("mvsnet_tpu_torch").removeHandler(records)
     return {"metrics": {k: float(v) for k, v in metrics.items()}, "costs": costs,
-            "tower_rows": rows, "log": records.messages,
+            "sweeps": sweeps, "tower_rows": rows, "log": records.messages,
             "grads": {n: _np(p.grad) for n, p in model.named_parameters()},
             "buffers": {n: _np(b) for n, b in model.named_buffers()},
             "params": {n: _np(p) for n, p in model.named_parameters()},

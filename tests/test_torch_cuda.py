@@ -255,6 +255,28 @@ def test_cost_volume_backward_is_deterministic(dev):
     assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
+@pytest.mark.parametrize("D", [16, 13])
+def test_cost_volume_backward_in_depth_chunks_on_card(dev, D, monkeypatch):
+    """The cost volume's backward in three depth chunks (the 2 GiB limit
+    lowered to a third of this volume's float32 sums), whose homographies
+    start at a plane that is not a multiple of 4, and at a D that is not
+    one (the second view's planes start off 16 bytes): the kernels take
+    each chunk, and the result matches the plain version's on the CPU."""
+    from mvsnet_tpu_torch.ops import cost_volume
+
+    rng = np.random.default_rng(40 + D)
+    ref, views = (_rand(rng, s, torch.float32, dev) for s in ((24, 40, 32), (2, 24, 40, 32)))
+    g = _rand(rng, (D, 24, 40, 32), torch.float32, dev)
+    homs = torch.stack([_homs(D, 0.02, 3.0, dev), _homs(D, -0.05, 5.0, dev)])
+    monkeypatch.setattr(cost_volume, "ACC_LIMIT_BYTES", -(-3 * g.numel() * 4 // 3))
+    before = (warp.launches, warp.transpose_launches)
+    got = cost_volume_backward(ref, views, homs, g)
+    assert (warp.launches, warp.transpose_launches) == (before[0] + 6, before[1] + 6)
+    want = cost_volume_backward(*(t.cpu() for t in (ref, views, homs, g)))
+    for a, b in zip(got, want):
+        _close(a.cpu(), b, TOL[torch.float32])
+
+
 def test_warp_transpose_is_the_adjoint_on_card(dev):
     rng = np.random.default_rng(7)
     x = _rand(rng, (20, 28, 16), torch.float32, dev)
@@ -891,14 +913,8 @@ def test_gru_predictor_card_matches_cpu(dev):
     assert (p_g - p_c).abs().max().item() <= 1e-3
 
 
-def test_gru_train_steps_are_bit_equal_on_card(dev):
-    """Two float32 GRU train steps on the card from one state and batch give
-    the same loss and gradients bit for bit (every kernel of the step sums
-    in a fixed order; the classification loss picks with a one-hot product,
-    not an atomic scatter), and the step launches K1, K2, K3, the conv and
-    the weight-gradient kernels."""
-    from mvsnet_tpu_torch.ops import kernels
-
+def _gru_train_batch():
+    """A 96x160 training batch for `_gru_model` (D=12 from 5.0 by 0.5)."""
     rng = np.random.default_rng(32)
     cam = np.zeros((2, 4, 4), np.float32)
     cam[0] = np.eye(4)
@@ -907,7 +923,18 @@ def test_gru_train_steps_are_bit_equal_on_card(dev):
     cams = np.stack([cam] * 3)[None].copy()
     cams[0, 1, 0, 0, 3] = 0.4
     gt = rng.uniform(5.0, 10.5, (1, 24, 40, 1)).astype(np.float32)
-    batch = (rng.standard_normal((1, 3, 96, 160, 3)).astype(np.float32), cams, gt, gt)
+    return (rng.standard_normal((1, 3, 96, 160, 3)).astype(np.float32), cams, gt, gt)
+
+
+def test_gru_train_steps_are_bit_equal_on_card(dev):
+    """Two float32 GRU train steps on the card from one state and batch give
+    the same loss and gradients bit for bit (every kernel of the step sums
+    in a fixed order; the classification loss picks with a one-hot product,
+    not an atomic scatter), and the step launches K1, K2, K3, the conv and
+    the weight-gradient kernels."""
+    from mvsnet_tpu_torch.ops import kernels
+
+    batch = _gru_train_batch()
     runs = []
     for _ in range(2):
         cfg, model = _gru_model(dev, dtype="float32")
@@ -919,6 +946,41 @@ def test_gru_train_steps_are_bit_equal_on_card(dev):
     assert all(counts[k] > 0 for k in ("cost_volume", "conv", "warp", "warp_transpose", "wgrad"))
     assert np.isfinite(runs[0][0]) and runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_remat_step_equals_eager_step_on_card(dev, dtype):
+    """A train step whose sweep recomputes its depth steps in the backward
+    pass (`GRUSweep.remat`, which training takes) gives the loss and every
+    gradient of a step whose sweep runs under autograd (`GRUSweep.eager` put
+    in its place) bit for bit, on `_gru_train_batch` from one seeded state;
+    the recomputing step launches each cell conv once a plane more, in the
+    dtype's edition, and every other kernel as often."""
+    from mvsnet_tpu_torch.models.layers import Conv
+    from mvsnet_tpu_torch.ops import kernels
+
+    batch = _gru_train_batch()
+    runs = []
+    for kind in ("remat", "eager"):
+        cfg, model = _gru_model(dev, dtype=dtype)
+        if kind == "eager":
+            model.gru_sweep.forward = model.gru_sweep.eager
+        state = train_lib.create_train_state(model, cfg, TrainConfig(), device=dev)
+        before, ed_before = kernels.launch_counts(), kernels.edition_counts()
+        _, metrics = train_lib.make_train_step(model, cfg, TrainConfig())(state, batch)
+        counts = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+        editions = {k: {e: n - ed_before[k][e] for e, n in eds.items()}
+                    for k, eds in kernels.edition_counts().items()}
+        runs.append((metrics["loss"].item(), [p.grad for p in model.parameters()], counts,
+                     editions))
+    (loss, grads, counts, editions), (loss_e, grads_e, counts_e, editions_e) = runs
+    assert np.isfinite(loss) and loss == loss_e
+    assert len(grads) == len(grads_e) and all(torch.equal(a, b) for a, b in zip(grads, grads_e))
+    recompute = cfg.max_d * sum(isinstance(m, Conv) for m in model.gru_sweep.modules())
+    assert recompute == 7 * cfg.max_d
+    assert counts == dict(counts_e, conv=counts_e["conv"] + recompute)
+    editions_e["conv"]["tc" if dtype == "bfloat16" else "simt"] += recompute
+    assert editions == editions_e
 
 
 # refinement (the training driver's defaults: U-Net, upsampled, confidence)

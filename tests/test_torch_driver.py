@@ -89,7 +89,8 @@ def test_cli_resume_from_checkpoint(data, tmp_path):
 
 def test_config_json_across_packages(tmp_path):
     """A config.json written by either package loads in the other: JAX's
-    TPU knobs are dropped by the port and take their defaults in JAX."""
+    TPU knobs are dropped by the port and take their defaults in JAX.
+    `TrainConfig.remat` is kept both ways (read nowhere, as in JAX)."""
     argv = ["--train_data_root", "/data", "--model_dir", "/m", *TINY]
     port_cfgs = train.configs_from_args(train.build_parser().parse_args(argv))
     jax_cfgs = jax_train.configs_from_args(jax_train.build_parser().parse_args(argv))
@@ -100,8 +101,16 @@ def test_config_json_across_packages(tmp_path):
     assert (from_port["model"], from_port["train"], from_port["data"]) == tuple(jax_cfgs)
     from_jax = config.load_config(jax_json)
     assert (from_jax["model"], from_jax["train"], from_jax["data"]) == tuple(port_cfgs)
+    assert config.JAX_ONLY_FIELDS["train"] == set() and from_jax["train"].remat is True
+    assert from_port["train"].remat is True
     with open(jax_json) as f:
         raw = json.load(f)
+    raw["train"]["remat"] = False
+    with open(jax_json, "w") as f:
+        json.dump(raw, f)
+    assert config.load_config(jax_json)["train"] == dataclasses.replace(port_cfgs[1],
+                                                                        remat=False)
+    assert jax_config.load_config(jax_json)["train"].remat is False
     raw["train"]["no_such_field"] = 1
     with open(jax_json, "w") as f:
         json.dump(raw, f)

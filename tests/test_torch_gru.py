@@ -49,6 +49,7 @@ from mvsnet_tpu_torch.convert import state_dict_from_jax  # noqa: E402
 from mvsnet_tpu_torch.models import MVSNet  # noqa: E402
 from mvsnet_tpu_torch.models.gru import ConvGRUCell, GRURegularizer, gru_filter_sizes  # noqa: E402
 from mvsnet_tpu_torch.models.layers import GroupNormFlexible  # noqa: E402
+from mvsnet_tpu_torch.models.mvsnet import GRUSweep  # noqa: E402
 from mvsnet_tpu_torch.ops.depth import winner_take_all_update  # noqa: E402
 from mvsnet_tpu_torch.predict import Predictor  # noqa: E402
 
@@ -128,6 +129,15 @@ def normal():
 
 def _graph(request, mode):
     return request.getfixturevalue(mode)
+
+
+@pytest.fixture
+def no_eager(monkeypatch):
+    """Fails the test if its sweep runs `GRUSweep.eager`: under autograd the
+    sweep must recompute its depth steps (`GRUSweep.remat`)."""
+    def eager(*args, **kwargs):
+        raise AssertionError("the sweep ran eagerly under autograd")
+    monkeypatch.setattr(GRUSweep, "eager", eager)
 
 
 # ---------------------------------------------------------------- norms
@@ -316,13 +326,15 @@ def test_gru_sweep_regs_match_jax(lite):
     np.testing.assert_allclose(regs.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
-def test_forward_prob_recurrent_matches_jax(lite):
+def test_forward_prob_recurrent_matches_jax(lite, no_eager):
+    """With autograd recording, as in training: the recomputing sweep."""
     scene = _scene()
     want = lite.apply(JaxMVSNet.forward_prob_recurrent, lite.perturbed,
                       *_jax_sweep_inputs(scene))
     model = lite.port(lite.perturbed)
-    with torch.no_grad():
-        got = model.forward_prob_recurrent(*(_t(a) for a in scene[:4]))
+    got = model.forward_prob_recurrent(*(_t(a) for a in scene[:4]))
+    assert got.requires_grad
+    got = got.detach()
     np.testing.assert_allclose(got.sum(dim=1).numpy(), 1.0, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
 
@@ -462,7 +474,8 @@ def jax_gru_step(lite):
     return v, batch, _np(grads), {k: float(x) for k, x in metrics.items()}
 
 
-def test_gru_train_step_matches_jax(lite, jax_gru_step):
+def test_gru_train_step_matches_jax(lite, jax_gru_step, no_eager):
+    """The port's step runs the recomputing sweep (`no_eager`)."""
     v, batch, grads, metrics = jax_gru_step
     cfg, tcfg = ModelConfig(network_mode="lite", **TINY), TrainConfig()
     model = lite.port(v)
@@ -504,3 +517,110 @@ def test_gru_eval_step_runs_the_classification_loss(lite):
                                      training=True)
     for k in ("loss", "less_one", "less_three", "debug"):
         np.testing.assert_allclose(got[k].item(), want[k].item(), rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------- the recomputing sweep
+
+
+def _train_sweep(mode, dtype, variables=None):
+    """A GRU model's sweep in training mode at `TINY`, with `variables`
+    (JAX's) or seeded weights."""
+    model = MVSNet(ModelConfig(**dict(TINY, network_mode=mode, compute_dtype=dtype)))
+    if variables is not None:
+        model.load_state_dict(state_dict_from_jax(variables))
+    return model.train().gru_sweep
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["lite", "normal"])
+def test_remat_sweep_equals_eager_sweep(request, mode, dtype):
+    """The recomputing sweep (`GRUSweep.remat`, JAX's `nn.remat` over the
+    depth step) against the sweep under autograd (`eager`), on one cost
+    volume (B=2, D=8, 16x16) and one cotangent of the softmax over depth:
+    the regs, the cost volume's gradient and every parameter's gradient
+    equal bit for bit, since both sum each gradient in the same order."""
+    weights = _graph(request, mode).perturbed
+    rng = np.random.default_rng(20)
+    C = 32 if mode == "normal" else 16
+    cost = rng.random((2, 8, 16, 16, C)).astype(np.float32)
+    cotangent = _t(rng.standard_normal((2, 8, 16, 16)))
+    runs = []
+    for kind in ("remat", "eager"):
+        sweep = _train_sweep(mode, dtype, weights)
+        c = _t(cost).to(DTYPES[dtype]).requires_grad_()
+        regs, carry = getattr(sweep, kind)(c)
+        assert carry is None and regs.dtype == torch.float32
+        (torch.softmax(regs, dim=1) * cotangent).sum().backward()
+        runs.append((regs.detach(), c.grad, dict(sweep.named_parameters())))
+    (regs, g_cost, params), (regs_e, g_cost_e, params_e) = runs
+    assert torch.equal(regs, regs_e)
+    assert g_cost.dtype == DTYPES[dtype] and torch.equal(g_cost, g_cost_e)
+    assert len(params) == 32 and set(params) == set(params_e)   # 3 cells x 10, prob_conv 2
+    for name, p in params.items():
+        assert p.grad is not None and torch.equal(p.grad, params_e[name].grad), name
+
+
+def _saved_bytes(sweep_fn, cost):
+    """Bytes a training forward saves for its backward, each storage once."""
+    storages = {}
+
+    def pack(t):
+        storage = t.untyped_storage()
+        storages[storage.data_ptr()] = storage.nbytes()
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        sweep_fn(cost)
+    return sum(storages.values())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", ["lite", "normal"])
+def test_remat_sweep_saves_states_not_activations(mode, dtype):
+    """JAX's memory contract for the training sweep: from D=8 to D=16 what
+    the recomputing sweep saves grows by at most one plane's float32
+    states, its float32 reg and its cost slice a plane (the states and the
+    volume, which the saved views share); what the sweep under autograd
+    saves grows at least 4x as fast."""
+    h = w = 16
+    C = 32 if mode == "normal" else 16
+    per_plane = h * w * (4 * sum(gru_filter_sizes(mode)) + 4 + C * DTYPES[dtype].itemsize)
+    growth = {}
+    for kind in ("remat", "eager"):
+        sweep = _train_sweep(mode, dtype)
+        sizes = []
+        for D in (8, 16):
+            cost = torch.rand((1, D, h, w, C)).to(DTYPES[dtype]).requires_grad_()
+            sizes.append(_saved_bytes(getattr(sweep, kind), cost))
+        growth[kind] = (sizes[1] - sizes[0]) / 8
+    assert 0 < growth["remat"] <= per_plane, growth
+    assert growth["eager"] >= 4 * growth["remat"], growth
+
+
+def test_gru_sweep_recomputes_whenever_autograd_records(monkeypatch):
+    """`GRUSweep.forward` takes the recomputing sweep in training mode (also
+    without gradients) and in eval with gradients on and a parameter or the
+    volume that needs one, on the CPU the eager sweep in eval otherwise, and
+    the two agree."""
+    taken = []
+    for kind in ("remat", "eager", "graphed"):
+        def record(self, *args, _kind=kind, _fn=getattr(GRUSweep, kind), **kwargs):
+            taken.append(_kind)
+            return _fn(self, *args, **kwargs)
+        monkeypatch.setattr(GRUSweep, kind, record)
+    sweep = _train_sweep("ultralite", "float32")
+    cost = torch.rand((1, 8, 8, 8, 8))
+    samples = torch.linspace(5.0, 8.5, 8)[None]
+    got = [sweep(cost, samples)]
+    with torch.no_grad():
+        sweep(cost)
+    sweep.eval()
+    got.append(sweep(cost, samples))
+    with torch.no_grad():
+        got.append(sweep(cost, samples))
+    sweep.requires_grad_(False)
+    sweep(cost)
+    sweep(cost.requires_grad_())
+    assert taken == ["remat", "remat", "remat", "eager", "eager", "remat"]
+    for regs, carry in got[1:]:
+        assert torch.equal(regs, got[0][0])
+        assert all(torch.equal(a, b) for a, b in zip(carry, got[0][1]))

@@ -857,6 +857,17 @@ def test_blocked_gru_train_step_matches_port_and_jax(world):
         np.testing.assert_allclose(ranks[0]["metrics"][k], float(want[k]), atol=1e-6)
 
 
+def test_blocked_gru_train_step_recomputes_the_sweep(world):
+    """The blocked GRU train step on (1, 1, 2) runs its sweep as JAX's
+    partitioned program does, recomputing each depth step in the backward
+    pass (`GRUSweep.remat`), once a step on each rank, as does the data
+    parallel one on (2, 1, 1); the 3D-CNN's steps run no sweep."""
+    for case in ("gru_train112", "gru_train"):
+        assert all(r["sweeps"] == ["remat"] for r in world.ranks(2, case))
+    for case in ("train", "train121"):
+        assert all(r["sweeps"] == [] for r in world.ranks(2, case))
+
+
 def _jax_tower_rows(hlo):
     """{layer: (forward rows, backward rows)} of the feature tower's
     convolutions in a partitioned HLO module: the rows (the output's first
