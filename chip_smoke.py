@@ -63,7 +63,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
      from the identity: the card's kernels against the CPU's plain path
      (loss, every gradient, the batch-norm running statistics), and two
      such card steps against each other, bit for bit;
-  8. multi-GPU serving and training (`mvsnet_tpu_torch/parallel/`):
+  8. multi-GPU serving and training (`mvsnet_tpu_torch/parallel/`), every
+     factory called in JAX's positional order: `make_mesh(n_devices,
+     shape, devices)` with the ranks' devices (`rank_devices`), `step, mesh
+     = make_sharded_train_step(model, cfg, tcfg, n_devices, mesh)`, and
+     through the `Predictor` `make_sharded_forward(model, cfg, mesh)` and
+     `make_sharded_gru_forward(model, cfg, mesh)`:
      a. the row- and depth-sliced cost kernel K1s on every block of 8b's
         serving mesh and of the (1,4,1) and (1,2,2) meshes at the
         inference point, f32 and bf16, stitched and held against one K1
@@ -132,9 +137,12 @@ Phases, each of which fails the script (non-zero exit, no result line):
         as a user runs it, on plane scenes rendered by `data/synthetic.py`
         and written to disk as sessions (JPEGs by the port's encoder), read
         by `train.make_loader`'s `ClusterGenerator` with the port's
-        decoders; the host time a sample takes to decode and transform.
-        Launches per step and the conv, transposed-conv and weight-gradient
-        editions are asserted against counts derived from the model, and
+        decoders; the host time a sample takes to decode and transform, and
+        `tools.prototype_datagen` on the same train sessions (30 batches,
+        the loader's default 2 decode workers): its batches/s and samples/s
+        beside the host time a sample and the steady step. Launches per
+        step and the conv, transposed-conv and weight-gradient editions are
+        asserted against counts derived from the model, and
         every kernel of the path must have launched;
      b. resuming: 4 steps, a snapshot, `--ckpt_step 4` and 2 more steps
         must end equal, bit for bit, to the 6 straight steps (parameters,
@@ -276,6 +284,7 @@ power limit, and {"ok": true, "device": {...}}.
 import dataclasses
 import os
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1252,12 +1261,13 @@ def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in, refine_in, two
     # ---- 8c: one sharded f32 train step, two data ranks
     s_cfg = ModelConfig(view_num=3, max_d=16, width=128, height=128,
                         network_mode="normal", compute_dtype="float32")
-    t_mesh = make_mesh(shape=(2, mesh.size // 2, 1), backend=backend)
+    t_mesh = make_mesh(mesh.size, (2, mesh.size // 2, 1), rank_devices(mesh.size, backend))
     m = MVSNet(s_cfg, seed=3)
     perturb_norms(m, seed=4)
     tcfg = TrainConfig()
     state = train_lib.create_train_state(m, s_cfg, tcfg, device=t_mesh.device)
-    _, met = make_sharded_train_step(m, s_cfg, tcfg, t_mesh)(state, train_batch)
+    step, _ = make_sharded_train_step(m, s_cfg, tcfg, mesh.size, t_mesh)
+    _, met = step(state, train_batch)
     out["train"] = dict(mesh=t_mesh.shape, loss=met["loss"].item(),
                         grads={n: p.grad.cpu().numpy() for n, p in m.named_parameters()},
                         buffers={n: b.cpu().numpy() for n, b in m.named_buffers()})
@@ -1266,6 +1276,16 @@ def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in, refine_in, two
         torch.cuda.empty_cache()
         out["blocks"] = blocks_two(backend, *two)
     return out
+
+
+def rank_devices(world, backend):
+    """The devices of a world's ranks in rank order, as JAX's `make_mesh`
+    takes them (its third argument): the CPU for "gloo", else the cards,
+    the ranks past the card count sharing them ("gloo-cuda"). The mesh
+    infers its backend from them and the process group's."""
+    if backend == "gloo":
+        return [torch.device("cpu")] * world
+    return [torch.device("cuda", r % torch.cuda.device_count()) for r in range(world)]
 
 
 def blocks_backend(n):
@@ -1665,10 +1685,12 @@ def blocked_small_step(backend, shape, reg="3DCNN"):
     from mvsnet_tpu_torch.parallel.mesh import make_mesh
     from mvsnet_tpu_torch.parallel.train_step import make_sharded_train_step
 
-    mesh = make_mesh(shape=shape, backend=backend)
+    n = math.prod(shape)
+    mesh = make_mesh(n, shape, rank_devices(n, backend))
     cfg, m, batch = small_train_setup(reg)
     state = train_lib.create_train_state(m, cfg, TrainConfig(), device=mesh.device)
-    _, met = make_sharded_train_step(m, cfg, TrainConfig(), mesh)(state, batch)
+    step, _ = make_sharded_train_step(m, cfg, TrainConfig(), n, mesh)
+    _, met = step(state, batch)
     loss, grads, buffers = step_record(m, met)
     return dict(mesh=mesh.shape, loss=loss, grads=grads, buffers=buffers)
 
@@ -1697,11 +1719,11 @@ def phase8_blocks_rank(backend, serve_in, big_batch, serve_args, big_args):
     torch.backends.cuda.matmul.allow_tf32 = False
     world = torch.distributed.get_world_size()
     out = {}
-    dev = make_mesh(shape=(1, world, 1), backend=backend).device
+    dev = make_mesh(world, (1, world, 1), rank_devices(world, backend)).device
 
     if world == 4:
         cfg = ModelConfig(**serve_args)
-        mesh = make_mesh(shape=(1, 2, 2), backend=backend)
+        mesh = make_mesh(4, (1, 2, 2), rank_devices(4, backend))
         predictor = Predictor(cfg, seed=0, mesh=mesh, device=dev)
         records = []
         handler = logging.Handler()
@@ -1785,11 +1807,12 @@ def big_steps(backend, shape, big_batch, big_args):
 
     cfg = ModelConfig(**big_args)
     tcfg = TrainConfig()
-    mesh = make_mesh(shape=shape, backend=backend)
+    n = math.prod(shape)
+    mesh = make_mesh(n, shape, rank_devices(n, backend))
     dev = mesh.device
     model = MVSNet(cfg, seed=0)
     state = train_lib.create_train_state(model, cfg, tcfg, device=dev)
-    step = make_sharded_train_step(model, cfg, tcfg, mesh)
+    step, _ = make_sharded_train_step(model, cfg, tcfg, n, mesh)
     _sync(dev)
     _reset_peak(dev)
     kernels.reset_launch_counts()
@@ -1831,7 +1854,7 @@ def blocks_two(backend, big_batch, big_args):
     out = {"small_121": blocked_small_step(backend, (1, 2, 1)),
            "big": big_steps(backend, (1, 2, 1), big_batch, big_args),
            "small_112_gru": blocked_small_step(backend, (1, 1, 2), "GRU")}
-    mesh = make_mesh(shape=(1, 1, 2), backend=backend)
+    mesh = make_mesh(2, (1, 1, 2), rank_devices(2, backend))
     cfg = ModelConfig(**dict(big_args, network_mode="lite", regularization="GRU"))
     model = MVSNet(cfg, seed=0).to(mesh.device)
     rows = AxisSplit("space", cfg.height // 4, 2, mesh.axis_index("space"))
@@ -1920,6 +1943,7 @@ def phase8i_drivers(smi, nproc=4, device="cuda:0", train_point=(480, 640, 192),
 
     from mvsnet_tpu_torch import checkpoint, train_lib
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.data.synthetic import write_session
     from mvsnet_tpu_torch.io.pfm import load_pfm
     from mvsnet_tpu_torch.models import MVSNet
 
@@ -1933,7 +1957,7 @@ def phase8i_drivers(smi, nproc=4, device="cuda:0", train_point=(480, 640, 192),
     with tempfile.TemporaryDirectory(prefix="mvsnet_multi_drivers_") as root:
         data = os.path.join(root, "data")
         for k in (0, 1):
-            write_rendered_session(os.path.join(data, "train", f"session_{k}"), W, H, 5, k)
+            write_session(os.path.join(data, "train", f"session_{k}"), W, H, 5, k)
         train_args = [*MULTI_TRAIN_ARGS, "--width", str(W), "--height", str(H), "--max_d",
                       str(D), "--train_data_root", data, "--device", device]
         runs = {}
@@ -1989,8 +2013,8 @@ def phase8i_drivers(smi, nproc=4, device="cuda:0", train_point=(480, 640, 192),
                   "--refinement", "--refinement_network", "unet", "--refine_with_confidence",
                   "--visualize", "--model_dir", model_dir, "--ckpt_step", "100",
                   "--max_clusters_per_session", "1", "--device", device]
-        write_rendered_session(os.path.join(root, "infer_1"), sW, sH, sV, 0)
-        write_rendered_session(os.path.join(root, "bench_1", "test", "session_0"), sW, sH, sV, 1)
+        write_session(os.path.join(root, "infer_1"), sW, sH, sV, 0)
+        write_session(os.path.join(root, "bench_1", "test", "session_0"), sW, sH, sV, 1)
         shutil.copytree(os.path.join(root, "infer_1"), os.path.join(root, f"infer_{nproc}"))
         shutil.copytree(os.path.join(root, "bench_1"), os.path.join(root, f"bench_{nproc}"))
         maps, rows = {}, {}
@@ -2049,6 +2073,22 @@ def phase8i_drivers(smi, nproc=4, device="cuda:0", train_point=(480, 640, 192),
     return ok
 
 
+def datagen_rate(data_root, batches=30):
+    """`tools.prototype_datagen.main` on the sessions under `data_root`'s
+    train split at the bench train point: (its exit code, its lines)."""
+    import contextlib
+    import io
+
+    from mvsnet_tpu_torch.tools import prototype_datagen
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = prototype_datagen.main([data_root, "--mode", "train", "--batches", str(batches),
+                                     "--view_num", "3", "--width", "640", "--height", "480",
+                                     "--max_d", "192"])
+    return rc, text.getvalue().strip().splitlines() or [""]
+
+
 def phase9_driver(smi, dev):
     """9a and 9b; returns whether every check held."""
     import os
@@ -2057,6 +2097,7 @@ def phase9_driver(smi, dev):
     from mvsnet_tpu_torch import checkpoint, train_lib
     from mvsnet_tpu_torch import train as driver
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.data.synthetic import write_session
     from mvsnet_tpu_torch.models import MVSNet
     from mvsnet_tpu_torch.ops import kernels
 
@@ -2129,7 +2170,7 @@ def phase9_driver(smi, dev):
         t0 = time.perf_counter()
         for split in ("train", "val"):                # a validation split: val rounds run
             for k in (0, 1):
-                write_rendered_session(os.path.join(data, split, f"session_{k}"), 640, 480, 5, k)
+                write_session(os.path.join(data, split, f"session_{k}"), 640, 480, 5, k)
         print(f"  wrote 2 train and 2 val sessions of 5 images at 640x480 in "
               f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
         straight, resumed = os.path.join(root, "straight"), os.path.join(root, "resumed")
@@ -2170,9 +2211,16 @@ def phase9_driver(smi, dev):
         idle = [k for k in DRIVER_PATH_KERNELS if path_counts[k] == 0]
         has_val = any("val_loss" in r for r in records)
         finite = all(np.isfinite(st["loss"]) for st in steps)
-        if rcs != [0, 0, 0] or bad_steps or idle or not has_val or not finite:
+        loader_rc, loader_lines = datagen_rate(data)
+        print(f"  tools.prototype_datagen on these train sessions (--batches 30, 640x480, D=192, "
+              f"V=3; the default 2 decode workers): rc {loader_rc}; {'; '.join(loader_lines)}; "
+              f"against the host ms a sample above and the steady lite step's "
+              f"{np.median(walls[1:]):.2f} ms [{smi}]")
+        if (rcs != [0, 0, 0] or bad_steps or idle or not has_val or not finite or loader_rc
+                or not loader_lines[-1].startswith("30 batches")):
             print(f"phase 9a FAILED: rcs {rcs}, steps with other counts {bad_steps}, kernels that "
-                  f"never launched {idle}, val metrics {has_val}, losses finite {finite}")
+                  f"never launched {idle}, val metrics {has_val}, losses finite {finite}, "
+                  f"prototype_datagen rc {loader_rc}")
             ok = False
 
         # ---- 9b: 4 + resume + 2 == 6, bit for bit
@@ -2890,28 +2938,6 @@ def phase13_refined_training(smi, dev, point=(480, 640, 192), small=(128, 128, 1
     return counts if good and repeat == 0 else None
 
 
-def write_rendered_session(path, W, H, N, seed):
-    """A session of `data/synthetic.py`'s rendered plane scene, N images of
-    WxH, on disk as the data plane reads it: `images/<i>.jpg` (the port's
-    JPEG encoder), cameras, covisibility and depth PNGs."""
-    import os
-
-    from mvsnet_tpu_torch.data.synthetic import render_session
-    from mvsnet_tpu_torch.io import images as imio
-
-    session = render_session(W, H, n_images=N, seed=seed)
-    for sub in ("images", "cameras", "depths"):
-        os.makedirs(os.path.join(path, sub))
-    for i, (img, cam, depth) in enumerate(zip(session["images"], session["cameras"],
-                                              session["depths"])):
-        imio.write_image(os.path.join(path, "images", f"{i}.jpg"), img)
-        with open(os.path.join(path, "cameras", f"{i}.json"), "w") as f:
-            json.dump(cam, f)
-        imio.write_depth_png(os.path.join(path, "depths", f"{i}.png"), depth)
-    with open(os.path.join(path, "covisibility.json"), "w") as f:
-        json.dump(session["covisibility"], f)
-
-
 def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
     """The serving drivers `test.main` and `infer.main` with refinement at
     `point` (height, width, views, D; main passes the test driver's),
@@ -2922,6 +2948,7 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
     from mvsnet_tpu_torch import checkpoint, infer, predict, train_lib
     from mvsnet_tpu_torch import test as bench_driver
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.data.synthetic import write_session
     from mvsnet_tpu_torch.io import images as imio
     from mvsnet_tpu_torch.io.cams import load_cam_txt
     from mvsnet_tpu_torch.io.pfm import load_pfm
@@ -2939,8 +2966,8 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
     ok = True
     with tempfile.TemporaryDirectory(prefix="mvsnet_serving_") as root:
         infer_dir, bench_dir = os.path.join(root, "session"), os.path.join(root, "bench")
-        write_rendered_session(infer_dir, W, H, N, 0)
-        write_rendered_session(os.path.join(bench_dir, "test", "session_0"), W, H, N, 1)
+        write_session(infer_dir, W, H, N, 0)
+        write_session(os.path.join(bench_dir, "test", "session_0"), W, H, N, 1)
         model_dir, results = os.path.join(root, "models"), os.path.join(root, "results.csv")
         cfg = ModelConfig(view_num=V, max_d=D, width=W, height=H, network_mode="normal",
                           compute_dtype="bfloat16", **REFINE_ARGS)
@@ -3229,6 +3256,7 @@ def phase15_chain(smi, dev, model_dir, step, point=(384, 512, 4, 192), clusters=
 
     from mvsnet_tpu_torch import fusion, infer, visualize
     from mvsnet_tpu_torch.io.cams import load_cam_txt, projection_matrix
+    from mvsnet_tpu_torch.data.synthetic import write_session
     from mvsnet_tpu_torch.io.dmb import read_dmb
     from mvsnet_tpu_torch.io.pfm import load_pfm
     from mvsnet_tpu_torch.io.ply import read_ply
@@ -3246,7 +3274,7 @@ def phase15_chain(smi, dev, model_dir, step, point=(384, 512, 4, 192), clusters=
     ok = True
     with tempfile.TemporaryDirectory(prefix="mvsnet_chain_") as root:
         session = os.path.join(root, "session")
-        write_rendered_session(session, W, H, N, 2)
+        write_session(session, W, H, N, 2)
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
         rc = infer.main(["--input_dir", session, "--view_num", str(V), "--max_d", str(D),

@@ -9,13 +9,14 @@ size and reflect-101 border in place of `cv2.GaussianBlur`, a bilinear
 zero-fill warp in place of `cv2.warpPerspective`) and never JPEG-coded.
 `SyntheticGenerator` is a `ClusterGenerator` over such sessions: every
 sample goes through the same transforms (rescale, crop, centering, camera
-and depth scaling) as a session read from disk. `write_dtu_scan` writes
-the scene to disk in the DTU training layout that `tools.convert_dtu`
-reads.
+and depth scaling) as a session read from disk. `write_session` writes a
+scene to disk as a session; `write_dtu_scan` writes it in the DTU training
+layout that `tools.convert_dtu` reads.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import random
 from concurrent.futures import ThreadPoolExecutor
@@ -104,6 +105,24 @@ def render_session(width: int = 96, height: int = 96, n_images: int = 5,
         session["covisibility"][str(i)] = {"views": views, "min_depth": min_depth,
                                            "max_depth": max_depth}
     return session
+
+
+def write_session(path: str, width: int = 96, height: int = 96, n_images: int = 5,
+                  seed: int = 0) -> None:
+    """`render_session`'s scene on disk as the data plane reads a session:
+    `images/<i>.jpg` (the port's JPEG encoder), `cameras/<i>.json`,
+    `depths/<i>.png` and `covisibility.json`."""
+    session = render_session(width, height, n_images=n_images, seed=seed)
+    for sub in ("images", "cameras", "depths"):
+        os.makedirs(os.path.join(path, sub))
+    for i, (img, cam, depth) in enumerate(zip(session["images"], session["cameras"],
+                                              session["depths"])):
+        imio.write_image(os.path.join(path, "images", f"{i}.jpg"), img)
+        with open(os.path.join(path, "cameras", f"{i}.json"), "w") as f:
+            json.dump(cam, f)
+        imio.write_depth_png(os.path.join(path, "depths", f"{i}.png"), depth)
+    with open(os.path.join(path, "covisibility.json"), "w") as f:
+        json.dump(session["covisibility"], f)
 
 
 class _MemoryCluster(Cluster):

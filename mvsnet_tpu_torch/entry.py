@@ -84,7 +84,7 @@ def gru_dryrun(mesh) -> int:
     images, cams, _, _ = tiny_batch(B)
     args = (images, cams, cams[:, 0, 1, 3, 0], cams[:, 0, 1, 3, 3])
     with torch.inference_mode():
-        depth, prob = make_sharded_gru_forward(model, mesh)(
+        depth, prob = make_sharded_gru_forward(model, cfg, mesh)(
             *(torch.as_tensor(a, device=mesh.device) for a in args))
     if depth.shape[0] != B or not (torch.isfinite(depth).all() and torch.isfinite(prob).all()):
         raise FloatingPointError("non-finite or misshapen depth in GRU WTA serving")
@@ -107,14 +107,14 @@ def _dryrun_rank(backend: str) -> dict:
                        grad_loss=False)
     model = MVSNet(cfg, seed=0)
     state = train_lib.create_train_state(model, cfg, tcfg, device=mesh.device)
-    step = make_sharded_train_step(model, cfg, tcfg, mesh)
+    step, _ = make_sharded_train_step(model, cfg, tcfg, n, mesh)
     _, metrics = step(state, tiny_batch(mesh.shape[0]))
     loss = metrics["loss"].item()
     if not np.isfinite(loss):
         raise FloatingPointError(f"non-finite loss {loss} in the multi-device dry run")
 
     serving = MVSNet(cfg, seed=1).to(mesh.device).eval()
-    forward = make_sharded_forward(serving, mesh)
+    forward = make_sharded_forward(serving, cfg, mesh)
     out = {"mesh": mesh.shape, "loss": loss}
     for name, B in (("throughput", n), ("latency", 1)):
         images, cams, _, _ = tiny_batch(B)

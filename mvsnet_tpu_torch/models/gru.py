@@ -87,7 +87,11 @@ class GRURegularizer(nn.Module):
 
     @staticmethod
     def init_states(batch: int, height: int, width: int, network_mode: str,
-                    dtype=torch.float32, device=None):
-        """Zero hidden states (B, H, W, f) for the three cells (gru.py:87)."""
-        return tuple(torch.zeros((batch, height, width, f), dtype=dtype, device=device)
+                    dtype=torch.float32, cw: bool = False, *, device=None):
+        """Zero hidden states (B, H, W, f) for the three cells (gru.py:87),
+        JAX's parameters in JAX's order; `cw=True` gives JAX's shape for its
+        channel-second-minor layout, (B, H, f, W), which the port's cells
+        do not take."""
+        return tuple(torch.zeros((batch, height, f, width) if cw else
+                                 (batch, height, width, f), dtype=dtype, device=device)
                      for f in gru_filter_sizes(network_mode))

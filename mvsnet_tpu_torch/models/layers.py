@@ -141,9 +141,13 @@ def spatial_mean(t, axes, stat_sum=None, keepdim=False):
     return total[:-1].reshape(s.shape) / total[-1]
 
 
-def group_norm_core(x, gamma, beta, num_groups: int, eps: float, stat_sum=None):
-    """Group norm of channels-last x (N, ..., C) in float32, cast back
-    (layers.py:769-811): channel c is in group c // (C // G). In float32
+def group_norm_core(x, gamma, beta, num_groups: int, eps: float, channel_axis: int = -1, *,
+                    stat_sum=None):
+    """Group norm of x (N, ..., C) in float32, cast back (layers.py:769-811),
+    JAX's parameters in JAX's order: channel c is in group c // (C // G).
+    Another `channel_axis` (JAX's -2, its channel-second-minor layout) is
+    moved last, normalised and moved back: JAX's function, not its layout.
+    In float32
     the moments are two-pass, per channel over the spatial axes first,
     then per group, as JAX's; `stat_sum`: see `spatial_mean` (two sums).
     A bfloat16 or float16 x takes them from the float64 sums of x and x^2
@@ -152,6 +156,10 @@ def group_norm_core(x, gamma, beta, num_groups: int, eps: float, stat_sum=None):
     group: sums whose order does not show in float32, so a block of rows
     whose sums `stat_sum` adds up (one sum) gets the whole map's statistics
     bit for bit, as a half-precision request on one card does."""
+    if channel_axis % x.ndim != x.ndim - 1:
+        y = group_norm_core(x.movedim(channel_axis, -1), gamma, beta, num_groups, eps,
+                            stat_sum=stat_sum)
+        return y.movedim(-1, channel_axis)
     N, C = x.shape[0], x.shape[-1]
     G = num_groups
     spatial = tuple(range(1, x.ndim - 1))
@@ -192,7 +200,8 @@ class GroupNormRef(nn.Module):
         self.eps = eps
 
     def forward(self, x, stat_sum=None):
-        return group_norm_core(x, self.scale, self.bias, self.groups, self.eps, stat_sum)
+        return group_norm_core(x, self.scale, self.bias, self.groups, self.eps,
+                               stat_sum=stat_sum)
 
 
 class GroupNormFlexible(nn.Module):
@@ -224,7 +233,7 @@ class GroupNormFlexible(nn.Module):
             var = spatial_mean(torch.square(centered), axes, stat_sum, keepdim=True)
             y = centered / torch.sqrt(var + eps) * self.scale + self.bias
             return y.to(x.dtype)
-        return group_norm_core(x, self.scale, self.bias, self.groups, 1e-5, stat_sum)
+        return group_norm_core(x, self.scale, self.bias, self.groups, 1e-5, stat_sum=stat_sum)
 
 
 class BatchNormRef(nn.Module):

@@ -358,13 +358,16 @@ class MVSNet(nn.Module):
 
     forward = forward_3dcnn
 
-    def gru_cost_sweep(self, images, cams, depth_start, depth_interval, depth_end,
-                       samples=None, blocks=None):
-        """The GRU sweep (mvsnet.py:193-240): features, the cost volume over
-        all D planes at once (differentiable in training), then `GRUSweep`.
-        depth_start, depth_interval, depth_end (B,) float32. Returns regs
-        (B, D, h, w) float32 and the winner-take-all carry when `samples`
-        (B, D) are given.
+    def gru_cost_sweep(self, images, cams, depth_start, depth_interval, depth_end=None,
+                       differentiable=None, *, samples=None, blocks=None):
+        """The GRU sweep (mvsnet.py:193-240), with JAX's parameters in JAX's
+        order: features, the cost volume over all D planes at once, then
+        `GRUSweep`. depth_start, depth_interval, depth_end (B,) float32;
+        `depth_end=None` is depth_start + (D - 1) * depth_interval, as in
+        JAX. `differentiable` (JAX's) decides whether the cost volume is
+        differentiable; None takes the module's mode (`self.training`).
+        Returns regs (B, D, h, w) float32 and the winner-take-all carry
+        when `samples` (B, D) are given, else None.
 
         `blocks` (mesh, rows: a `parallel.mesh.AxisSplit` over 'space'),
         for training over 'space' (JAX constrains the sweep's volume over
@@ -374,10 +377,15 @@ class MVSNet(nn.Module):
         backward; the cells' 3x3 convs take a one-row halo over 'space' each
         plane and their norms sum their statistics over it. Regs are then
         (B, D, hl, w), the rank's rows."""
+        if depth_end is None:
+            depth_start, depth_interval, depth_end = self.depth_range(
+                depth_start, depth_interval, images.shape[0], images.device)
+        if differentiable is None:
+            differentiable = self.training
         ref_f, view_f = self.extract_features(images, blocks)
         homs = self.homographies(cams, depth_start, depth_interval, depth_end)
         if blocks is None:
-            cost = plane_sweep_cost_volume(ref_f, view_f, homs, differentiable=self.training)
+            cost = plane_sweep_cost_volume(ref_f, view_f, homs, differentiable=differentiable)
             return self.gru_sweep(cost, samples)
         mesh, rows = blocks
         cost = sweep_cost_volume_sharded(ref_f, view_f, homs, mesh,
@@ -412,7 +420,7 @@ class MVSNet(nn.Module):
         samples = (inv_depth_values(ds, de, cfg.max_d) if cfg.inverse_depth
                    else depth_values(ds, di, cfg.max_d))
         regs, (max_prob, depth_image, exp_sum) = self.gru_cost_sweep(images, cams, ds, di, de,
-                                                                     samples)
+                                                                     samples=samples)
         out = (depth_image, max_prob / (exp_sum + 1e-7))
         return out + (regs,) if with_regs else out
 

@@ -39,6 +39,7 @@ from typing import Callable, Optional
 
 import torch
 
+from mvsnet_tpu_torch.config import ModelConfig
 from mvsnet_tpu_torch.models.mvsnet import MVSNet, apply_forward_3dcnn, refine_outputs
 from mvsnet_tpu_torch.models.regnet import VolumePlan, plan_volume
 from mvsnet_tpu_torch.ops.cost_volume import sweep_cost_volume_sharded
@@ -126,11 +127,14 @@ def throughput_forward(model: MVSNet, mesh: Mesh, images, cams, depth_start, dep
     return tuple(mesh.all_gather(o.contiguous(), None, dim=0) for o in out)
 
 
-def make_sharded_forward(model: MVSNet, mesh: Mesh):
+def make_sharded_forward(model: MVSNet, cfg: ModelConfig, mesh: Mesh):
     """forward(images, cams, depth_start, depth_interval) -> (depth_map,
     prob_map, residual) over `mesh`, every rank calling it with the same
     inputs (tensors on the rank's device; depth_start, depth_interval
-    (B,)). The eval model is replicated on every rank."""
+    (B,)). The eval model is replicated on every rank. JAX's parameters
+    in JAX's order (infer_step.py:33); `cfg`, the model's configuration,
+    is not read, as in JAX: the model carries its own. The forward takes
+    no `variables`: the model holds its weights."""
 
     def forward(images, cams, depth_start, depth_interval):
         B = images.shape[0]
@@ -143,13 +147,13 @@ def make_sharded_forward(model: MVSNet, mesh: Mesh):
     return forward
 
 
-def make_sharded_gru_forward(model: MVSNet, mesh: Mesh):
+def make_sharded_gru_forward(model: MVSNet, cfg: ModelConfig, mesh: Mesh):
     """forward(images, cams, depth_start, depth_end) -> (depth_map,
     prob_map), `forward_gru_wta` over `mesh` (infer_step.py:102-153): the
     batch is padded to a multiple of the ranks (`_pad_batch`), each rank
     runs its maps in rank order, the results are all-gathered and sliced
     back to B. Every rank calls it with the same inputs; the eval model is
-    replicated."""
+    replicated. `cfg` as in `make_sharded_forward`."""
 
     def forward(images, cams, depth_start, depth_end):
         B = images.shape[0]

@@ -283,46 +283,80 @@ class Mesh:
         return _AllGather.apply(t, self, axis, dim, replicated)
 
 
-def _rank_device(backend: str) -> torch.device:
-    if backend == "gloo":
+def _rank_device(backend: str, device: Optional[torch.device] = None) -> torch.device:
+    """This rank's device: `device` when given (checked against the
+    backend), else cpu for "gloo" and cuda:(LOCAL_RANK mod the card count)
+    for the others."""
+    if device is not None:
+        if (device.type == "cpu") != (backend == "gloo"):
+            raise ValueError(f"a {backend!r} mesh cannot put a rank on {device}")
+        if device.type == "cpu":
+            return device
+    elif backend == "gloo":
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError(f"a {backend!r} mesh puts its ranks on CUDA devices and "
                            "none is available; use backend='gloo' for CPU ranks")
-    local = int(os.environ.get("LOCAL_RANK", dist.get_rank() if dist.is_initialized() else 0))
-    device = torch.device("cuda", local % torch.cuda.device_count())
-    if backend == "nccl" and local >= torch.cuda.device_count():
-        raise RuntimeError(f"NCCL puts one rank on each card: local rank {local} of "
-                           f"{torch.cuda.device_count()} cards; use 'gloo-cuda'")
+    if device is None:
+        local = int(os.environ.get("LOCAL_RANK",
+                                   dist.get_rank() if dist.is_initialized() else 0))
+        if backend == "nccl" and local >= torch.cuda.device_count():
+            raise RuntimeError(f"NCCL puts one rank on each card: local rank {local} of "
+                               f"{torch.cuda.device_count()} cards; use 'gloo-cuda'")
+        device = torch.device("cuda", local % torch.cuda.device_count())
+    elif device.index is None or device.index >= torch.cuda.device_count():
+        raise ValueError(f"{device} is not one of the {torch.cuda.device_count()} cards")
     torch.cuda.set_device(device)
     return device
 
 
-def make_mesh(n: Optional[int] = None, shape=None, backend: Optional[str] = None) -> Mesh:
-    """A (data, depth, space) mesh over the `n` ranks of the process group
-    (every rank calls it, with the same arguments).
+def make_mesh(n_devices: Optional[int] = None, shape=None, devices=None, *,
+              backend: Optional[str] = None) -> Mesh:
+    """A (data, depth, space) mesh over the `n_devices` ranks of the process
+    group, with JAX's parameters in JAX's order (mvsnet_tpu/parallel/
+    mesh.py:45). Every rank calls it, with the same arguments.
 
-    n: the world size (default); shape: default `factorize_devices(n)`;
+    n_devices: the world size (default): a mesh spans the whole group.
+    shape: default `factorize_devices(n_devices)`.
+    devices: the devices (torch devices or their names) in rank order, of
+    which the mesh takes the first `n_devices`: rank r runs on devices[r].
+    A list shorter than the world raises. Default: where `backend` puts a
+    rank (the module docstring).
     backend: "nccl", "gloo" or "gloo-cuda" (see the module docstring),
-    default the process group's own ("nccl" or "gloo"), or "nccl" (the
-    card) without a process group. Every axis of size > 1 gets a subgroup:
-    all ranks create all of them, in one order, as `dist.new_group` needs.
+    default the process group's own ("nccl" or "gloo"; a gloo group whose
+    `devices` are cards gets "gloo-cuda"), or, without a process group,
+    "gloo" on CPU `devices` and "nccl" (the card) otherwise. Every axis of
+    size > 1 gets a subgroup: all ranks create all of them, in one order,
+    as `dist.new_group` needs.
     """
     grouped = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if grouped else 1
-    n = world if n is None else n
+    n = world if n_devices is None else n_devices
     if n != world:
-        raise ValueError(f"a mesh spans the whole process group: n={n}, world size {world}")
+        raise ValueError(f"a mesh spans the whole process group: n_devices={n}, "
+                         f"world size {world}")
     shape = tuple(int(s) for s in (shape or factorize_devices(n)))
     if len(shape) != 3 or math.prod(shape) != n:
         raise ValueError(f"mesh shape {shape} does not hold {n} ranks over {AXES}")
+    rank = dist.get_rank() if grouped else 0
+    device = None
+    if devices is not None:
+        devices = list(devices)[:n]
+        if len(devices) < n:
+            raise ValueError(f"{len(devices)} devices for a world of {n} ranks")
+        device = torch.device(devices[rank])
     if backend is None:
-        backend = dist.get_backend() if grouped else "nccl"
+        group = dist.get_backend() if grouped else None
+        if device is not None and device.type == "cpu":
+            backend = "gloo"
+        elif device is not None and group == "gloo":
+            backend = "gloo-cuda"
+        else:
+            backend = group or "nccl"
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if grouped and (dist.get_backend() == "nccl") != (backend == "nccl"):
         raise ValueError(f"mesh backend {backend!r} on a {dist.get_backend()!r} process group")
-    rank = dist.get_rank() if grouped else 0
     groups = {}
     if n > 1:
         groups[None] = dist.group.WORLD
@@ -333,4 +367,4 @@ def make_mesh(n: Optional[int] = None, shape=None, backend: Optional[str] = None
                 g = dist.new_group(ranks)
                 if rank in ranks:
                     groups[axis] = g
-    return Mesh(shape, rank, backend, _rank_device(backend), groups)
+    return Mesh(shape, rank, backend, _rank_device(backend, device), groups)

@@ -31,7 +31,8 @@ from mvsnet_tpu_torch.ops.depth import soft_argmin_prob_map_sharded
 from mvsnet_tpu_torch.ops.kernels import conv as conv_k
 from mvsnet_tpu_torch.ops.kernels import deconv as deconv_k
 from mvsnet_tpu_torch.parallel import halo
-from mvsnet_tpu_torch.parallel.infer_step import latency_forward
+from mvsnet_tpu_torch.parallel.infer_step import (latency_forward, make_sharded_forward,
+                                                  make_sharded_gru_forward)
 from mvsnet_tpu_torch.parallel.mesh import AxisSplit, make_mesh
 from mvsnet_tpu_torch.parallel.train_step import make_sharded_train_step
 from mvsnet_tpu_torch.predict import Predictor
@@ -272,8 +273,8 @@ def train(inp):
     logging.getLogger("mvsnet_tpu_torch").addHandler(records)
     try:
         with tower_rows(model) as rows:
-            state, metrics = make_sharded_train_step(model, cfg, tcfg, mesh)(state,
-                                                                            inp["batch"])
+            step, _ = make_sharded_train_step(model, cfg, tcfg, mesh.size, mesh)
+            state, metrics = step(state, inp["batch"])
     finally:
         CostVolumeFn.forward = staticmethod(forward)
         for kind, fn in sweep_fns.items():
@@ -286,6 +287,49 @@ def train(inp):
             "params": {n: _np(p) for n, p in model.named_parameters()},
             "norms_synced_after": any(m.batch_sum is not None for m in model.modules()
                                       if isinstance(m, BatchNormRef))}
+
+
+def jax_order(inp):
+    """The parallel factories called in JAX's positional order, as
+    mvsnet_tpu/train.py:269 and tests/test_parallel.py call them:
+    `make_mesh(n_devices, shape, devices)` on a list of devices longer than
+    the world (and a shorter one, which raises), `step, mesh =
+    make_sharded_train_step(model, cfg, tcfg, n_devices)` on `inp["train"]`
+    (the "train" case's inputs), `make_sharded_forward(model, cfg, mesh)` on
+    the "predict" case's inputs and `make_sharded_gru_forward(model, cfg,
+    mesh)` on `inp["gru"]`'s."""
+    world = torch.distributed.get_world_size()
+    mesh = make_mesh(world, (1, world, 1), ["cpu"] * (world + 1))
+    try:
+        make_mesh(world, (1, world, 1), ["cpu"] * (world - 1))
+        short = None
+    except ValueError as e:
+        short = str(e)
+    out = {"mesh": (mesh.shape, mesh.backend, str(mesh.device)), "short": short}
+
+    t = inp["train"]
+    cfg, tcfg = ModelConfig(**t["cfg"]), TrainConfig(**t["tcfg"])
+    model = MVSNet(cfg)
+    model.load_state_dict({k: _t(v) for k, v in t["state_dict"].items()})
+    state = train_lib.create_train_state(model, cfg, tcfg, device="cpu")
+    step, step_mesh = make_sharded_train_step(model, cfg, tcfg, world)
+    _, metrics = step(state, t["batch"])
+    out["train"] = {"mesh": step_mesh.shape,
+                    "metrics": {k: float(v) for k, v in metrics.items()},
+                    "grads": {n: _np(p.grad) for n, p in model.named_parameters()}}
+
+    for key, forward_of in (("serve", make_sharded_forward), ("gru", make_sharded_gru_forward)):
+        cfg = ModelConfig(**inp[key]["cfg"])
+        model = MVSNet(cfg)
+        model.load_state_dict({k: _t(v) for k, v in inp[key]["state_dict"].items()})
+        images, cams, ds, di, de = (torch.as_tensor(np.asarray(a, np.float32))
+                                    for a in inp[key]["inputs"])
+        with torch.inference_mode():
+            forward = forward_of(model.eval(), cfg, mesh)
+            got = (forward(images, cams, ds, di) if key == "serve"
+                   else forward(images, cams, ds, de))
+        out[key] = [_np(o) for o in got]
+    return out
 
 
 def driver_batches(inp):
@@ -325,6 +369,7 @@ def default_device_error(_inp):
 CASES = {"sweep": sweep, "halo": halo_ops, "halo_blocks": halo_blocks, "audit": audit,
          "tail": tail, "predict": predict, "train": train,
          "driver_batches": driver_batches, "default_device_error": default_device_error,
+         "jax_order": jax_order,
          "infer_driver": infer_driver}
 
 

@@ -47,6 +47,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import logging
+from typing import Optional
 
 import torch
 
@@ -56,7 +57,7 @@ from mvsnet_tpu_torch.models.layers import BatchNormRef
 from mvsnet_tpu_torch.models.mvsnet import MVSNet
 from mvsnet_tpu_torch.models.regnet import plan_volume
 from mvsnet_tpu_torch.parallel.infer_step import forward_3dcnn_blocks
-from mvsnet_tpu_torch.parallel.mesh import AxisSplit, Mesh
+from mvsnet_tpu_torch.parallel.mesh import AxisSplit, Mesh, make_mesh
 
 logger = logging.getLogger(__name__)
 
@@ -128,8 +129,15 @@ class _Blocks:
         return self.mesh.all_gather_grad(t, "space", dim=1, replicated=True)
 
 
-def make_sharded_train_step(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, mesh: Mesh):
-    """train_step(state, batch) -> (state, metrics). Every rank calls it
+def make_sharded_train_step(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig,
+                            n_devices: Optional[int] = None, mesh: Optional[Mesh] = None,
+                            donate: bool = True):
+    """(train_step, mesh), with JAX's parameters in JAX's order
+    (mvsnet_tpu/parallel/train_step.py:24): `mesh=None` builds
+    `make_mesh(n_devices)` over the process group; `donate` is accepted
+    and has no effect (the step updates `state` in place).
+
+    train_step(state, batch) -> (state, metrics). Every rank calls it
     with the whole batch (images, cams, depth_image, full_depth) as
     arrays; B must divide over 'data'. `state` comes from
     `train_lib.create_train_state(model, ..., device=mesh.device)` on every
@@ -137,6 +145,10 @@ def make_sharded_train_step(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, 
     as the module docstring says (the GRU over 'space' only: its depth is
     the scan); the model's batch norms sum their statistics over the mesh
     only inside a step."""
+    if mesh is None:
+        mesh = make_mesh(n_devices)
+    elif n_devices is not None and n_devices != mesh.size:
+        raise ValueError(f"n_devices={n_devices} and a mesh of {mesh.size} ranks")
     n, i = mesh.axis_size("data"), mesh.axis_index("data")
     batch_sum = None if n == 1 else (lambda t: mesh.all_reduce(t, "data"))
     alike = [p for name, p in model.named_parameters() if name.startswith("refine_net.")]
@@ -176,7 +188,7 @@ def make_sharded_train_step(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, 
             metrics["debug"] = batch_sum(metrics["debug"])
         return train_lib.apply_gradients(state, tcfg), metrics
 
-    return train_step
+    return train_step, mesh
 
 
 def shard_state(state, mesh: Mesh):

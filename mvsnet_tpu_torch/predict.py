@@ -124,7 +124,7 @@ class Predictor:
         self.model = model.to(self.device).eval()
         # forward(images, cams, depth_start, depth_interval, depth_end)
         if mcfg.regularization == "GRU":
-            gru = (make_sharded_gru_forward(self.model, self.mesh) if self.mesh is not None
+            gru = (make_sharded_gru_forward(self.model, mcfg, self.mesh) if self.mesh is not None
                    else lambda im, ca, ds, de: self.model.forward_gru_wta(im, ca, ds, None, de))
 
             def forward(images, cams, ds, di, de):
@@ -132,7 +132,7 @@ class Predictor:
                 return depth, prob, torch.zeros_like(depth)
             self._forward = forward
         elif self.mesh is not None:
-            sharded = make_sharded_forward(self.model, self.mesh)
+            sharded = make_sharded_forward(self.model, mcfg, self.mesh)
             self._forward = lambda im, ca, ds, di, de: sharded(im, ca, ds, di)
         else:
             self._forward = lambda im, ca, ds, di, de: apply_forward_3dcnn(

@@ -318,7 +318,7 @@ def train(args) -> int:
         logger.info("Restored checkpoint step %d from %s", total_step, load_dir)
     if mesh is not None:
         state = shard_state(state, mesh)
-        step_fn = make_sharded_train_step(model, mcfg, tcfg, mesh)
+        step_fn, _ = make_sharded_train_step(model, mcfg, tcfg, world, mesh)
         eval_step = make_sharded_eval_step(model, mcfg, tcfg, mesh)
     else:
         step_fn = train_lib.make_train_step(model, mcfg, tcfg)

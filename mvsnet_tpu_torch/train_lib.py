@@ -103,10 +103,14 @@ def to_device(batch, device):
     return tuple(torch.as_tensor(b, dtype=torch.float32, device=device) for b in batch)
 
 
-def compute_loss(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, batch,
+def compute_loss(model: MVSNet, cfg: ModelConfig, tcfg: TrainConfig, batch, *,
                  training: bool, batch_sum=None, blocks=None):
     """Forward and loss for one batch of device tensors (reference get_loss,
     train.py:307-364; train_lib.py:71-123). Returns (loss, metrics).
+    JAX's call also passes `params` and `batch_stats` before the batch,
+    which the port's model holds: `training` is keyword-only, so that a
+    call in JAX's order raises TypeError instead of taking `params` for
+    the batch.
     With refinement (3D-CNN only; the GRU graph ignores it, as in JAX) the
     main map's loss is against `depth_image` and the refined map's against
     `full_depth` when the net runs upsampled, else `depth_image`; they mix

@@ -2,7 +2,9 @@
 counterparts (`tools/`) on the same inputs: a tiny DTU layout written by
 `data.synthetic.write_dtu_scan` through convert_dtu, dtu_fixer and
 split_data; DeMoN scenes through convert_demon and its --fix; the point
-cloud scorer; the hyperparameter search. Session JSONs, cams and depth
+cloud scorer; the hyperparameter search; the dataset download offline
+(boto3 blocked, so nothing is fetched); the loader harness on a session
+that `data.synthetic.write_session` writes. Session JSONs, cams and depth
 arrays equal; the JPEGs equal byte for byte (both are imageio's default
 write); the scorer's metrics within 1e-12 relative."""
 
@@ -21,16 +23,19 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 import convert_demon as pre_demon  # noqa: E402
 import convert_dtu as pre_dtu  # noqa: E402
+import download_dataset as pre_download  # noqa: E402
 import dtu_fixer as pre_fixer  # noqa: E402
 import eval_pointcloud as pre_eval  # noqa: E402
 import hp_search as pre_hp  # noqa: E402
+import prototype_datagen as pre_datagen  # noqa: E402
 import split_data as pre_split  # noqa: E402
 
-from mvsnet_tpu_torch.data.synthetic import write_dtu_scan  # noqa: E402
+from mvsnet_tpu_torch.data.synthetic import write_dtu_scan, write_session  # noqa: E402
 from mvsnet_tpu_torch.io import images  # noqa: E402
 from mvsnet_tpu_torch.io.ply import write_ply  # noqa: E402
-from mvsnet_tpu_torch.tools import (convert_demon, convert_dtu, dtu_fixer,  # noqa: E402
-                                    eval_pointcloud, hp_search, split_data)
+from mvsnet_tpu_torch.tools import (convert_demon, convert_dtu,  # noqa: E402
+                                    download_dataset, dtu_fixer, eval_pointcloud, hp_search,
+                                    prototype_datagen, split_data)
 
 
 def _files(root):
@@ -196,3 +201,40 @@ def test_hp_search_equals_the_pre_port_search_and_trains_with_the_port(tmp_path,
     results = [json.loads((tmp_path / k / "hp_search_results.json").read_text())
                for k in ("pre", "port")]
     assert results[0] == results[1]
+
+
+def test_download_dataset_runs_offline(tmp_path, capsys, monkeypatch):
+    """With boto3 missing (blocked here, so nothing is fetched, whatever is
+    installed): an unknown dataset returns 2 and a known one prints the
+    `aws s3 sync` command and returns 1, as the pre-port tool does, line
+    for line; the datasets are the same."""
+    monkeypatch.setitem(sys.modules, "boto3", None)      # import boto3 raises ImportError
+    assert download_dataset.DATASETS == pre_download.DATASETS
+    out = str(tmp_path / "out")
+    for dataset, rc in (("no-such-dataset", 2), ("mvs-training", 1), ("7scenes-test", 1)):
+        assert pre_download.download(dataset, out) == rc
+        want = capsys.readouterr().out
+        assert download_dataset.download(dataset, out) == rc
+        assert capsys.readouterr().out == want
+    assert f"aws s3 sync s3://u6-mvs-datasets/7scenes/test/ {out}" in want
+    assert not os.path.exists(out)
+    with pytest.raises(SystemExit):
+        download_dataset.main(["no-such-dataset", out])
+
+
+def test_prototype_datagen_consumes_the_pre_port_batch_count(tmp_path, capsys):
+    """`tools.prototype_datagen.main` (the port's data plane) and the
+    pre-port harness on one rendered session (64x64, 5 images): both
+    return 0 and report the same batch count, `--batches 3` of a batch of
+    2 (the loader runs more than one epoch of the 5 clusters)."""
+    write_session(str(tmp_path / "train" / "session_0"), 64, 64, 5, seed=0)
+    argv = [str(tmp_path), "--batches", "3", "--batch_size", "2", "--width", "64",
+            "--height", "64", "--max_d", "8"]
+    counts = []
+    for tool in (pre_datagen, prototype_datagen):
+        (tmp_path / "train" / "clusters.pickle").unlink(missing_ok=True)
+        assert tool.main(argv) == 0
+        last = capsys.readouterr().out.strip().splitlines()[-1]
+        counts.append(last.split(" batches in ")[0])
+        assert "batches/s" in last and "samples/s" in last
+    assert counts == ["3", "3"]

@@ -346,7 +346,7 @@ def test_group_norm_on_row_blocks_is_the_whole_norm(blocks):
             others = [pass_sums(w, mean if calls else None) for j, w in enumerate(views) if j != i]
             calls.append(t)
             return t + sum(others)
-        parts.append(group_norm_core(v, gamma, beta, 2, 1e-5, stat_sum))
+        parts.append(group_norm_core(v, gamma, beta, 2, 1e-5, stat_sum=stat_sum))
         assert len(calls) == 2
     y = torch.cat(parts, dim=1)
     np.testing.assert_allclose(y.detach(), whole.detach(), rtol=1e-6, atol=1e-6)
@@ -382,6 +382,6 @@ def test_half_precision_group_norm_on_row_blocks_is_bit_equal():
         def stat_sum(t, i=i, calls=calls):
             calls.append(t)
             return t + sum(sums(x[:, c:d]) for j, (c, d) in enumerate(blocks) if j != i)
-        parts.append(group_norm_core(x[:, a:b], gamma, beta, 2, 1e-5, stat_sum))
+        parts.append(group_norm_core(x[:, a:b], gamma, beta, 2, 1e-5, stat_sum=stat_sum))
         assert len(calls) == 1                  # one collective a norm
     assert torch.equal(torch.cat(parts, dim=1), whole)

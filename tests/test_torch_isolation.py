@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package, nor
-(at module level) an image codec, fsspec, orbax, matplotlib or
-tensorflow, which the card machine lacks; its PNG writers, serving
+(at module level) an image codec, fsspec, orbax, matplotlib, tensorflow
+or boto3, which the card machine lacks; its PNG writers, serving
 drivers, TF-checkpoint import, fusion and tools run without them; and it
 does not quietly leave the card for the CPU."""
 
@@ -21,7 +21,7 @@ from mvsnet_tpu_torch.predict import Predictor
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "mvsnet_tpu"}
 # not on the card machine: imported only inside the functions that need them
-LAZY = {"cv2", "imageio", "PIL", "fsspec", "orbax", "matplotlib", "tensorflow"}
+LAZY = {"cv2", "imageio", "PIL", "fsspec", "orbax", "matplotlib", "tensorflow", "boto3"}
 PORT_FILES = sorted([p.relative_to(ROOT) for p in (ROOT / "mvsnet_tpu_torch").rglob("*.py")]
                     + [Path("chip_smoke.py")])
 

@@ -288,7 +288,13 @@ class World:
                   train((1, 2, 1), REFINED, self.refined_batch, self.refine_sd, REFINED_TCFG),
                   train((1, 1, 2), dict(GRU, network_mode="lite"), self.batch, self.gru_sd, {}),
                   ("halo_blocks", _halo_block_inputs((1, 1, 2), False, HALO_K5_ROWS,
-                                                     (("s2k5", 2),)))]
+                                                     (("s2k5", 2),))),
+                  ("jax_order", {"train": train((2, 1, 1))[1],
+                                 "serve": {"cfg": SERVE, "state_dict": sd,
+                                           "inputs": self.throughput},
+                                 "gru": {"cfg": dict(GRU, network_mode="lite"),
+                                         "state_dict": self.gru_sd,
+                                         "inputs": self.gru_serve[3]}})]
         self.index4 = {"halo4": 0, "halo2": 1, "latency141": 2, "latency122": 3,
                        "fallback": 4, "throughput": 5, "train": 6, "default_device_error": 7,
                        "blocks3d": 8, "latency96_122": 9, "audit": 10, "train122": 11,
@@ -296,7 +302,7 @@ class World:
         self.index2 = {"throughput": 0, "train": 1, "gru1": 2, "gru3": 3, "gru_train": 4,
                        "refined1": 5, "refined2": 6, "blocks2d": 7, "latency96_112": 8,
                        "tail": 9, "train121": 10, "refined_train121": 11,
-                       "gru_train112": 12, "blocks2d_k5": 13}
+                       "gru_train112": 12, "blocks2d_k5": 13, "jax_order": 14}
         self.state_dict = sd
         self.train_state_dict = tsd
         self._futures = {
@@ -540,7 +546,8 @@ def test_sharded_gru_forward_waits_for_the_gru_slice():
     model = MVSNet(cfg, seed=2)
     images, cams, ds, _, de = (torch.from_numpy(a) for a in _scene(2, 8))
     with torch.no_grad():
-        got = make_sharded_gru_forward(model, make_mesh(backend="gloo"))(images, cams, ds, de)
+        got = make_sharded_gru_forward(model, cfg, make_mesh(backend="gloo"))(images, cams, ds,
+                                                                              de)
         want = model.forward_gru_wta(images, cams, ds, None, de)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -570,6 +577,41 @@ def test_sharded_gru_forward_matches_single(world, B):
         set_active_mesh(None)
     assert want[0].shape == (B, 16, 16, 1)
     _assert_jax((ranks[0]["depth"], ranks[0]["prob"]), want)
+
+
+def test_mesh_takes_jax_devices_without_a_process_group():
+    """`make_mesh(n_devices, shape, devices)` in one process: CPU devices
+    make a gloo mesh on the CPU; a list shorter than the world raises."""
+    mesh = make_mesh(1, None, ["cpu", "cpu"])
+    assert (mesh.shape, mesh.backend, mesh.device) == ((1, 1, 1), "gloo", torch.device("cpu"))
+    with pytest.raises(ValueError, match="devices"):
+        make_mesh(1, None, [])
+
+
+def test_parallel_factories_take_jax_order(world):
+    """The factories called in JAX's positional order on two gloo ranks
+    (`rank_checks.jax_order`): `make_mesh(2, (1, 2, 1), devices)` takes the
+    first two of three CPU devices and raises on one; `step, mesh =
+    make_sharded_train_step(model, cfg, tcfg, 2)` builds JAX's default
+    mesh (2, 1, 1) and its step equals the port-order step's ("train"
+    case) bit for bit; `make_sharded_forward(model, cfg, mesh)` and
+    `make_sharded_gru_forward(model, cfg, mesh)` equal the multi-device
+    `Predictor`'s maps ("throughput", "gru3") bit for bit, whose JAX parity
+    the tests above hold."""
+    train = world.ranks(2, "train")
+    serve, gru = world.ranks(2, "throughput"), world.ranks(2, "gru3")
+    for r, got in enumerate(world.ranks(2, "jax_order")):
+        assert got["mesh"] == ((1, 2, 1), "gloo", "cpu")
+        assert got["short"] is not None and "devices" in got["short"]
+        assert got["train"]["mesh"] == (2, 1, 1)
+        assert got["train"]["metrics"] == train[r]["metrics"]
+        for name, g in train[r]["grads"].items():
+            np.testing.assert_array_equal(got["train"]["grads"][name], g, err_msg=name)
+        for mine, want in zip(got["serve"], (serve[r]["depth"], serve[r]["prob"],
+                                            serve[r]["residual"])):
+            np.testing.assert_array_equal(mine, want)
+        for mine, want in zip(got["gru"], (gru[r]["depth"], gru[r]["prob"])):
+            np.testing.assert_array_equal(mine, want)
 
 
 def test_sharded_gru_train_step_matches_single(world):

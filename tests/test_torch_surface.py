@@ -281,3 +281,96 @@ def test_config_properties_native_flag_and_depth_dtypes():
             got = tgeo.inv_depth_values(start, end, 12, dtype=tdt)
             assert got.dtype == tdt
             np.testing.assert_allclose(got.float().numpy(), want, rtol=2 * ulp[tdt], atol=0)
+
+
+@pytest.mark.parametrize("channel_axis", [-1, -2])
+def test_group_norm_core_takes_jax_channel_axis(channel_axis):
+    """JAX's order, (x, gamma, beta, num_groups, eps, channel_axis): the
+    sixth argument is the channel axis (it used to bind to `stat_sum`);
+    -2 is JAX's channel-second-minor layout (N, H, C, W). Against JAX on
+    the same input, 1e-5."""
+    from mvsnet_tpu.models.layers import group_norm_core as jax_norm
+    from mvsnet_tpu_torch.models.layers import group_norm_core
+
+    rng = np.random.default_rng(8)
+    x = (rng.standard_normal((2, 6, 10, 16)) * 3 + 1).astype(np.float32)
+    gamma = rng.uniform(0.5, 1.5, 16).astype(np.float32)
+    beta = rng.standard_normal(16).astype(np.float32)
+    if channel_axis == -2:
+        x = np.ascontiguousarray(np.swapaxes(x, -1, -2))      # (N, H, C, W)
+    want = np.asarray(jax_norm(*(jnp.asarray(a) for a in (x, gamma, beta)), 4, 1e-5,
+                               channel_axis))
+    got = group_norm_core(*(_t(a) for a in (x, gamma, beta)), 4, 1e-5, channel_axis)
+    assert got.shape == want.shape == x.shape
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("cw", [False, True])
+def test_gru_init_states_take_jax_cw(cw):
+    """`GRURegularizer.init_states(batch, height, width, network_mode,
+    dtype, cw)`: the sixth argument is JAX's `cw` (it used to bind to
+    `device`); the zero states' shapes are JAX's, (B, H, W, f) or with
+    `cw` (B, H, f, W)."""
+    from mvsnet_tpu.models.gru import GRURegularizer as JaxGRU
+    from mvsnet_tpu_torch.models.gru import GRURegularizer
+
+    for mode in ("normal", "lite", "ultralite"):
+        want = JaxGRU.init_states(2, 5, 7, mode, jnp.float32, cw)
+        got = GRURegularizer.init_states(2, 5, 7, mode, torch.float32, cw)
+        assert [tuple(t.shape) for t in got] == [w.shape for w in want], mode
+        assert all(t.dtype == torch.float32 and not t.any() for t in got)
+
+
+def test_gru_cost_sweep_takes_jax_differentiable(monkeypatch):
+    """`MVSNet.gru_cost_sweep(images, cams, depth_start, depth_interval,
+    depth_end, differentiable)` at 64x64, D=8, ultralite: the sixth
+    argument is JAX's `differentiable` and reaches the cost volume (it
+    used to bind to `samples`); the regs equal the keyword call's bit for
+    bit, and JAX's four-argument call (depth_end from the interval) gives
+    them too."""
+    from test_golden import tiny_inputs
+
+    from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch.models import MVSNet
+    from mvsnet_tpu_torch.models import mvsnet as port_mvsnet
+
+    model = MVSNet(ModelConfig(view_num=3, max_d=8, width=64, height=64,
+                               regularization="GRU", network_mode="ultralite",
+                               compute_dtype="float32"), seed=3).eval()
+    images, cams, ds, di = (_t(a) for a in tiny_inputs())
+    ds, di, de = model.depth_range(ds, di, 1, torch.device("cpu"))
+    seen, volume = [], port_mvsnet.plane_sweep_cost_volume
+
+    def recording(*args, **kwargs):
+        seen.append(kwargs["differentiable"])
+        return volume(*args, **kwargs)
+
+    monkeypatch.setattr(port_mvsnet, "plane_sweep_cost_volume", recording)
+    with torch.no_grad():
+        want, carry = model.gru_cost_sweep(images, cams, ds, di, de, differentiable=True)
+        got, got_carry = model.gru_cost_sweep(images, cams, ds, di, de, True)
+        four, _ = model.gru_cost_sweep(images, cams, ds, di)
+    assert seen == [True, True, False]
+    assert carry is None and got_carry is None and got.shape == (1, 8, 16, 16)
+    assert torch.equal(got, want) and torch.equal(four, want)
+
+
+def test_compute_loss_in_jax_order_raises():
+    """JAX's `compute_loss(model, cfg, tcfg, params, batch_stats, batch,
+    training)`: the port's model holds `params` and `batch_stats`, and a
+    call in JAX's order raises TypeError (it used to take `params` for the
+    batch and the batch for `batch_sum`)."""
+    from mvsnet_tpu_torch import train_lib
+    from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
+    from mvsnet_tpu_torch.models import MVSNet
+
+    cfg = ModelConfig(view_num=3, max_d=8, width=64, height=64, network_mode="ultralite",
+                      compute_dtype="float32")
+    model = MVSNet(cfg)
+    params, stats = dict(model.named_parameters()), dict(model.named_buffers())
+    batch = tuple(torch.zeros(s) for s in ((1, 3, 64, 64, 3), (1, 3, 2, 4, 4),
+                                            (1, 16, 16, 1), (1, 64, 64, 1)))
+    for args in ((params, stats, batch, True), (params, stats, batch),
+                 (batch, True), (batch, True, None)):
+        with pytest.raises(TypeError):
+            train_lib.compute_loss(model, cfg, TrainConfig(), *args)
