@@ -16,6 +16,13 @@ a map split over 'space' (`gru_cost_sweep`'s `blocks`). With
 `cfg.refinement` the 3D-CNN graph builds a refinement network
 (`models/refine.py`) that `refine` runs on the depth map and the reference
 image; the GRU graphs ignore refinement, as JAX's do.
+
+While a profiler records, the stages run inside `utils.profiling.span`
+ranges: `mvsnet.features` (`extract_features`), and on one device
+`mvsnet.cost_volume` (the homographies and K1), `mvsnet.regularizer` (the
+U-Net or the sweep), `mvsnet.depth_tail` (the regs' cast and the
+soft-argmin, or the winner-take-all's division) and `mvsnet.gru.capture`
+(a new capture of the GRU's depth step).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from mvsnet_tpu_torch.ops.geometry import (depth_values, homographies_for_views,
 from mvsnet_tpu_torch.ops.resize import resize_bilinear
 from mvsnet_tpu_torch.parallel.halo import halo_conv
 from mvsnet_tpu_torch.parallel.mesh import AxisSplit
+from mvsnet_tpu_torch.utils.profiling import span
 
 REFINE_NETS = {"original": RefineNetConv, "unet": RefineUNetConv}
 
@@ -147,7 +155,8 @@ class GRUSweep(nn.Module):
         if graph is None:
             while len(self._graphs) >= self.MAX_GRAPHS:
                 del self._graphs[next(iter(self._graphs))]
-            graph = _StepGraph(self, cost, samples is not None)
+            with span("mvsnet.gru.capture"):
+                graph = _StepGraph(self, cost, samples is not None)
         self._graphs[key] = graph
         return graph.run(cost, samples)
 
@@ -292,21 +301,22 @@ class MVSNet(nn.Module):
         image rows (`UNetDS2GN.forward_blocks`); where `feature_net.
         tower_split` finds the rows cannot split, from the whole tower,
         sliced."""
-        B, V, H, W, _ = images.shape
-        x = images.reshape(B * V, H, W, 3)
-        if blocks is None:
-            feats = self.feature_net(x)
-        else:
-            mesh, rows = blocks
-            split = tower_split(mesh, rows, H)
-            if split is None:
-                r0, r1 = rows.bounds()
-                feats = self.feature_net(x)[:, r0:r1]
+        with span("mvsnet.features"):
+            B, V, H, W, _ = images.shape
+            x = images.reshape(B * V, H, W, 3)
+            if blocks is None:
+                feats = self.feature_net(x)
             else:
-                feats = self.feature_net.forward_blocks(x, mesh, split)
-        h, w, C = feats.shape[1:]
-        feats = feats.reshape(B, V, h, w, C)
-        return feats[:, 0], feats[:, 1:].movedim(1, 0)
+                mesh, rows = blocks
+                split = tower_split(mesh, rows, H)
+                if split is None:
+                    r0, r1 = rows.bounds()
+                    feats = self.feature_net(x)[:, r0:r1]
+                else:
+                    feats = self.feature_net.forward_blocks(x, mesh, split)
+            h, w, C = feats.shape[1:]
+            feats = feats.reshape(B, V, h, w, C)
+            return feats[:, 0], feats[:, 1:].movedim(1, 0)
 
     def depth_range(self, depth_start, depth_interval, B, device):
         """depth_start, depth_interval, depth_end as float32 (B,) tensors."""
@@ -351,10 +361,13 @@ class MVSNet(nn.Module):
                                       images.device)
         ref_f, view_f = self.extract_features(images)
         self.check_feature_shape(*ref_f.shape[1:3])
-        cost = plane_sweep_cost_volume(ref_f, view_f, self.homographies(cams, ds, di, de),
-                                       differentiable=self.training)
-        reg = self.regnet(cost)[..., 0].to(torch.float32)          # (B, D, h, w)
-        return self.depth_tail(reg, ds, di, de)
+        with span("mvsnet.cost_volume"):
+            cost = plane_sweep_cost_volume(ref_f, view_f, self.homographies(cams, ds, di, de),
+                                           differentiable=self.training)
+        with span("mvsnet.regularizer"):
+            reg = self.regnet(cost)
+        with span("mvsnet.depth_tail"):
+            return self.depth_tail(reg[..., 0].to(torch.float32), ds, di, de)
 
     forward = forward_3dcnn
 
@@ -383,10 +396,14 @@ class MVSNet(nn.Module):
         if differentiable is None:
             differentiable = self.training
         ref_f, view_f = self.extract_features(images, blocks)
-        homs = self.homographies(cams, depth_start, depth_interval, depth_end)
         if blocks is None:
-            cost = plane_sweep_cost_volume(ref_f, view_f, homs, differentiable=differentiable)
-            return self.gru_sweep(cost, samples)
+            with span("mvsnet.cost_volume"):
+                cost = plane_sweep_cost_volume(
+                    ref_f, view_f, self.homographies(cams, depth_start, depth_interval, depth_end),
+                    differentiable=differentiable)
+            with span("mvsnet.regularizer"):
+                return self.gru_sweep(cost, samples)
+        homs = self.homographies(cams, depth_start, depth_interval, depth_end)
         mesh, rows = blocks
         cost = sweep_cost_volume_sharded(ref_f, view_f, homs, mesh,
                                          depth=AxisSplit("depth", self.cfg.max_d), rows=rows)
@@ -421,7 +438,8 @@ class MVSNet(nn.Module):
                    else depth_values(ds, di, cfg.max_d))
         regs, (max_prob, depth_image, exp_sum) = self.gru_cost_sweep(images, cams, ds, di, de,
                                                                      samples=samples)
-        out = (depth_image, max_prob / (exp_sum + 1e-7))
+        with span("mvsnet.depth_tail"):
+            out = (depth_image, max_prob / (exp_sum + 1e-7))
         return out + (regs,) if with_regs else out
 
     def refine(self, init_depth_map, image, prob_map, depth_start, depth_interval,

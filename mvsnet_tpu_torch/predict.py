@@ -35,6 +35,7 @@ from mvsnet_tpu_torch.models.mvsnet import MVSNet, apply_forward_3dcnn
 from mvsnet_tpu_torch.parallel.infer_step import make_sharded_forward, make_sharded_gru_forward
 from mvsnet_tpu_torch.parallel.mesh import factorize_devices, make_mesh
 from mvsnet_tpu_torch.utils.logging import setup_logger
+from mvsnet_tpu_torch.utils.profiling import count, span
 
 logger = setup_logger("mvsnet_tpu_torch.predict")
 
@@ -137,6 +138,7 @@ class Predictor:
         else:
             self._forward = lambda im, ca, ds, di, de: apply_forward_3dcnn(
                 self.model, im, ca, ds, di)
+        self._requests = 0
 
     def _tensor(self, a):
         if not torch.is_tensor(a):
@@ -154,13 +156,23 @@ class Predictor:
         the device tensors as soon as the work is queued. As in JAX
         (mvsnet_tpu/predict.py:110-139), the 3D-CNN graph reads
         `depth_interval` and not `depth_end`, the GRU graph `depth_end` and
-        not `depth_interval`."""
-        out = self._forward(self._tensor(images), self._tensor(cams),
-                            self._tensor(depth_start), self._tensor(depth_interval),
-                            self._tensor(depth_end))
-        if not fetch:
-            return out
-        return tuple(o.cpu().numpy() for o in out)
+        not `depth_interval`. Traced (`utils.profiling.span`) as
+        `mvsnet.predict` with this Predictor's running count as `request`,
+        around `mvsnet.predict.stage` (the inputs to float32 device tensors)
+        and `mvsnet.predict.forward`."""
+        request = self._requests
+        self._requests += 1
+        with span("mvsnet.predict", request=request):
+            with span("mvsnet.predict.stage"):
+                inputs = [self._tensor(a) for a in (images, cams, depth_start, depth_interval,
+                                                    depth_end)]
+            count("predict.requests")
+            count("predict.staged_bytes", sum(t.nbytes for t in inputs))
+            with span("mvsnet.predict.forward"):
+                out = self._forward(*inputs)
+            if not fetch:
+                return out
+            return tuple(o.cpu().numpy() for o in out)
 
 
 def depth_params_from_cams(scaled_cams):
@@ -246,18 +258,30 @@ class AsyncOutputWriter:
     cluster meanwhile. At most `max_pending` batches wait; an exception in
     the worker is raised by the `write` that finds the queue full, by
     `flush` or by `close`. Leaving the `with` block on an exception drops
-    the queued writes without waiting for them."""
+    the queued writes without waiting for them. Each job is traced
+    (`utils.profiling.span`) as `mvsnet.writer.job` on the worker's thread,
+    with the writer's running count as `job`, and counted with its wait
+    from `write` to its start (`writer.jobs`, `writer.wait_s`)."""
 
     def __init__(self, max_pending: int = 4, write_fn=None):
         self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="output-writer")
         self._pending = deque()
         self._max = max(1, int(max_pending))
         self._write_fn = write_fn or write_output
+        self._jobs = 0
 
     def write(self, *args, **kwargs):
         while len(self._pending) >= self._max:
             self._pending.popleft().result()   # re-raises worker errors
-        self._pending.append(self._pool.submit(self._write_fn, *args, **kwargs))
+        self._jobs += 1
+        self._pending.append(self._pool.submit(self._job, self._jobs, time.perf_counter(),
+                                               args, kwargs))
+
+    def _job(self, job, submitted, args, kwargs):
+        count("writer.wait_s", time.perf_counter() - submitted)
+        count("writer.jobs")
+        with span("mvsnet.writer.job", job=job):
+            return self._write_fn(*args, **kwargs)
 
     def flush(self):
         while self._pending:

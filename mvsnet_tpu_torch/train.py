@@ -40,6 +40,7 @@ from mvsnet_tpu_torch.parallel.launch import init_from_env
 from mvsnet_tpu_torch.parallel.mesh import make_mesh
 from mvsnet_tpu_torch.parallel.train_step import (make_sharded_eval_step,
                                                   make_sharded_train_step, shard_state)
+from mvsnet_tpu_torch.utils import profiling
 from mvsnet_tpu_torch.utils.logging import setup_logger
 
 logger = setup_logger("mvsnet_tpu_torch.train")
@@ -360,7 +361,7 @@ def train(args) -> int:
                     and step >= tcfg.max_steps_per_epoch * tcfg.epoch):
                 break
             if args.profile_dir and step == 10:
-                profiler = _start_profiler(device)
+                profiler = profiling.start(device)
             if profiler is not None and step == 15:
                 _stop_profiler(profiler, args.profile_dir, 0 if mesh is None else mesh.rank)
                 profiler = None
@@ -403,22 +404,8 @@ def train(args) -> int:
     return 0
 
 
-def _start_profiler(device):
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    profiler = profile(activities=activities)
-    profiler.start()
-    return profiler
-
-
 def _stop_profiler(profiler, profile_dir, rank: int):
-    profiler.stop()
-    os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, f"trace_rank{rank}.json")
-    profiler.export_chrome_trace(path)
+    path = profiling.stop(profiler, profile_dir, f"trace_rank{rank}.json")
     logger.info("profiler trace written to %s", path)
 
 

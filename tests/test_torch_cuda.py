@@ -875,6 +875,26 @@ def test_gru_graph_follows_reloaded_weights(dev):
     assert all(torch.equal(a, b) for a, b in zip(carry, want_carry))
 
 
+def test_gru_capture_span_marks_each_new_capture(dev):
+    """Under a profiler `GRUSweep.graphed` opens `mvsnet.gru.capture` when
+    it captures a step, and not when it replays a captured one: a second
+    shape captures again and shows by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, model = _gru_model(dev)
+    rng = np.random.default_rng(34)
+    cost = _rand(rng, (1, cfg.max_d, 24, 40, 32), torch.bfloat16, dev).abs()
+    samples = torch.linspace(5.0, 10.5, cfg.max_d, device=dev)[None]
+    sweep = model.gru_sweep
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU]) as prof:
+        sweep.graphed(cost, samples)                     # captures
+        sweep.graphed(cost, samples)                     # replays
+        sweep.graphed(cost[:, :, :16], samples)          # another shape: captures
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert names.count("mvsnet.gru.capture") == 2 and len(sweep._graphs) == 2
+
+
 def test_gru_predictor_card_matches_cpu(dev):
     """R-MVSNet serving (graph-replayed sweep) on the card against the CPU's
     plain path, float32: regs within 1e-3 of max(1, max|regs|), depth equal

@@ -7,6 +7,7 @@ Everything here is exact: file bytes, arrays read back and path lists are
 equal, not close.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -126,10 +127,12 @@ def test_profiling_trace_and_counters(tmp_path):
     traces = list((tmp_path / "trace").glob("*.pt.trace.json"))
     assert len(traces) == 1 and traces[0].stat().st_size > 0
     assert any("mm" in e.key for e in prof.key_averages())
-    timer = profiling.StepTimer(window=3)
-    for _ in range(5):
-        assert timer.tick() >= 0
-    assert len(timer._durations) == 3 and timer.mean >= 0
+    # `train.py --profile_dir` writes through the same exporter
+    prof = profiling.start("cpu")
+    torch.ones(8, 8) @ torch.ones(8, 8)
+    path = profiling.stop(prof, str(tmp_path / "steps"), "trace_rank0.json")
+    assert path == str(tmp_path / "steps" / "trace_rank0.json")
+    assert any(e["name"] == "aten::mm" for e in json.loads(Path(path).read_text())["traceEvents"])
     assert profiling.device_memory_stats() is None           # no CUDA here
 
 
