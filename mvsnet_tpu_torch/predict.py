@@ -12,6 +12,7 @@ the port (`model_dir`, `ckpt_step`; a JAX checkpoint converts with
 
 from __future__ import annotations
 
+import math
 import os
 import time
 from collections import deque
@@ -51,6 +52,92 @@ def setup_data_iterator(input_dir: str, mcfg: ModelConfig, benchmark: bool,
         mcfg.interval_scale, mcfg.base_image_size,
         mode="test" if benchmark else "inference", output_scale=mcfg.sample_scale,
         max_clusters_per_session=max_clusters_per_session)
+
+
+# The host arrays torch's copy reads in place and converts to float32 as
+# numpy's cast does; others go through `np.array(a, dtype=np.float32)` first.
+_TORCH_READS = frozenset(np.dtype(t) for t in ("float32", "float64", "uint8"))
+
+
+def fill_float32(dst: torch.Tensor, a) -> None:
+    """Write `a` (a host array, or anything `np.array` takes, or a CPU
+    tensor) into `dst`, a float32 host tensor of its shape, as the values
+    of `np.array(a, dtype=np.float32)`: through torch's copy, which runs on
+    the intra-op threads, where torch reads the array in place; through
+    numpy's conversion first otherwise."""
+    if not torch.is_tensor(a):
+        a = np.asarray(a)
+        if not (a.dtype in _TORCH_READS and a.flags.writeable and a.flags.aligned
+                and min(a.strides, default=0) >= 0):
+            a = np.array(a, dtype=np.float32)
+        a = torch.from_numpy(a)
+    dst.copy_(a)
+
+
+class PinnedStaging:
+    """A ring of `SLOTS` page-locked host areas, reused request after
+    request, through which a `Predictor` on a card stages each request's
+    host inputs.
+
+    `stage` takes the areas in turn. Before it refills one it waits on the
+    CUDA event recorded after that area's last copies (that one event, never
+    the stream; the host seconds waited are counted as
+    `predict.stage_wait_s`). It writes the inputs into the area as float32,
+    one after another (`fill_float32`), queues a copy of each onto the
+    device on the current stream without blocking the host, and records
+    the area's event after them. So the host runs at most `SLOTS` requests'
+    copies ahead of the card, the pinned memory is at most `SLOTS` times
+    the largest request's inputs, and an area is made or grown
+    (`predict.pinned_allocs`) only for a request larger than any it held.
+    The host-side writes end before `stage` returns, so the caller may
+    reuse its arrays at once. Each staged request counts
+    `predict.pinned_stages`. One thread stages at a time."""
+
+    SLOTS = 2
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._areas = [None] * self.SLOTS      # flat float32 page-locked tensors
+        self._copied = [None] * self.SLOTS     # each area's event after its copies
+        self._next = 0
+
+    @staticmethod
+    def _page_locked(n: int) -> torch.Tensor:
+        # a normal tensor, not an inference one: it is written inside and
+        # outside `torch.inference_mode` alike
+        with torch.inference_mode(False):
+            return torch.empty(n, dtype=torch.float32, pin_memory=True)
+
+    def stage(self, arrays) -> list:
+        """Each of `arrays` (host arrays or CPU tensors) as a float32 tensor
+        on the device, its copy queued on the current stream."""
+        slot = self._next
+        self._next = (slot + 1) % self.SLOTS
+        copied = self._copied[slot]
+        if copied is not None:
+            t0 = time.perf_counter()
+            copied.synchronize()
+            count("predict.stage_wait_s", time.perf_counter() - t0)
+        arrays = [a if torch.is_tensor(a) else np.asarray(a) for a in arrays]
+        sizes = [math.prod(a.shape) for a in arrays]
+        area = self._areas[slot]
+        if area is None or area.numel() < sum(sizes):
+            area = self._areas[slot] = self._page_locked(sum(sizes))
+            count("predict.pinned_allocs")
+        stream = torch.cuda.current_stream(self.device)
+        out, at = [], 0
+        try:
+            for a, n in zip(arrays, sizes):
+                host = area[at:at + n].view(tuple(a.shape))
+                fill_float32(host, a)
+                out.append(host.to(self.device, non_blocking=True))
+                at += n
+        finally:
+            if copied is None:
+                copied = self._copied[slot] = torch.cuda.Event()
+            copied.record(stream)
+        count("predict.pinned_stages")
+        return out
 
 
 def _default_mesh(device):
@@ -139,11 +226,29 @@ class Predictor:
             self._forward = lambda im, ca, ds, di, de: apply_forward_3dcnn(
                 self.model, im, ca, ds, di)
         self._requests = 0
+        self._staging = PinnedStaging(self.device) if self.device.type == "cuda" else None
 
-    def _tensor(self, a):
-        if not torch.is_tensor(a):
-            a = np.array(a, dtype=np.float32)
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+    def _tensor(self, *arrays) -> list:
+        """The request's inputs as float32 tensors on this Predictor's
+        device, with the values of `np.array(a, dtype=np.float32)`. On a
+        card the host arrays and CPU tensors are staged through the
+        Predictor's `PinnedStaging` ring of two page-locked areas: copied on
+        the host into the next area, then onto the card on the current
+        stream without blocking the host, so the host can queue this
+        request while the card still runs the one before; it waits only for
+        the copies of the request two before, out of the same area. Tensors
+        already on a card, and every input on the CPU, pass through
+        `torch.as_tensor` as they are. The host-side copies end before this
+        returns: the caller may overwrite or free its arrays then."""
+        if self._staging is None:
+            return [torch.as_tensor(a if torch.is_tensor(a) else np.array(a, dtype=np.float32),
+                                    dtype=torch.float32, device=self.device) for a in arrays]
+        out = list(arrays)
+        host = [i for i, a in enumerate(arrays) if not torch.is_tensor(a) or a.is_cpu]
+        if host:
+            for i, t in zip(host, self._staging.stage([arrays[i] for i in host])):
+                out[i] = t
+        return [torch.as_tensor(a, dtype=torch.float32, device=self.device) for a in out]
 
     @torch.inference_mode()
     def predict(self, images, cams, depth_start, depth_interval, depth_end,
@@ -164,8 +269,7 @@ class Predictor:
         self._requests += 1
         with span("mvsnet.predict", request=request):
             with span("mvsnet.predict.stage"):
-                inputs = [self._tensor(a) for a in (images, cams, depth_start, depth_interval,
-                                                    depth_end)]
+                inputs = self._tensor(images, cams, depth_start, depth_interval, depth_end)
             count("predict.requests")
             count("predict.staged_bytes", sum(t.nbytes for t in inputs))
             with span("mvsnet.predict.forward"):

@@ -45,9 +45,13 @@ NO_SPAN = contextlib.nullcontext()
 
 # The serving path's counters: `Predictor.predict` calls and the float32
 # bytes of the inputs they staged for the forward (from host arrays, the
-# bytes copied onto the card); the output writer's jobs and the seconds
-# each waited from `write` to the start of its run.
-SERVING = ("predict.requests", "predict.staged_bytes", "writer.jobs", "writer.wait_s")
+# bytes copied onto the card); on a card, the requests staged through the
+# Predictor's ring of page-locked areas, the areas made or grown, and the
+# host seconds spent waiting on an area's event before refilling it; the
+# output writer's jobs and the seconds each waited from `write` to the
+# start of its run.
+SERVING = ("predict.requests", "predict.staged_bytes", "predict.pinned_stages",
+           "predict.pinned_allocs", "predict.stage_wait_s", "writer.jobs", "writer.wait_s")
 
 _lock = threading.Lock()
 _counts = dict.fromkeys(SERVING, 0)

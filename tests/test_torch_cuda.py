@@ -1281,3 +1281,96 @@ def test_halo_deconv_gradients_match_plain(dev):
         grads.append((y.detach().cpu(), xx.grad.cpu(), kk.grad.cpu()))
     for got, want in zip(*grads):
         _close(got, want, TOL[torch.bfloat16])
+
+
+STAGING_GRAPHS = [("3DCNN", "ultralite"), ("GRU", "lite")]
+
+
+def _staging_request(rng, H=64, W=64, V=3, D=8):
+    """One request of host float32 arrays (images, cams, depth start,
+    interval, end) at H x W, D planes from 5.0 by 0.5."""
+    images = rng.standard_normal((1, V, H, W, 3)).astype(np.float32)
+    cam = np.zeros((2, 4, 4), np.float32)
+    cam[0] = np.eye(4)
+    cam[1, :3, :3] = [[15.0, 0, W / 8], [0, 15.0, H / 8], [0, 0, 1]]
+    cam[1, 3] = [5.0, 0.5, D, 5.0 + 0.5 * (D - 1)]
+    cams = np.stack([cam] * V)[None].copy()
+    cams[0, 1:, 0, 0, 3] = rng.uniform(0.2, 0.4, V - 1)
+    return (images, cams, cams[:, 0, 1, 3, 0].copy(), cams[:, 0, 1, 3, 1].copy(),
+            cams[:, 0, 1, 3, 3].copy())
+
+
+@pytest.mark.parametrize("reg,mode", STAGING_GRAPHS, ids=[g[0] for g in STAGING_GRAPHS])
+def test_pinned_staging_serves_like_plain_staging(dev, reg, mode):
+    """The ring of page-locked areas on the card: (a) three requests
+    queued with fetch=False before the first fetch, each input overwritten
+    by the caller as soon as `predict` returns, give maps bit-equal to the
+    same requests staged through `np.array` and a blocking
+    `torch.as_tensor`; (b) after warm-up the stage makes no stream or
+    device synchronization (with the 3D-CNN graph, nor does the whole
+    `predict(fetch=False)`); (c) over those six requests no page-locked
+    area is made, and a larger request grows the one it takes."""
+    from mvsnet_tpu_torch.utils import profiling
+
+    cfg = ModelConfig(view_num=3, max_d=8, width=64, height=64, network_mode=mode,
+                      regularization=reg, compute_dtype="bfloat16")
+    pinned = Predictor(cfg, seed=9, device=dev)
+    plain = Predictor(cfg, seed=9, device=dev)
+    plain._staging = None                   # np.array, then a blocking torch.as_tensor
+    rng = np.random.default_rng(35)
+    requests = [_staging_request(rng) for _ in range(3)]
+    for r in requests:                      # warm-up: both areas made, graphs captured
+        pinned.predict(*r)
+    torch.cuda.synchronize()
+
+    queued = []
+    for r in requests:
+        mine = [a.copy() for a in r]
+        queued.append(pinned.predict(*mine, fetch=False))
+        for a in mine:
+            a[...] = rng.standard_normal(a.shape)
+    for r, out in zip(requests, queued):
+        for got, want in zip(out, plain.predict(*r)):
+            np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+    torch.cuda.synchronize()
+    before = profiling.counters()
+    for r in requests * 2:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            if reg == "3DCNN":
+                pinned.predict(*r, fetch=False)
+            else:
+                staged = pinned._tensor(*r)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if reg == "GRU":
+            with torch.inference_mode():
+                pinned._forward(*staged)
+    torch.cuda.synchronize()
+    after = profiling.counters()
+    assert after["predict.pinned_allocs"] == before["predict.pinned_allocs"]
+    assert after["predict.pinned_stages"] - before["predict.pinned_stages"] == 6
+    depth, _, _ = pinned.predict(*_staging_request(rng, H=96))
+    assert depth.shape == (1, 24, 16, 1)
+    assert profiling.counters()["predict.pinned_allocs"] - after["predict.pinned_allocs"] == 1
+
+
+def test_pinned_staging_converts_as_numpy(dev):
+    """float64, uint8 and float32 host arrays, a CPU float64 tensor and
+    plain numbers reach the card with the bits of `np.array(a,
+    dtype=np.float32)`; a tensor already on the card passes through."""
+    cfg = ModelConfig(view_num=3, max_d=8, width=64, height=64, network_mode="ultralite",
+                      compute_dtype="float32")
+    p = Predictor(cfg, seed=1, device=dev)
+    rng = np.random.default_rng(36)
+    x = rng.standard_normal((1, 3, 64, 64, 3)) * 10.0 ** rng.integers(-44, 37, (1, 3, 64, 64, 3))
+    sources = [x, rng.integers(0, 256, x.shape).astype(np.uint8), x.astype(np.float32),
+               torch.from_numpy(x.copy()), np.array([5.0]), [0.5]]
+    got = p._tensor(*sources)
+    for a, g in zip(sources, got):
+        assert g.device == dev and g.dtype == torch.float32
+        want = np.array(a.numpy() if torch.is_tensor(a) else a, dtype=np.float32)
+        np.testing.assert_array_equal(g.cpu().numpy().view(np.uint32), want.view(np.uint32))
+    on_card = torch.ones(3, device=dev)
+    assert p._tensor(on_card)[0].data_ptr() == on_card.data_ptr()

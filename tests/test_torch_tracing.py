@@ -2,8 +2,11 @@
 `Predictor.predict` and the output writer open under `torch.profiler`,
 their nesting and ids, that nothing is built with no profiler recording,
 the counters of requests, staged bytes and the writer's jobs, and the
-maps bit-equal with a profiler on and off. CPU, tiny: 64x64, D=8, V=3,
-float32, the graphs of `tests/golden/regenerate.py`."""
+maps bit-equal with a profiler on and off; the staging of the inputs: on
+the CPU as plain as before, the float32 conversion of the card's staging
+against numpy's, and its ring of page-locked areas driven with stand-ins
+for the page-locked memory and the CUDA events. CPU, tiny: 64x64, D=8,
+V=3, float32, the graphs of `tests/golden/regenerate.py`."""
 
 import sys
 import threading
@@ -15,7 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from mvsnet_tpu_torch.config import ModelConfig
 from mvsnet_tpu_torch.ops import kernels
-from mvsnet_tpu_torch.predict import AsyncOutputWriter, Predictor
+from mvsnet_tpu_torch.predict import AsyncOutputWriter, PinnedStaging, Predictor, fill_float32
 from mvsnet_tpu_torch.utils import profiling
 
 GRAPHS = [("3DCNN", "ultralite"), ("GRU", "lite")]
@@ -193,3 +196,161 @@ def test_traced_tallies_only_what_ran_while_a_profiler_recorded(predictor):
     assert after["counters"]["predict.staged_bytes"] - \
         first["counters"]["predict.staged_bytes"] == staged
     assert profiling.counters()["predict.requests"] - total["predict.requests"] == 2
+
+
+PINNED = ("predict.pinned_stages", "predict.pinned_allocs", "predict.stage_wait_s")
+
+
+def test_cpu_predictor_stages_as_before(predictor):
+    """On the CPU the inputs pass through `np.array(a, dtype=np.float32)`
+    and `torch.as_tensor` as before the ring: the staged bytes as before,
+    no pinned counter moves, and the maps equal, bit for bit, the forward
+    on inputs staged that way."""
+    inputs = _inputs()
+    before = profiling.counters()
+    got = predictor.predict(*inputs)
+    after = profiling.counters()
+    assert predictor._staging is None
+    assert after["predict.staged_bytes"] - before["predict.staged_bytes"] == \
+        sum(np.array(a, dtype=np.float32).nbytes for a in inputs)
+    assert all(after[k] == before[k] for k in PINNED)
+    with torch.inference_mode():
+        want = predictor._forward(*[torch.as_tensor(np.array(a, dtype=np.float32))
+                                    for a in inputs])
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())
+
+
+def _sources():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((3, 4, 5)) * 10.0 ** rng.integers(-45, 37, (3, 4, 5))
+    x.flat[:5] = [np.inf, -np.inf, 3.4028234663852886e38, 1e-40, 1e-46]
+    big = x.astype(">f8")
+    readonly = x.copy()
+    readonly.flags.writeable = False
+    return {
+        "float64": x,
+        "float32": x.astype(np.float32),
+        "uint8": rng.integers(0, 256, (3, 4, 5)).astype(np.uint8),
+        "int64": rng.integers(-2 ** 40, 2 ** 40, (3, 4, 5)),
+        "float16": np.clip(x, -6e4, 6e4).astype(np.float16),
+        "bool": x > 0,
+        "transposed": x.transpose(2, 0, 1),
+        "reversed": x[::-1, :, ::-2],
+        "read-only": readonly,
+        "big-endian": big,
+        "list": x[0].tolist(),
+        "scalar": 0.1,
+        "tensor float64": torch.from_numpy(x.copy()),
+        "tensor uint8 strided": torch.arange(120, dtype=torch.uint8).reshape(3, 4, 10)[..., ::2],
+    }
+
+
+@pytest.mark.parametrize("name", list(_sources()))
+def test_fill_float32_gives_numpys_float32(name):
+    """The card's staging writes each input into its page-locked area with
+    the bits of `np.array(a, dtype=np.float32)`, whatever the source's
+    dtype, layout or kind."""
+    a = _sources()[name]
+    want = np.array(a.numpy() if torch.is_tensor(a) else a, dtype=np.float32)
+    dst = torch.full(want.shape, -1.0)
+    fill_float32(dst, a)
+    np.testing.assert_array_equal(dst.numpy().view(np.uint32), want.view(np.uint32))
+
+
+class _Event:
+    """A stand-in for `torch.cuda.Event` that logs what is done to it."""
+
+    log = []
+
+    def record(self, stream):
+        self.log.append(("record", self))
+
+    def synchronize(self):
+        self.log.append(("wait", self))
+
+
+@pytest.fixture
+def ring(monkeypatch):
+    """A `PinnedStaging` on the CPU: plain memory for the page-locked
+    areas, `_Event` for the CUDA events (the device copies are the areas'
+    own views on the CPU)."""
+    _Event.log = []
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: None)
+    page_locked = PinnedStaging._page_locked
+
+    def plain(n):
+        with monkeypatch.context() as m:
+            m.setattr(torch, "empty", lambda n, dtype, pin_memory: torch.zeros(n, dtype=dtype))
+            return page_locked(n)
+    monkeypatch.setattr(PinnedStaging, "_page_locked", staticmethod(plain))
+    return PinnedStaging("cpu")
+
+
+def test_ring_waits_on_each_areas_own_event_and_grows_only_when_needed(ring):
+    """Requests take the two areas in turn; each refill waits on the event
+    recorded after that area's copies and on nothing else; after the first
+    two requests no area is made over six more, and a larger request grows
+    the one area it takes."""
+    images, cams, *rest = _inputs()
+    before = profiling.counters()
+    for _ in range(8):
+        ring.stage([images, cams, *rest])
+    mid = profiling.counters()
+    assert mid["predict.pinned_allocs"] - before["predict.pinned_allocs"] == 2
+    assert mid["predict.pinned_stages"] - before["predict.pinned_stages"] == 8
+    assert mid["predict.stage_wait_s"] >= before["predict.stage_wait_s"]
+    events = [e for _, e in _Event.log]
+    assert len({id(e) for e in events}) == 2
+    first, second = events[0], events[1]
+    assert [(op, e is first) for op, e in _Event.log] == \
+        [("record", True), ("record", False)] + \
+        [("wait", i % 2 == 0) if j == 0 else ("record", i % 2 == 0)
+         for i in range(6) for j in range(2)]
+    ring.stage([np.concatenate([images, images], axis=2), cams, *rest])
+    assert profiling.counters()["predict.pinned_allocs"] - mid["predict.pinned_allocs"] == 1
+
+
+def test_ring_copies_the_callers_arrays_before_it_returns(ring):
+    """What `stage` returns holds the values the arrays had when it was
+    called, float32, whatever the caller writes into them afterwards; areas
+    made inside `torch.inference_mode` (as `predict` runs) are refilled
+    outside it; a request whose copy fails still records its area's
+    event."""
+    images, cams, *rest = _inputs()
+    want = [np.array(a, dtype=np.float32) for a in (images, cams, *rest)]
+    with torch.inference_mode():
+        ring.stage([images, cams, *rest])
+        ring.stage([images, cams, *rest])
+    got = ring.stage([images, cams, *rest])
+    images[...] = 7.0
+    cams[...] = -1.0
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), w)
+    with pytest.raises(ValueError):
+        ring.stage([images, np.array(["not a number"])])
+    assert [op for op, _ in _Event.log][-4:] == ["wait", "record", "wait", "record"]
+
+
+def test_predict_through_the_ring_gives_the_plain_maps(predictor, ring, monkeypatch):
+    """`Predictor.predict` with its inputs staged through the ring (the
+    card's path, here with the CPU's stand-ins) counts each request once
+    and gives maps bit-equal to the plain staging's, while the caller
+    overwrites its arrays after each call."""
+    inputs = _inputs()
+    want = predictor.predict(*inputs)
+    monkeypatch.setattr(predictor, "_staging", ring)
+    before = profiling.counters()
+    for _ in range(3):
+        mine = [np.array(a) for a in inputs]
+        got = predictor.predict(*mine)
+        for a in mine:
+            a[...] = 0
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+    after = profiling.counters()
+    assert after["predict.pinned_stages"] - before["predict.pinned_stages"] == 3
+    assert after["predict.staged_bytes"] - before["predict.staged_bytes"] == \
+        3 * sum(np.array(a, dtype=np.float32).nbytes for a in inputs)
