@@ -5,7 +5,7 @@ Run from the repository root, on a machine with one H100:
     python3 chip_smoke.py
     python3 chip_smoke.py --multi    # phases 1, 2, 8 and 8i only (four cards)
 
-Phases run in the order 1-7, 10-13, 8, 9, 14, 15, 16.
+Phases run in the order 1-5, 17, 6, 7, 10-13, 8, 9, 14, 15, 16.
 
 Phases, each of which fails the script (non-zero exit, no result line):
   1. the card's name and power limit; exits at once without CUDA;
@@ -44,6 +44,14 @@ Phases, each of which fails the script (non-zero exit, no result line):
      96 planes, rows whole), and on two row blocks of 60: K2's blocks
      stitched equal one launch bit for bit, K3's blocks summed equal one
      launch within float32's tolerance, each block its plain version;
+     CasMVSNet's rows at phase 17's point: the per-pixel edition of K1 at
+     its three stage shapes (48x296x400x32, 32x592x800x16, 8x1184x1600x8,
+     V=5; float32 within `PIXEL_TOL`, its library yardstick the
+     reference's `grid_sample` warps and variance), the FPN's 1x1 convs
+     and its 5x5 stride-2 conv with PyTorch's pads, and stage 3's U-Net at
+     full resolution with Cin = 8 (conv0, the stride-2 conv1 with
+     PyTorch's pads, the cost conv to one channel, the last transposed
+     conv with output_padding 1);
   4. inference: `Predictor` at 1152x864, D=192, 3 views, "normal",
      bfloat16, seeded weights, answers 3 requests; launch counts per
      request are asserted (cost volume 1, conv 36, deconv 7; every one on
@@ -272,8 +280,15 @@ Phases, each of which fails the script (non-zero exit, no result line):
         with each of the five filter types by a numpy forward filter; and
         the native codec's ms per image at 640x512, 1152x864 and 1600x1200
         on the host CPU.
+  17. CasMVSNet serving: `Predictor` at 1600x1184, N=5, D=192 (planes
+     48/32/8), bfloat16, seeded weights, answers a warm-up request, then 3
+     counted ones: launches per request (per-pixel K1 3, conv 37, deconv
+     9; every one on the tensor cores) against counts derived from the
+     model, and their sum since the counts were reset; one more request
+     profiled, in which the profiler must see 3 per-pixel K1 launches.
 The last lines are the kernels' JSON record (launches from the training
-run of phase 6, the GRU rows' from the requests of phase 10 and the
+run of phase 6, the cascade rows' from the requests of phase 17, the GRU
+rows' from the requests of phase 10 and the
 training steps of phase 11, the refinement rows' from the requests of
 phase 12 and the steps of phase 13; K1s's from the latency requests of
 8b, the row-offset K2 and K3's from 8g's bf16 steps, summed over ranks),
@@ -298,11 +313,17 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # max |kernel - plain| <= TOL * max(1, max |plain|): float32 sums in another
 # order; for bf16 also one rounding of the output (2^-8 relative).
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the per-pixel cost volume (CasMVSNet's) in float32: the kernel projects
+# with fused multiply-adds, the plain version with a matrix product; at
+# coordinates up to 1600 px a position moves by a few 1e-4 px, up to ~5e-4
+# of the largest value (tests/test_torch_cuda.py's PIXEL_TOL)
+PIXEL_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 # end to end, float32, card kernels vs the CPU's plain path: sums in another
 # order through ~45 layers and a softmax over 32 planes
 E2E_DEPTH_ATOL = 0.05          # depth units; the plane interval is 15
 E2E_PROB_ATOL = 1e-3
-EXPECTED_LAUNCHES = {"cost_volume": 1, "cost_volume_sharded": 0, "conv": 36, "deconv": 7,
+EXPECTED_LAUNCHES = {"cost_volume": 1, "cost_volume_sharded": 0, "cost_volume_pixel": 0,
+                     "conv": 36, "deconv": 7,
                      "warp": 0, "warp_transpose": 0, "warp_sharded": 0,
                      "warp_transpose_sharded": 0, "wgrad": 0}
 # per bf16 request: every conv and deconv on the tensor cores, the two convs
@@ -491,7 +512,7 @@ def expected_train_launches(model, cfg, h, w):
     dx_s2 = sum(calls(c) for c in convs if c.stride == 2 and c not in image_convs)
     V, C = cfg.view_num, cfg.feature_channels
     chunks = max(1, -(-(V * cfg.max_d * h * w * C * 4) // ACC_LIMIT_BYTES))
-    return {"cost_volume": 1, "cost_volume_sharded": 0,
+    return {"cost_volume": 1, "cost_volume_sharded": 0, "cost_volume_pixel": 0,
             "conv": sum(map(forwards, convs)) + dx_s1 + n_deconv,
             "deconv": sum(map(forwards, deconvs)) + dx_s2, "warp": (V - 1) * chunks,
             "warp_transpose": (V - 1) * chunks, "warp_sharded": 0,
@@ -552,9 +573,11 @@ def expected_train_editions(model, dtype):
 
 def expected_serving(model, dtype):
     """Launches of one eval request (B = 1) by kernel, and by edition, derived
-    from the model: K1 once; every conv and transposed conv once a run
-    (`module_calls`: a GRU cell's once a plane), in the edition
-    `conv.pick_edition` gives its channels."""
+    from the model: K1 once (CasMVSNet: its per-pixel edition once a
+    stage); every conv and transposed conv once a run (`module_calls`: a
+    GRU cell's once a plane), in the edition `conv.pick_edition` gives its
+    channels."""
+    from mvsnet_tpu_torch.models.casmvsnet import PLANES
     from mvsnet_tpu_torch.models.layers import Conv, Deconv
     from mvsnet_tpu_torch.ops.kernels import conv
 
@@ -565,7 +588,10 @@ def expected_serving(model, dtype):
             cin, cout = m.kernel.shape[-2:]
             kind = "conv" if isinstance(m, Conv) else "deconv"
             editions[kind][conv.pick_edition(dtype, cin, cout)] += calls(m)
-    launches = {"cost_volume": 1, "cost_volume_sharded": 0, "warp": 0, "warp_transpose": 0,
+    cascade = model.cfg.cascade
+    launches = {"cost_volume": 0 if cascade else 1, "cost_volume_sharded": 0,
+                "cost_volume_pixel": len(PLANES) if cascade else 0,
+                "warp": 0, "warp_transpose": 0,
                 "warp_sharded": 0, "warp_transpose_sharded": 0,
                 "wgrad": 0, "conv": sum(editions["conv"].values()),
                 "deconv": sum(editions["deconv"].values())}
@@ -692,7 +718,8 @@ def profile_device(fn):
 
 # the port's kernels by source and pass, as the profiler names them
 KERNEL_FAMILIES = (("wgrad tc", "wgrad_tc_kernel"), ("wgrad simt", "wgrad_partial_kernel"),
-                   ("wgrad reduce", "wgrad_reduce_kernel"), ("cost_volume", "cost_volume_kernel"),
+                   ("wgrad reduce", "wgrad_reduce_kernel"), ("cost_volume", "::cost_volume_kernel"),
+                   ("cost_volume pixel", "pixel_cost_volume_kernel"),
                    ("conv/deconv tc", "tc_conv_kernel"), ("conv simt", "::conv_kernel"),
                    ("warp", "::warp_kernel"), ("warp transpose", "warp_transpose_kernel"),
                    ("warp transpose plan", "::plan_kernel"),
@@ -3741,6 +3768,75 @@ def phase16(smi, dev, cloud):
     return ok
 
 
+# phase 17: CasMVSNet at the cell casmvsnet.serve's point (DTU's
+# 1600x1184, N=5, D=192)
+CASCADE_ARGS = dict(view_num=5, max_d=192, width=1600, height=1184, network_mode="normal",
+                    compute_dtype="bfloat16", cascade=True)
+
+
+def phase17_cascade_serving(smi, dev, seed=20):
+    """CasMVSNet through `Predictor` at 1600x1184, N=5, D=192, bf16, seeded
+    weights: one warm-up request, then the launch counts reset and 3
+    requests, each held to the launches derived from the model (the
+    per-pixel K1 once a stage, the FPN's 13 convs, each U-Net's 8 convs and
+    3 transposed convs, every one on the tensor cores); the per-pixel
+    kernel's launches as the profiler sees them in one more request.
+    Returns the launches per request, or None on failure."""
+    from mvsnet_tpu_torch.config import ModelConfig
+    from mvsnet_tpu_torch.ops import kernels
+    from mvsnet_tpu_torch.predict import Predictor, depth_params_from_cams
+
+    cfg = ModelConfig(**CASCADE_ARGS)
+    H, W, V, D = cfg.height, cfg.width, cfg.view_num, cfg.max_d
+    images, cams = scene(1, V, H, W, D, seed=seed)
+    ds, di, _, de = depth_params_from_cams(cams)
+    request = (images, cams, ds, di, de)
+    predictor = Predictor(cfg, seed=seed, device=dev)
+    want, want_editions = expected_serving(predictor.model, torch.bfloat16)
+    derived = (want["cost_volume_pixel"], want["conv"], want["deconv"],
+               want_editions["conv"]["simt"] + want_editions["deconv"]["simt"])
+    if derived != (3, 13 + 3 * 8, 3 * 3, 0):
+        print(f"phase 17 FAILED: the model gives per-pixel K1, conv, deconv, simt {derived}, "
+              f"not (3, 37, 9, 0)")
+        return None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predictor.predict(*request, fetch=False)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    walls, per_request, editions, finite, depth, conf = serve_counted(predictor, request)
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"phase 17: CasMVSNet serving, Predictor at {W}x{H}, D={D}, V={V}, planes 48/32/8, "
+          f"bf16: first request {first_ms:.2f} ms, then wall ms "
+          f"{', '.join(f'{w:.2f}' for w in walls)}; peak memory {peak / 2 ** 30:.3f} GiB; depth "
+          f"{tuple(depth.shape)} in [{depth.min().item():.1f}, {depth.max().item():.1f}], "
+          f"confidence in [{conf.min().item():.3f}, {conf.max().item():.3f}] [{smi}]")
+    print(f"  launches per request {per_request[-1]} (expected {want}); editions "
+          f"{editions[-1]} (expected {want_editions})")
+    since_reset = {k: 3 * n for k, n in want.items()}
+    if (not finite or tuple(depth.shape) != (1, H, W, 1)
+            or any(r != want for r in per_request)
+            or any(e != want_editions for e in editions)
+            or {k: counts[k] for k in want} != since_reset):
+        print(f"phase 17 FAILED: finite {finite}, launches {per_request}, editions {editions}, "
+              f"since the reset {counts} (expected {since_reset})")
+        return None
+    wall_ms, busy_ms, events, host_events = profile_device(
+        lambda: predictor.predict(*request, fetch=False))
+    print_profile("cascade request", wall_ms, busy_ms, events, host_events)
+    seen = sum(e.count for e in events if "pixel_cost_volume_kernel" in e.key)
+    if busy_ms is not None and seen != want["cost_volume_pixel"]:
+        print(f"phase 17 FAILED: the profiler saw {seen} per-pixel K1 launches, not "
+              f"{want['cost_volume_pixel']}")
+        return None
+    del predictor, depth, conf
+    torch.cuda.empty_cache()
+    return per_request[-1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3819,11 +3915,14 @@ def main() -> int:
             ops=ops, source="mvsnet_tpu_torch/csrc/cost_volume.cu",
             replaces="mvsnet_tpu/ops/pallas/sweep.py:1094"))
 
-    def add_conv(layer, shape, k, stride, cout, epilogue, replaces, relu=None, path=None):
-        """`epilogue`: a bias, and a ReLU unless `relu` says otherwise."""
+    def add_conv(layer, shape, k, stride, cout, epilogue, replaces, relu=None, path=None,
+                 torch_pads=False):
+        """`epilogue`: a bias, and a ReLU unless `relu` says otherwise.
+        `torch_pads`: PyTorch's k // 2 on every side (CasMVSNet's), not SAME."""
         cin = shape[-1]
         rank = len(shape) - 2
         relu = epilogue if relu is None else relu
+        explicit = ((k // 2, k // 2),) * rank if torch_pads else None
 
         def make(dtype):
             x = randn(shape, dtype)
@@ -3831,7 +3930,8 @@ def main() -> int:
             b = randn((cout,), torch.float32) if epilogue else None
             return x, w, b
 
-        pads = [conv.same_pads(n, k, stride) for n in shape[1:-1]]
+        pads = ([(k // 2, k // 2, (n + 2 * (k // 2) - k) // stride + 1) for n in shape[1:-1]]
+                if torch_pads else [conv.same_pads(n, k, stride) for n in shape[1:-1]])
         taps = np.prod([valid_taps(n, k, stride, lo, out)
                         for n, (lo, _, out) in zip(shape[1:-1], pads)])
         n_out = shape[0] * int(np.prod([p[2] for p in pads])) * cout
@@ -3839,15 +3939,16 @@ def main() -> int:
         def library(x, w, b):
             xc = x.movedim(-1, 1)
             wc = w.permute(rank + 1, rank, *range(rank))
-            if stride == 1:
-                return (F.conv3d if rank == 3 else F.conv2d)(xc, wc, b, padding=k // 2)
+            if stride == 1 or torch_pads:
+                return (F.conv3d if rank == 3 else F.conv2d)(xc, wc, b, stride=stride,
+                                                              padding=k // 2)
             return (F.conv3d if rank == 3 else F.conv2d)(xc, wc, b, stride=stride)
 
         def library_inputs(x, w, b):
             # channels-last activations and weights for cuDNN; the asymmetric
             # SAME pad of a stride-2 conv is applied beforehand, untimed
             xin = x
-            if stride == 2:
+            if stride == 2 and not torch_pads:
                 flat = [p for lo, hi, _ in reversed(pads) for p in (lo, hi)]
                 xin = F.pad(x.movedim(-1, 1), flat).movedim(1, -1).contiguous()
             return xin, w, None if b is None else b.to(x.dtype)
@@ -3855,21 +3956,24 @@ def main() -> int:
         cases.append(dict(
             name=f"conv:{layer}", counter="conv", path=path,
             edition=lambda dtype: conv.pick_edition(dtype, cin, cout),
-            kernel=lambda x, w, b, edition=None: conv.conv(x, w, b, stride, relu,
+            kernel=lambda x, w, b, edition=None: conv.conv(x, w, b, stride, relu, pads=explicit,
                                                            edition=edition),
-            plain=lambda x, w, b: conv.conv_plain(x, w, b, stride, relu),
+            plain=lambda x, w, b: conv.conv_plain(x, w, b, stride, relu, pads=explicit),
             library=library, library_inputs=library_inputs, make=make,
             bytes=lambda it: (int(np.prod(shape)) + k ** rank * cin * cout + n_out) * it,
             ops=2 * cin * cout * int(taps) * shape[0],
             source="mvsnet_tpu_torch/csrc/conv.cu", replaces=replaces))
 
-    def add_deconv(layer, shape, cout, epilogue, replaces, k=3, out_spatial=None, path=None):
-        """flax's k3 s2 transposed conv, or (k=5, out_spatial) the adjoint
-        of a 5x5 stride-2 SAME conv of that output size."""
+    def add_deconv(layer, shape, cout, epilogue, replaces, k=3, out_spatial=None, path=None,
+                   lo=0):
+        """flax's k3 s2 transposed conv (with lo=1 PyTorch's
+        `ConvTranspose3d(k3, s2, padding 1, output_padding 1)`), or (k=5,
+        out_spatial) the adjoint of a 5x5 stride-2 SAME conv of that
+        output size."""
         cin = shape[-1]
         rank = len(shape) - 2
         outs = out_spatial or tuple(2 * n for n in shape[1:-1])
-        los = [conv.same_pads(m, k, 2)[0] for m in outs] if out_spatial else [0] * rank
+        los = [conv.same_pads(m, k, 2)[0] for m in outs] if out_spatial else [lo] * rank
 
         def make(dtype):
             x = randn(shape, dtype)
@@ -3979,6 +4083,39 @@ def main() -> int:
             ops=2 * cin * cout * int(taps) * x_shape[0],
             source="mvsnet_tpu_torch/csrc/wgrad.cu", replaces=replaces))
 
+    def add_pixel_cost(stage):
+        """The per-pixel edition of K1 at a CasMVSNet stage's shape (DTU's
+        1600x1184, V=5): `tools/pixel_cost_volume_check.inputs`; its
+        library yardstick the reference's `grid_sample` warps and variance
+        (float32 maps)."""
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+        from pixel_cost_volume_check import STAGES, inputs
+
+        from mvs_bench.reference import casmvsnet as cas_ref
+
+        D, h, w, C = STAGES[stage]
+        ref_f, views, planes, proj = inputs(stage, dev)
+        n_out = D * h * w * C
+
+        def library_inputs(r, vs, pl, pr):
+            maps = [t.float().permute(2, 0, 1)[None] for t in (r, *vs)]
+            return maps[0], maps[1:], pr[:, None], pl[None]
+
+        cases.append(dict(
+            name=f"cost_volume_pixel:{stage + 1}", counter="cost_volume_pixel",
+            kernel=sweep.pixel_cost_volume, plain=sweep.pixel_cost_volume_plain,
+            library=cas_ref.cost_volume, library_inputs=library_inputs, tol=PIXEL_TOL,
+            make=lambda dtype: (ref_f.to(dtype), views.to(dtype), planes, proj),
+            path="cascade",
+            # the five maps, the plane depths and the projections read
+            # once, the volume written once
+            bytes=lambda it: (5 * h * w * C + n_out) * it + (D * h * w + 4 * 12) * 4,
+            # per output, 4 source views' bilinear taps and sums (12 each)
+            # and the variance; per pixel-plane and view, the projection
+            ops=n_out * (4 * 12 + 4) + D * h * w * 4 * 25,
+            source="mvsnet_tpu_torch/csrc/cost_volume.cu",
+            replaces="none: the JAX package has no cascade"))
+
     c3, c2s1, c2s2 = ("mvsnet_tpu/ops/pallas/conv3d.py:974",
                       "mvsnet_tpu/ops/pallas/conv2d.py:871",
                       "mvsnet_tpu/ops/pallas/conv2d.py:578")
@@ -4057,6 +4194,27 @@ def main() -> int:
     add_wgrad("2dconv0_1_refine", (1, 480, 640, 5), (1, 480, 640, 8), 3, 1, wg1,
               path="train_refine")
     add_conv("2dconv0_1_refine_dx", (1, 480, 640, 8), 3, 1, 5, False, c2s1, path="train_refine")
+    # CasMVSNet at DTU's 1600x1184, V=5 (phase 17's point): the per-pixel K1
+    # at each stage's shape; the FPN's 1x1 convs (laterals with a bias) and
+    # its 5x5 stride-2 conv with PyTorch's pads; stage 3's U-Net at full
+    # resolution with Cin = 8: conv0, the stride-2 conv1 with PyTorch's
+    # pads, the cost conv to one channel, and the last transposed conv
+    # (lo 1: output_padding 1)
+    for stage in range(3):
+        add_pixel_cost(stage)
+    add_conv("fpn_inner2", (5, 1184, 1600, 8), 1, 1, 32, True, c2s1, relu=False,
+             path="cascade")
+    add_conv("fpn_inner1", (5, 592, 800, 16), 1, 1, 32, True, c2s1, relu=False,
+             path="cascade")
+    add_conv("fpn_out1", (5, 296, 400, 32), 1, 1, 32, False, c2s1, path="cascade")
+    add_conv("fpn_conv1_0", (5, 1184, 1600, 8), 5, 2, 16, True, c2s2, path="cascade",
+             torch_pads=True)
+    add_conv("cas3_conv0", (1, 8, 1184, 1600, 8), 3, 1, 8, True, c3, path="cascade")
+    add_conv("cas3_conv1", (1, 8, 1184, 1600, 8), 3, 2, 16, True, c3, path="cascade",
+             torch_pads=True)
+    add_conv("cas3_prob", (1, 8, 1184, 1600, 8), 3, 1, 1, False, c3, path="cascade")
+    add_deconv("cas3_conv11", (1, 4, 592, 800, 16), 8, True,
+               "mvsnet_tpu/ops/pallas/deconv3d.py:194", path="cascade", lo=1)
     # K2 and K3 with a row offset at the blocked train step's shapes (8g's
     # (1,2,1) mesh at the training point: a depth slab of 96 planes, rows
     # whole, the second rank's slab)
@@ -4065,7 +4223,8 @@ def main() -> int:
 
     print("kernel phase: kernel vs plain version on the card "
           f"(pass: max abs err <= tol * max(1, max|plain|), tol {TOL[torch.float32]:g} "
-          f"f32, {TOL[torch.bfloat16]:g} bf16; float32 outputs take the f32 tol); bf16 conv, "
+          f"f32, {TOL[torch.bfloat16]:g} bf16, the per-pixel cost volume's f32 "
+          f"{PIXEL_TOL[torch.float32]:g}; float32 outputs take the f32 tol); bf16 conv, "
           "deconv and wgrad rows also time the CUDA-core edition (simt) beside the tensor-core "
           "one (tc), in turns tc, simt, simt, tc")
     failures, records = [], {}
@@ -4103,7 +4262,7 @@ def main() -> int:
             got, want = got.float(), want.float()
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
-            tol = TOL[torch.float32 if c.get("f32_out") else dtype]
+            tol = c.get("tol", TOL)[torch.float32 if c.get("f32_out") else dtype]
             ok = bool(torch.isfinite(got).all()) and err <= tol * max(1.0, scale)
             del got, want
             simt_text, device = "", {}
@@ -4240,6 +4399,12 @@ def main() -> int:
           f"{d_err:.3e} (bound {E2E_DEPTH_ATOL:g}), prob max abs err {p_err:.3e} "
           f"(bound {E2E_PROB_ATOL:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
+        return 1
+
+    print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 17 next]", flush=True)
+    # ---- 17. CasMVSNet serving at DTU's 1600x1184, N=5
+    cascade_counts = phase17_cascade_serving(smi, dev)
+    if cascade_counts is None:
         return 1
 
     print(f"[{time.perf_counter() - t_start:.1f} s since the start: phase 6 next]", flush=True)
@@ -4398,7 +4563,7 @@ def main() -> int:
     # the refined requests of phase 12 and the refined steps of phase 13
     path_counts = {None: train_launches, "gru": gru_counts, "train_gru": gru_train_counts,
                    "refine": refine_counts, "train_refine": refine_train_counts,
-                   "blocks": block_counts}
+                   "blocks": block_counts, "cascade": cascade_counts}
     out = []
     for c in cases:
         r = records[(c["name"], str(c.get("path_dtype", torch.bfloat16)).replace("torch.", ""))]

@@ -83,6 +83,7 @@ class ModelConfig:
     residual_refinement: bool = True
     prob_num_buckets: int = 4
     compute_dtype: str = "bfloat16"   # conv compute dtype; params stay f32
+    cascade: bool = False             # CasMVSNet's cascade (models/casmvsnet.py)
 
     @property
     def base_divisor(self) -> float:
@@ -160,12 +161,16 @@ class DataConfig:
 
 # fields of the JAX configs with no counterpart here, dropped on load
 JAX_ONLY_FIELDS = {"model": {"depth_chunk", "use_pallas"}, "train": set(), "data": set()}
+# the port's own fields, written to a config.json only where they differ
+# from their defaults: JAX's configs raise on a field they do not know
+PORT_ONLY_FIELDS = {"cascade"}
 _CONFIGS = (("model", ModelConfig), ("train", TrainConfig), ("data", DataConfig))
 
 
 def _to_jsonable(obj: Any) -> Any:
     if dataclasses.is_dataclass(obj):
-        return {f.name: _to_jsonable(getattr(obj, f.name)) for f in dataclasses.fields(obj)}
+        return {f.name: _to_jsonable(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+                if f.name not in PORT_ONLY_FIELDS or getattr(obj, f.name) != f.default}
     return obj
 
 

@@ -198,13 +198,8 @@ struct Taps {
   bool x0in, x1in, y0in, y1in;
 };
 
-__device__ __forceinline__ Taps project(const float* __restrict__ h, int x, int y,
-                                        int H, int W) {
-  const float px = (float)x + 0.5f;
-  const float py = (float)y + 0.5f;
-  const float u = h[0] * px + h[1] * py + h[2];
-  const float q = h[3] * px + h[4] * py + h[5];
-  float w = h[6] * px + h[7] * py + h[8];
+// The taps of the homogeneous source point (u, q, w).
+__device__ __forceinline__ Taps taps_at(float u, float q, float w, int H, int W) {
   if (fabsf(w) < 1e-7f) w = (w < 0.f) ? -1e-7f : 1e-7f;
   const float sx = u / w - 0.5f;
   const float sy = q / w - 0.5f;
@@ -220,6 +215,29 @@ __device__ __forceinline__ Taps project(const float* __restrict__ h, int x, int 
   t.y0in = t.y0 >= 0 && t.y0 < H;
   t.y1in = t.y0 + 1 >= 0 && t.y0 + 1 < H;
   return t;
+}
+
+__device__ __forceinline__ Taps project(const float* __restrict__ h, int x, int y,
+                                        int H, int W) {
+  const float px = (float)x + 0.5f;
+  const float py = (float)y + 0.5f;
+  const float u = h[0] * px + h[1] * py + h[2];
+  const float q = h[3] * px + h[4] * py + h[5];
+  const float w = h[6] * px + h[7] * py + h[8];
+  return taps_at(u, q, w, H, W);
+}
+
+// The taps of reference pixel (x, y) on the plane of depth d under a
+// projection [M | b] (row-major 3x4, float32; the per-pixel cost volume's):
+// (u, q, w) = d M (x + 0.5, y + 0.5, 1) + b, sampled as `project` samples.
+__device__ __forceinline__ Taps project_depth(const float* __restrict__ mb, float d, int x,
+                                              int y, int H, int W) {
+  const float px = (float)x + 0.5f;
+  const float py = (float)y + 0.5f;
+  const float u = d * (mb[0] * px + mb[1] * py + mb[2]) + mb[3];
+  const float q = d * (mb[4] * px + mb[5] * py + mb[6]) + mb[7];
+  const float w = d * (mb[8] * px + mb[9] * py + mb[10]) + mb[11];
+  return taps_at(u, q, w, H, W);
 }
 
 // The bilinear blend of the four taps' values (zero where a tap is outside
@@ -290,13 +308,22 @@ template <> struct Raw8<float> {
 // an (H, W, C) map plus `base`, which of the four taps lie inside the map
 // (bits 00, 01, 10, 11), and fx, fy as bits. 32-bit offsets: the launchers
 // check that the maps they index stay under 2^31 elements.
-__device__ __forceinline__ int4 tap_record(const float* __restrict__ h, int x, int y, int H,
-                                           int W, int C, int base) {
-  const Taps t = project(h, x, y, H, W);
+__device__ __forceinline__ int4 tap_entry(const Taps& t, int W, int C, int base) {
   const int in = (t.y0in && t.x0in) | (t.y0in && t.x1in) << 1 | (t.y1in && t.x0in) << 2 |
                  (t.y1in && t.x1in) << 3;
   return make_int4(base + (t.y0 * W + t.x0) * C, in, __float_as_int(t.fx),
                    __float_as_int(t.fy));
+}
+
+__device__ __forceinline__ int4 tap_record(const float* __restrict__ h, int x, int y, int H,
+                                           int W, int C, int base) {
+  return tap_entry(project(h, x, y, H, W), W, C, base);
+}
+
+// The same entry for pixel (x, y) at depth d under [M | b] (`project_depth`).
+__device__ __forceinline__ int4 pixel_tap_record(const float* __restrict__ mb, float d, int x,
+                                                 int y, int H, int W, int C, int base) {
+  return tap_entry(project_depth(mb, d, x, y, H, W), W, C, base);
 }
 
 // The blend of a table entry's four taps, 8 channels: img points at the

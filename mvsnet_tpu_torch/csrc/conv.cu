@@ -129,6 +129,7 @@ int dispatch_kernel(int kd, int kh, int kw, int cot, const void* x,
   if (kd == 3 && kh == 3 && kw == 3) return dispatch_cot<T, 3, 3, 3>(MVS_CONV_ARGS);
   if (kd == 1 && kh == 3 && kw == 3) return dispatch_cot<T, 1, 3, 3>(MVS_CONV_ARGS);
   if (kd == 1 && kh == 5 && kw == 5) return dispatch_cot<T, 1, 5, 5>(MVS_CONV_ARGS);
+  if (kd == 1 && kh == 1 && kw == 1) return dispatch_cot<T, 1, 1, 1>(MVS_CONV_ARGS);
 #undef MVS_CONV_ARGS
   return (int)cudaErrorInvalidValue;
 }

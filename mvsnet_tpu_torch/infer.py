@@ -6,7 +6,8 @@ session dir (a dir with a `covisibility.json`) or every session dir under
 `--input_dir`, and writes them to `<session>/depths_mvsnet/` (or
 `--output_dir`): PFMs, depth and confidence PNGs, the reference image and
 its cam (`predict.write_output`), on a writer thread while the card
-computes the next cluster. The JAX driver's flags, plus `--device`
+computes the next cluster. `--cascade` serves CasMVSNet instead, whose
+maps are at the images' resolution. The JAX driver's flags, plus `--device`
 (`cuda:0` by default; `cpu` runs the plain PyTorch path). With
 `--num_devices N` > 1 the driver runs as N ranks, one process a card
 (`torchrun --nproc_per_node=N -m mvsnet_tpu_torch.infer ...`); every rank
@@ -57,6 +58,8 @@ def build_parser():
     p.add_argument("--visualize", action="store_true")
     p.add_argument("--max_clusters_per_session", type=int, default=None)
     p.add_argument("--compute_dtype", default="bfloat16")
+    p.add_argument("--cascade", action="store_true",
+                   help="serve CasMVSNet (48, 32 and 8 planes at full resolution)")
     add_device_arguments(p)
     return p
 
@@ -79,7 +82,7 @@ def model_config_from_args(args) -> ModelConfig:
         refinement_network=args.refinement_network,
         upsample_before_refinement=args.upsample_before_refinement,
         refine_with_confidence=args.refine_with_confidence,
-        compute_dtype=args.compute_dtype)
+        compute_dtype=args.compute_dtype, cascade=args.cascade)
 
 
 def make_predictor(mcfg: ModelConfig, args) -> pl.Predictor:
@@ -117,7 +120,8 @@ def compute_depth_maps(input_dir: str, args, predictor=None):
     if predictor is None:
         predictor = make_predictor(mcfg, args)
 
-    upsample = bool(args.refinement and args.upsample_before_refinement)
+    # the depth at the images' resolution: written with the full images' cam
+    upsample = bool(args.refinement and args.upsample_before_refinement) or mcfg.cascade
     n = len(gen.clusters)
     # predict(fetch=False) returns once the work is queued; the writer
     # thread's .cpu() waits for the card while this loop feeds the next

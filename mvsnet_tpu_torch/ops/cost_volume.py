@@ -19,6 +19,8 @@ gradient (cameras are data), as in the JAX VJP.
 `sweep_cost_volume_sharded` is the multi-device edition (kernel K1s): each
 rank computes its 'space' rows and its 'depth' slab of the volume, and in
 training its backward runs K2 and K3 on the same row block.
+`pixel_cost_volume` is CasMVSNet's volume over per-pixel planes (the
+per-pixel edition of K1 on CUDA tensors, its plain version on CPU tensors).
 `cost_slice` is one plane of the volume in plain PyTorch, with either fill
 mode (ops/cost_volume.py:241 of the JAX package, which no graph calls);
 `plane_sweep_cost_volume(..., fill_mode="edge")` stacks it over the planes.
@@ -187,6 +189,18 @@ def sweep_cost_volume_sharded(ref_l, views_l, homographies, mesh, depth=None, ro
         return CostVolumeFn.apply(ref_l, views, homs, r0)
     return torch.stack([sweep.cost_volume(ref_l[b], views[:, b], homs[:, b], row_offset=r0)
                         for b in range(B)], dim=0)
+
+
+def pixel_cost_volume(ref_feature, view_features, planes, projections):
+    """ref_feature (B, h, w, C), view_features (V-1, B, h, w, C), planes
+    (B, D, h, w) float32, each pixel's plane depths, or (B, D), one depth a
+    plane; projections (V-1, B, 3, 4) float32, each source view's [M | b]
+    (`geometry.pixel_projections`) -> (B, D, h, w, C) in the features'
+    dtype: the variance over the views of each view sampled at q = d M (x +
+    0.5, y + 0.5, 1) + b, the reference view included, float32 sums."""
+    outs = [sweep.pixel_cost_volume(ref_feature[b], view_features[:, b], planes[b],
+                                    projections[:, b]) for b in range(ref_feature.shape[0])]
+    return outs[0][None] if len(outs) == 1 else torch.stack(outs, dim=0)
 
 
 def cost_slice(ref_feature, view_features, homographies_d, fill_mode: str = "zeros"):

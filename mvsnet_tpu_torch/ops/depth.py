@@ -4,7 +4,8 @@ winner-take-all update (counterpart of mvsnet_tpu/ops/depth.py:20-182).
 The JAX package leaves these to XLA, not to a Pallas kernel, so they are
 plain PyTorch in float32 here. `soft_argmin_prob_map_sharded` is the
 collective edition over a volume's depth slabs (multi-device runs): GSPMD's
-collective softmax along D, written out.
+collective softmax along D, written out. `cascade_regression` is
+CasMVSNet's tail over per-pixel planes.
 """
 
 from __future__ import annotations
@@ -169,3 +170,25 @@ def winner_take_all_update(carry, prob, depth_value):
     update = prob > max_prob
     return (torch.where(update, prob, max_prob), torch.where(update, d_img, depth_image),
             exp_sum + prob)
+
+
+def cascade_regression(cost, planes):
+    """CasMVSNet's regression (module.py's `depth_regression` and the
+    photometric confidence): cost (B, D, h, w) float32, planes (B, D, h, w)
+    or (B, D) -> depth and confidence, each (B, h, w). P = softmax(cost)
+    over the planes, the cost not negated; depth = sum_k P_k d_k; the
+    confidence sums P over planes i - 1 .. i + 2 inside [0, D), i the
+    floor of sum_k P_k k clamped to [0, D - 1]."""
+    D = cost.shape[1]
+    prob = torch.softmax(cost.to(torch.float32), dim=1)
+    if planes.ndim == 2:
+        planes = planes[:, :, None, None]
+    depth = torch.sum(prob * planes, dim=1)
+    k = torch.arange(D, dtype=torch.float32, device=cost.device)[None, :, None, None]
+    idx = torch.sum(prob * k, dim=1).to(torch.int64).clamp(0, D - 1)
+    conf = torch.zeros_like(depth)
+    for off in (-1, 0, 1, 2):
+        j = idx + off
+        got = torch.gather(prob, 1, j.clamp(0, D - 1)[:, None])[:, 0]
+        conf = conf + torch.where((j >= 0) & (j < D), got, torch.zeros_like(got))
+    return depth, conf

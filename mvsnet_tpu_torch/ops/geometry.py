@@ -8,11 +8,16 @@ Cam tensor convention (reference: mvs_cluster.py:91-111):
 The homography from the reference image to a source image at fronto-parallel
 depth d:  H(d) = K_r R_r (I - c_rel n0^T / d) R_l^T K_l^{-1}.
 Always float32: the projected coordinates need sub-pixel precision.
+
+CasMVSNet's cascade projects each pixel at its own depths instead:
+`pixel_projections` gives each source view's [M | b] with q = d M p + b,
+`cascade_planes` each stage's plane depths.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def _f32(x, device=None) -> torch.Tensor:
@@ -122,3 +127,49 @@ def scale_camera(cam, scale: float) -> torch.Tensor:
     out = cam.clone()
     out[..., 1, :3, :3] = cam[..., 1, :3, :3] * scale_mat
     return out
+
+
+def pixel_projections(cams, scale: float = 1.0) -> torch.Tensor:
+    """(B, V, 2, 4, 4) cams, view 0 the reference, their intrinsics' top two
+    rows times `scale` -> (V-1, B, 3, 4) float32 [M_v | b_v], the top rows
+    of P_v P_ref^-1 with P = [[K R, K t], [0, 1]]: a reference pixel p
+    (homogeneous, centres at +0.5) at depth d lands at d M_v p + b_v in
+    view v, M_v = K_v R_v R_ref^T K_ref^-1, b_v = K_v (t_v - R_v R_ref^T t_ref)."""
+    cams = _f32(cams)
+    K = cams[:, :, 1, :3, :3].clone()
+    K[:, :, :2] *= scale
+    R, t = cams[:, :, 0, :3, :3], cams[:, :, 0, :3, 3:4]
+    # inv_ex: no error check, which on the card would wait for the device
+    left = R[:, 0].transpose(-1, -2) @ torch.linalg.inv_ex(K[:, 0]).inverse
+    rel = R[:, 0].transpose(-1, -2) @ t[:, 0]
+    out = []
+    for v in range(1, cams.shape[1]):
+        KR = K[:, v] @ R[:, v]
+        out.append(torch.cat([KR @ left, K[:, v] @ t[:, v] - KR @ rel], dim=-1))
+    return torch.stack(out, dim=0)
+
+
+def cascade_planes(depth, num: int, ratio: float, depth_min, depth_max, max_d: int,
+                   size) -> torch.Tensor:
+    """A cascade stage's plane depths (CasMVSNet, cas_mvsnet.py /
+    module.py's `get_depth_range_samples`), float32. `depth` None: `num`
+    planes uniform over [depth_min, depth_max] (B,), the same at every
+    pixel, (B, num). Else centred on the stage before's depth (B, h', w')
+    resized bilinearly (align_corners=False) to `size` (h, w):
+    d_k = c - num/2 ratio delta + k num ratio delta / (num - 1), delta =
+    (depth_max - depth_min) / max_d, (B, num, h, w). The published model
+    resizes the depth to the images' size, forms the planes there and
+    resizes them trilinearly to the stage's; at the stage's size, which is
+    the images' or half of it, that is this bilinear resize to `size`
+    (the mean of two bilinear samples a quarter of a pixel apart is the
+    sample half way), up to rounding."""
+    depth_min = _f32(depth_min)
+    depth_max = _f32(depth_max, depth_min.device)
+    k = torch.arange(num, dtype=torch.float32, device=depth_min.device)
+    if depth is None:
+        return depth_min[:, None] + k[None] * ((depth_max - depth_min) / (num - 1))[:, None]
+    center = F.interpolate(depth[:, None], size=tuple(size), mode="bilinear",
+                           align_corners=False)[:, 0]
+    step = (ratio * (depth_max - depth_min) / max_d)[:, None, None]
+    return ((center - num / 2 * step)[:, None]
+            + k[None, :, None, None] * (num * step / (num - 1))[:, None])

@@ -14,6 +14,7 @@ EDITIONED = {"conv": conv, "deconv": deconv, "wgrad": wgrad}
 COUNTERS = {
     "cost_volume": (sweep, "launches"),
     "cost_volume_sharded": (sweep, "launches_sharded"),
+    "cost_volume_pixel": (sweep, "launches_pixel"),
     "conv": (conv, "launches"),
     "deconv": (deconv, "launches"),
     "warp": (warp, "launches"),

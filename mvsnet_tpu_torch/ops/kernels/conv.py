@@ -39,8 +39,8 @@ EDITIONS = ("tc", "simt")
 _I = ctypes.c_int
 _P = ctypes.c_void_p
 _ARGTYPES = [_I, _I, _I, _I, _I, _P, _P, _P, _P] + [_I] * 16 + [_P]
-# (KD, KH, KW) extents the kernel is built for.
-_EXTENTS = {(3, 3, 3), (1, 3, 3), (1, 5, 5)}
+# (KD, KH, KW) extents the kernel is built for (1 x 1: CasMVSNet's FPN laterals).
+_EXTENTS = {(3, 3, 3), (1, 3, 3), (1, 5, 5), (1, 1, 1)}
 
 
 def same_pads(n: int, k: int, s: int):

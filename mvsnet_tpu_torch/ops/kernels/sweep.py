@@ -19,6 +19,12 @@ computed once per (pixel, view, depth); the output leaves in streaming
 
 `cost_volume` runs the kernel on CUDA tensors and `cost_volume_plain` on CPU
 tensors; it never falls back from one to the other.
+
+`pixel_cost_volume` (its plain version `pixel_cost_volume_plain`) is the
+per-pixel edition of the same source, for CasMVSNet's cascade: each pixel
+has its own plane depths, and each source view a projection [M | b]
+instead of a homography a plane. K1's design, its taps and its sums are
+kept; its launches count in `launches_pixel`.
 """
 
 from __future__ import annotations
@@ -34,10 +40,13 @@ from mvsnet_tpu_torch.ops.kernels import _lib
 # K1s (called with a row offset, from the sharded cost volume).
 launches = 0
 launches_sharded = 0
+# Launches of the per-pixel edition.
+launches_pixel = 0
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
 _ARGTYPES = [_I, _P, _P, _P, _P] + [_I] * 7 + [_P]
+_PIXEL_ARGTYPES = [_I, _P, _P, _P, _P, _P] + [_I] * 6 + [_P]
 
 
 def cost_volume_plain(ref, views, homs, row_offset=None):
@@ -102,4 +111,76 @@ def cost_volume(ref, views, homs, row_offset=None):
         launches += 1
     else:
         launches_sharded += 1
+    return out
+
+
+def _pixel_check(ref, views, planes, proj):
+    H, W, C = ref.shape
+    V1 = views.shape[0]
+    if views.shape != (V1, H, W, C) or views.dtype != ref.dtype:
+        raise ValueError(f"views {tuple(views.shape)} {views.dtype} do not match "
+                         f"ref {tuple(ref.shape)} {ref.dtype}")
+    if proj.shape != (V1, 3, 4):
+        raise ValueError(f"projections must be (V-1, 3, 4), got {tuple(proj.shape)}")
+    if planes.ndim not in (1, 3) or (planes.ndim == 3 and planes.shape[1:] != (H, W)):
+        raise ValueError(f"planes must be (D,) or (D, {H}, {W}), got {tuple(planes.shape)}")
+
+
+def pixel_cost_volume_plain(ref, views, planes, proj):
+    """Plain PyTorch version, in float32: each view sampled at q = d M (x +
+    0.5, y + 0.5, 1) + b with the explicit gather warp of `ops/warp.py`.
+
+    ref (h, w, C), views (V-1, h, w, C), planes (D, h, w) float32 (or (D,),
+    one depth a plane), proj (V-1, 3, 4) float32 -> (D, h, w, C) in ref's
+    dtype."""
+    _pixel_check(ref, views, planes, proj)
+    H, W, C = ref.shape
+    D = planes.shape[0]
+    depth = planes.to(torch.float32).reshape(D, -1)               # (D, 1 or h*w)
+    grid = warp._pixel_grid(H, W, ref.device)                      # (3, h*w)
+    ref32 = ref.to(torch.float32)
+    s = ref32.expand(D, H, W, C).clone()
+    s2 = (ref32 * ref32).expand(D, H, W, C).clone()
+    for v in range(views.shape[0]):
+        m = proj[v].to(torch.float32)
+        rays = m[:, :3] @ grid                                     # (3, h*w)
+        q = depth[:, None] * rays[None] + m[None, :, 3:]            # (D, 3, h*w)
+        z = q[:, 2]
+        z = torch.where(z.abs() < 1e-7, torch.where(z < 0, -1e-7, 1e-7), z)
+        x, y = q[:, 0] / z - 0.5, q[:, 1] / z - 0.5
+        warped = warp.bilinear_sample(views[v].to(torch.float32), x.reshape(-1), y.reshape(-1))
+        warped = warped.reshape(D, H, W, C)
+        s += warped
+        s2 += warped * warped
+    V = views.shape[0] + 1
+    mean = s / V
+    return (s2 / V - mean * mean).to(ref.dtype)
+
+
+def pixel_cost_volume(ref, views, planes, proj):
+    """Variance cost volume of one batch element over per-pixel planes,
+    (D, h, w, C) in ref's dtype; see `pixel_cost_volume_plain` for the
+    arguments."""
+    global launches_pixel
+    if ref.device.type == "cpu":
+        return pixel_cost_volume_plain(ref, views, planes, proj)
+    _pixel_check(ref, views, planes, proj)
+    ref, views = ref.contiguous(), views.contiguous()
+    planes = planes.to(torch.float32).contiguous()
+    proj = proj.to(torch.float32).contiguous()
+    _lib.require_cuda(ref, views, planes, proj)
+    H, W, C = ref.shape
+    V1, D = views.shape[0], planes.shape[0]
+    if C % 8 or C > 256:
+        raise ValueError(f"the cost kernel takes channels in multiples of 8 up to 256, got {C}")
+    if V1 * H * W * C >= 2 ** 31:
+        raise ValueError(f"source maps of {V1 * H * W * C} elements exceed the kernel's "
+                         f"32-bit indexing")
+    out = torch.empty((D, H, W, C), dtype=ref.dtype, device=ref.device)
+    fn = _lib.launcher("cost_volume", _PIXEL_ARGTYPES, entry="pixel_launch")
+    err = fn(_lib.dtype_code(ref), _lib.ptr(ref), _lib.ptr(views), _lib.ptr(planes),
+             _lib.ptr(proj), _lib.ptr(out), V1, D, H, W, C, int(planes.ndim == 3),
+             _lib.stream_of(ref))
+    _lib.check("cost_volume", err)
+    launches_pixel += 1
     return out

@@ -1,8 +1,9 @@
 """Prediction library (counterpart of mvsnet_tpu/predict.py; reference:
 mvsnet/predictlib.py): the data iterator, `Predictor` (the 3D-CNN graph
 with or without refinement, and the GRU graph, on one device or over a
-mesh), the PFM / PNG / cam output writers with a background writer thread,
-and the results CSV.
+mesh; CasMVSNet's cascade, `ModelConfig.cascade`, on one device),
+the PFM / PNG / cam output writers with a background writer thread, and
+the results CSV.
 
 Weights come from a seed, from a state dict (`convert.state_dict_from_jax`,
 `checkpoint.restore_tree(...)["model"]`), or from a checkpoint directory of
@@ -32,6 +33,7 @@ from mvsnet_tpu_torch.io.cams import write_cam_txt
 from mvsnet_tpu_torch.io.images import (write_confidence_png, write_depth_png, write_image,
                                         write_inverse_depth_png)
 from mvsnet_tpu_torch.io.pfm import write_pfm
+from mvsnet_tpu_torch.models.casmvsnet import CasMVSNet
 from mvsnet_tpu_torch.models.mvsnet import MVSNet, apply_forward_3dcnn
 from mvsnet_tpu_torch.parallel.infer_step import make_sharded_forward, make_sharded_gru_forward
 from mvsnet_tpu_torch.parallel.mesh import factorize_devices, make_mesh
@@ -174,7 +176,10 @@ class Predictor:
     `make_sharded_forward`'s, or for the GRU `make_sharded_gru_forward`'s
     (the maps split over the ranks). With refinement the 3D-CNN graph
     returns the refined depth and the residual; the GRU graph ignores
-    refinement and returns a zero residual, as in JAX."""
+    refinement and returns a zero residual, as in JAX. A cascade
+    configuration (`mcfg.cascade`) serves `models/casmvsnet.CasMVSNet` on
+    one device: its depth and confidence at the images' resolution and a
+    zero residual."""
 
     def __init__(self, mcfg: ModelConfig, model_dir: Optional[str] = None,
                  ckpt_step: Optional[int] = None, num_devices: Optional[int] = None, *,
@@ -202,7 +207,7 @@ class Predictor:
         else:
             self.mesh = None
             self.device = resolve_device(device)
-        model = MVSNet(mcfg, seed=seed)
+        model = (CasMVSNet if mcfg.cascade else MVSNet)(mcfg, seed=seed)
         if model_dir is not None:
             state_dict = ckpt.restore_tree(model_dir, mcfg.regularization, mcfg.network_mode,
                                            ckpt_step)["model"]
@@ -211,7 +216,15 @@ class Predictor:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
         # forward(images, cams, depth_start, depth_interval, depth_end)
-        if mcfg.regularization == "GRU":
+        if mcfg.cascade:
+            if self.mesh is not None:
+                raise NotImplementedError("CasMVSNet serves on one device")
+
+            def forward(images, cams, ds, di, de):
+                depth, conf = self.model(images, cams, ds, di)
+                return depth, conf, torch.zeros_like(depth)
+            self._forward = forward
+        elif mcfg.regularization == "GRU":
             gru = (make_sharded_gru_forward(self.model, mcfg, self.mesh) if self.mesh is not None
                    else lambda im, ca, ds, de: self.model.forward_gru_wta(im, ca, ds, None, de))
 
@@ -256,7 +269,8 @@ class Predictor:
         """(depth_map, prob_map, residual), each (B, h, w, 1); with
         refinement the refined depth map and the residual, at the
         refinement's resolution (the images' with
-        `upsample_before_refinement`), else the residual is zeros. fetch=True
+        `upsample_before_refinement`), else the residual is zeros; the
+        cascade's maps at the images' resolution. fetch=True
         returns numpy arrays after the device finishes; fetch=False returns
         the device tensors as soon as the work is queued. As in JAX
         (mvsnet_tpu/predict.py:110-139), the 3D-CNN graph reads
@@ -304,13 +318,16 @@ def write_output_slice(output_dir: str, depth_map, prob_map, images, cams,
     depth and confidence PNGs, the reference image `<index>.jpg` and its
     cam `<index>.txt`; with `upsample` (the depth is at the full images'
     resolution) the full images' cam and the prob map scaled up by nearest
-    neighbour; with `visualize` the inverse-depth PNG and the residual PFM."""
+    neighbour where it is smaller than the depth map (not the cascade's,
+    which is already at the depth's resolution); with `visualize` the
+    inverse-depth PNG and the residual PFM."""
     depth_map = np.squeeze(_host(depth_map))
     prob_map = np.squeeze(_host(prob_map))
     if upsample:
         ref_image = np.squeeze(full_images)[0]
         ref_cam = np.squeeze(full_cams)[0]
-        prob_map = scale_image(prob_map, 1.0 / sample_scale, "nearest")
+        if prob_map.shape != depth_map.shape:
+            prob_map = scale_image(prob_map, 1.0 / sample_scale, "nearest")
     else:
         ref_image = np.squeeze(images)[0]
         ref_cam = np.squeeze(cams)[0]

@@ -7,7 +7,8 @@ averaged, appending the averages to a results CSV (`--results_path`);
 `--write_output` also writes each cluster's maps as the infer driver does.
 A depth map below the ground truth's resolution (no refinement, or
 refinement at the cost volume's) is resized to it bilinearly first
-(`ops/resize.py`, JAX's `jax.image.resize`). The JAX driver's flags, plus
+(`ops/resize.py`, JAX's `jax.image.resize`); CasMVSNet's (`--cascade`)
+is at the images' resolution already. The JAX driver's flags, plus
 `--device` (`cuda:0` by default; `cpu` runs the plain PyTorch path).
 """
 
@@ -60,6 +61,8 @@ def build_parser():
     p.add_argument("--max_clusters_per_session", type=int, default=100)
     p.add_argument("--results_path", default="./results.csv")
     p.add_argument("--compute_dtype", default="bfloat16")
+    p.add_argument("--cascade", action="store_true",
+                   help="serve CasMVSNet (48, 32 and 8 planes at full resolution)")
     add_device_arguments(p)
     return p
 
@@ -72,7 +75,8 @@ def benchmark_depth_maps(input_dir, args):
                                  max_clusters_per_session=args.max_clusters_per_session)
     predictor = make_predictor(mcfg, args)
     dev = predictor.device
-    upsample_to_gt = not (args.refinement and args.upsample_before_refinement)
+    upsample_to_gt = not (args.refinement and args.upsample_before_refinement
+                          or mcfg.cascade)
 
     losses, less_ones, less_threes, debugs = [], [], [], []
     n = len(gen.clusters)

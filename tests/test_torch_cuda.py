@@ -111,6 +111,7 @@ def test_sharded_cost_volume_blocks_stitch_to_k1(dev, dtype, depth, space):
     ((2, 16, 20), 3, 2, 24, 12),
     ((2, 15, 21), 5, 2, 8, 16),
     ((1, 8, 12), 3, 1, 128, 128),
+    ((2, 13, 17), 1, 1, 16, 32),        # CasMVSNet's 1x1 laterals
 ])
 def test_conv_matches_plain(dev, dtype, shape, k, stride, cin, cout):
     rng = np.random.default_rng(1)
@@ -141,6 +142,71 @@ def test_deconv_matches_plain(dev, dtype, shape, cin, cout):
         got = deconv.deconv(x, w, bias, relu)
         _close(got, deconv.deconv_plain(x, w, bias, relu), TOL[dtype])
     assert deconv.launches == before + 2
+
+
+def _cascade_inputs(stage, dtype, dev):
+    """Seeded features, plane depths centred on a smooth depth map and the
+    projections of a ring rig at one of CasMVSNet's stage shapes at DTU's
+    1600x1184, N = 5 (`tools/pixel_cost_volume_check.py`'s)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
+    from pixel_cost_volume_check import inputs
+
+    ref, views, planes, proj = inputs(stage, dev)
+    return ref.to(dtype), views.to(dtype), planes, proj
+
+
+# float32: the kernel projects with fused multiply-adds, the plain version
+# with a matrix product and two roundings; at depths of ~700 mm and
+# coordinates up to 1600 px a position differs by a few 1e-4 px, which
+# random features' slope of a few units a pixel turns into up to ~5e-4 of
+# the largest value (measured 4.5e-4 at the third stage's shape)
+PIXEL_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1, 2])
+def test_pixel_cost_volume_matches_plain(dev, dtype, stage):
+    ref, views, planes, proj = _cascade_inputs(stage, dtype, dev)
+    before = sweep.launches_pixel
+    got = sweep.pixel_cost_volume(ref, views, planes, proj)
+    assert sweep.launches_pixel == before + 1
+    _close(got, sweep.pixel_cost_volume_plain(ref, views, planes, proj), PIXEL_TOL[dtype])
+    if stage == 0:       # the first stage's uniform planes: one depth a plane
+        flat = planes[:, 0, 0].contiguous()
+        _close(sweep.pixel_cost_volume(ref, views, flat, proj),
+               sweep.pixel_cost_volume_plain(ref, views, flat, proj), PIXEL_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_casmvsnet_predictor_card_matches_cpu(dev, dtype):
+    """The cascade at 256x320, V=3, through `Predictor` on the card and on
+    the CPU's plain path, the same seeded weights. float32: sums in another
+    order only. bfloat16: the card's and the CPU's roundings differ where
+    their sums do, and the cascade carries a stage's depth into the next
+    stage's planes, so the depths are held in the mean."""
+    from mvs_bench import generate
+
+    cfg = ModelConfig(view_num=3, max_d=192, width=320, height=256, compute_dtype=dtype,
+                      cascade=True)
+    op = {"height": 256, "width": 320, "max_d": 192, "interval_scale": 1.06, "view_num": 3}
+    mix = {"pool": 1, "depth_interval_mm": 2.5, "depth_min_mm": 425.0, "depth_max_mm": 935.0,
+           "rig": {"yaw_deg": [2.0, 6.0], "roll_deg": [0.0, 2.0], "baseline_mm": [40.0, 80.0]}}
+    request = generate.serve_pool(mix, op, 7, "cpu")[0]
+    before = sweep.launches_pixel
+    d_gpu, c_gpu, _ = Predictor(cfg, seed=4, device=dev).predict(*request)
+    assert sweep.launches_pixel == before + 3
+    d_cpu, c_cpu, _ = Predictor(cfg, seed=4, device="cpu").predict(*request)
+    assert np.isfinite(d_gpu).all() and np.isfinite(c_gpu).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(d_gpu, d_cpu, atol=5e-2, rtol=0)
+        np.testing.assert_allclose(c_gpu, c_cpu, atol=2e-3, rtol=0)
+    else:
+        spacing = 8 * 2.65 / 7
+        assert np.abs(d_gpu - d_cpu).mean() < 0.1 * spacing
+        assert np.abs(c_gpu - c_cpu).mean() < 1e-2
 
 
 def test_tiny_forward_card_matches_cpu(dev):
@@ -426,6 +492,9 @@ def _editions():
     ((2, 15, 21), 5, 2, 8, 16, None),                   # 5x5 stride 2 (conv9_0), odd
     ((1, 8, 9, 11), 3, 1, 16, 32, [(0, 0), (1, 1), (1, 1)]),   # halo_conv's pads
     ((1, 9, 9, 11), 3, 2, 32, 16, [(0, 0), (0, 1), (1, 1)]),
+    ((2, 16, 20), 1, 1, 8, 32, None),                   # CasMVSNet's 1x1 laterals
+    ((2, 16, 20), 5, 2, 8, 16, [(2, 2), (2, 2)]),       # PyTorch's pads (CasMVSNet)
+    ((1, 8, 10, 12), 3, 2, 8, 16, [(1, 1)] * 3),
 ])
 def test_conv_tc_matches_plain(dev, shape, k, stride, cin, cout, pads):
     rng = np.random.default_rng(14)

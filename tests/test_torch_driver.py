@@ -164,7 +164,10 @@ def test_unported_graphs_raise(data, tmp_path):
         jax_argv = argv[:argv.index("--device")] + argv[argv.index("--device") + 2:]
         jax_cfgs = jax_train.configs_from_args(jax_train.build_parser().parse_args(jax_argv))
         saved = config.load_config(os.path.join(model_dir, "config.json"))
-        assert dataclasses.asdict(saved["model"]) == {
+        port_model = dataclasses.asdict(saved["model"])
+        # the port's own field stays at its default
+        assert port_model.pop("cascade") is False
+        assert port_model == {
             k: v for k, v in dataclasses.asdict(jax_cfgs[0]).items()
             if k not in config.JAX_ONLY_FIELDS["model"]}
         assert saved["model"].refinement and saved["model"].refinement_network == "unet"

@@ -363,12 +363,13 @@ def _conv_case(seed, shape, cout, k, stride):
 @pytest.mark.parametrize("cin,shape_hw,k,stride", [
     (1, (9, 13), 3, 1), (2, (9, 13), 3, 1), (3, (9, 13), 3, 1), (5, (8, 12), 3, 1),
     (6, (7, 11), 3, 1), (10, (7, 9), 3, 1), (3, (9, 13), 3, 2), (5, (10, 11), 3, 2),
-    (3, (11, 13), 5, 2),
+    (3, (11, 13), 5, 2), (8, (9, 13), 1, 1), (16, (7, 9), 1, 1),
 ])
 def test_small_cin_mirror_matches_plain_2d(cin, shape_hw, k, stride):
     """Cin % 8 != 0 zero-padded per pixel, 2D 3x3 s1, 3x3 s2 and 5x5 s2,
-    with a bias and a ReLU: the kernel's arithmetic mirrored from its plan
-    ints equals `conv_plain`."""
+    and the 1x1 laterals of CasMVSNet's tower (one tap), with a bias and a
+    ReLU: the kernel's arithmetic mirrored from its plan ints equals
+    `conv_plain`."""
     x, kern, b, x5, k5, strides, classes = _conv_case(cin * 7 + k + stride, (2, *shape_hw, cin),
                                                       8 if cin != 5 else 5, k, stride)
     got = mirror_tc_conv(x5, k5, b, strides, (1, 1, 1), classes, True)[:, 0]
