@@ -322,8 +322,9 @@ PIXEL_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 # order through ~45 layers and a softmax over 32 planes
 E2E_DEPTH_ATOL = 0.05          # depth units; the plane interval is 15
 E2E_PROB_ATOL = 1e-3
+# per bf16 request: the tower's 31 group norms take the two group-norm kernels
 EXPECTED_LAUNCHES = {"cost_volume": 1, "cost_volume_sharded": 0, "cost_volume_pixel": 0,
-                     "conv": 36, "deconv": 7,
+                     "conv": 36, "deconv": 7, "group_norm": 62,
                      "warp": 0, "warp_transpose": 0, "warp_sharded": 0,
                      "warp_transpose_sharded": 0, "wgrad": 0}
 # per bf16 request: every conv and deconv on the tensor cores, the two convs
@@ -513,7 +514,7 @@ def expected_train_launches(model, cfg, h, w):
     V, C = cfg.view_num, cfg.feature_channels
     chunks = max(1, -(-(V * cfg.max_d * h * w * C * 4) // ACC_LIMIT_BYTES))
     return {"cost_volume": 1, "cost_volume_sharded": 0, "cost_volume_pixel": 0,
-            "conv": sum(map(forwards, convs)) + dx_s1 + n_deconv,
+            "group_norm": 0, "conv": sum(map(forwards, convs)) + dx_s1 + n_deconv,
             "deconv": sum(map(forwards, deconvs)) + dx_s2, "warp": (V - 1) * chunks,
             "warp_transpose": (V - 1) * chunks, "warp_sharded": 0,
             "warp_transpose_sharded": 0, "wgrad": n_conv + n_deconv}
@@ -576,9 +577,11 @@ def expected_serving(model, dtype):
     from the model: K1 once (CasMVSNet: its per-pixel edition once a
     stage); every conv and transposed conv once a run (`module_calls`: a
     GRU cell's once a plane), in the edition `conv.pick_edition` gives its
-    channels."""
+    channels; the group-norm kernels twice a half-precision `ConvGN` or
+    `DeconvGN` (the GRU cells' norms take their layer-norm branch at every
+    width a config gives them)."""
     from mvsnet_tpu_torch.models.casmvsnet import PLANES
-    from mvsnet_tpu_torch.models.layers import Conv, Deconv
+    from mvsnet_tpu_torch.models.layers import Conv, ConvGN, Deconv, DeconvGN
     from mvsnet_tpu_torch.ops.kernels import conv
 
     calls = module_calls(model)
@@ -594,7 +597,11 @@ def expected_serving(model, dtype):
                 "warp": 0, "warp_transpose": 0,
                 "warp_sharded": 0, "warp_transpose_sharded": 0,
                 "wgrad": 0, "conv": sum(editions["conv"].values()),
-                "deconv": sum(editions["deconv"].values())}
+                "deconv": sum(editions["deconv"].values()),
+                "group_norm": 2 * sum(calls(m) for m in model.modules()
+                                      if isinstance(m, (ConvGN, DeconvGN))
+                                      and (getattr(m, "conv", None) or m.deconv).dtype
+                                      in (torch.bfloat16, torch.float16))}
     return launches, editions
 
 
@@ -3853,7 +3860,7 @@ def main() -> int:
     from mvsnet_tpu_torch.models import MVSNet
     from mvsnet_tpu_torch.ops import kernels
     from mvsnet_tpu_torch.ops.geometry import homographies_for_views
-    from mvsnet_tpu_torch.ops.kernels import _lib, conv, deconv, sweep, warp, wgrad
+    from mvsnet_tpu_torch.ops.kernels import _lib, conv, deconv, norm, sweep, warp, wgrad
     from mvsnet_tpu_torch.predict import Predictor, depth_params_from_cams
 
     # ---- 2. build
@@ -4116,6 +4123,41 @@ def main() -> int:
             source="mvsnet_tpu_torch/csrc/cost_volume.cu",
             replaces="none: the JAX package has no cascade"))
 
+    def add_group_norm(level):
+        """The group-norm kernel pair through `group_norm_core` (bf16, no
+        gradient recorded, the ReLU fused) at a level of UNetDS2GN at DTU's
+        1600x1184 with N=5 views, G = C / 8, against the plain pair bit for
+        bit; its library yardstick `F.group_norm` on the bf16 map viewed
+        channels-first. Two launches a call."""
+        from mvsnet_tpu_torch.models.layers import group_norm_core
+
+        shape = (5, 1184 >> level, 1600 >> level, 8 << level)
+        G, n = shape[-1] // 8, int(np.prod(shape))
+
+        def make(dtype):
+            return (randn(shape, dtype, 2.0) + 0.5, randn((shape[-1],), torch.float32, 0.5) + 1.0,
+                    randn((shape[-1],), torch.float32))
+
+        def kernel(x, gamma, beta):
+            with torch.inference_mode():
+                return group_norm_core(x, gamma, beta, G, 1e-5, relu=True)
+
+        cases.append(dict(
+            name=f"group_norm:{level}", counter="group_norm", launches=2, path="serve",
+            dtypes=(torch.bfloat16,), exact=True, deterministic=True, kernel=kernel,
+            plain=lambda x, gamma, beta: norm.group_norm_apply_plain(
+                x, norm.group_norm_stats_plain(x), n // (shape[0] * shape[-1]), gamma, beta, G,
+                1e-5, relu=True),
+            library=lambda xc, gamma, beta: F.group_norm(xc, G, gamma, beta, 1e-5),
+            library_inputs=lambda x, gamma, beta: (x.permute(0, 3, 1, 2), gamma.to(x.dtype),
+                                                   beta.to(x.dtype)),
+            make=make,
+            # x read by each kernel, y written once
+            bytes=lambda it: 3 * n * it,
+            # x^2 and two sums; the subtraction, two products, the sum, the ReLU
+            ops=8 * n, source="mvsnet_tpu_torch/csrc/group_norm.cu",
+            replaces="none: the JAX package leaves its group norm to XLA"))
+
     c3, c2s1, c2s2 = ("mvsnet_tpu/ops/pallas/conv3d.py:974",
                       "mvsnet_tpu/ops/pallas/conv2d.py:871",
                       "mvsnet_tpu/ops/pallas/conv2d.py:578")
@@ -4220,16 +4262,19 @@ def main() -> int:
     # whole, the second rank's slab)
     add_warp(t_homs[0, 96:].contiguous(), "mvsnet_tpu/ops/pallas/sweep.py:1599",
              path="blocks", rows=(0, 120))
+    # the feature tower's norms at its five levels (MVSNet's serving point)
+    for level in range(5):
+        add_group_norm(level)
 
     print("kernel phase: kernel vs plain version on the card "
           f"(pass: max abs err <= tol * max(1, max|plain|), tol {TOL[torch.float32]:g} "
           f"f32, {TOL[torch.bfloat16]:g} bf16, the per-pixel cost volume's f32 "
-          f"{PIXEL_TOL[torch.float32]:g}; float32 outputs take the f32 tol); bf16 conv, "
-          "deconv and wgrad rows also time the CUDA-core edition (simt) beside the tensor-core "
-          "one (tc), in turns tc, simt, simt, tc")
+          f"{PIXEL_TOL[torch.float32]:g}; float32 outputs take the f32 tol; the group-norm "
+          "rows bf16 alone and bit for bit); bf16 conv, deconv and wgrad rows also time the "
+          "CUDA-core edition (simt) beside the tensor-core one (tc), in turns tc, simt, simt, tc")
     failures, records = [], {}
     for c in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in c.get("dtypes", (torch.float32, torch.bfloat16)):
             inputs = c["make"](dtype)
             editioned = c["counter"] in kernels.EDITIONED
             before = kernels.launch_counts()[c["counter"]]
@@ -4237,7 +4282,7 @@ def main() -> int:
             got = c["kernel"](*inputs)
             want = c["plain"](*inputs)
             torch.cuda.synchronize()
-            if kernels.launch_counts()[c["counter"]] != before + 1:
+            if kernels.launch_counts()[c["counter"]] != before + c.get("launches", 1):
                 failures.append(f"{c['name']} {dtype}: the wrapper did not launch its kernel")
                 continue
             tag = str(dtype).replace("torch.", "")
@@ -4259,11 +4304,17 @@ def main() -> int:
                 repeat_text = f"; a second call equal bit for bit: {same}"
                 if not same:
                     failures.append(f"{c['name']} {dtype}: two calls differ")
+            exact_text = ""
+            if c.get("exact"):
+                differ = int((got != want).sum())
+                exact_text = f"; {differ} of {got.numel()} elements differ from the plain pair"
             got, want = got.float(), want.float()
             err = (got - want).abs().max().item()
             scale = want.abs().max().item()
             tol = c.get("tol", TOL)[torch.float32 if c.get("f32_out") else dtype]
             ok = bool(torch.isfinite(got).all()) and err <= tol * max(1.0, scale)
+            if c.get("exact"):
+                ok = ok and differ == 0
             del got, want
             simt_text, device = "", {}
             if editioned and dtype == torch.bfloat16:
@@ -4307,7 +4358,7 @@ def main() -> int:
                   f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  library "
                   f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms  bound {bound_ms:.4f} ms "
                   f"({bound_by}: {c['bytes'](it) / 1e6:.1f} MB, {c['ops'] / 1e9:.2f} GFLOP)"
-                  + simt_text + repeat_text)
+                  + simt_text + repeat_text + exact_text)
             if not ok:
                 failures.append(f"{c['name']} {tag}: max abs err {err:.3e} (max|plain| {scale:.3e})")
             records[(c["name"], tag)] = dict(
@@ -4560,10 +4611,12 @@ def main() -> int:
     # ---- records: launches from the training run of phase 6, the GRU rows'
     # from the requests of phase 10 and the steps of phase 11; K1s's from
     # the latency requests of phase 8 (all ranks); the refinement rows' from
-    # the refined requests of phase 12 and the refined steps of phase 13
+    # the refined requests of phase 12 and the refined steps of phase 13;
+    # the group-norm rows' from the requests of phase 4
     path_counts = {None: train_launches, "gru": gru_counts, "train_gru": gru_train_counts,
                    "refine": refine_counts, "train_refine": refine_train_counts,
-                   "blocks": block_counts, "cascade": cascade_counts}
+                   "blocks": block_counts, "cascade": cascade_counts,
+                   "serve": per_request[-1]}
     out = []
     for c in cases:
         r = records[(c["name"], str(c.get("path_dtype", torch.bfloat16)).replace("torch.", ""))]

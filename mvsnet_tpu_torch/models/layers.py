@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from mvsnet_tpu_torch.ops import autograd
 from mvsnet_tpu_torch.ops.kernels import conv as conv_k
 from mvsnet_tpu_torch.ops.kernels import deconv as deconv_k
+from mvsnet_tpu_torch.ops.kernels import norm as norm_k
 
 
 def fold_affine(kernel, bias, post_scale, post_shift):
@@ -142,7 +143,7 @@ def spatial_mean(t, axes, stat_sum=None, keepdim=False):
 
 
 def group_norm_core(x, gamma, beta, num_groups: int, eps: float, channel_axis: int = -1, *,
-                    stat_sum=None):
+                    stat_sum=None, relu: bool = False):
     """Group norm of x (N, ..., C) in float32, cast back (layers.py:769-811),
     JAX's parameters in JAX's order: channel c is in group c // (C // G).
     Another `channel_axis` (JAX's -2, its channel-second-minor layout) is
@@ -155,37 +156,38 @@ def group_norm_core(x, gamma, beta, num_groups: int, eps: float, channel_axis: i
     these sums to its rounding), mean = S / n and var = Q / n - mean^2 per
     group: sums whose order does not show in float32, so a block of rows
     whose sums `stat_sum` adds up (one sum) gets the whole map's statistics
-    bit for bit, as a half-precision request on one card does."""
+    bit for bit, as a half-precision request on one card does. `relu`: the
+    ReLU of the layer after the norm, on the result.
+
+    The half-precision arithmetic is `ops/kernels/norm`'s plain pair (the
+    sums, then the normalisation); a CUDA x, when no gradient is being
+    recorded, takes its kernels instead (`norm.group_norm`: two launches,
+    the ReLU fused)."""
     if channel_axis % x.ndim != x.ndim - 1:
         y = group_norm_core(x.movedim(channel_axis, -1), gamma, beta, num_groups, eps,
-                            stat_sum=stat_sum)
+                            stat_sum=stat_sum, relu=relu)
         return y.movedim(-1, channel_axis)
     N, C = x.shape[0], x.shape[-1]
     G = num_groups
     spatial = tuple(range(1, x.ndim - 1))
+    if x.dtype in (torch.bfloat16, torch.float16):
+        if x.device.type == "cuda" and not (torch.is_grad_enabled() and (
+                x.requires_grad or gamma.requires_grad or beta.requires_grad)):
+            return norm_k.group_norm(x, gamma, beta, G, eps, relu=relu, stat_sum=stat_sum)
+        sums, n = norm_k.summed_over_blocks(norm_k.group_norm_stats_plain(x),
+                                            math.prod(x.shape[a] for a in spatial), stat_sum)
+        return norm_k.group_norm_apply_plain(x, sums, n, gamma, beta, G, eps, relu)
+
+    def group_mean(per_channel):                          # (N, C) -> (N, C)
+        g = per_channel.reshape(N, G, C // G).mean(dim=2, keepdim=True)
+        return g.expand(N, G, C // G).reshape(N, C)
+
     bshape = (N,) + (1,) * (x.ndim - 2) + (C,)
     xf = x.to(torch.float32)
-
-    if x.dtype in (torch.bfloat16, torch.float16):
-        sums = torch.stack([xf.sum(dim=spatial, dtype=torch.float64),
-                            (xf * xf).sum(dim=spatial, dtype=torch.float64)])   # (2, N, C)
-        n = math.prod(x.shape[a] for a in spatial)
-        if stat_sum is not None:                      # the count made on the device: no sync
-            total = stat_sum(torch.cat([sums.reshape(-1), sums.new_full((1,), n)]))
-            sums, n = total[:-1].reshape(sums.shape), total[-1:]
-        group = sums.reshape(2, N, G, C // G).sum(dim=3) / (n * (C // G))      # (2, N, G)
-        moments = torch.stack([group[0], group[1] - group[0] * group[0]]).to(torch.float32)
-        mean, var = (m[:, :, None].expand(N, G, C // G).reshape(bshape) for m in moments)
-    else:
-        def group_mean(per_channel):                      # (N, C) -> (N, C)
-            g = per_channel.reshape(N, G, C // G).mean(dim=2, keepdim=True)
-            return g.expand(N, G, C // G).reshape(N, C)
-
-        mean = group_mean(spatial_mean(xf, spatial, stat_sum)).reshape(bshape)
-        var = group_mean(spatial_mean(torch.square(xf - mean), spatial,
-                                      stat_sum)).reshape(bshape)
-    y = (xf - mean) * torch.rsqrt(var + eps) * gamma + beta
-    return y.to(x.dtype)
+    mean = group_mean(spatial_mean(xf, spatial, stat_sum)).reshape(bshape)
+    var = group_mean(spatial_mean(torch.square(xf - mean), spatial, stat_sum)).reshape(bshape)
+    y = ((xf - mean) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
+    return torch.relu(y) if relu else y
 
 
 class GroupNormRef(nn.Module):
@@ -199,9 +201,9 @@ class GroupNormRef(nn.Module):
         self.groups = max(1, channels // group_channel)
         self.eps = eps
 
-    def forward(self, x, stat_sum=None):
+    def forward(self, x, stat_sum=None, relu: bool = False):
         return group_norm_core(x, self.scale, self.bias, self.groups, self.eps,
-                               stat_sum=stat_sum)
+                               stat_sum=stat_sum, relu=relu)
 
 
 class GroupNormFlexible(nn.Module):
@@ -293,9 +295,10 @@ class BatchNormRef(nn.Module):
 
 
 class ConvGN(nn.Module):
-    """conv (no bias) -> group norm -> ReLU (layers.py:954-977). On a block
-    of rows, `op` replaces the conv's kernel call (`Conv`) and `stat_sum`
-    sums the norm's statistics over the blocks (`group_norm_core`)."""
+    """conv (no bias) -> group norm -> ReLU (layers.py:954-977), the ReLU
+    handed to the norm. On a block of rows, `op` replaces the conv's kernel
+    call (`Conv`) and `stat_sum` sums the norm's statistics over the blocks
+    (`group_norm_core`)."""
 
     def __init__(self, in_channels: int, filters: int, kernel: int = 3,
                  stride: int = 1, relu: bool = True, rank: int = 2,
@@ -307,8 +310,7 @@ class ConvGN(nn.Module):
         self.relu = relu
 
     def forward(self, x, op=None, stat_sum=None):
-        y = self.gn(self.conv(x, op=op), stat_sum)
-        return torch.relu(y) if self.relu else y
+        return self.gn(self.conv(x, op=op), stat_sum, relu=self.relu)
 
 
 class DeconvGN(nn.Module):
@@ -324,8 +326,7 @@ class DeconvGN(nn.Module):
         self.relu = relu
 
     def forward(self, x, op=None, stat_sum=None):
-        y = self.gn(self.deconv(x, op=op), stat_sum)
-        return torch.relu(y) if self.relu else y
+        return self.gn(self.deconv(x, op=op), stat_sum, relu=self.relu)
 
 
 class ConvBN(nn.Module):

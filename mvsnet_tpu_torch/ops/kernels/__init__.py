@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from mvsnet_tpu_torch.ops.kernels import conv, deconv, sweep, warp, wgrad
+from mvsnet_tpu_torch.ops.kernels import conv, deconv, norm, sweep, warp, wgrad
 
 # kernels with a tensor-core and a CUDA-core edition
 EDITIONED = {"conv": conv, "deconv": deconv, "wgrad": wgrad}
@@ -17,6 +17,7 @@ COUNTERS = {
     "cost_volume_pixel": (sweep, "launches_pixel"),
     "conv": (conv, "launches"),
     "deconv": (deconv, "launches"),
+    "group_norm": (norm, "launches"),
     "warp": (warp, "launches"),
     "warp_transpose": (warp, "transpose_launches"),
     "warp_sharded": (warp, "launches_sharded"),

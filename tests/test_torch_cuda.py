@@ -18,7 +18,7 @@ from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
 from mvsnet_tpu_torch.models import MVSNet
 from mvsnet_tpu_torch.ops import autograd
 from mvsnet_tpu_torch.ops.cost_volume import cost_volume_backward
-from mvsnet_tpu_torch.ops.kernels import conv, deconv, sweep, warp, wgrad
+from mvsnet_tpu_torch.ops.kernels import conv, deconv, norm, sweep, warp, wgrad
 from mvsnet_tpu_torch.predict import Predictor
 
 pytestmark = pytest.mark.cuda
@@ -849,6 +849,178 @@ def test_entry_forward_on_card(dev):
     assert depth.shape == prob.shape == (1, 16, 16, 1)
     assert torch.isfinite(depth).all() and torch.isfinite(prob).all()
     assert ds.item() - 1e-3 <= depth.min().item() and depth.max().item() <= ds.item() + 7 * di.item() + 1e-3
+
+
+# ---- the group-norm kernels (`ops/kernels/norm.py`)
+
+# UNetDS2GN's five levels at 1600x1184 with N=5: (rows, columns, channels),
+# G = C / 8 groups at every level
+NORM_LEVELS = [(1184 >> lv, 1600 >> lv, 8 << lv) for lv in range(5)]
+# (shape, groups) that leave a block part-filled, read channels 4, 2 and 1
+# at a time, or put 256 lanes of channels in a block
+NORM_ODD = [((2, 3, 5, 8), 1), ((1, 37, 51, 24), 3), ((3, 7, 9, 12), 1),
+            ((2, 5, 6, 6), 3), ((1, 3, 3, 5), 1), ((2, 11, 13, 2048), 256)]
+
+
+def _norm_inputs(shape, dtype, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C = shape[-1]
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.5).to(dtype)
+    gamma = 0.5 + torch.rand((C,), generator=g, device=dev)
+    beta = torch.randn((C,), generator=g, device=dev)
+    return x, gamma, beta
+
+
+def _plain_norm(x, gamma, beta, groups, relu, stat_sum=None):
+    """`group_norm_core`'s plain code on the card: a call that records a
+    gradient does not take the kernels."""
+    from mvsnet_tpu_torch.models.layers import group_norm_core
+
+    before = norm.launches
+    with torch.enable_grad():
+        y = group_norm_core(x, gamma.clone().requires_grad_(), beta, groups, 1e-5,
+                            relu=relu, stat_sum=stat_sum)
+    assert norm.launches == before and y.grad_fn is not None
+    return y.detach()
+
+
+def _assert_bits_equal(got, want):
+    diff = got != want
+    ulps = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs().max().item()
+    assert not diff.any(), (f"{int(diff.sum())} of {diff.numel()} elements differ, by up to "
+                            f"{ulps} units in the last place")
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("shape,groups", [((5,) + lv, lv[2] // 8) for lv in NORM_LEVELS]
+                         + NORM_ODD)
+def test_group_norm_kernels_match_plain(dev, dtype, relu, shape, groups):
+    """The kernel pair through `group_norm_core` (half precision, no
+    gradient recorded: two launches) gives its plain code's result on the
+    card bit for bit, at the tower's level shapes and at odd ones, and two
+    calls give the same bits."""
+    from mvsnet_tpu_torch.models.layers import group_norm_core
+
+    x, gamma, beta = _norm_inputs(shape, dtype, dev)
+    before = norm.launches
+    with torch.inference_mode():
+        got = group_norm_core(x, gamma, beta, groups, 1e-5, relu=relu)
+        again = group_norm_core(x, gamma, beta, groups, 1e-5, relu=relu)
+    torch.cuda.synchronize()
+    assert norm.launches == before + 4
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, again)
+    _assert_bits_equal(got, _plain_norm(x, gamma, beta, groups, relu))
+
+
+@pytest.mark.parametrize("shape", [(2, 12, 9, 16), (5, 296, 400, 32)])
+def test_group_norm_kernels_on_row_blocks_equal_the_whole_map(dev, shape):
+    """Two row blocks, each block's sums and count summed with the other's
+    by `stat_sum` between the two kernels (the count stays on the card),
+    stitch to the whole map's norm bit for bit, as the plain code's do
+    (tests/test_torch_halo.py)."""
+    x, gamma, beta = _norm_inputs(shape, torch.bfloat16, dev, seed=1)
+    G, H = shape[-1] // 8, shape[1]
+    blocks = [(0, H // 3), (H // 3, H)]
+
+    def sums(v):
+        s = norm.group_norm_stats(v)
+        return torch.cat([s.reshape(-1), s.new_full((1,), v.shape[1] * v.shape[2])])
+    with torch.inference_mode():
+        whole = norm.group_norm(x, gamma, beta, G, 1e-5, relu=True)
+        before = norm.launches
+        parts = []
+        for i, (a, b) in enumerate(blocks):
+            calls = []
+
+            def stat_sum(t, i=i, calls=calls):
+                calls.append(t)
+                return t + sum(sums(x[:, c:d]) for j, (c, d) in enumerate(blocks) if j != i)
+            parts.append(norm.group_norm(x[:, a:b].contiguous(), gamma, beta, G, 1e-5,
+                                         relu=True, stat_sum=stat_sum))
+            assert len(calls) == 1
+    assert norm.launches == before + 2 * 3
+    _assert_bits_equal(torch.cat(parts, dim=1), whole)
+    _assert_bits_equal(whole, _plain_norm(x, gamma, beta, G, True))
+
+
+def test_group_norm_kernels_only_where_no_gradient_is_recorded(dev):
+    """float32 maps and calls that record a gradient take the plain code on
+    the card; a half-precision map under `no_grad` takes the two kernels."""
+    from mvsnet_tpu_torch.models.layers import group_norm_core
+
+    x, gamma, beta = _norm_inputs((2, 9, 11, 16), torch.bfloat16, dev)
+    before = norm.launches
+    with torch.no_grad():
+        group_norm_core(x.float(), gamma, beta, 2, 1e-5)
+    with torch.enable_grad():
+        group_norm_core(x, gamma.clone().requires_grad_(), beta, 2, 1e-5)
+        group_norm_core(x.clone().requires_grad_(), gamma, beta, 2, 1e-5)
+    assert norm.launches == before
+    with torch.no_grad():
+        group_norm_core(x, gamma, beta, 2, 1e-5)
+    assert norm.launches == before + 2
+
+
+def _tower(dev):
+    """UNetDS2GN in bf16 on the card, seeded convs and non-identity norms."""
+    from mvsnet_tpu_torch.models.feature_net import UNetDS2GN
+    from mvsnet_tpu_torch.models.layers import reset_parameters
+
+    tower = UNetDS2GN("normal", dtype=torch.bfloat16)
+    reset_parameters(tower, 5)
+    g = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        for name, p in tower.named_parameters():
+            if name.endswith("gn.scale"):
+                p.copy_(0.5 + torch.rand(p.shape, generator=g))
+            elif name.endswith("gn.bias"):
+                p.copy_(0.2 * torch.randn(p.shape, generator=g))
+    return tower.to(dev).eval()
+
+
+def test_group_norm_launches_count_the_tower_not_the_cascade(dev):
+    """One UNetDS2GN call launches the pair for each of its 31 norms (62);
+    a CasMVSNet request, whose norms are batch norms folded into its convs,
+    launches none."""
+    from mvs_bench import generate
+    from mvsnet_tpu_torch.ops import kernels
+
+    tower = _tower(dev)
+    x = torch.randn((5, 128, 160, 3), device=dev)
+    before = kernels.launch_counts()
+    with torch.inference_mode():
+        tower(x)
+    assert kernels.launch_counts()["group_norm"] - before["group_norm"] == 62
+    cfg = ModelConfig(view_num=3, max_d=192, width=320, height=256, compute_dtype="bfloat16",
+                      cascade=True)
+    op = {"height": 256, "width": 320, "max_d": 192, "interval_scale": 1.06, "view_num": 3}
+    mix = {"pool": 1, "depth_interval_mm": 2.5, "depth_min_mm": 425.0, "depth_max_mm": 935.0,
+           "rig": {"yaw_deg": [2.0, 6.0], "roll_deg": [0.0, 2.0], "baseline_mm": [40.0, 80.0]}}
+    request = generate.serve_pool(mix, op, 7, "cpu")[0]
+    before = kernels.launch_counts()
+    Predictor(cfg, seed=4, device=dev).predict(*request)
+    after = kernels.launch_counts()
+    assert after["cost_volume_pixel"] - before["cost_volume_pixel"] == 3
+    assert after["group_norm"] == before["group_norm"]
+
+
+def test_tower_with_group_norm_kernels_matches_plain_tower(dev):
+    """The bf16 tower at 5 x 192x256 with the kernels (inference) against the
+    same tower on the norms' plain code (a call that records gradients of
+    the norms' parameters), within the bf16 tolerance of the card tests."""
+    tower = _tower(dev)
+    x = torch.randn((5, 192, 256, 3), generator=torch.Generator(device=dev).manual_seed(7),
+                    device=dev)
+    before = norm.launches
+    with torch.inference_mode():
+        got = tower(x)
+    assert norm.launches == before + 62
+    with torch.enable_grad():
+        want = tower(x).detach()
+    assert norm.launches == before + 62
+    _close(got, want, TOL[torch.bfloat16])
 
 
 # ---- the R-MVSNet ConvGRU path
