@@ -657,15 +657,13 @@ def layer_times(smi, predictor, request):
              for name, m in model.named_modules() if isinstance(m, (Conv, Deconv))]
 
     def timed(kind, fn):
-        mod = conv if kind == "conv" else deconv
-
         def call(x, kernel, *args, **kwargs):
-            before = dict(mod.launches_by_edition)
+            before = edition_counts()[kind]
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(x, kernel, *args, **kwargs)
             end.record()
-            ed = next(e for e, n in mod.launches_by_edition.items() if n != before[e])
+            ed = next(e for e, n in edition_counts()[kind].items() if n != before[e])
             calls.append((current[0], kind, tuple(x.shape), tuple(kernel.shape), ed, start, end,
                           (x, kernel, out, args, kwargs)))
             return out
@@ -733,9 +731,34 @@ KERNEL_FAMILIES = (("wgrad tc", "wgrad_tc_kernel"), ("wgrad simt", "wgrad_partia
                    ("warp transpose run sum", "segment_sum_kernel"))
 
 
+def launch_counts(since=None) -> dict:
+    """Each kernel's launches by kernel, from the program's counters
+    `launches.<kernel>` (`utils.profiling.counters()`), less an earlier
+    reading `since` where given."""
+    from mvsnet_tpu_torch.utils import profiling
+
+    now = {k[len("launches."):]: n for k, n in profiling.counters().items()
+           if k.startswith("launches.")}
+    return now if since is None else {k: n - since[k] for k, n in now.items()}
+
+
+def edition_counts(since=None) -> dict:
+    """{kernel: {edition: launches}} of the kernels with two editions, from
+    the program's counters `editions.<kernel>.<edition>`, less an earlier
+    reading `since` where given."""
+    from mvsnet_tpu_torch.utils import profiling
+
+    out = {}
+    for k, n in profiling.counters().items():
+        if k.startswith("editions."):
+            _, kernel, edition = k.split(".")
+            out.setdefault(kernel, {})[edition] = n - (since[kernel][edition] if since else 0)
+    return out
+
+
 def profiled_launches(events):
     """Launches the profiler saw by kernel and edition, in the form of the
-    wrappers' counts (`kernels.launch_counts`, `kernels.edition_counts`),
+    wrappers' counts (`launch_counts`, `edition_counts`),
     for the kernels of a serving request: K1, and the conv and transposed
     conv in both editions (the tensor-core kernel serves both)."""
     def seen(pattern):
@@ -1189,7 +1212,6 @@ def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in, refine_in, two
     from mvsnet_tpu_torch.entry import gru_dryrun
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.models import MVSNet
-    from mvsnet_tpu_torch.ops import kernels
     from mvsnet_tpu_torch.parallel import halo
     from mvsnet_tpu_torch.parallel.infer_step import LATENCY_STAGES, latency_forward
     from mvsnet_tpu_torch.parallel.mesh import make_mesh
@@ -1205,18 +1227,18 @@ def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in, refine_in, two
     out = {"mesh": mesh.shape, "device": str(mesh.device)}
 
     def serve(inputs, key):
-        kernels.reset_launch_counts()
+        since = launch_counts()
         walls, counts = [], []
         for _ in range(3):
-            before = kernels.launch_counts()
+            before = launch_counts()
             torch.distributed.barrier()
             t0 = time.perf_counter()
             depth, prob, _ = predictor.predict(*inputs, fetch=False)
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-            after = kernels.launch_counts()
+            after = launch_counts()
             counts.append({k: after[k] - before[k] for k in after})
-        out[key] = dict(walls=walls, counts=counts, total=kernels.launch_counts(),
+        out[key] = dict(walls=walls, counts=counts, total=launch_counts(since),
                         depth=depth.cpu().numpy(), prob=prob.cpu().numpy())
 
     serve(serve_in, "latency")
@@ -1264,13 +1286,13 @@ def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in, refine_in, two
     g_pred = Predictor(ModelConfig(**GRU_MULTI_CFG_ARGS), seed=0)
     out["gru"] = {}
     for B, inputs in gru_in.items():
-        before = kernels.launch_counts()["cost_volume"]
+        before = launch_counts()["cost_volume"]
         torch.distributed.barrier()
         t0 = time.perf_counter()
         depth, prob, _ = g_pred.predict(*inputs, fetch=False)
         torch.cuda.synchronize()
         out["gru"][B] = dict(wall=(time.perf_counter() - t0) * 1e3,
-                             cost_volume=kernels.launch_counts()["cost_volume"] - before,
+                             cost_volume=launch_counts()["cost_volume"] - before,
                              depth=depth.cpu().numpy(), prob=prob.cpu().numpy())
     out["gru_dryrun"] = gru_dryrun(g_pred.mesh)
     del g_pred
@@ -1280,12 +1302,12 @@ def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in, refine_in, two
     r_pred = Predictor(ModelConfig(**REFINE_MULTI_CFG_ARGS), seed=0)
     out["refined"] = {}
     for regime, inputs in refine_in.items():
-        before = kernels.launch_counts()
+        before = launch_counts()
         torch.distributed.barrier()
         t0 = time.perf_counter()
         depth, prob, residual = r_pred.predict(*inputs, fetch=False)
         torch.cuda.synchronize()
-        after = kernels.launch_counts()
+        after = launch_counts()
         out["refined"][regime] = dict(
             wall=(time.perf_counter() - t0) * 1e3, counts={k: after[k] - before[k] for k in after},
             depth=depth.cpu().numpy(), prob=prob.cpu().numpy(), residual=residual.cpu().numpy())
@@ -1742,7 +1764,6 @@ def phase8_blocks_rank(backend, serve_in, big_batch, serve_args, big_args):
     from mvsnet_tpu_torch.config import ModelConfig
     from mvsnet_tpu_torch.models import feature_net
     from mvsnet_tpu_torch.models.regnet import plan_volume
-    from mvsnet_tpu_torch.ops import kernels
     from mvsnet_tpu_torch.parallel import halo
     from mvsnet_tpu_torch.parallel.infer_step import latency_forward
     from mvsnet_tpu_torch.parallel.mesh import make_mesh
@@ -1768,13 +1789,13 @@ def phase8_blocks_rank(backend, serve_in, big_batch, serve_args, big_args):
         _reset_peak(dev)
         try:
             for _ in range(3):
-                before = kernels.launch_counts()
+                before = launch_counts()
                 torch.distributed.barrier()
                 t0 = time.perf_counter()
                 depth, prob, _ = predictor.predict(*serve_in, fetch=False)
                 _sync(dev)
                 walls.append((time.perf_counter() - t0) * 1e3)
-                after = kernels.launch_counts()
+                after = launch_counts()
                 counts.append({k: after[k] - before[k] for k in after})
         finally:
             logging.getLogger("mvsnet_tpu_torch").removeHandler(handler)
@@ -1835,7 +1856,6 @@ def big_steps(backend, shape, big_batch, big_args):
     from mvsnet_tpu_torch import train_lib
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.models import MVSNet
-    from mvsnet_tpu_torch.ops import kernels
     from mvsnet_tpu_torch.parallel.mesh import AxisSplit, make_mesh
     from mvsnet_tpu_torch.parallel.train_step import make_sharded_train_step
 
@@ -1849,22 +1869,22 @@ def big_steps(backend, shape, big_batch, big_args):
     step, _ = make_sharded_train_step(model, cfg, tcfg, n, mesh)
     _sync(dev)
     _reset_peak(dev)
-    kernels.reset_launch_counts()
+    since = launch_counts()
     walls, per_step, losses, finite = [], [], [], True
     for _ in range(3):
-        before = kernels.launch_counts()
+        before = launch_counts()
         torch.distributed.barrier()
         t0 = time.perf_counter()
         state, metrics = step(state, big_batch)
         _sync(dev)
         walls.append((time.perf_counter() - t0) * 1e3)
-        after = kernels.launch_counts()
+        after = launch_counts()
         per_step.append({k: after[k] - before[k] for k in after})
         losses.append(metrics["loss"].item())
         finite = finite and np.isfinite(losses[-1]) and all(
             bool(torch.isfinite(p.grad).all()) for p in model.parameters())
     out = dict(mesh=mesh.shape, walls=walls, counts=per_step, losses=losses,
-               total=kernels.launch_counts(), peak=_peak(dev), finite=finite)
+               total=launch_counts(since), peak=_peak(dev), finite=finite)
     del state, step
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -2133,7 +2153,6 @@ def phase9_driver(smi, dev):
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.data.synthetic import write_session
     from mvsnet_tpu_torch.models import MVSNet
-    from mvsnet_tpu_torch.ops import kernels
 
     print("phase 9a: the training driver (mvsnet_tpu_torch.train.main) at 640x480, D=192, V=3, "
           "lite, bf16, rmsprop, power+grad loss, on plane scenes rendered by mvsnet_tpu_torch/"
@@ -2180,12 +2199,12 @@ def phase9_driver(smi, dev):
         step = real[0](*args, **kwargs)
 
         def counted(state, batch):
-            before, ed_before = kernels.launch_counts(), kernels.edition_counts()
+            before, ed_before = launch_counts(), edition_counts()
             t0 = time.perf_counter()
             out = step(state, batch)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
-            after, ed_after = kernels.launch_counts(), kernels.edition_counts()
+            after, ed_after = launch_counts(), edition_counts()
             steps.append(dict(wall=wall, loss=out[1]["loss"].item(),
                               launches={k: after[k] - before[k] for k in after},
                               editions={k: {e: n - ed_before[k][e] for e, n in v.items()}
@@ -2217,9 +2236,9 @@ def phase9_driver(smi, dev):
         train_lib.make_train_step, checkpoint.save_checkpoint = (counting_make_train_step,
                                                                  recording_save)
         try:
-            kernels.reset_launch_counts()
+            since = launch_counts()
             rcs = [run(straight, 0, "--max_steps_per_epoch", "6")]
-            path_counts = kernels.launch_counts()
+            path_counts = launch_counts(since)
             straight_steps, straight_samples = list(steps), list(sample_ms)
             rcs.append(run(resumed, 0, "--max_steps_per_epoch", "4"))
             rcs.append(run(resumed, 4, "--max_steps_per_epoch", "2", "--ckpt_step", "4"))
@@ -2327,16 +2346,14 @@ def serve_counted(predictor, request, n=3):
     launches per request by kernel and by edition. Returns (walls, launches,
     editions, whether every depth and prob was finite, the last depth and
     prob)."""
-    from mvsnet_tpu_torch.ops import kernels
-
     walls, per_request, editions, finite = [], [], [], True
     for _ in range(n):
-        before, ed_before = kernels.launch_counts(), kernels.edition_counts()
+        before, ed_before = launch_counts(), edition_counts()
         t0 = time.perf_counter()
         depth, prob, _ = predictor.predict(*request, fetch=False)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-        after, ed_after = kernels.launch_counts(), kernels.edition_counts()
+        after, ed_after = launch_counts(), edition_counts()
         per_request.append({k: after[k] - before[k] for k in after})
         editions.append({k: {e: m - ed_before[k][e] for e, m in v.items()}
                          for k, v in ed_after.items()})
@@ -2351,7 +2368,6 @@ def phase10_gru_serving(smi, dev, request):
     failure."""
     from mvsnet_tpu_torch.config import ModelConfig
     from mvsnet_tpu_torch.models import MVSNet
-    from mvsnet_tpu_torch.ops import kernels
     from mvsnet_tpu_torch.ops.cost_volume import plane_sweep_cost_volume
     from mvsnet_tpu_torch.ops.geometry import depth_values
     from mvsnet_tpu_torch.predict import Predictor
@@ -2370,9 +2386,9 @@ def phase10_gru_serving(smi, dev, request):
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    since = launch_counts()
     walls, per_request, editions, ok, depth, prob = serve_counted(predictor, request)
-    counts = kernels.launch_counts()
+    counts = launch_counts(since)
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 10: R-MVSNet serving, GRU Predictor at {point}, normal, bf16: "
           f"first request {first_ms:.2f} ms (captures the depth step as a CUDA graph), then "
@@ -2412,9 +2428,9 @@ def phase10_gru_serving(smi, dev, request):
         f"{n} {ev[i].elapsed_time(ev[i + 1]):.3f}" for i, n in enumerate(names)))
     # the profiler's kernel launches against the wrappers' counts: most of
     # them are CUDA-graph replays, counted from the capture
-    before = kernels.launch_counts(), kernels.edition_counts()
+    before = launch_counts(), edition_counts()
     profile = profile_device(lambda: predictor.predict(*request, fetch=False))
-    after = kernels.launch_counts(), kernels.edition_counts()
+    after = launch_counts(), edition_counts()
     print_profile("GRU request", *profile)
     seen, counted = profiled_launches(profile[2]), counted_launches(before, after)
     print(f"  kernels launched in the profiled request: profiler {seen}, wrappers' counts "
@@ -2481,7 +2497,6 @@ def phase11_gru_training(smi, dev, point=(480, 640, 192)):
     from mvsnet_tpu_torch import train_lib
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.models import MVSNet
-    from mvsnet_tpu_torch.ops import kernels
 
     H, W, D = point
     cfg = ModelConfig(view_num=3, max_d=D, width=W, height=H, network_mode="lite",
@@ -2495,20 +2510,20 @@ def phase11_gru_training(smi, dev, point=(480, 640, 192)):
     step = train_lib.make_train_step(model, cfg, tcfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    since = launch_counts()
     walls, per_step, per_ed, losses = [], [], [], []
     for _ in range(3):
-        before, ed_before = kernels.launch_counts(), kernels.edition_counts()
+        before, ed_before = launch_counts(), edition_counts()
         t0 = time.perf_counter()
         state, metrics = step(state, t_batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-        after, ed_after = kernels.launch_counts(), kernels.edition_counts()
+        after, ed_after = launch_counts(), edition_counts()
         per_step.append({k: after[k] - before[k] for k in after})
         per_ed.append({k: {e: n - ed_before[k][e] for e, n in v.items()}
                        for k, v in ed_after.items()})
         losses.append(metrics["loss"].item())
-    counts = kernels.launch_counts()
+    counts = launch_counts(since)
     peak = torch.cuda.max_memory_allocated()
     finite = all(np.isfinite(v) for v in losses) and all(
         bool(torch.isfinite(p.grad).all()) for p in model.parameters())
@@ -2596,7 +2611,6 @@ def phase11_remat(smi, dev, point=(480, 640, 192)):
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.models import MVSNet
     from mvsnet_tpu_torch.models.layers import Conv
-    from mvsnet_tpu_torch.ops import kernels
 
     H, W, D = point
     tcfg = TrainConfig()
@@ -2614,9 +2628,9 @@ def phase11_remat(smi, dev, point=(480, 640, 192)):
                               state=train_lib.create_train_state(model, cfg, tcfg, device=dev))
         for i, kind in enumerate(("remat", "eager", "eager", "remat")):
             r = runs[kind]
-            before = kernels.launch_counts()
+            before = launch_counts()
             r["steps"].append(staged_step(r["model"], cfg, tcfg, r["state"], batch))
-            after = kernels.launch_counts()
+            after = launch_counts()
             r["launches"].append({k: after[k] - before[k] for k in after})
             if i == 1:                      # both from the seeded state
                 eager = dict(runs["eager"]["model"].named_parameters())
@@ -2664,7 +2678,6 @@ def phase11_full_width(smi, dev, point=(1184, 1600, 256)):
     from mvsnet_tpu_torch import train_lib
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.models import MVSNet
-    from mvsnet_tpu_torch.ops import kernels
 
     H, W, D = point
     cfg = ModelConfig(view_num=3, max_d=D, width=W, height=H, network_mode="normal",
@@ -2679,12 +2692,12 @@ def phase11_full_width(smi, dev, point=(1184, 1600, 256)):
     torch.cuda.reset_peak_memory_stats()
     walls, per_step, losses, finite = [], [], [], True
     for _ in range(2):
-        before = kernels.launch_counts()
+        before = launch_counts()
         t0 = time.perf_counter()
         state, metrics = step(state, batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-        after = kernels.launch_counts()
+        after = launch_counts()
         per_step.append({k: after[k] - before[k] for k in after})
         losses.append(metrics["loss"].item())
         finite = finite and np.isfinite(losses[-1]) and all(
@@ -2757,7 +2770,6 @@ def phase12_refined_serving(smi, dev, request, variant_sizes=((864, 1152), (768,
     width), and card against CPU at `small` (height, width, D); returns the
     launch counts of its 3 counted requests, or None on failure."""
     from mvsnet_tpu_torch.config import ModelConfig
-    from mvsnet_tpu_torch.ops import kernels
     from mvsnet_tpu_torch.ops.cost_volume import plane_sweep_cost_volume
     from mvsnet_tpu_torch.ops.resize import resize_bilinear
     from mvsnet_tpu_torch.predict import Predictor, depth_params_from_cams
@@ -2782,9 +2794,9 @@ def phase12_refined_serving(smi, dev, request, variant_sizes=((864, 1152), (768,
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    since = launch_counts()
     walls, per_request, editions, finite, depth, prob = serve_counted(predictor, request)
-    counts = kernels.launch_counts()
+    counts = launch_counts(since)
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 12: refined serving, Predictor at {point}, normal, bf16, "
           f"refinement U-Net upsampled with confidence (the training driver's defaults): "
@@ -2888,7 +2900,6 @@ def phase13_refined_training(smi, dev, point=(480, 640, 192), small=(128, 128, 1
     from mvsnet_tpu_torch import train_lib
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.models import MVSNet
-    from mvsnet_tpu_torch.ops import kernels
 
     H, W, D = point
     cfg = ModelConfig(view_num=3, max_d=D, width=W, height=H, network_mode="normal",
@@ -2902,20 +2913,20 @@ def phase13_refined_training(smi, dev, point=(480, 640, 192), small=(128, 128, 1
     step = train_lib.make_train_step(model, cfg, tcfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    since = launch_counts()
     walls, per_step, per_ed, losses = [], [], [], []
     for _ in range(3):
-        before, ed_before = kernels.launch_counts(), kernels.edition_counts()
+        before, ed_before = launch_counts(), edition_counts()
         t0 = time.perf_counter()
         state, metrics = step(state, t_batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-        after, ed_after = kernels.launch_counts(), kernels.edition_counts()
+        after, ed_after = launch_counts(), edition_counts()
         per_step.append({k: after[k] - before[k] for k in after})
         per_ed.append({k: {e: n - ed_before[k][e] for e, n in v.items()}
                        for k, v in ed_after.items()})
         losses.append(metrics["loss"].item())
-    counts = kernels.launch_counts()
+    counts = launch_counts(since)
     peak = torch.cuda.max_memory_allocated()
     finite = all(np.isfinite(v) for v in losses) and all(
         bool(torch.isfinite(p.grad).all()) for p in model.parameters())
@@ -2987,7 +2998,6 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
     from mvsnet_tpu_torch.io.cams import load_cam_txt
     from mvsnet_tpu_torch.io.pfm import load_pfm
     from mvsnet_tpu_torch.models import MVSNet
-    from mvsnet_tpu_torch.ops import kernels
 
     (H, W, V, D), N = point, clusters
     print(f"phase 14: the serving drivers (mvsnet_tpu_torch.infer.main, mvsnet_tpu_torch.test."
@@ -3032,13 +3042,13 @@ def phase14_drivers(smi, dev, point=(384, 512, 4, 192), clusters=5):
         out = {}
         try:
             for name, (main_fn, args) in runs.items():
-                kernels.reset_launch_counts()
+                since = launch_counts()
                 del writer_ms[:], jpeg_ms[:]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 rc = main_fn(args + common)
                 torch.cuda.synchronize()
-                out[name] = (rc, (time.perf_counter() - t0) * 1e3, kernels.launch_counts(),
+                out[name] = (rc, (time.perf_counter() - t0) * 1e3, launch_counts(since),
                              list(writer_ms), list(jpeg_ms))
         finally:
             predict.write_output, predict.write_image = real
@@ -3294,7 +3304,6 @@ def phase15_chain(smi, dev, model_dir, step, point=(384, 512, 4, 192), clusters=
     from mvsnet_tpu_torch.io.dmb import read_dmb
     from mvsnet_tpu_torch.io.pfm import load_pfm
     from mvsnet_tpu_torch.io.ply import read_ply
-    from mvsnet_tpu_torch.ops import kernels
 
     (H, W, V, D), N = point, clusters
     print(f"phase 15b: the user's chain from the imported checkpoint: infer.main --model_dir "
@@ -3309,7 +3318,7 @@ def phase15_chain(smi, dev, model_dir, step, point=(384, 512, 4, 192), clusters=
     with tempfile.TemporaryDirectory(prefix="mvsnet_chain_") as root:
         session = os.path.join(root, "session")
         write_session(session, W, H, N, 2)
-        kernels.reset_launch_counts()
+        since = launch_counts()
         t0 = time.perf_counter()
         rc = infer.main(["--input_dir", session, "--view_num", str(V), "--max_d", str(D),
                          "--width", str(W), "--height", str(H), "--network_mode", "normal",
@@ -3319,7 +3328,7 @@ def phase15_chain(smi, dev, model_dir, step, point=(384, 512, 4, 192), clusters=
                          model_dir, "--ckpt_step", str(step), "--device", str(dev)])
         torch.cuda.synchronize()
         infer_ms = (time.perf_counter() - t0) * 1e3
-        counts = kernels.launch_counts()
+        counts = launch_counts(since)
         idle = [k for k in ("cost_volume", "conv", "deconv") if counts[k] == 0]
         good = rc == 0 and not idle
         ok = ok and good
@@ -3542,7 +3551,6 @@ def phase16_chain(smi, dev, root):
     from mvsnet_tpu_torch.io.cams import load_cam_txt
     from mvsnet_tpu_torch.io.pfm import load_pfm
     from mvsnet_tpu_torch.io.ply import read_ply
-    from mvsnet_tpu_torch.ops import kernels
     from mvsnet_tpu_torch.scripts import test_and_fuse
     from mvsnet_tpu_torch.tools import convert_dtu, dtu_fixer, split_data
 
@@ -3600,13 +3608,13 @@ def phase16_chain(smi, dev, root):
             "--infer_args", *DTU_INFER_ARGS]
     print(f"phase 16b: python -m mvsnet_tpu_torch.scripts.test_and_fuse {' '.join(args)} "
           f"(seeded weights: prob stays under the 0.8 default) [{smi}]")
-    kernels.reset_launch_counts()
+    since = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     rc = test_and_fuse.main(args)
     torch.cuda.synchronize()
     taf_ms = (time.perf_counter() - t0) * 1e3
-    counts = kernels.launch_counts()
+    counts = launch_counts(since)
     idle = [k for k in ("cost_volume", "conv", "deconv") if counts[k] == 0]
     runs = os.listdir(plys) if os.path.isdir(plys) else []
     collected = (os.listdir(os.path.join(plys, runs[0])) if len(runs) == 1 else [])
@@ -3790,7 +3798,6 @@ def phase17_cascade_serving(smi, dev, seed=20):
     kernel's launches as the profiler sees them in one more request.
     Returns the launches per request, or None on failure."""
     from mvsnet_tpu_torch.config import ModelConfig
-    from mvsnet_tpu_torch.ops import kernels
     from mvsnet_tpu_torch.predict import Predictor, depth_params_from_cams
 
     cfg = ModelConfig(**CASCADE_ARGS)
@@ -3812,9 +3819,9 @@ def phase17_cascade_serving(smi, dev, seed=20):
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    since = launch_counts()
     walls, per_request, editions, finite, depth, conf = serve_counted(predictor, request)
-    counts = kernels.launch_counts()
+    counts = launch_counts(since)
     peak = torch.cuda.max_memory_allocated()
     print(f"phase 17: CasMVSNet serving, Predictor at {W}x{H}, D={D}, V={V}, planes 48/32/8, "
           f"bf16: first request {first_ms:.2f} ms, then wall ms "
@@ -3858,7 +3865,6 @@ def main() -> int:
     from mvsnet_tpu_torch import train_lib
     from mvsnet_tpu_torch.config import ModelConfig, TrainConfig
     from mvsnet_tpu_torch.models import MVSNet
-    from mvsnet_tpu_torch.ops import kernels
     from mvsnet_tpu_torch.ops.geometry import homographies_for_views
     from mvsnet_tpu_torch.ops.kernels import _lib, conv, deconv, norm, sweep, warp, wgrad
     from mvsnet_tpu_torch.predict import Predictor, depth_params_from_cams
@@ -4276,20 +4282,20 @@ def main() -> int:
     for c in cases:
         for dtype in c.get("dtypes", (torch.float32, torch.bfloat16)):
             inputs = c["make"](dtype)
-            editioned = c["counter"] in kernels.EDITIONED
-            before = kernels.launch_counts()[c["counter"]]
-            ed_before = kernels.edition_counts().get(c["counter"])
+            editioned = c["counter"] in edition_counts()
+            before = launch_counts()[c["counter"]]
+            ed_before = edition_counts().get(c["counter"])
             got = c["kernel"](*inputs)
             want = c["plain"](*inputs)
             torch.cuda.synchronize()
-            if kernels.launch_counts()[c["counter"]] != before + c.get("launches", 1):
+            if launch_counts()[c["counter"]] != before + c.get("launches", 1):
                 failures.append(f"{c['name']} {dtype}: the wrapper did not launch its kernel")
                 continue
             tag = str(dtype).replace("torch.", "")
             if editioned:
                 # the edition the module's rule gives these operands
                 want_ed = c["edition"](dtype)
-                ed_after = kernels.edition_counts()[c["counter"]]
+                ed_after = edition_counts()[c["counter"]]
                 if ed_after[want_ed] != ed_before[want_ed] + 1:
                     failures.append(f"{c['name']} {tag}: ran {ed_before} -> {ed_after}, "
                                     f"not the {want_ed} edition")
@@ -4380,7 +4386,6 @@ def main() -> int:
     predictor = Predictor(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
     walls, per_request, editions, finite, depth, prob = serve_counted(predictor, request)
     if not finite:
         print("inference FAILED: non-finite depth or prob")
@@ -4471,15 +4476,15 @@ def main() -> int:
     params = list(t_model.parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
+    since, ed_since = launch_counts(), edition_counts()
     walls, per_step, step_losses, step_wgrad = [], [], [], []
     for _ in range(3):
-        before, ed_before = kernels.launch_counts(), kernels.edition_counts()["wgrad"]
+        before, ed_before = launch_counts(), edition_counts()["wgrad"]
         t0 = time.perf_counter()
         state, metrics = train_step(state, t_batch)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
-        after, ed_after = kernels.launch_counts(), kernels.edition_counts()["wgrad"]
+        after, ed_after = launch_counts(), edition_counts()["wgrad"]
         per_step.append({k: after[k] - before[k] for k in after})
         step_wgrad.append({e: n - ed_before[e] for e, n in ed_after.items()})
         finite = torch.stack([torch.isfinite(p.grad).all() for p in params]).all()
@@ -4487,8 +4492,8 @@ def main() -> int:
         if not (np.isfinite(step_losses[-1]) and bool(finite)):
             print(f"training FAILED: loss {step_losses[-1]}, all gradients finite: {bool(finite)}")
             return 1
-    train_launches = kernels.launch_counts()
-    train_editions = kernels.edition_counts()
+    train_launches = launch_counts(since)
+    train_editions = edition_counts(ed_since)
     peak = peaks["train"] = torch.cuda.max_memory_allocated()
     print(f"training: 3 steps at 640x480, D=192, V=3, normal, bf16, rmsprop, power+grad "
           f"loss: step ms {', '.join(f'{w:.2f}' for w in walls)} (the first includes "

@@ -6,8 +6,8 @@ session dir (a dir with a `covisibility.json`) or every session dir under
 `--input_dir`, and writes them to `<session>/depths_mvsnet/` (or
 `--output_dir`): PFMs, depth and confidence PNGs, the reference image and
 its cam (`predict.write_output`), on a writer thread while the card
-computes the next cluster. `--cascade` serves CasMVSNet instead, whose
-maps are at the images' resolution. The JAX driver's flags, plus `--device`
+computes the next cluster. `--cascade` serves CasMVSNet instead. The JAX
+driver's flags, plus `--device`
 (`cuda:0` by default; `cpu` runs the plain PyTorch path). With
 `--num_devices N` > 1 the driver runs as N ranks, one process a card
 (`torchrun --nproc_per_node=N -m mvsnet_tpu_torch.infer ...`); every rank
@@ -121,7 +121,7 @@ def compute_depth_maps(input_dir: str, args, predictor=None):
         predictor = make_predictor(mcfg, args)
 
     # the depth at the images' resolution: written with the full images' cam
-    upsample = bool(args.refinement and args.upsample_before_refinement) or mcfg.cascade
+    upsample = predictor.model.maps_at_image_resolution
     n = len(gen.clusters)
     # predict(fetch=False) returns once the work is queued; the writer
     # thread's .cpu() waits for the card while this loop feeds the next

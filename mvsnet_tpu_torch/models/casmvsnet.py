@@ -173,6 +173,9 @@ class CasMVSNet(nn.Module):
     Weights are seeded with `seed` (lecun-normal kernels, identity norms)
     until a state dict is loaded."""
 
+    # `serve`'s maps are the last stage's, at the images' resolution
+    maps_at_image_resolution = True
+
     def __init__(self, cfg: ModelConfig, seed: int = 0):
         super().__init__()
         if not cfg.cascade or cfg.regularization != "3DCNN":
@@ -226,3 +229,10 @@ class CasMVSNet(nn.Module):
                 with span("mvsnet.depth_tail"):
                     depth, conf = cascade_regression(cost[..., 0], planes)
         return depth[..., None], conf[..., None]
+
+    def serve(self, images, cams, depth_start, depth_interval, depth_end):
+        """The serving call (`Predictor.predict`): the depth and confidence
+        of `forward`, which reads `depth_interval` and not `depth_end`, and
+        a zero residual; each (B, H, W, 1) float32."""
+        depth, conf = self(images, cams, depth_start, depth_interval)
+        return depth, conf, torch.zeros_like(depth)

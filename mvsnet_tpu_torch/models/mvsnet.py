@@ -226,8 +226,8 @@ class _StepGraph:
     """One eval depth step of a `GRUSweep` captured as a CUDA graph on
     static buffers (`kernels.CountedGraph`): the negated cost slice and the
     plane's depth go in, the cells' states and the winner-take-all carry
-    stay in place, the reg comes out. Nothing falls back to the eager
-    sweep."""
+    stay in place, the reg comes out. A sweep counts its steps' launches
+    once. Nothing falls back to the eager sweep."""
 
     def __init__(self, sweep: GRUSweep, cost, wta: bool):
         B, _, h, w, C = cost.shape
@@ -258,6 +258,7 @@ class _StepGraph:
                 self.depth.copy_(samples[:, d])
             self.graph.replay()
             regs[:, d].copy_(self.reg)
+        self.graph.count(D)
         return regs, (tuple(c.clone() for c in self.carry) if self.wta else None)
 
 
@@ -339,6 +340,26 @@ class MVSNet(nn.Module):
     def refines(self) -> bool:
         """Whether the 3D-CNN graph ends in the refinement network."""
         return hasattr(self, "refine_net")
+
+    @property
+    def maps_at_image_resolution(self) -> bool:
+        """Whether `serve`'s maps come out at the images' resolution: with
+        refinement after `upsample_before_refinement`. The drivers read the
+        two flags for the GRU graph too, which ignores refinement, as JAX's
+        do (mvsnet_tpu/infer.py:83)."""
+        return self.cfg.refinement and self.cfg.upsample_before_refinement
+
+    def serve(self, images, cams, depth_start, depth_interval, depth_end):
+        """The serving call (`Predictor.predict`): (depth, prob, residual),
+        each (B, h, w, 1) float32. As in JAX (mvsnet_tpu/predict.py:110-139)
+        the 3D-CNN graph reads `depth_interval` and not `depth_end`
+        (`apply_forward_3dcnn`: refined with refinement, else a zero
+        residual), the GRU graph `depth_end` and not `depth_interval`
+        (`forward_gru_wta`, a zero residual)."""
+        if self.cfg.regularization == "GRU":
+            depth, prob = self.forward_gru_wta(images, cams, depth_start, None, depth_end)
+            return depth, prob, torch.zeros_like(depth)
+        return apply_forward_3dcnn(self, images, cams, depth_start, depth_interval)
 
     def homographies(self, cams, depth_start, depth_interval, depth_end):
         """(V-1, B, D, 3, 3) float32 plane-sweep homographies."""

@@ -14,8 +14,8 @@ here. Two editions (see the sources' notes):
 - "simt", float32 (and bf16 where `edition="simt"` asks for it): the
   CUDA-core kernel, float32 sums in registers.
 `edition=None` picks by that rule; asking for "tc" on operands it does not
-take raises. `launches` counts every launch, `launches_by_edition` each
-edition's.
+take raises. Each launch counts in `launches.conv` and
+`editions.conv.<edition>` (`utils/profiling.py`).
 
 `conv` runs a kernel on CUDA tensors and `conv_plain` on CPU tensors; it
 never falls back from one to the other.
@@ -30,10 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from mvsnet_tpu_torch.ops.kernels import _lib, tc
+from mvsnet_tpu_torch.utils import profiling
 
-# Launches of the CUDA kernels in this process, in all and per edition.
-launches = 0
-launches_by_edition = {"tc": 0, "simt": 0}
 EDITIONS = ("tc", "simt")
 
 _I = ctypes.c_int
@@ -122,7 +120,6 @@ def conv(x, kernel, bias=None, stride: int = 1, relu: bool = False, pads=None,
     cast to x's dtype; bias is float32 or None. `pads`, ((lo, hi), ...)
     per spatial axis, replaces the SAME pads (the block halo convs of
     `parallel/halo.py`). `edition`: see the module docstring."""
-    global launches
     rank = _check_args(x, kernel, bias, stride)
     edition = pick_edition(x.dtype, x.shape[-1], kernel.shape[-1], edition)
     if x.device.type == "cpu":
@@ -152,8 +149,8 @@ def conv(x, kernel, bias=None, stride: int = 1, relu: bool = False, pads=None,
         cls = tc.TapClass(taps=(kd, kh, kw), pads=(pd, ph, pw), grid=(Do, Ho, Wo))
         tc.launch("conv", x5, w.reshape(kd, kh, kw, Cin, Cout), b, out, (sd, stride, stride),
                   (1, 1, 1), [cls], relu)
-        launches += 1
-        launches_by_edition["tc"] += 1
+        profiling.count("launches.conv")
+        profiling.count("editions.conv.tc")
         return out[:, 0] if rank == 2 else out
     # the float32 edition stages the weights as float32 in shared memory
     if 4 * math.prod((kd, kh, kw, Cin)) * out_channel_tile(Cout) > 227 * 1024:
@@ -164,6 +161,6 @@ def conv(x, kernel, bias=None, stride: int = 1, relu: bool = False, pads=None,
              B, Di, Hi, Wi, Cin, Do, Ho, Wo, Cout, sd, stride, stride, pd, ph, pw,
              int(relu), _lib.stream_of(x))
     _lib.check("conv", err)
-    launches += 1
-    launches_by_edition["simt"] += 1
+    profiling.count("launches.conv")
+    profiling.count("editions.conv.simt")
     return out[:, 0] if rank == 2 else out

@@ -17,7 +17,8 @@ as for the direct conv (`conv.pick_edition`, argument `edition`):
 - "simt", float32 (and bf16 where `edition="simt"` asks for it): one
   thread gathers the (at most (K + 1) / 2 per axis) taps of each output on
   the CUDA cores.
-Neither uses atomics; sums are float32 (see the sources' notes).
+Neither uses atomics; sums are float32 (see the sources' notes). Each
+launch counts in `launches.deconv` and `editions.deconv.<edition>`.
 
 `deconv` runs the kernel on CUDA tensors and `deconv_plain` on CPU tensors;
 it never falls back from one to the other.
@@ -32,10 +33,7 @@ import torch.nn.functional as F
 
 from mvsnet_tpu_torch.ops.kernels import _lib, tc
 from mvsnet_tpu_torch.ops.kernels.conv import out_channel_tile, pick_edition
-
-# Launches of the CUDA kernels in this process, in all and per edition.
-launches = 0
-launches_by_edition = {"tc": 0, "simt": 0}
+from mvsnet_tpu_torch.utils import profiling
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
@@ -94,7 +92,6 @@ def deconv(x, kernel, bias=None, relu: bool = False, lo=0, out_spatial=None,
     axis, over the taps inside x. The defaults (lo 0, output 2n per axis)
     are flax's k3 s2 SAME transposed conv. Returns (B, *out_spatial, Cout)
     in x's dtype. `edition`: see the module docstring."""
-    global launches
     rank, k, los, outs = _check_args(x, kernel, bias, lo, out_spatial)
     edition = pick_edition(x.dtype, x.shape[-1], kernel.shape[-1], edition)
     if x.device.type == "cpu":
@@ -115,8 +112,8 @@ def deconv(x, kernel, bias=None, relu: bool = False, lo=0, out_spatial=None,
                                     (rank == 3, True, True))
         tc.launch("deconv", x5, w[None] if rank == 2 else w, b, out, (1, 1, 1),
                   (2 if rank == 3 else 1, 2, 2), classes, relu)
-        launches += 1
-        launches_by_edition["tc"] += 1
+        profiling.count("launches.deconv")
+        profiling.count("editions.deconv.tc")
         return out[:, 0] if rank == 2 else out
     # the float32 edition stages the weights as float32 in shared memory
     cot = out_channel_tile(Cout)
@@ -127,6 +124,6 @@ def deconv(x, kernel, bias=None, relu: bool = False, lo=0, out_spatial=None,
              None if b is None else _lib.ptr(b), _lib.ptr(out), B, Di, Hi, Wi,
              Cin, Do, Ho, Wo, Cout, lod, loh, low, int(relu), _lib.stream_of(x))
     _lib.check("deconv", err)
-    launches += 1
-    launches_by_edition["simt"] += 1
+    profiling.count("launches.deconv")
+    profiling.count("editions.deconv.simt")
     return out[:, 0] if rank == 2 else out

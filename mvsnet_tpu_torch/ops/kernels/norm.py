@@ -18,7 +18,8 @@ makes two launches and reads x twice, writes y once:
 The plain pair `group_norm_stats_plain` / `group_norm_apply_plain`, with
 `summed_over_blocks` between them, is `group_norm_core`'s half-precision
 branch wherever the kernels do not run, and their reference on the card.
-`launches` counts the kernels' launches, two a norm.
+`launches.group_norm` (`utils/profiling.py`) counts the kernels' launches,
+two a norm.
 """
 
 from __future__ import annotations
@@ -29,9 +30,7 @@ import math
 import torch
 
 from mvsnet_tpu_torch.ops.kernels import _lib
-
-# Launches of the two kernels in this process.
-launches = 0
+from mvsnet_tpu_torch.utils import profiling
 
 _HALF = {torch.bfloat16: 1, torch.float16: 2}     # csrc/group_norm.cu DType
 _THREADS = 256                                    # csrc/group_norm.cu kThreads
@@ -122,7 +121,6 @@ def _geometry(x):
 
 
 def _stats(x, N, P, C, vec, grid, stream):
-    global launches
     B, span = grid
     part = torch.empty((2, N, B, C), dtype=torch.float64, device=x.device)
     sums = torch.empty((2, N, C), dtype=torch.float64, device=x.device)
@@ -133,12 +131,11 @@ def _stats(x, N, P, C, vec, grid, stream):
     err = _fn("stats_launch")(_HALF[x.dtype], vec, x.data_ptr(), part.data_ptr(),
                               sums.data_ptr(), ticket.data_ptr(), N, P, C, B, span, stream)
     _lib.check("group_norm", err)
-    launches += 1
+    profiling.count("launches.group_norm")
     return sums
 
 
 def _apply(x, sums, count, gamma, beta, G, eps, relu, N, P, C, vec, grid, stream):
-    global launches
     if not 1 <= G <= _MAX_GROUPS or C % G:
         raise ValueError(f"{G} groups do not divide {C} channels (at most {_MAX_GROUPS})")
     for name, t, shape, dtype in (("sums", sums, (2, N, C), torch.float64),
@@ -159,7 +156,7 @@ def _apply(x, sums, count, gamma, beta, G, eps, relu, N, P, C, vec, grid, stream
                               inv, gamma.data_ptr(), beta.data_ptr(), y.data_ptr(), N, P, C, G,
                               eps, int(relu), *grid, stream)
     _lib.check("group_norm", err)
-    launches += 1
+    profiling.count("launches.group_norm")
     return y
 
 

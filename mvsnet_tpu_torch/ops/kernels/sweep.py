@@ -24,7 +24,7 @@ tensors; it never falls back from one to the other.
 per-pixel edition of the same source, for CasMVSNet's cascade: each pixel
 has its own plane depths, and each source view a projection [M | b]
 instead of a homography a plane. K1's design, its taps and its sums are
-kept; its launches count in `launches_pixel`.
+kept; its launches count in `launches.cost_volume_pixel`.
 """
 
 from __future__ import annotations
@@ -35,13 +35,7 @@ import torch
 
 from mvsnet_tpu_torch.ops import warp
 from mvsnet_tpu_torch.ops.kernels import _lib
-
-# Launches of the CUDA kernel in this process: as K1 (whole maps) and as
-# K1s (called with a row offset, from the sharded cost volume).
-launches = 0
-launches_sharded = 0
-# Launches of the per-pixel edition.
-launches_pixel = 0
+from mvsnet_tpu_torch.utils import profiling
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
@@ -76,9 +70,9 @@ def cost_volume_plain(ref, views, homs, row_offset=None):
 def cost_volume(ref, views, homs, row_offset=None):
     """Variance cost volume of one batch element, (D, hl, w, C) in ref's
     dtype; see `cost_volume_plain` for the arguments. `row_offset=None`
-    launches K1 (ref and views of one height); an int launches K1s, which
-    counts in `launches_sharded`."""
-    global launches, launches_sharded
+    launches K1 (ref and views of one height), counted in
+    `launches.cost_volume`; an int launches K1s, counted in
+    `launches.cost_volume_sharded`."""
     if ref.device.type == "cpu":
         return cost_volume_plain(ref, views, homs, row_offset)
     ref = ref.contiguous()
@@ -107,10 +101,8 @@ def cost_volume(ref, views, homs, row_offset=None):
     err = fn(_lib.dtype_code(ref), _lib.ptr(ref), _lib.ptr(views), _lib.ptr(homs),
              _lib.ptr(out), V1, D, Hl, H, W, C, r0, _lib.stream_of(ref))
     _lib.check("cost_volume", err)
-    if row_offset is None:
-        launches += 1
-    else:
-        launches_sharded += 1
+    profiling.count("launches.cost_volume" if row_offset is None
+                    else "launches.cost_volume_sharded")
     return out
 
 
@@ -161,7 +153,6 @@ def pixel_cost_volume(ref, views, planes, proj):
     """Variance cost volume of one batch element over per-pixel planes,
     (D, h, w, C) in ref's dtype; see `pixel_cost_volume_plain` for the
     arguments."""
-    global launches_pixel
     if ref.device.type == "cpu":
         return pixel_cost_volume_plain(ref, views, planes, proj)
     _pixel_check(ref, views, planes, proj)
@@ -182,5 +173,5 @@ def pixel_cost_volume(ref, views, planes, proj):
              _lib.ptr(proj), _lib.ptr(out), V1, D, H, W, C, int(planes.ndim == 3),
              _lib.stream_of(ref))
     _lib.check("cost_volume", err)
-    launches_pixel += 1
+    profiling.count("launches.cost_volume_pixel")
     return out

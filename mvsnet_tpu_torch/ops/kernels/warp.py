@@ -18,7 +18,9 @@ Both take a block of reference rows (`row_offset`), as K1s does for the
 cost kernel: K2 then warps the rows [row_offset, row_offset + rows) of the
 output, K3 takes those rows' cotangents and returns the whole source map's
 gradient. The multi-device train step runs its cost-volume block through
-them (`ops/cost_volume.py`); their launches count apart.
+them (`ops/cost_volume.py`); their launches count apart:
+`launches.warp`, `launches.warp_transpose`, `launches.warp_sharded` and
+`launches.warp_transpose_sharded` (`utils/profiling.py`).
 
 `warp_all_depths` and `warp_transpose` run their kernels on CUDA tensors
 and their `*_plain` versions on CPU tensors; they never fall back from one
@@ -33,12 +35,7 @@ import torch
 
 from mvsnet_tpu_torch.ops import warp as warp_ops
 from mvsnet_tpu_torch.ops.kernels import _lib
-
-# Launches of each CUDA kernel in this process, whole maps and row blocks.
-launches = 0                      # K2, warp_all_depths
-transpose_launches = 0            # K3, warp_transpose
-launches_sharded = 0              # K2 with a row offset
-transpose_launches_sharded = 0    # K3 with a row offset
+from mvsnet_tpu_torch.utils import profiling
 
 _I = ctypes.c_int
 _P = ctypes.c_void_p
@@ -185,8 +182,7 @@ def warp_all_depths(img, homs, row_offset=None, rows=None):
     """Warp img (H, W, C) by homs (D, 3, 3): (D, Hr, W, C) in img's dtype,
     zero-fill bilinear with float32 weights and sums, for the reference
     rows [row_offset, row_offset + rows) (row_offset None: the whole map,
-    Hr = H; an int: a row block, counted in `launches_sharded`)."""
-    global launches, launches_sharded
+    Hr = H; an int: a row block, counted apart)."""
     if img.device.type == "cpu":
         return warp_all_depths_plain(img, homs, row_offset, rows)
     _check("warp_all_depths", img, homs, 0)
@@ -201,10 +197,7 @@ def warp_all_depths(img, homs, row_offset=None, rows=None):
     err = fn(_lib.dtype_code(img), _lib.ptr(img), _lib.ptr(homs), _lib.ptr(out),
              D, Hr, H, W, C, r0, _lib.stream_of(img))
     _lib.check("warp", err)
-    if row_offset is None:
-        launches += 1
-    else:
-        launches_sharded += 1
+    profiling.count("launches.warp" if row_offset is None else "launches.warp_sharded")
     return out
 
 
@@ -212,10 +205,8 @@ def warp_transpose(g, homs, row_offset=None, height=None):
     """Adjoint of `warp_all_depths` in the source map: g (D, Hr, W, C)
     cotangents (float32 or bfloat16) of the reference rows [row_offset,
     row_offset + Hr) -> (H, W, C) float32, H = `height` (row_offset None:
-    the whole map, H = Hr; an int: a row block, counted in
-    `transpose_launches_sharded`). On the card the sums run in a fixed
+    the whole map, H = Hr; an int: a row block, counted apart). On the card the sums run in a fixed
     order: two calls on the same inputs are equal bit for bit."""
-    global transpose_launches, transpose_launches_sharded
     if g.device.type == "cpu":
         return warp_transpose_plain(g, homs, row_offset, height)
     _check("warp_transpose", g, homs, 1)
@@ -237,8 +228,6 @@ def warp_transpose(g, homs, row_offset=None, height=None):
     err = fn(_lib.dtype_code(g), _lib.ptr(g), _lib.ptr(homs), _lib.ptr(inv), _lib.ptr(wsign),
              _lib.ptr(out), _lib.ptr(part), segments, D, Hr, H, W, C, r0, _lib.stream_of(g))
     _lib.check("warp", err)
-    if row_offset is None:
-        transpose_launches += 1
-    else:
-        transpose_launches_sharded += 1
+    profiling.count("launches.warp_transpose" if row_offset is None
+                    else "launches.warp_transpose_sharded")
     return out

@@ -21,8 +21,9 @@ Two editions (see the source's note):
 - "simt", float32: the CUDA-core kernel, which gathers the input once per
   tap (bf16 too where `edition="simt"` asks for it).
 `edition=None` picks by that rule; asking for "tc" on operands it does not
-take raises. `launches` counts every launch, `launches_by_edition` each
-edition's.
+take raises. Each call counts in `launches.wgrad` and
+`editions.wgrad.<edition>` (`utils/profiling.py`): one partial pass and
+one reduction, launched by one C entry point.
 
 `wgrad` runs a kernel on CUDA tensors and `wgrad_plain` on CPU tensors; it
 never falls back from one to the other.
@@ -41,11 +42,8 @@ import torch
 from mvsnet_tpu_torch.ops.kernels import _lib
 from mvsnet_tpu_torch.ops.kernels.conv import same_pads
 from mvsnet_tpu_torch.ops.kernels.tc import SMEM_LIMIT, SMS
+from mvsnet_tpu_torch.utils import profiling
 
-# Calls of the CUDA kernels in this process, in all and per edition (each
-# is one partial pass and one reduction, launched by one C entry point).
-launches = 0
-launches_by_edition = {"tc": 0, "simt": 0}
 EDITIONS = ("tc", "simt")
 
 _I = ctypes.c_int
@@ -297,7 +295,6 @@ def wgrad(x, g, ksize, stride: int = 1, edition=None, pads=None):
     ((lo, hi), ...) per spatial axis, replaces the SAME pads (the halo
     convs of `parallel/halo.py` read a halo-extended input at pads 0).
     `edition`: see the module docstring."""
-    global launches
     edition = pick_edition(x.dtype, x.shape[-1], g.shape[-1], edition)
     if x.device.type == "cpu":
         return wgrad_plain(x, g, ksize, stride, pads)
@@ -323,8 +320,8 @@ def wgrad(x, g, ksize, stride: int = 1, edition=None, pads=None):
         err = fn(p.nt, p.mt, ints.ctypes.data_as(ctypes.c_void_p), _lib.ptr(x5), _lib.ptr(g5),
                  _lib.ptr(ws), _lib.ptr(out), _lib.stream_of(x))
         _lib.check("wgrad", err)
-        launches += 1
-        launches_by_edition["tc"] += 1
+        profiling.count("launches.wgrad")
+        profiling.count("editions.wgrad.tc")
         return out[0] if x.ndim == 4 else out
     # one thread's register tile: 4 (or 1) input by 4 (or 1) output channels
     ti, to = (4 if cin % 4 == 0 else 1), (4 if cout % 4 == 0 else 1)
@@ -342,6 +339,6 @@ def wgrad(x, g, ksize, stride: int = 1, edition=None, pads=None):
              _lib.ptr(ws), _lib.ptr(out), B, Di, Hi, Wi, cin, Do, Ho, Wo, cout,
              sd, stride, stride, pd, ph, pw, rows, nsplit, _lib.stream_of(x))
     _lib.check("wgrad", err)
-    launches += 1
-    launches_by_edition["simt"] += 1
+    profiling.count("launches.wgrad")
+    profiling.count("editions.wgrad.simt")
     return out[0] if x.ndim == 4 else out

@@ -33,8 +33,7 @@ from mvsnet_tpu_torch.io.cams import write_cam_txt
 from mvsnet_tpu_torch.io.images import (write_confidence_png, write_depth_png, write_image,
                                         write_inverse_depth_png)
 from mvsnet_tpu_torch.io.pfm import write_pfm
-from mvsnet_tpu_torch.models.casmvsnet import CasMVSNet
-from mvsnet_tpu_torch.models.mvsnet import MVSNet, apply_forward_3dcnn
+from mvsnet_tpu_torch.models import build_model
 from mvsnet_tpu_torch.parallel.infer_step import make_sharded_forward, make_sharded_gru_forward
 from mvsnet_tpu_torch.parallel.mesh import factorize_devices, make_mesh
 from mvsnet_tpu_torch.utils.logging import setup_logger
@@ -158,6 +157,24 @@ def _default_mesh(device):
     return make_mesh(shape=(1, da * de, sp), backend=backend)
 
 
+def _sharded_serve(model, mcfg: ModelConfig, mesh):
+    """`model.serve` over a mesh, the maps split over its ranks. The 3D-CNN
+    and the GRU graphs split their work differently (the U-Net's rows with
+    halos, the sweep's batch or rows; `parallel/infer_step.py`), so each
+    has its own sharded forward; the cascade has none."""
+    if mcfg.cascade:
+        raise NotImplementedError("CasMVSNet serves on one device")
+    if mcfg.regularization == "GRU":
+        gru = make_sharded_gru_forward(model, mcfg, mesh)
+
+        def forward(images, cams, ds, di, de):
+            depth, prob = gru(images, cams, ds, de)
+            return depth, prob, torch.zeros_like(depth)
+        return forward
+    sharded = make_sharded_forward(model, mcfg, mesh)
+    return lambda im, ca, ds, di, de: sharded(im, ca, ds, di)
+
+
 class Predictor:
     """Eval MVSNet, constructed as JAX's `Predictor(mcfg, model_dir,
     ckpt_step, num_devices)` (predict.py:59) or with the port's keywords.
@@ -174,12 +191,12 @@ class Predictor:
     rank (`mesh`, or by default inside a process group) `device=None` is
     the rank's own device, which must be a card; the forward is
     `make_sharded_forward`'s, or for the GRU `make_sharded_gru_forward`'s
-    (the maps split over the ranks). With refinement the 3D-CNN graph
-    returns the refined depth and the residual; the GRU graph ignores
-    refinement and returns a zero residual, as in JAX. A cascade
-    configuration (`mcfg.cascade`) serves `models/casmvsnet.CasMVSNet` on
-    one device: its depth and confidence at the images' resolution and a
-    zero residual."""
+    (the maps split over the ranks). On one device the forward is the
+    model's `serve` (`models.build_model`): with refinement the 3D-CNN
+    graph returns the refined depth and the residual; the GRU graph ignores
+    refinement and returns a zero residual, as in JAX; a cascade
+    configuration (`mcfg.cascade`) serves `models/casmvsnet.CasMVSNet`, on
+    one device only: its depth and confidence and a zero residual."""
 
     def __init__(self, mcfg: ModelConfig, model_dir: Optional[str] = None,
                  ckpt_step: Optional[int] = None, num_devices: Optional[int] = None, *,
@@ -207,7 +224,7 @@ class Predictor:
         else:
             self.mesh = None
             self.device = resolve_device(device)
-        model = (CasMVSNet if mcfg.cascade else MVSNet)(mcfg, seed=seed)
+        model = build_model(mcfg, seed=seed)
         if model_dir is not None:
             state_dict = ckpt.restore_tree(model_dir, mcfg.regularization, mcfg.network_mode,
                                            ckpt_step)["model"]
@@ -216,28 +233,8 @@ class Predictor:
             model.load_state_dict(state_dict)
         self.model = model.to(self.device).eval()
         # forward(images, cams, depth_start, depth_interval, depth_end)
-        if mcfg.cascade:
-            if self.mesh is not None:
-                raise NotImplementedError("CasMVSNet serves on one device")
-
-            def forward(images, cams, ds, di, de):
-                depth, conf = self.model(images, cams, ds, di)
-                return depth, conf, torch.zeros_like(depth)
-            self._forward = forward
-        elif mcfg.regularization == "GRU":
-            gru = (make_sharded_gru_forward(self.model, mcfg, self.mesh) if self.mesh is not None
-                   else lambda im, ca, ds, de: self.model.forward_gru_wta(im, ca, ds, None, de))
-
-            def forward(images, cams, ds, di, de):
-                depth, prob = gru(images, cams, ds, de)
-                return depth, prob, torch.zeros_like(depth)
-            self._forward = forward
-        elif self.mesh is not None:
-            sharded = make_sharded_forward(self.model, mcfg, self.mesh)
-            self._forward = lambda im, ca, ds, di, de: sharded(im, ca, ds, di)
-        else:
-            self._forward = lambda im, ca, ds, di, de: apply_forward_3dcnn(
-                self.model, im, ca, ds, di)
+        self._forward = (self.model.serve if self.mesh is None
+                         else _sharded_serve(self.model, mcfg, self.mesh))
         self._requests = 0
         self._staging = PinnedStaging(self.device) if self.device.type == "cuda" else None
 
@@ -266,16 +263,11 @@ class Predictor:
     @torch.inference_mode()
     def predict(self, images, cams, depth_start, depth_interval, depth_end,
                 fetch: bool = True):
-        """(depth_map, prob_map, residual), each (B, h, w, 1); with
-        refinement the refined depth map and the residual, at the
-        refinement's resolution (the images' with
-        `upsample_before_refinement`), else the residual is zeros; the
-        cascade's maps at the images' resolution. fetch=True
+        """(depth_map, prob_map, residual), each (B, h, w, 1): the model's
+        `serve`, which reads `depth_interval` or `depth_end` as JAX's graph
+        does and returns a zero residual where nothing refines. fetch=True
         returns numpy arrays after the device finishes; fetch=False returns
-        the device tensors as soon as the work is queued. As in JAX
-        (mvsnet_tpu/predict.py:110-139), the 3D-CNN graph reads
-        `depth_interval` and not `depth_end`, the GRU graph `depth_end` and
-        not `depth_interval`. Traced (`utils.profiling.span`) as
+        the device tensors as soon as the work is queued. Traced (`utils.profiling.span`) as
         `mvsnet.predict` with this Predictor's running count as `request`,
         around `mvsnet.predict.stage` (the inputs to float32 device tensors)
         and `mvsnet.predict.forward`."""

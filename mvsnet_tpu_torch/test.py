@@ -5,10 +5,9 @@ Runs inference on the sessions under `<input_dir>/test`, which have
 ground-truth depths, and reports the loss, <1px and <3px per cluster and
 averaged, appending the averages to a results CSV (`--results_path`);
 `--write_output` also writes each cluster's maps as the infer driver does.
-A depth map below the ground truth's resolution (no refinement, or
-refinement at the cost volume's) is resized to it bilinearly first
-(`ops/resize.py`, JAX's `jax.image.resize`); CasMVSNet's (`--cascade`)
-is at the images' resolution already. The JAX driver's flags, plus
+A depth map below the ground truth's resolution (where the model's
+`maps_at_image_resolution` is false) is resized to it bilinearly first
+(`ops/resize.py`, JAX's `jax.image.resize`). The JAX driver's flags, plus
 `--device` (`cuda:0` by default; `cpu` runs the plain PyTorch path).
 """
 
@@ -75,8 +74,7 @@ def benchmark_depth_maps(input_dir, args):
                                  max_clusters_per_session=args.max_clusters_per_session)
     predictor = make_predictor(mcfg, args)
     dev = predictor.device
-    upsample_to_gt = not (args.refinement and args.upsample_before_refinement
-                          or mcfg.cascade)
+    upsample_to_gt = not predictor.model.maps_at_image_resolution
 
     losses, less_ones, less_threes, debugs = [], [], [], []
     n = len(gen.clusters)

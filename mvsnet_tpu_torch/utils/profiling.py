@@ -14,8 +14,8 @@ Here, one tracing system built on `torch.profiler`:
   `mvsnet.cost_volume`, `mvsnet.regularizer`, `mvsnet.gru.capture`,
   `mvsnet.depth_tail`, and on the output writer's thread
   `mvsnet.writer.job` (ids: `job`).
-- `count(name, n)` / `counters()`: the program's counters, read at call
-  time with the kernels' launch counts.
+- `count(name, n)` / `counters()`: the program's counters (`SERVING`,
+  `LAUNCHES`), read at call time.
 - `traced()`: what the spans and counters recorded while a profiler
   recorded: each span's calls and host seconds, each counter's increments.
 - `start` / `stop` / `trace(log_dir)`: a profiler of the host and, where
@@ -53,9 +53,19 @@ NO_SPAN = contextlib.nullcontext()
 SERVING = ("predict.requests", "predict.staged_bytes", "predict.pinned_stages",
            "predict.pinned_allocs", "predict.stage_wait_s", "writer.jobs", "writer.wait_s")
 
+# The hand-written kernels' counters, which their wrappers in `ops/kernels/`
+# count on a card: each kernel's launches (`launches.<kernel>`) and, for the
+# kernels with a tensor-core and a CUDA-core edition, each edition's
+# (`editions.<kernel>.<edition>`). A CUDA graph's replays count the launches
+# its capture holds (`ops.kernels.CountedGraph`).
+LAUNCHES = tuple(f"launches.{k}" for k in (
+    "cost_volume", "cost_volume_sharded", "cost_volume_pixel", "conv", "deconv", "group_norm",
+    "warp", "warp_transpose", "warp_sharded", "warp_transpose_sharded", "wgrad")) + tuple(
+    f"editions.{k}.{e}" for k in ("conv", "deconv", "wgrad") for e in ("tc", "simt"))
+
 _lock = threading.Lock()
-_counts = dict.fromkeys(SERVING, 0)
-_traced_counts = dict.fromkeys(SERVING, 0)
+_counts = dict.fromkeys(SERVING + LAUNCHES, 0)
+_traced_counts = dict.fromkeys(SERVING + LAUNCHES, 0)
 _traced_spans = {}           # name -> [calls, host ns]
 
 
@@ -113,17 +123,10 @@ def count(name: str, n=1) -> None:
 
 def counters() -> dict:
     """Every counter of the program, read now, in one flat dict: the
-    serving path's (`SERVING`), each kernel's launches (`launches.<kernel>`)
-    and, for the kernels with two editions, each edition's
-    (`editions.<kernel>.<edition>`)."""
-    from mvsnet_tpu_torch.ops import kernels
-
+    serving path's (`SERVING`) and the kernels' (`LAUNCHES`), each from 0
+    when the process started."""
     with _lock:
-        out = dict(_counts)
-    out.update((f"launches.{k}", n) for k, n in kernels.launch_counts().items())
-    for k, editions in kernels.edition_counts().items():
-        out.update((f"editions.{k}.{e}", n) for e, n in editions.items())
-    return out
+        return dict(_counts)
 
 
 def traced() -> dict:

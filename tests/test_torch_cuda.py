@@ -20,6 +20,7 @@ from mvsnet_tpu_torch.ops import autograd
 from mvsnet_tpu_torch.ops.cost_volume import cost_volume_backward
 from mvsnet_tpu_torch.ops.kernels import conv, deconv, norm, sweep, warp, wgrad
 from mvsnet_tpu_torch.predict import Predictor
+from mvsnet_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -60,6 +61,18 @@ def _close(got, want, tol):
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
+def _n(name):
+    """The program's counter `name` now (`utils.profiling.counters()`)."""
+    return profiling.counters()[name]
+
+
+def _launches():
+    """Each kernel's launches now, by kernel, from the counters
+    `launches.<kernel>`."""
+    return {k[len("launches."):]: n for k, n in profiling.counters().items()
+            if k.startswith("launches.")}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cost_volume_matches_plain(dev, dtype):
     rng = np.random.default_rng(0)
@@ -67,9 +80,9 @@ def test_cost_volume_matches_plain(dev, dtype):
     ref = _rand(rng, (H, W, C), dtype, dev)
     views = _rand(rng, (2, H, W, C), dtype, dev)
     homs = torch.stack([_homs(D, 0.02, 12.0, dev), _homs(D, -0.2, 30.0, dev)])
-    before = sweep.launches
+    before = _n("launches.cost_volume")
     got = sweep.cost_volume(ref, views, homs)
-    assert sweep.launches == before + 1
+    assert _n("launches.cost_volume") == before + 1
     _close(got, sweep.cost_volume_plain(ref, views, homs), TOL[dtype])
 
 
@@ -86,14 +99,14 @@ def test_sharded_cost_volume_blocks_stitch_to_k1(dev, dtype, depth, space):
     homs = torch.stack([_homs(D, 0.02, 12.0, dev), _homs(D, -0.2, 30.0, dev)])
     whole = sweep.cost_volume(ref, views, homs)
     Dl, Hl = D // depth, H // space
-    before = (sweep.launches, sweep.launches_sharded)
+    before = (_n("launches.cost_volume"), _n("launches.cost_volume_sharded"))
     stitched = torch.cat([
         torch.cat([sweep.cost_volume(ref[s * Hl:(s + 1) * Hl], views,
                                      homs[:, d * Dl:(d + 1) * Dl], row_offset=s * Hl)
                    for s in range(space)], dim=1)
         for d in range(depth)], dim=0)
-    assert (sweep.launches, sweep.launches_sharded) == (before[0],
-                                                        before[1] + depth * space)
+    assert (_n("launches.cost_volume"), _n("launches.cost_volume_sharded")) == \
+        (before[0], before[1] + depth * space)
     assert torch.equal(stitched, whole)
     block = sweep.cost_volume(ref[Hl:2 * Hl] if space > 1 else ref, views, homs[:, :Dl],
                               row_offset=Hl if space > 1 else 0)
@@ -119,11 +132,11 @@ def test_conv_matches_plain(dev, dtype, shape, k, stride, cin, cout):
     x = _rand(rng, shape + (cin,), dtype, dev)
     w = _rand(rng, (k,) * rank + (cin, cout), dtype, dev, 0.2)
     b = _rand(rng, (cout,), torch.float32, dev)
-    before = conv.launches
+    before = _n("launches.conv")
     for bias, relu in ((None, False), (b, True)):
         got = conv.conv(x, w, bias, stride, relu)
         _close(got, conv.conv_plain(x, w, bias, stride, relu), TOL[dtype])
-    assert conv.launches == before + 2
+    assert _n("launches.conv") == before + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -137,11 +150,11 @@ def test_deconv_matches_plain(dev, dtype, shape, cin, cout):
     x = _rand(rng, shape + (cin,), dtype, dev)
     w = _rand(rng, (3,) * rank + (cin, cout), dtype, dev, 0.2)
     b = _rand(rng, (cout,), torch.float32, dev)
-    before = deconv.launches
+    before = _n("launches.deconv")
     for bias, relu in ((None, False), (b, True)):
         got = deconv.deconv(x, w, bias, relu)
         _close(got, deconv.deconv_plain(x, w, bias, relu), TOL[dtype])
-    assert deconv.launches == before + 2
+    assert _n("launches.deconv") == before + 2
 
 
 def _cascade_inputs(stage, dtype, dev):
@@ -170,9 +183,9 @@ PIXEL_TOL = {torch.float32: 1e-3, torch.bfloat16: 1e-2}
 @pytest.mark.parametrize("stage", [0, 1, 2])
 def test_pixel_cost_volume_matches_plain(dev, dtype, stage):
     ref, views, planes, proj = _cascade_inputs(stage, dtype, dev)
-    before = sweep.launches_pixel
+    before = _n("launches.cost_volume_pixel")
     got = sweep.pixel_cost_volume(ref, views, planes, proj)
-    assert sweep.launches_pixel == before + 1
+    assert _n("launches.cost_volume_pixel") == before + 1
     _close(got, sweep.pixel_cost_volume_plain(ref, views, planes, proj), PIXEL_TOL[dtype])
     if stage == 0:       # the first stage's uniform planes: one depth a plane
         flat = planes[:, 0, 0].contiguous()
@@ -195,9 +208,9 @@ def test_casmvsnet_predictor_card_matches_cpu(dev, dtype):
     mix = {"pool": 1, "depth_interval_mm": 2.5, "depth_min_mm": 425.0, "depth_max_mm": 935.0,
            "rig": {"yaw_deg": [2.0, 6.0], "roll_deg": [0.0, 2.0], "baseline_mm": [40.0, 80.0]}}
     request = generate.serve_pool(mix, op, 7, "cpu")[0]
-    before = sweep.launches_pixel
+    before = _n("launches.cost_volume_pixel")
     d_gpu, c_gpu, _ = Predictor(cfg, seed=4, device=dev).predict(*request)
-    assert sweep.launches_pixel == before + 3
+    assert _n("launches.cost_volume_pixel") == before + 3
     d_cpu, c_cpu, _ = Predictor(cfg, seed=4, device="cpu").predict(*request)
     assert np.isfinite(d_gpu).all() and np.isfinite(c_gpu).all()
     if dtype == "float32":
@@ -234,9 +247,9 @@ def test_warp_matches_plain(dev, dtype):
     rng = np.random.default_rng(5)
     img = _rand(rng, (20, 28, 16), dtype, dev)
     for homs in (_homs(6, 0.02, 12.0, dev), _homs(6, -0.2, 30.0, dev)):
-        before = warp.launches
+        before = _n("launches.warp")
         got = warp.warp_all_depths(img, homs)
-        assert warp.launches == before + 1
+        assert _n("launches.warp") == before + 1
         _close(got, warp.warp_all_depths_plain(img, homs), TOL[dtype])
 
 
@@ -259,9 +272,9 @@ def test_warp_transpose_matches_plain(dev, dtype):
     rng = np.random.default_rng(6)
     g = _rand(rng, (40, 20, 28, 16), dtype, dev)
     for homs in (_homs(40, 0.02, 12.0, dev), _homs(40, -0.2, 30.0, dev)):
-        before = warp.transpose_launches
+        before = _n("launches.warp_transpose")
         got = warp.warp_transpose(g, homs)
-        assert warp.transpose_launches == before + 1 and got.dtype == torch.float32
+        assert _n("launches.warp_transpose") == before + 1 and got.dtype == torch.float32
         _close(got, warp.warp_transpose_plain(g, homs), TOL[torch.float32])
 
 
@@ -335,9 +348,9 @@ def test_cost_volume_backward_in_depth_chunks_on_card(dev, D, monkeypatch):
     g = _rand(rng, (D, 24, 40, 32), torch.float32, dev)
     homs = torch.stack([_homs(D, 0.02, 3.0, dev), _homs(D, -0.05, 5.0, dev)])
     monkeypatch.setattr(cost_volume, "ACC_LIMIT_BYTES", -(-3 * g.numel() * 4 // 3))
-    before = (warp.launches, warp.transpose_launches)
+    before = (_n("launches.warp"), _n("launches.warp_transpose"))
     got = cost_volume_backward(ref, views, homs, g)
-    assert (warp.launches, warp.transpose_launches) == (before[0] + 6, before[1] + 6)
+    assert (_n("launches.warp"), _n("launches.warp_transpose")) == (before[0] + 6, before[1] + 6)
     want = cost_volume_backward(*(t.cpu() for t in (ref, views, homs, g)))
     for a, b in zip(got, want):
         _close(a.cpu(), b, TOL[torch.float32])
@@ -370,9 +383,9 @@ def test_wgrad_matches_plain(dev, dtype, shape, k, stride, cin, cout):
     x = _rand(rng, shape + (cin,), dtype, dev)
     out = [conv.same_pads(n, k, stride)[2] for n in shape[1:]]
     g = _rand(rng, (shape[0], *out, cout), dtype, dev)
-    before = wgrad.launches
+    before = _n("launches.wgrad")
     got = wgrad.wgrad(x, g, (k,) * rank, stride)
-    assert wgrad.launches == before + 1
+    assert _n("launches.wgrad") == before + 1
     _close(got, wgrad.wgrad_plain(x, g, (k,) * rank, stride), TOL[torch.float32])
 
 
@@ -383,9 +396,9 @@ def test_k5_adjoint_deconv_matches_plain(dev, dtype, n):
     g = _rand(rng, (2, (n + 1) // 2, (n + 3) // 2, 16), dtype, dev)
     k = _rand(rng, (5, 5, 16, 8), dtype, dev, 0.2)
     lo = conv.same_pads(n, 5, 2)[0]
-    before = deconv.launches
+    before = _n("launches.deconv")
     got = deconv.deconv(g, k, lo=lo, out_spatial=(n, n + 2))
-    assert deconv.launches == before + 1
+    assert _n("launches.deconv") == before + 1
     _close(got, deconv.deconv_plain(g, k, lo=lo, out_spatial=(n, n + 2)), TOL[dtype])
 
 
@@ -477,8 +490,14 @@ def test_tiny_train_step_card_matches_cpu(dev):
 
 
 def _editions():
-    return {"conv": dict(conv.launches_by_edition), "deconv": dict(deconv.launches_by_edition),
-            "wgrad": dict(wgrad.launches_by_edition)}
+    """{kernel: {edition: launches}} now, from the counters
+    `editions.<kernel>.<edition>`."""
+    out = {}
+    for k, n in profiling.counters().items():
+        if k.startswith("editions."):
+            _, kernel, edition = k.split(".")
+            out.setdefault(kernel, {})[edition] = n
+    return out
 
 
 @pytest.mark.parametrize("shape,k,stride,cin,cout,pads", [
@@ -835,15 +854,14 @@ def test_entry_forward_on_card(dev):
     launches the cost-volume kernel once and gives finite maps in the depth
     range."""
     from mvsnet_tpu_torch.entry import entry
-    from mvsnet_tpu_torch.ops import kernels
 
     forward, args = entry()
     model, images, cams, ds, di = args
     assert images.device.type == "cuda" and next(model.parameters()).device.type == "cuda"
-    before = kernels.launch_counts()
+    before = _launches()
     depth, prob = forward(*args)
     torch.cuda.synchronize()
-    after = kernels.launch_counts()
+    after = _launches()
     assert after["cost_volume"] == before["cost_volume"] + 1
     assert after["conv"] > before["conv"] and after["deconv"] > before["deconv"]
     assert depth.shape == prob.shape == (1, 16, 16, 1)
@@ -876,11 +894,11 @@ def _plain_norm(x, gamma, beta, groups, relu, stat_sum=None):
     gradient does not take the kernels."""
     from mvsnet_tpu_torch.models.layers import group_norm_core
 
-    before = norm.launches
+    before = _n("launches.group_norm")
     with torch.enable_grad():
         y = group_norm_core(x, gamma.clone().requires_grad_(), beta, groups, 1e-5,
                             relu=relu, stat_sum=stat_sum)
-    assert norm.launches == before and y.grad_fn is not None
+    assert _n("launches.group_norm") == before and y.grad_fn is not None
     return y.detach()
 
 
@@ -903,12 +921,12 @@ def test_group_norm_kernels_match_plain(dev, dtype, relu, shape, groups):
     from mvsnet_tpu_torch.models.layers import group_norm_core
 
     x, gamma, beta = _norm_inputs(shape, dtype, dev)
-    before = norm.launches
+    before = _n("launches.group_norm")
     with torch.inference_mode():
         got = group_norm_core(x, gamma, beta, groups, 1e-5, relu=relu)
         again = group_norm_core(x, gamma, beta, groups, 1e-5, relu=relu)
     torch.cuda.synchronize()
-    assert norm.launches == before + 4
+    assert _n("launches.group_norm") == before + 4
     assert got.dtype == dtype and got.shape == x.shape
     assert torch.equal(got, again)
     _assert_bits_equal(got, _plain_norm(x, gamma, beta, groups, relu))
@@ -929,7 +947,7 @@ def test_group_norm_kernels_on_row_blocks_equal_the_whole_map(dev, shape):
         return torch.cat([s.reshape(-1), s.new_full((1,), v.shape[1] * v.shape[2])])
     with torch.inference_mode():
         whole = norm.group_norm(x, gamma, beta, G, 1e-5, relu=True)
-        before = norm.launches
+        before = _n("launches.group_norm")
         parts = []
         for i, (a, b) in enumerate(blocks):
             calls = []
@@ -940,7 +958,7 @@ def test_group_norm_kernels_on_row_blocks_equal_the_whole_map(dev, shape):
             parts.append(norm.group_norm(x[:, a:b].contiguous(), gamma, beta, G, 1e-5,
                                          relu=True, stat_sum=stat_sum))
             assert len(calls) == 1
-    assert norm.launches == before + 2 * 3
+    assert _n("launches.group_norm") == before + 2 * 3
     _assert_bits_equal(torch.cat(parts, dim=1), whole)
     _assert_bits_equal(whole, _plain_norm(x, gamma, beta, G, True))
 
@@ -951,16 +969,16 @@ def test_group_norm_kernels_only_where_no_gradient_is_recorded(dev):
     from mvsnet_tpu_torch.models.layers import group_norm_core
 
     x, gamma, beta = _norm_inputs((2, 9, 11, 16), torch.bfloat16, dev)
-    before = norm.launches
+    before = _n("launches.group_norm")
     with torch.no_grad():
         group_norm_core(x.float(), gamma, beta, 2, 1e-5)
     with torch.enable_grad():
         group_norm_core(x, gamma.clone().requires_grad_(), beta, 2, 1e-5)
         group_norm_core(x.clone().requires_grad_(), gamma, beta, 2, 1e-5)
-    assert norm.launches == before
+    assert _n("launches.group_norm") == before
     with torch.no_grad():
         group_norm_core(x, gamma, beta, 2, 1e-5)
-    assert norm.launches == before + 2
+    assert _n("launches.group_norm") == before + 2
 
 
 def _tower(dev):
@@ -985,23 +1003,22 @@ def test_group_norm_launches_count_the_tower_not_the_cascade(dev):
     a CasMVSNet request, whose norms are batch norms folded into its convs,
     launches none."""
     from mvs_bench import generate
-    from mvsnet_tpu_torch.ops import kernels
 
     tower = _tower(dev)
     x = torch.randn((5, 128, 160, 3), device=dev)
-    before = kernels.launch_counts()
+    before = _launches()
     with torch.inference_mode():
         tower(x)
-    assert kernels.launch_counts()["group_norm"] - before["group_norm"] == 62
+    assert _launches()["group_norm"] - before["group_norm"] == 62
     cfg = ModelConfig(view_num=3, max_d=192, width=320, height=256, compute_dtype="bfloat16",
                       cascade=True)
     op = {"height": 256, "width": 320, "max_d": 192, "interval_scale": 1.06, "view_num": 3}
     mix = {"pool": 1, "depth_interval_mm": 2.5, "depth_min_mm": 425.0, "depth_max_mm": 935.0,
            "rig": {"yaw_deg": [2.0, 6.0], "roll_deg": [0.0, 2.0], "baseline_mm": [40.0, 80.0]}}
     request = generate.serve_pool(mix, op, 7, "cpu")[0]
-    before = kernels.launch_counts()
+    before = _launches()
     Predictor(cfg, seed=4, device=dev).predict(*request)
-    after = kernels.launch_counts()
+    after = _launches()
     assert after["cost_volume_pixel"] - before["cost_volume_pixel"] == 3
     assert after["group_norm"] == before["group_norm"]
 
@@ -1013,13 +1030,13 @@ def test_tower_with_group_norm_kernels_matches_plain_tower(dev):
     tower = _tower(dev)
     x = torch.randn((5, 192, 256, 3), generator=torch.Generator(device=dev).manual_seed(7),
                     device=dev)
-    before = norm.launches
+    before = _n("launches.group_norm")
     with torch.inference_mode():
         got = tower(x)
-    assert norm.launches == before + 62
+    assert _n("launches.group_norm") == before + 62
     with torch.enable_grad():
         want = tower(x).detach()
-    assert norm.launches == before + 62
+    assert _n("launches.group_norm") == before + 62
     _close(got, want, TOL[torch.bfloat16])
 
 
@@ -1041,9 +1058,9 @@ def test_gru_cell_convs_match_plain(dev, dtype, edition, cin, cout):
     x = _rand(rng, (1, 37, 50, cin), dtype, dev)
     w = _rand(rng, (3, 3, cin, cout), dtype, dev, (9 * cin) ** -0.5)
     b = _rand(rng, (cout,), torch.float32, dev)
-    before = dict(conv.launches_by_edition)
+    before = _editions()["conv"]
     got = conv.conv(x, w, b, 1, False, edition=edition)
-    assert conv.launches_by_edition[edition] == before[edition] + 1
+    assert _editions()["conv"][edition] == before[edition] + 1
     _close(got, conv.conv_plain(x, w, b, 1, False), TOL[dtype])
 
 
@@ -1067,22 +1084,20 @@ def test_gru_graph_replay_equals_eager_sweep(dev, wta):
     and winner-take-all carry bit for bit on the same cost volume, a second
     sweep (states reset, graph reused) gives them again, and the replays
     count the launches the eager sweep counts."""
-    from mvsnet_tpu_torch.ops import kernels
-
     cfg, model = _gru_model(dev)
     rng = np.random.default_rng(30)
     cost = _rand(rng, (1, cfg.max_d, 24, 40, 32), torch.bfloat16, dev).abs()
     samples = (torch.linspace(5.0, 10.5, cfg.max_d, device=dev)[None] if wta else None)
     sweep = model.gru_sweep
     with torch.inference_mode():
-        before = kernels.launch_counts()
+        before = _launches()
         regs_e, carry_e = sweep.eager(cost, samples)
-        eager_counts = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+        eager_counts = {k: n - before[k] for k, n in _launches().items()}
         sweep.graphed(cost, samples)                     # captures
-        before = kernels.launch_counts()
+        before = _launches()
         regs_g, carry_g = sweep.graphed(cost, samples)
         torch.cuda.synchronize()
-        graph_counts = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+        graph_counts = {k: n - before[k] for k, n in _launches().items()}
         again = sweep(cost, samples)                      # eval, no autograd: the graph
     assert len(sweep._graphs) == 1
     assert graph_counts == eager_counts and eager_counts["conv"] == 7 * cfg.max_d
@@ -1193,16 +1208,14 @@ def test_gru_train_steps_are_bit_equal_on_card(dev):
     in a fixed order; the classification loss picks with a one-hot product,
     not an atomic scatter), and the step launches K1, K2, K3, the conv and
     the weight-gradient kernels."""
-    from mvsnet_tpu_torch.ops import kernels
-
     batch = _gru_train_batch()
     runs = []
     for _ in range(2):
         cfg, model = _gru_model(dev, dtype="float32")
         state = train_lib.create_train_state(model, cfg, TrainConfig(), device=dev)
-        before = kernels.launch_counts()
+        before = _launches()
         _, metrics = train_lib.make_train_step(model, cfg, TrainConfig())(state, batch)
-        counts = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+        counts = {k: n - before[k] for k, n in _launches().items()}
         runs.append((metrics["loss"].item(), [p.grad.clone() for p in model.parameters()]))
     assert all(counts[k] > 0 for k in ("cost_volume", "conv", "warp", "warp_transpose", "wgrad"))
     assert np.isfinite(runs[0][0]) and runs[0][0] == runs[1][0]
@@ -1218,7 +1231,6 @@ def test_gru_remat_step_equals_eager_step_on_card(dev, dtype):
     the recomputing step launches each cell conv once a plane more, in the
     dtype's edition, and every other kernel as often."""
     from mvsnet_tpu_torch.models.layers import Conv
-    from mvsnet_tpu_torch.ops import kernels
 
     batch = _gru_train_batch()
     runs = []
@@ -1227,11 +1239,11 @@ def test_gru_remat_step_equals_eager_step_on_card(dev, dtype):
         if kind == "eager":
             model.gru_sweep.forward = model.gru_sweep.eager
         state = train_lib.create_train_state(model, cfg, TrainConfig(), device=dev)
-        before, ed_before = kernels.launch_counts(), kernels.edition_counts()
+        before, ed_before = _launches(), _editions()
         _, metrics = train_lib.make_train_step(model, cfg, TrainConfig())(state, batch)
-        counts = {k: n - before[k] for k, n in kernels.launch_counts().items()}
+        counts = {k: n - before[k] for k, n in _launches().items()}
         editions = {k: {e: n - ed_before[k][e] for e, n in eds.items()}
-                    for k, eds in kernels.edition_counts().items()}
+                    for k, eds in _editions().items()}
         runs.append((metrics["loss"].item(), [p.grad for p in model.parameters()], counts,
                      editions))
     (loss, grads, counts, editions), (loss_e, grads_e, counts_e, editions_e) = runs
@@ -1288,16 +1300,14 @@ def test_refined_predictor_card_matches_cpu(dev, dtype):
     bfloat16 every conv and transposed conv runs the tensor cores (the
     tower's two image convs and the refinement net's two Cin = 5 convs
     too), and the maps are finite."""
-    from mvsnet_tpu_torch.ops import kernels
-
     cfg = ModelConfig(view_num=3, max_d=16, width=160, height=128, network_mode="normal",
                       compute_dtype=dtype, **REFINED)
     sd = MVSNet(cfg, seed=7).state_dict()
     images, cams = _refine_scene(np.random.default_rng(33))
     inputs = (images, cams, cams[:, 0, 1, 3, 0], cams[:, 0, 1, 3, 1], cams[:, 0, 1, 3, 3])
-    before = kernels.edition_counts()
+    before = _editions()
     card = Predictor(cfg, state_dict=sd, device=dev).predict(*inputs)
-    after = kernels.edition_counts()
+    after = _editions()
     assert all(np.isfinite(o).all() for o in card) and card[0].shape == (1, 128, 160, 1)
     if dtype == "bfloat16":
         # the tower's two image convs and the refinement net's two Cin = 5
@@ -1464,12 +1474,12 @@ def test_warp_row_blocks_stitch_and_match_plain(dev, dtype):
     img = _rand(rng, (20, 28, 16), dtype, dev)
     g = _rand(rng, (12, 20, 28, 16), dtype, dev)
     for homs in (_homs(12, 0.02, 12.0, dev), _degenerate_homs(12, dev)):
-        before = (warp.launches_sharded, warp.transpose_launches_sharded)
+        before = (_n("launches.warp_sharded"), _n("launches.warp_transpose_sharded"))
         blocks = [(0, 7), (7, 6), (13, 7)]
         stitched = torch.cat([warp.warp_all_depths(img, homs, r, n) for r, n in blocks], dim=1)
         assert torch.equal(stitched, warp.warp_all_depths(img, homs))
         parts = [warp.warp_transpose(g[:, r:r + n], homs, r, 20) for r, n in blocks]
-        assert (warp.launches_sharded, warp.transpose_launches_sharded) == \
+        assert (_n("launches.warp_sharded"), _n("launches.warp_transpose_sharded")) == \
             (before[0] + 3, before[1] + 3)
         _close(sum(parts), warp.warp_transpose(g, homs), TOL[torch.float32])
         for (r, n), part in zip(blocks, parts):

@@ -174,6 +174,36 @@ def test_test_driver_matches_jax(tmp_path, monkeypatch):
                                [float(x) for x in jax_row[2:]], rtol=1e-3, atol=1e-6)
 
 
+SERVED = {"3DCNN": [],
+          "3DCNN-refined": ["--refinement", "--upsample_before_refinement"],
+          "GRU": ["--regularization", "GRU", "--network_mode", "lite"],
+          "GRU-refinement-flags": ["--regularization", "GRU", "--network_mode", "lite",
+                                   "--refinement", "--upsample_before_refinement"],
+          "cascade": ["--cascade", "--network_mode", "normal"]}
+
+
+@pytest.mark.parametrize("kind", list(SERVED))
+def test_predict_serves_the_models_serving_call(kind):
+    """Each kind of model, configured from the drivers' flags: the
+    Predictor's maps are its model's `serve` on the same inputs, bit for
+    bit, and `maps_at_image_resolution` is the rule the drivers applied to
+    their flags, `(refinement and upsample_before_refinement) or cascade`
+    (for the GRU too, which ignores refinement, as JAX's drivers do)."""
+    args = infer.build_parser().parse_args(["--input_dir", "x", "--device", "cpu"] + BASE
+                                           + SERVED[kind])
+    predictor = infer.make_predictor(infer.model_config_from_args(args), args)
+    images, cams, ds, di = (np.array(a, np.float32) for a in tiny_inputs())
+    inputs = (images, cams, ds, di, ds + 7 * di)
+    got = predictor.predict(*inputs)
+    with torch.inference_mode():
+        want = predictor.model.serve(*(torch.as_tensor(a) for a in inputs))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b.numpy())
+    rule = bool(args.refinement and args.upsample_before_refinement) or args.cascade
+    assert predictor.model.maps_at_image_resolution == rule
+    assert (got[0].shape[1:3] == images.shape[2:4]) == (kind in ("3DCNN-refined", "cascade"))
+
+
 @pytest.mark.parametrize("main", [port_test.main, jax_test.main])
 def test_test_driver_without_clusters_returns_1(tmp_path, main):
     """No test sessions: both drivers log it and return 1."""

@@ -32,6 +32,7 @@ from mvsnet_tpu.ops.pallas.sweep import (_pallas_warp_transpose, pallas_sweep_co
 from mvsnet_tpu_torch.ops import autograd
 from mvsnet_tpu_torch.ops.cost_volume import plane_sweep_cost_volume
 from mvsnet_tpu_torch.ops.kernels import deconv, warp, wgrad
+from mvsnet_tpu_torch.utils import profiling
 
 TIGHT = dict(atol=1e-5, rtol=1e-5)
 SUMS = dict(atol=1e-4, rtol=1e-4)
@@ -285,7 +286,7 @@ def test_new_wrappers_never_fall_back_off_cpu(which):
     """A tensor that is not on the CPU goes to the kernel or raises; it
     never reaches the plain version and never counts a launch."""
     m = torch.device("meta")
-    before = (warp.launches, warp.transpose_launches, wgrad.launches)
+    before = profiling.counters()
     with pytest.raises(ValueError, match="CUDA"):
         if which == "warp":
             warp.warp_all_depths(torch.zeros(8, 8, 8, device=m), torch.zeros(2, 3, 3, device=m))
@@ -295,4 +296,4 @@ def test_new_wrappers_never_fall_back_off_cpu(which):
         else:
             wgrad.wgrad(torch.zeros(1, 8, 8, 4, device=m), torch.zeros(1, 8, 8, 8, device=m),
                         (3, 3), 1)
-    assert (warp.launches, warp.transpose_launches, wgrad.launches) == before
+    assert profiling.counters() == before

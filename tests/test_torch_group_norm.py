@@ -13,8 +13,8 @@ import pytest
 import torch
 
 from mvsnet_tpu_torch.models.layers import ConvGN, DeconvGN, group_norm_core, reset_parameters
-from mvsnet_tpu_torch.ops import kernels
 from mvsnet_tpu_torch.ops.kernels import norm
+from mvsnet_tpu_torch.utils import profiling
 
 # UNetDS2GN's levels at 1600x1184 cut 32-fold: (rows, columns, channels);
 # G = C / 8 groups at every level
@@ -88,7 +88,7 @@ def test_plain_path_without_launches(case, monkeypatch):
     x, gamma, beta = _map(20, (2, 9, 11, 16), dtype)
     if case == "records_grad":
         gamma.requires_grad_()
-    before = kernels.launch_counts()["group_norm"]
+    before = profiling.counters()["launches.group_norm"]
     y = group_norm_core(x, gamma, beta, 2, 1e-5, relu=True)
     assert y.dtype == dtype and (y.grad_fn is not None) == (case == "records_grad")
     for layer in (ConvGN(16, 8, 3, 1, dtype=dtype), DeconvGN(16, 8, relu=True, dtype=dtype)):
@@ -98,4 +98,4 @@ def test_plain_path_without_launches(case, monkeypatch):
             inner = layer.conv if isinstance(layer, ConvGN) else layer.deconv
             want = torch.relu(layer.gn(inner(x)))
             assert torch.equal(layer(x), want) and (want == 0).any()
-    assert not called and kernels.launch_counts()["group_norm"] == before
+    assert not called and profiling.counters()["launches.group_norm"] == before

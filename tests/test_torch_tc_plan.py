@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from mvsnet_tpu.ops.pallas.deconv2d import _rowdeconv2d_fwd_impl
 from mvsnet_tpu.ops.pallas.deconv3d import _rowdeconv3d_fwd_impl
 from mvsnet_tpu_torch.ops.kernels import conv, deconv, tc
+from mvsnet_tpu_torch.utils import profiling
 
 ATOL, RTOL = 5e-5, 1e-5
 
@@ -63,11 +64,11 @@ def test_edition_request_is_checked_on_cpu():
             fn(x, k, edition="tc")
         with pytest.raises(ValueError, match="edition"):
             fn(x, k, edition="wgmma")
-    before = (dict(conv.launches_by_edition), dict(deconv.launches_by_edition))
+    before = profiling.counters()
     xb, kb = x.to(torch.bfloat16), k.to(torch.bfloat16)
     assert conv.conv(xb, kb, edition="tc").shape == (1, 6, 6, 8)
     assert deconv.deconv(xb, kb, edition="tc").shape == (1, 12, 12, 8)
-    assert (conv.launches_by_edition, deconv.launches_by_edition) == before
+    assert profiling.counters() == before
 
 
 @pytest.mark.parametrize("rank", [3, 2])

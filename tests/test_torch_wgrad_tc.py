@@ -38,6 +38,7 @@ import jax.numpy as jnp
 
 from mvsnet_tpu.ops.pallas.conv3d import _pallas_wgrad_s1, _pallas_wgrad_s2
 from mvsnet_tpu_torch.ops.kernels import conv, sweep, wgrad
+from mvsnet_tpu_torch.utils import profiling
 
 SUMS = dict(atol=1e-4, rtol=1e-4)
 CSRC = Path(wgrad.__file__).resolve().parents[2] / "csrc"
@@ -299,10 +300,10 @@ def test_wgrad_edition_request_is_checked_on_cpu():
         wgrad.wgrad(x, g, (3, 3), 1, edition="tc")
     with pytest.raises(ValueError, match="edition"):
         wgrad.wgrad(x, g, (3, 3), 1, edition="wgmma")
-    before = (wgrad.launches, dict(wgrad.launches_by_edition))
+    before = profiling.counters()
     out = wgrad.wgrad(x.bfloat16(), g.bfloat16(), (3, 3), 1, edition="tc")
     assert out.shape == (3, 3, 8, 8) and out.dtype == torch.float32
-    assert (wgrad.launches, wgrad.launches_by_edition) == before
+    assert profiling.counters() == before
 
 
 def test_tc_plan_ints_match_the_kernel_struct():

@@ -26,6 +26,7 @@ sys.path.insert(0, str(ROOT))
 from mvsnet_tpu_torch.models.feature_net import UNetDS2GN  # noqa: E402
 from mvsnet_tpu_torch.models.layers import group_norm_core, reset_parameters  # noqa: E402
 from mvsnet_tpu_torch.ops.kernels import _lib, norm  # noqa: E402
+from mvsnet_tpu_torch.utils import profiling  # noqa: E402
 
 N = 5
 # (rows, columns, channels) of the tower's levels; G = C / 8
@@ -119,9 +120,9 @@ def main() -> int:
     x = torch.randn((N, 1184, 1600, 3), generator=torch.Generator(device=dev).manual_seed(9),
                     device=dev)
     with torch.inference_mode():
-        before = norm.launches
+        before = profiling.counters()["launches.group_norm"]
         got = tower(x)
-        launches = norm.launches - before
+        launches = profiling.counters()["launches.group_norm"] - before
         tower_ms = chip_smoke.cuda_time_ms(lambda: tower(x), budget_s=0.5)
     with torch.enable_grad():
         want = tower(x).detach()
