@@ -30,8 +30,11 @@ Phases, each of which fails the script (non-zero exit, no result line):
      and so must two calls of the cost volume's backward at the training
      point (bf16); the GRU serving path's rows: the seven convs of the
      ConvGRU cells and prob_conv at R-MVSNet's serving point (features
-     296x400, Cin 48, 20, 6, 2), K1 over its 256 planes, and two tower
-     convs at 1184x1600; the GRU training path's rows at the bench
+     296x400, Cin 48, 20, 6, 2), K1 over its 256 planes, two tower
+     convs at 1184x1600, each cell's fused-step kernel pair
+     (`gru_step:<cell>`: gates then output kernel against the plain twin
+     bit for bit) and the step's tail (`gru_step:tail`, bit for bit); the
+     GRU training path's rows at the bench
      `train_gru` point ("lite", features 120x160x16, D=192): K1, K2 and K3
      at C = 16, and each cell conv (Cin 24, 10, 3, 1) forward, its input
      gradient and its weight gradient; the refinement U-Net's rows at the
@@ -176,7 +179,10 @@ Phases, each of which fails the script (non-zero exit, no result line):
      profiled, whose kernel launches the profiler sees (most of them CUDA
      graph replays) must equal the wrappers' counts by kernel and edition;
      the graph-replayed sweep against the eager sweep on the same
-     cost volume, regs, depth and prob bit for bit; the card against the
+     cost volume, regs, depth and prob bit for bit, and (the fused step)
+     against the plain step with the twin's layer norm
+     (`gru_step.layer_norm_plain` in place of `GroupNormFlexible`'s) bit for
+     bit, then against the plain step as it is (its gap reported); the card against the
      CPU at 320x256, D=32, "normal", float32 (regs within 1e-3 of max(1,
      max|regs|), depth equal wherever a pixel's top two regs differ by more
      than that, prob within phase 5's 1e-3);
@@ -324,7 +330,7 @@ E2E_DEPTH_ATOL = 0.05          # depth units; the plane interval is 15
 E2E_PROB_ATOL = 1e-3
 # per bf16 request: the tower's 31 group norms take the two group-norm kernels
 EXPECTED_LAUNCHES = {"cost_volume": 1, "cost_volume_sharded": 0, "cost_volume_pixel": 0,
-                     "conv": 36, "deconv": 7, "group_norm": 62,
+                     "conv": 36, "deconv": 7, "group_norm": 62, "gru_step": 0,
                      "warp": 0, "warp_transpose": 0, "warp_sharded": 0,
                      "warp_transpose_sharded": 0, "wgrad": 0}
 # per bf16 request: every conv and deconv on the tensor cores, the two convs
@@ -514,7 +520,8 @@ def expected_train_launches(model, cfg, h, w):
     V, C = cfg.view_num, cfg.feature_channels
     chunks = max(1, -(-(V * cfg.max_d * h * w * C * 4) // ACC_LIMIT_BYTES))
     return {"cost_volume": 1, "cost_volume_sharded": 0, "cost_volume_pixel": 0,
-            "group_norm": 0, "conv": sum(map(forwards, convs)) + dx_s1 + n_deconv,
+            "group_norm": 0, "gru_step": 0,
+            "conv": sum(map(forwards, convs)) + dx_s1 + n_deconv,
             "deconv": sum(map(forwards, deconvs)) + dx_s2, "warp": (V - 1) * chunks,
             "warp_transpose": (V - 1) * chunks, "warp_sharded": 0,
             "warp_transpose_sharded": 0, "wgrad": n_conv + n_deconv}
@@ -579,7 +586,9 @@ def expected_serving(model, dtype):
     GRU cell's once a plane), in the edition `conv.pick_edition` gives its
     channels; the group-norm kernels twice a half-precision `ConvGN` or
     `DeconvGN` (the GRU cells' norms take their layer-norm branch at every
-    width a config gives them)."""
+    width a config gives them); the fused GRU step's kernels 7 times a
+    plane of a half-precision GRU sweep whose cell norms are layer norms
+    (`GRUSweep.fuses`)."""
     from mvsnet_tpu_torch.models.casmvsnet import PLANES
     from mvsnet_tpu_torch.models.layers import Conv, ConvGN, Deconv, DeconvGN
     from mvsnet_tpu_torch.ops.kernels import conv
@@ -601,8 +610,20 @@ def expected_serving(model, dtype):
                 "group_norm": 2 * sum(calls(m) for m in model.modules()
                                       if isinstance(m, (ConvGN, DeconvGN))
                                       and (getattr(m, "conv", None) or m.deconv).dtype
-                                      in (torch.bfloat16, torch.float16))}
+                                      in (torch.bfloat16, torch.float16)),
+                "gru_step": 7 * model.cfg.max_d if gru_fuses(model, dtype) else 0}
     return launches, editions
+
+
+def gru_fuses(model, dtype):
+    """Whether `model`'s GRU sweep takes the fused step in eval on a card
+    (`GRUSweep.fuses`, asked with a zero-size volume of the model's
+    channels on the card)."""
+    if not hasattr(model, "gru_sweep"):
+        return False
+    cost = torch.zeros((1, 1, 1, 1, model.cfg.feature_channels), dtype=dtype, device="cuda")
+    with torch.no_grad():
+        return model.gru_sweep.fuses(cost)
 
 
 def perturb_norms(model, seed):
@@ -728,7 +749,9 @@ KERNEL_FAMILIES = (("wgrad tc", "wgrad_tc_kernel"), ("wgrad simt", "wgrad_partia
                    ("conv/deconv tc", "tc_conv_kernel"), ("conv simt", "::conv_kernel"),
                    ("warp", "::warp_kernel"), ("warp transpose", "warp_transpose_kernel"),
                    ("warp transpose plan", "::plan_kernel"),
-                   ("warp transpose run sum", "segment_sum_kernel"))
+                   ("warp transpose run sum", "segment_sum_kernel"),
+                   ("gru step gates", "gru_gates_kernel"), ("gru step output", "gru_output_kernel"),
+                   ("gru step tail", "gru_tail_kernel"))
 
 
 def launch_counts(since=None) -> dict:
@@ -759,13 +782,16 @@ def edition_counts(since=None) -> dict:
 def profiled_launches(events):
     """Launches the profiler saw by kernel and edition, in the form of the
     wrappers' counts (`launch_counts`, `edition_counts`),
-    for the kernels of a serving request: K1, and the conv and transposed
-    conv in both editions (the tensor-core kernel serves both)."""
+    for the kernels of a serving request: K1, the conv and transposed
+    conv in both editions (the tensor-core kernel serves both), and the
+    fused GRU step's three kernels."""
     def seen(pattern):
         return sum(e.count for e in events if pattern in e.key)
     return {"cost_volume": seen("cost_volume_kernel"),
             "conv/deconv tc": seen("tc_conv_kernel"),
-            "conv simt": seen("::conv_kernel"), "deconv simt": seen("::deconv_kernel")}
+            "conv simt": seen("::conv_kernel"), "deconv simt": seen("::deconv_kernel"),
+            "gru_step": seen("gru_gates_kernel") + seen("gru_output_kernel")
+            + seen("gru_tail_kernel")}
 
 
 def counted_launches(before, after):
@@ -776,7 +802,8 @@ def counted_launches(before, after):
     return {"cost_volume": l1["cost_volume"] - l0["cost_volume"] + l1["cost_volume_sharded"]
             - l0["cost_volume_sharded"],
             "conv/deconv tc": ed["conv"]["tc"] + ed["deconv"]["tc"],
-            "conv simt": ed["conv"]["simt"], "deconv simt": ed["deconv"]["simt"]}
+            "conv simt": ed["conv"]["simt"], "deconv simt": ed["deconv"]["simt"],
+            "gru_step": l1["gru_step"] - l0["gru_step"]}
 
 
 def print_profile(what, wall_ms, busy_ms, events, host_events):
@@ -1153,19 +1180,24 @@ def phase8_ranks(smi, dev, serve_in, backend, n, two=None):
         ok = ok and good and same
         print(f"  sharded train step, rank {i}, mesh {t['mesh']}, 128x128 D=16 B=2 normal f32, "
               f"vs the single-card step: {text}; running stats equal to rank 0's: {same}")
-    for B, (want_depth, want_prob) in gru_ref.items():
+    for i, (B, (want_depth, want_prob)) in enumerate(gru_ref.items()):
         per_rank = -(-B // n)                  # maps a rank runs once B is padded to n
         equal = all(np.array_equal(r["gru"][B]["depth"], want_depth)
                     and np.array_equal(r["gru"][B]["prob"], want_prob) for r in results)
         k1 = [r["gru"][B]["cost_volume"] for r in results]
-        good = equal and all(k == per_rank for k in k1)
+        # the fused step's 7 launches a plane; a rank's first call captures
+        # the step (the same shape at both B), after two warm-up steps
+        steps = [r["gru"][B]["gru_step"] for r in results]
+        want_steps = 7 * (GRU_MULTI_CFG_ARGS["max_d"] + (2 if i == 0 else 0))
+        good = equal and all(k == per_rank for k in k1) and all(g == want_steps for g in steps)
         ok = ok and good
         walls = ", ".join(f"{r['gru'][B]['wall']:.2f}" for r in results)
         padding = f"padded to {n}" if B % n else "no padding"
         print(f"  8d: R-MVSNet throughput serving, B={B} ({padding}), 320x256, D=32, V=3, "
               f"normal, bf16: wall ms per rank {walls} (a rank's first includes its "
               f"capture); depth and prob equal bit for bit to the single-card Predictor, one "
-              f"call per map: {equal}; K1 launches per rank {k1} (expected {per_rank}) "
+              f"call per map: {equal}; K1 launches per rank {k1} (expected {per_rank}); fused "
+              f"GRU step launches per rank {steps} (expected {want_steps}) "
               f"{'ok' if good else 'FAIL'} [{smi}]")
     for regime, (want_d, want_p, want_r) in refine_ref.items():
         got = [r["refined"][regime] for r in results]
@@ -1286,13 +1318,14 @@ def phase8_rank(backend, serve_in, batch_in, train_batch, gru_in, refine_in, two
     g_pred = Predictor(ModelConfig(**GRU_MULTI_CFG_ARGS), seed=0)
     out["gru"] = {}
     for B, inputs in gru_in.items():
-        before = launch_counts()["cost_volume"]
+        before = launch_counts()
         torch.distributed.barrier()
         t0 = time.perf_counter()
         depth, prob, _ = g_pred.predict(*inputs, fetch=False)
         torch.cuda.synchronize()
+        counts = launch_counts(before)
         out["gru"][B] = dict(wall=(time.perf_counter() - t0) * 1e3,
-                             cost_volume=launch_counts()["cost_volume"] - before,
+                             cost_volume=counts["cost_volume"], gru_step=counts["gru_step"],
                              depth=depth.cpu().numpy(), prob=prob.cpu().numpy())
     out["gru_dryrun"] = gru_dryrun(g_pred.mesh)
     del g_pred
@@ -2455,10 +2488,48 @@ def phase10_gru_serving(smi, dev, request):
           f"eager "
           f"{eager_ms:.2f} ms (host clock to a synchronize); regs, depth and the "
           f"winner-take-all sums equal bit for bit: {same} [{smi}]")
+    # the graph-replayed sweep (the fused step) against the plain step
+    # (`_PlainStep`, ConvGRUCell.forward), first with GroupNormFlexible
+    # computed by the twin's `layer_norm_plain`, which differs from it in the
+    # statistics' sums alone: equal bit for bit; then as it is, where float64
+    # sums against float32 means flip bf16 ties (reported, not gated)
+    from mvsnet_tpu_torch.models import mvsnet as port_mvsnet
+    from mvsnet_tpu_torch.models.layers import GroupNormFlexible
+    from mvsnet_tpu_torch.ops.kernels import gru_step
+
+    def plain_sweep():
+        step = port_mvsnet._PlainStep(model.gru_sweep, cost, True)
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step.sweep(cost, samples, step.body)
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    forward = GroupNormFlexible.forward
+    GroupNormFlexible.forward = lambda self, x, stat_sum=None: gru_step.layer_norm_plain(
+        x, self.scale, self.bias)
+    try:
+        (regs_t, carry_t), twin_ms = plain_sweep()
+    finally:
+        GroupNormFlexible.forward = forward
+    twin = torch.equal(regs_t, regs_g) and all(torch.equal(a, b) for a, b in zip(carry_t, carry_g))
+    (regs_p, carry_p), plain_ms = plain_sweep()
+    gap = (regs_g - regs_p).abs().max().item()
+    moved = (carry_g[1] != carry_p[1]).float().mean().item()
+    print(f"  the graph-replayed sweep against the plain step with the twin's norm "
+          f"({twin_ms:.2f} ms, eager): regs, depth and sums equal bit for bit: {twin}; against "
+          f"the plain step as it is ({plain_ms:.2f} ms): regs differ by up to {gap:.3e} "
+          f"(max|regs| {regs_p.abs().max().item():.3f}), {100 * moved:.2f} % of the depths "
+          f"differ (float64 sums against float32 means; not gated)")
     del predictor, model, cost, regs_g, regs_e, carry_g, carry_e, ref_f, view_f, args
+    del regs_t, carry_t, regs_p, carry_p
     torch.cuda.empty_cache()
     if not same:
         print("phase 10 FAILED: the graph-replayed sweep differs from the eager sweep")
+        return None
+    if not twin:
+        print("phase 10 FAILED: the fused sweep differs from the plain step with the twin's norm")
         return None
 
     # card against CPU at 320x256, D=32, float32
@@ -4164,6 +4235,83 @@ def main() -> int:
             ops=8 * n, source="mvsnet_tpu_torch/csrc/group_norm.cu",
             replaces="none: the JAX package leaves its group norm to XLA"))
 
+    def add_gru_step(cell, f, cin, cn, hw=(296, 400)):
+        """The fused GRU step's gates then output kernel of R-MVSNet's cell
+        `cell` (f filters, an input of cin channels, the next one of cn) at
+        its serving point (features 296x400, B = 1), against the plain twin
+        bit for bit in the state they leave, which each call takes from a
+        copy of the inputs' state (the output kernel updates it in place):
+        two launches and the copy."""
+        from mvsnet_tpu_torch.ops.kernels import gru_step
+
+        shape = (1,) + hw
+        work = gru_step.workspace(1, hw[0] * hw[1], dev)
+
+        def make(dtype):
+            return (randn(shape + (2 * f,), dtype, 3.0), randn(shape + (f,), dtype, 2.0),
+                    randn(shape + (f,), torch.float32), randn(shape + (cin,), dtype),
+                    randn(shape + (cn,), dtype), randn(shape + (f,), dtype),
+                    *[randn((f,), torch.float32, 0.5) + 1.0 if i % 2 == 0 else
+                      randn((f,), torch.float32, 0.2) for i in range(6)])
+
+        def run(gates_fn, output_fn, gates, y, h0, inp, nxt, update, *params):
+            h = h0.clone()
+            gates_fn(gates, h, inp, update, *params[:4])
+            output_fn(y, update, h, inp, nxt, *params[4:])
+            return h
+
+        cases.append(dict(
+            name=f"gru_step:{cell}", counter="gru_step", launches=2, path="gru",
+            dtypes=(torch.bfloat16,), exact=True, deterministic=True, f32_out=True,
+            kernel=lambda *a: run(lambda *b: gru_step.gates(*b, work=work),
+                                  lambda *b: gru_step.output(*b, work=work), *a),
+            plain=lambda *a: run(gru_step.gates_plain, gru_step.output_plain, *a),
+            library=None, make=make,
+            # per pixel: the gates (2f bf16) and y (f bf16) read once; the
+            # state read by each kernel and by the copy, written by the copy
+            # and the output kernel (4f bytes each); the update written and
+            # read, the slot written twice, the next input once (2f each)
+            bytes=lambda it: hw[0] * hw[1] * (6 * f + 5 * 4 * f + 5 * 2 * f),
+            # per value, the norm's sums, its five operations, the sigmoid
+            # or tanh, and the products and sums around them: about 12
+            ops=12 * 3 * f * hw[0] * hw[1], source="mvsnet_tpu_torch/csrc/gru_step.cu",
+            replaces="none: the JAX package leaves these passes to XLA"))
+
+    def add_gru_tail(hw=(296, 400)):
+        """The fused GRU step's tail kernel at R-MVSNet's serving point
+        (296x400, B = 1): the reg's float32 value and the winner-take-all
+        update of a carry that each call takes from a copy, against
+        `tail_plain` bit for bit in the reg and the three carries. One
+        launch, and the copies."""
+        from mvsnet_tpu_torch.ops.kernels import gru_step
+
+        shape = (1,) + hw + (1,)
+
+        def make(dtype):
+            return (randn(shape, dtype, 2.0), randn(shape, torch.float32).abs() * 3,
+                    randn(shape, torch.float32, 100.0) + 600.0,
+                    randn(shape, torch.float32).abs() * 20,
+                    randn((1,), torch.float32, 100.0) + 600.0)
+
+        def run(fn, reg, max_prob, depth_image, exp_sum, depth):
+            out = torch.empty(shape[:-1], dtype=torch.float32, device=dev)
+            carry = [t.clone() for t in (max_prob, depth_image, exp_sum)]
+            fn(reg, out, carry, depth)
+            return torch.stack([out] + [t[..., 0] for t in carry])
+
+        cases.append(dict(
+            name="gru_step:tail", counter="gru_step", launches=1, path="gru",
+            dtypes=(torch.bfloat16,), exact=True, deterministic=True, f32_out=True,
+            kernel=lambda *a: run(gru_step.tail, *a),
+            plain=lambda *a: run(gru_step.tail_plain, *a), library=None, make=make,
+            # per pixel: the reg read (2 bytes), its value written, the three
+            # carries read and written (4 each), their copies, and the stack
+            # of the four (16 read, 16 written)
+            bytes=lambda it: hw[0] * hw[1] * (2 + 4 + 24 + 24 + 32),
+            # the exp, the comparison and the sum
+            ops=3 * hw[0] * hw[1], source="mvsnet_tpu_torch/csrc/gru_step.cu",
+            replaces="none: the JAX package leaves these passes to XLA"))
+
     c3, c2s1, c2s2 = ("mvsnet_tpu/ops/pallas/conv3d.py:974",
                       "mvsnet_tpu/ops/pallas/conv2d.py:871",
                       "mvsnet_tpu/ops/pallas/conv2d.py:578")
@@ -4271,6 +4419,10 @@ def main() -> int:
     # the feature tower's norms at its five levels (MVSNet's serving point)
     for level in range(5):
         add_group_norm(level)
+    # the fused GRU step's two kernels a cell at R-MVSNet's serving point
+    for cell, (filters, cin, cn) in enumerate(((16, 48, 20), (4, 20, 6), (2, 6, 2)), 1):
+        add_gru_step(cell, filters, cin, cn)
+    add_gru_tail()
 
     print("kernel phase: kernel vs plain version on the card "
           f"(pass: max abs err <= tol * max(1, max|plain|), tol {TOL[torch.float32]:g} "
@@ -4614,7 +4766,8 @@ def main() -> int:
 
     print(f"[{time.perf_counter() - t_start:.1f} s since the start: the records next]", flush=True)
     # ---- records: launches from the training run of phase 6, the GRU rows'
-    # from the requests of phase 10 and the steps of phase 11; K1s's from
+    # (the fused step's among them) from the requests of phase 10 and the
+    # steps of phase 11; K1s's from
     # the latency requests of phase 8 (all ranks); the refinement rows' from
     # the refined requests of phase 12 and the refined steps of phase 13;
     # the group-norm rows' from the requests of phase 4

@@ -39,6 +39,7 @@ from mvsnet_tpu_torch.models.layers import reset_parameters
 from mvsnet_tpu_torch.models.refine import RefineNetConv, RefineUNetConv
 from mvsnet_tpu_torch.models.regnet import RegNetUS0
 from mvsnet_tpu_torch.ops import kernels
+from mvsnet_tpu_torch.ops.kernels import gru_step
 from mvsnet_tpu_torch.ops.cost_volume import plane_sweep_cost_volume, sweep_cost_volume_sharded
 from mvsnet_tpu_torch.ops.depth import soft_argmin_prob_map, winner_take_all_update
 from mvsnet_tpu_torch.ops.geometry import (depth_values, homographies_for_views,
@@ -69,8 +70,14 @@ class GRUSweep(nn.Module):
     run one by one in Python (`eager`, also the tests' yardstick for
     `remat`). On a card in eval without autograd, JAX's compiled scan has
     its counterpart in a CUDA graph of one depth step (`graphed`), captured
-    once per shape and replayed D times: a step is some 80 launches, and a
-    1600x1184 map at D=256 some 20,000."""
+    once per shape and replayed D times.
+
+    Where the call allows it (`fuses`: a card, bf16, no autograd, the whole
+    map, every cell norm a layer norm) `eager` and `graphed` run the fused
+    step (`_FusedStep`): the 7 convs on persistent buffers and between them
+    the 7 launches of `ops/kernels/gru_step`, about 17 launches a plane
+    with the plane's slice, depth and reg moved in and out. Elsewhere the
+    graph holds the plain step (`_PlainStep`), some 80 launches a plane."""
 
     MAX_GRAPHS = 4
 
@@ -95,12 +102,27 @@ class GRUSweep(nn.Module):
         -> regs (B, D, h, w) float32, and the carry after the last plane
         (None without samples). `op` and `stat_sum`: a block of rows
         (models/gru.py)."""
-        if self.training or (torch.is_grad_enabled() and any(
-                t.requires_grad for t in (cost, *self.parameters()))):
+        if self._records(cost):
             return self.remat(cost, samples, op, stat_sum)
         if cost.device.type == "cuda" and op is None:
             return self.graphed(cost, samples)
         return self.eager(cost, samples, op, stat_sum)
+
+    def _records(self, cost) -> bool:
+        """Whether autograd records the sweep: training mode, or gradients
+        on with a parameter or the volume that needs one."""
+        return self.training or (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (cost, *self.parameters())))
+
+    def fuses(self, cost, op=None, stat_sum=None) -> bool:
+        """Whether a sweep of `cost` takes the fused step: a bf16 volume on a
+        card, the whole map (no `op`, `stat_sum`) of at most
+        `gru_step.MAX_BATCH` images, nothing that autograd records, and
+        cells that it computes in the volume's dtype
+        (`GRURegularizer.fusable`)."""
+        return (cost.device.type == "cuda" and cost.dtype == torch.bfloat16 and op is None
+                and stat_sum is None and cost.shape[0] <= gru_step.MAX_BATCH
+                and not self._records(cost) and self.gru.fusable(cost.dtype))
 
     def _zeros(self, cost):
         B, _, h, w, _ = cost.shape
@@ -111,7 +133,11 @@ class GRUSweep(nn.Module):
 
     def eager(self, cost, samples=None, op=None, stat_sum=None):
         """The sweep plane by plane; see `forward`. `op` and `stat_sum`: a
-        block of rows (models/gru.py)."""
+        block of rows (models/gru.py). Where `fuses`, the fused step's
+        launches, uncaptured."""
+        if self.fuses(cost, op, stat_sum):
+            step = _FusedStep(self, cost, samples is not None)
+            return step.sweep(cost, samples, step.body)
         states, carry = self._zeros(cost)
         carry = None if samples is None else carry
         regs = []
@@ -139,11 +165,11 @@ class GRUSweep(nn.Module):
         return regs, carry
 
     def graphed(self, cost, samples=None):
-        """The sweep as D replays of the captured step; see `forward`. One
-        capture per shape, at most `MAX_GRAPHS` of them (the least recently
-        used goes first); all are dropped when the parameters move (a load
-        with `assign`, `.to()`), since a capture reads its buffers by
-        address."""
+        """The sweep as D replays of the captured step (`_FusedStep` where
+        `fuses`, else `_PlainStep`); see `forward`. One capture per shape,
+        at most `MAX_GRAPHS` of them (the least recently used goes first);
+        all are dropped when the parameters move (a load with `assign`,
+        `.to()`), since a capture reads its buffers by address."""
         B, _, h, w, C = cost.shape
         key = (B, h, w, C, cost.dtype, cost.device, samples is not None,
                torch.is_inference_mode_enabled())
@@ -222,44 +248,104 @@ class _RematSweep(torch.autograd.Function):
                                                   for need in wanted)
 
 
-class _StepGraph:
-    """One eval depth step of a `GRUSweep` captured as a CUDA graph on
-    static buffers (`kernels.CountedGraph`): the negated cost slice and the
-    plane's depth go in, the cells' states and the winner-take-all carry
-    stay in place, the reg comes out. A sweep counts its steps' launches
-    once. Nothing falls back to the eager sweep."""
+class _Step:
+    """Static buffers of one eval depth step (B, h, w) and the sweep over
+    them: `neg_cost` takes the negated cost slice and `depth` the plane's
+    depth, the states and the winner-take-all `carry` stay in place, `reg`
+    holds the plane's float32 reg. `body()` runs the step on them."""
 
     def __init__(self, sweep: GRUSweep, cost, wta: bool):
-        B, _, h, w, C = cost.shape
-        dev = cost.device
-        self.wta = wta
-        self.neg_cost = torch.zeros((B, h, w, C), dtype=cost.dtype, device=dev)
-        self.depth = torch.zeros((B,), dtype=torch.float32, device=dev)
+        B, _, h, w, _ = cost.shape
+        self.depth = torch.zeros((B,), dtype=torch.float32, device=cost.device)
         self.states, carry = sweep._zeros(cost)
         self.carry = carry if wta else None
-        self.reg = torch.zeros((B, h, w), dtype=torch.float32, device=dev)
+        self.reg = torch.zeros((B, h, w), dtype=torch.float32, device=cost.device)
 
-        def body():
-            states, reg, carry = sweep.step(self.states, self.neg_cost, self.carry, self.depth)
-            for dst, src in zip(self.states + (self.carry or ()), states + (carry or ())):
-                dst.copy_(src)
-            self.reg.copy_(reg[..., 0])
-
-        self.graph = kernels.CountedGraph(body, dev)
-
-    def run(self, cost, samples):
+    def sweep(self, cost, samples, step):
+        """regs (B, D, h, w) float32 and the carry after the last plane
+        (None without samples), `step()` running one depth step: `body`,
+        or a captured graph's replay."""
         B, D, h, w, _ = cost.shape
-        for t in self.states + (self.carry or ()):
-            t.zero_()
+        self.reset()
         regs = torch.empty((B, D, h, w), dtype=torch.float32, device=cost.device)
         for d in range(D):
             torch.neg(cost[:, d], out=self.neg_cost)
-            if self.wta:
+            if self.carry is not None:
                 self.depth.copy_(samples[:, d])
-            self.graph.replay()
+            step()
             regs[:, d].copy_(self.reg)
-        self.graph.count(D)
-        return regs, (tuple(c.clone() for c in self.carry) if self.wta else None)
+        return regs, (tuple(c.clone() for c in self.carry) if self.carry is not None else None)
+
+    def reset(self):
+        for t in self.states + (self.carry or ()):
+            t.zero_()
+
+
+class _PlainStep(_Step):
+    """The step as `GRUSweep.step` computes it, its new states, carry and
+    reg copied into the buffers."""
+
+    def __init__(self, sweep: GRUSweep, cost, wta: bool):
+        super().__init__(sweep, cost, wta)
+        self.step = sweep.step
+        self.neg_cost = torch.zeros(cost[:, 0].shape, dtype=cost.dtype, device=cost.device)
+
+    def body(self):
+        states, reg, carry = self.step(self.states, self.neg_cost, self.carry, self.depth)
+        for dst, src in zip(self.states + (self.carry or ()), states + (carry or ())):
+            dst.copy_(src)
+        self.reg.copy_(reg[..., 0])
+
+
+class _FusedStep(_Step):
+    """The step on persistent buffers (`GRUSweep.fuses`), computed by
+    `GRURegularizer.fused_step` (models/gru.py): cell 1's x, the first
+    channels of its input, is the negated cost slice (`neg_cost`); the reg
+    goes through the tail kernel (`gru_step.tail`: its float32 value, and
+    the winner-take-all update of the carry in place). The convs' kernels
+    are cast to the volume's dtype once a sweep, before its first plane, so
+    that a load into the parameters in place reaches the next sweep. On the
+    CPU the kernels' plain twin runs (the tests')."""
+
+    def __init__(self, sweep: GRUSweep, cost, wta: bool):
+        super().__init__(sweep, cost, wta)
+        B, _, h, w, C = cost.shape
+        self.gru = sweep.gru
+        self.inputs, self.updates, self.prob_in = self.gru.fused_buffers(
+            B, h, w, cost.dtype, cost.device)
+        self.neg_cost = self.inputs[0][..., :C]
+        self.kernels = [torch.empty(m.kernel.shape, dtype=cost.dtype, device=cost.device)
+                        for m in self.gru.convs()]
+        self.work = gru_step.workspace(B, h * w, cost.device)
+        self.reset()
+
+    def reset(self):
+        super().reset()
+        for t in self.inputs:
+            t.zero_()
+        for k, m in zip(self.kernels, self.gru.convs()):
+            k.copy_(m.kernel)
+
+    def body(self):
+        reg = self.gru.fused_step(self.inputs, self.states, self.updates, self.prob_in,
+                                  self.kernels, self.work)
+        gru_step.tail(reg, self.reg, self.carry, self.depth)
+
+
+class _StepGraph:
+    """The body of a sweep's step (`_FusedStep` where `GRUSweep.fuses`, else
+    `_PlainStep`) captured as a CUDA graph (`kernels.CountedGraph`),
+    replayed once a plane. A sweep counts its steps' launches once. Nothing
+    falls back to the eager sweep."""
+
+    def __init__(self, sweep: GRUSweep, cost, wta: bool):
+        self.step = (_FusedStep if sweep.fuses(cost) else _PlainStep)(sweep, cost, wta)
+        self.graph = kernels.CountedGraph(self.step.body, cost.device)
+
+    def run(self, cost, samples):
+        out = self.step.sweep(cost, samples, self.graph.replay)
+        self.graph.count(cost.shape[1])
+        return out
 
 
 class MVSNet(nn.Module):

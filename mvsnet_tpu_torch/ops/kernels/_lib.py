@@ -27,7 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("cost_volume", "conv", "deconv", "group_norm", "warp", "wgrad")
+SOURCES = ("cost_volume", "conv", "deconv", "group_norm", "gru_step", "warp", "wgrad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

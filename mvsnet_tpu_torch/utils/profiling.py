@@ -60,7 +60,8 @@ SERVING = ("predict.requests", "predict.staged_bytes", "predict.pinned_stages",
 # its capture holds (`ops.kernels.CountedGraph`).
 LAUNCHES = tuple(f"launches.{k}" for k in (
     "cost_volume", "cost_volume_sharded", "cost_volume_pixel", "conv", "deconv", "group_norm",
-    "warp", "warp_transpose", "warp_sharded", "warp_transpose_sharded", "wgrad")) + tuple(
+    "gru_step", "warp", "warp_transpose", "warp_sharded", "warp_transpose_sharded",
+    "wgrad")) + tuple(
     f"editions.{k}.{e}" for k in ("conv", "deconv", "wgrad") for e in ("tc", "simt"))
 
 _lock = threading.Lock()

@@ -1101,6 +1101,7 @@ def test_gru_graph_replay_equals_eager_sweep(dev, wta):
         again = sweep(cost, samples)                      # eval, no autograd: the graph
     assert len(sweep._graphs) == 1
     assert graph_counts == eager_counts and eager_counts["conv"] == 7 * cfg.max_d
+    assert eager_counts["gru_step"] == 7 * cfg.max_d      # the fused step: 6 + the tail
     assert torch.equal(regs_g, regs_e) and torch.equal(again[0], regs_e)
     if wta:
         assert all(torch.equal(a, b) for a, b in zip(carry_g, carry_e))
@@ -1254,6 +1255,243 @@ def test_gru_remat_step_equals_eager_step_on_card(dev, dtype):
     assert counts == dict(counts_e, conv=counts_e["conv"] + recompute)
     editions_e["conv"]["tc" if dtype == "bfloat16" else "simt"] += recompute
     assert editions == editions_e
+
+
+# the fused depth step's kernels (ops/kernels/gru_step): a cell's (F, its
+# input's channels, the next input's channels), R-MVSNet's three cells and
+# the lite mode's F = 8 and 1
+GRU_STEP_CELLS = [(16, 48, 20), (4, 20, 6), (2, 6, 2), (8, 24, 10), (1, 3, 1)]
+
+
+def _gru_step_inputs(B, h, w, F, cin, cn, dev, seed):
+    """A cell's kernel inputs: the gates and output convs' outputs, the
+    state, the buffers written in place (random: what the kernels leave
+    alone must stay) and non-identity norm parameters."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+    bf = torch.bfloat16
+    return dict(gates=rn((B, h, w, 2 * F), 3, bf) + 0.5, y=rn((B, h, w, F), 2, bf) - 0.3,
+                h=rn((B, h, w, F)), inp=rn((B, h, w, cin), 1, bf), nxt=rn((B, h, w, cn), 1, bf),
+                update=rn((B, h, w, F), 1, bf),
+                params=[0.5 + rn((F,)).abs() if i % 2 == 0 else rn((F,), 0.2) for i in range(6)])
+
+
+def _gru_step_run(kind, t, work=None):
+    """The gates then the output kernel (kind "kernel") or their twin
+    ("plain") on copies of `t`: the buffers each leaves, and the update."""
+    from mvsnet_tpu_torch.ops.kernels import gru_step
+
+    h, inp, nxt, update = (t[k].clone() for k in ("h", "inp", "nxt", "update"))
+    p = t["params"]
+    if kind == "kernel":
+        gru_step.gates(t["gates"], h, inp, update, *p[:4], work=work)
+        after_gates = inp.clone()
+        gru_step.output(t["y"], update, h, inp, nxt, *p[4:], work=work)
+    else:
+        gru_step.gates_plain(t["gates"], h, inp, update, *p[:4])
+        after_gates = inp.clone()
+        gru_step.output_plain(t["y"], update, h, inp, nxt, *p[4:])
+    return dict(after_gates=after_gates, update=update, h=h, inp=inp, nxt=nxt)
+
+
+@pytest.mark.parametrize("hw", [(300, 400), (37, 50)])
+@pytest.mark.parametrize("B", [1, 2])
+@pytest.mark.parametrize("F,cin,cn", GRU_STEP_CELLS)
+def test_gru_step_kernels_match_twin(dev, F, cin, cn, B, hw):
+    """The gates and output kernels give their plain twin's buffers on the
+    card bit for bit (the slot after each, the update, the state, the next
+    input; the channels they do not own unchanged), at R-MVSNet's feature
+    map (300x400) and a ragged one, two calls give the same bits, and an
+    image's results do not depend on the batch it is in. One launch each."""
+    t = _gru_step_inputs(B, *hw, F, cin, cn, dev, seed=F * 10 + B)
+    before = _n("launches.gru_step")
+    with torch.inference_mode():
+        got = _gru_step_run("kernel", t)
+        again = _gru_step_run("kernel", t)
+        want = _gru_step_run("plain", t)
+    torch.cuda.synchronize()
+    assert _n("launches.gru_step") == before + 4
+    for k in want:
+        assert torch.equal(got[k], again[k]), k
+        if want[k].dtype == torch.bfloat16:
+            _assert_bits_equal(got[k], want[k])
+        else:
+            assert torch.equal(got[k], want[k]), k
+    assert torch.equal(got["inp"][..., :cin - F], t["inp"][..., :cin - F])
+    assert torch.equal(got["nxt"][..., F:], t["nxt"][..., F:])
+    if B == 2:
+        one = {k: (v[1:].contiguous() if isinstance(v, torch.Tensor) else v) for k, v in t.items()}
+        with torch.inference_mode():
+            alone = _gru_step_run("kernel", one)
+        assert all(torch.equal(alone[k], got[k][1:]) for k in got)
+
+
+def test_gru_step_refuses_a_grid_the_card_cannot_hold(dev):
+    """The gates and output kernels cross grid barriers, so they launch
+    cooperatively: a grid of one block more than the card holds at once
+    fails the launch (cudaErrorCooperativeLaunchTooLarge) and leaves the
+    barrier's words at 0, instead of spinning; the grid the wrapper picks
+    (at most the card's capacity) runs, and the error does not linger."""
+    import ctypes
+
+    from mvsnet_tpu_torch.ops.kernels import _lib, gru_step
+
+    F, B, h, w = 4, 1, 1200, 1000
+    t = _gru_step_inputs(B, h, w, F, 20, 6, dev, seed=41)
+    P = h * w
+    work = gru_step.workspace(B, P, dev)
+    *_, grid, _ = gru_step._geometry(t["y"], t["h"], F, work)
+    gates_cap, output_cap = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(dev):
+        _lib.check("gru_step", gru_step._fn("capacity")(F, ctypes.byref(gates_cap),
+                                                        ctypes.byref(output_cap)))
+    cap = output_cap.value                               # the output kernel's, launched below
+    assert grid == min(gates_cap.value, cap) and cap < -(-B * P // 256)   # more than one wave
+    part, bar = work
+
+    def launch(blocks):
+        return gru_step._fn("output_launch")(
+            F, t["y"].data_ptr(), t["update"].data_ptr(), t["h"].data_ptr(), t["inp"].data_ptr(),
+            20, 4, t["nxt"].data_ptr(), 6, 2, *(p.data_ptr() for p in t["params"][4:]),
+            1.0 / (P * F), gru_step.EPS, part.data_ptr(), bar.data_ptr(), B, P, -(-P // 1024),
+            blocks, _lib.stream_of(t["y"]))
+
+    too_large = launch(cap + 1)
+    torch.cuda.synchronize()
+    with pytest.raises(RuntimeError, match="cooperative"):
+        _lib.check("gru_step", too_large)
+    assert int(bar.abs().sum()) == 0
+    assert launch(cap) == 0
+    torch.cuda.synchronize()
+    assert int(bar.abs().sum()) == 0
+    before = _n("launches.gru_step")
+    with torch.inference_mode():
+        got = _gru_step_run("kernel", t)                   # wrappers after the refusal
+    assert _n("launches.gru_step") == before + 2 and torch.isfinite(got["h"]).all()
+
+
+@pytest.mark.parametrize("wta", [True, False])
+def test_gru_tail_kernel_matches_twin(dev, wta):
+    """The tail kernel: the reg in float32 and the winner-take-all update in
+    place (ties and a NaN included), its twin's bits; one launch."""
+    from mvsnet_tpu_torch.ops.kernels import gru_step
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    B, h, w = 2, 37, 50
+    reg = (torch.randn((B, h, w, 1), generator=g, device=dev) * 3).to(torch.bfloat16)
+    reg[0, 0, 0, 0] = float("nan")
+    carry = [torch.rand((B, h, w, 1), generator=g, device=dev) * 5 for _ in range(3)]
+    carry[0][0, 1] = reg[0, 1].float().exp()                     # ties keep the old depth
+    depth = torch.tensor([3.5, 7.25], device=dev)
+    outs = {}
+    for kind in ("kernel", "plain"):
+        out, c = torch.full((B, h, w), -1.0, device=dev), [t.clone() for t in carry]
+        before = _n("launches.gru_step")
+        fn = gru_step.tail if kind == "kernel" else gru_step.tail_plain
+        fn(reg, out, c if wta else None, depth if wta else None)
+        assert _n("launches.gru_step") == before + (kind == "kernel")
+        outs[kind] = [out] + c
+    torch.cuda.synchronize()
+    for a, b in zip(*outs.values()):
+        assert torch.equal(a.nan_to_num(-7.0), b.nan_to_num(-7.0))
+
+
+def test_gru_fused_step_only_where_the_call_allows(dev):
+    """`GRUSweep.fuses`: a bf16 volume on the card, in eval without
+    autograd, on the whole map; not float32, not under autograd, not a
+    block of rows (`op`)."""
+    _, model = _gru_model(dev)
+    sweep = model.gru_sweep
+    cost = torch.zeros((1, 4, 8, 8, 32), dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        assert sweep.fuses(cost) and not sweep.fuses(cost.float())
+        assert not sweep.fuses(cost, op=lambda *a: None)
+    assert not sweep.fuses(cost)                 # gradients on, parameters need them
+    assert not sweep.fuses(cost.cpu())
+    model.train()
+    with torch.no_grad():
+        assert not sweep.fuses(cost)
+
+
+# the fused sweep against the plain step on the card: the layer norms'
+# statistics are float64 sums in another order than PyTorch's float32 means,
+# so a normalised value near a bf16 rounding tie may round the other way
+# (2^-8 relative), and such a flip moves the states and, over the planes,
+# the regs; held to the card tests' bf16 tolerance (1e-2 of max(1, max|regs|))
+# and the depth to equality wherever the top two regs differ by more. A
+# coarse check that holds at this small size only: the flips grow with the
+# map and the planes (at 300x400 and D = 256, with seeded weights, the regs
+# differ by up to ~1.4e-2 of their largest on a random volume and ~0.7 of it
+# on a rendered scene's, where the probabilities are nearly flat and 2-14 %
+# of the depths take another plane). The exact check is
+# `test_gru_fused_sweep_equals_plain_step_with_twin_norm`.
+GRU_FUSED_TOL = 1e-2
+
+
+@pytest.mark.parametrize("mode", ["normal", "lite"])
+def test_gru_fused_sweep_near_plain_step(dev, mode):
+    """The fused sweep (graphed) against the plain step run plane by plane
+    on the card (`GRUSweep.step`), on one cost volume: regs within
+    `GRU_FUSED_TOL`, the winner-take-all depth equal where decided, the
+    probability sums within the same tolerance."""
+    cfg, model = _gru_model(dev, mode=mode, max_d=16)
+    rng = np.random.default_rng(35)
+    C = cfg.feature_channels
+    cost = _rand(rng, (1, cfg.max_d, 48, 64, C), torch.bfloat16, dev).abs()
+    samples = torch.linspace(5.0, 12.5, cfg.max_d, device=dev)[None]
+    sweep = model.gru_sweep
+    with torch.inference_mode():
+        regs_f, carry_f = sweep.graphed(cost, samples)
+        states, carry = sweep._zeros(cost)
+        regs_p = []
+        for d in range(cfg.max_d):
+            states, reg, carry = sweep.step(states, -cost[:, d], carry, samples[:, d])
+            regs_p.append(reg[..., 0])
+        regs_p = torch.stack(regs_p, dim=1)
+    tol = GRU_FUSED_TOL * max(1.0, regs_p.abs().max().item())
+    assert (regs_f - regs_p).abs().max().item() <= tol
+    top2 = regs_p.topk(2, dim=1).values
+    decided = (top2[:, 0] - top2[:, 1] > 2 * tol)[..., None]
+    assert decided.float().mean().item() > 0.5
+    assert torch.equal(carry_f[1][decided], carry[1][decided])
+    ratio = carry_f[0] / carry_f[2], carry[0] / carry[2]
+    assert (ratio[0] - ratio[1]).abs().max().item() <= GRU_FUSED_TOL
+
+
+@pytest.mark.parametrize("mode", ["normal", "lite"])
+def test_gru_fused_sweep_equals_plain_step_with_twin_norm(dev, mode, monkeypatch):
+    """The fused sweep (graphed) against the plain step (`_PlainStep`,
+    `ConvGRUCell.forward` plane by plane) with `GroupNormFlexible` computed
+    by the twin's `layer_norm_plain`, at R-MVSNet's feature map (300x400)
+    and D = 256: regs and the winner-take-all carry equal bit for bit. The
+    twin's norm differs from `GroupNormFlexible` in the statistics' sums
+    alone, so this pins the gap of `test_gru_fused_sweep_near_plain_step`
+    on those sums."""
+    from mvsnet_tpu_torch.models import mvsnet as port_mvsnet
+    from mvsnet_tpu_torch.models.layers import GroupNormFlexible
+    from mvsnet_tpu_torch.ops.kernels import gru_step
+
+    cfg, model = _gru_model(dev, mode=mode, max_d=256)
+    g = torch.Generator(device=dev).manual_seed(36)
+    cost = (torch.rand((1, cfg.max_d, 300, 400, cfg.feature_channels), generator=g,
+                       device=dev) * 2).to(torch.bfloat16)
+    samples = torch.linspace(425.0, 935.0, cfg.max_d, device=dev)[None]
+    sweep = model.gru_sweep
+    with torch.inference_mode():
+        assert sweep.fuses(cost)
+        before = _n("launches.gru_step")
+        regs_f, carry_f = sweep.graphed(cost, samples)
+        assert _n("launches.gru_step") - before == 7 * (cfg.max_d + 2)   # + the capture
+        monkeypatch.setattr(GroupNormFlexible, "forward",
+                            lambda self, x, stat_sum=None: gru_step.layer_norm_plain(
+                                x, self.scale, self.bias))
+        step = port_mvsnet._PlainStep(sweep, cost, True)
+        regs_p, carry_p = step.sweep(cost, samples, step.body)
+    torch.cuda.synchronize()
+    assert torch.equal(regs_f, regs_p)
+    assert all(torch.equal(a, b) for a, b in zip(carry_f, carry_p))
 
 
 # refinement (the training driver's defaults: U-Net, upsampled, confidence)

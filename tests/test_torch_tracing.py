@@ -165,7 +165,7 @@ def test_writer_job_span_runs_on_the_writers_thread():
 
 KERNEL_COUNTERS = [f"launches.{k}" for k in (
     "cost_volume", "cost_volume_sharded", "cost_volume_pixel", "conv", "deconv", "group_norm",
-    "warp", "warp_transpose", "warp_sharded", "warp_transpose_sharded", "wgrad")] + [
+    "gru_step", "warp", "warp_transpose", "warp_sharded", "warp_transpose_sharded", "wgrad")] + [
     f"editions.{k}.{e}" for k in ("conv", "deconv", "wgrad") for e in ("tc", "simt")]
 
 
